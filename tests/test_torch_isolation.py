@@ -22,7 +22,11 @@ def _port_sources():
 
 def test_import_leaves_jax_and_veles_tpu_out():
     code = ("import sys, veles_tpu_torch, veles_tpu_torch.serve, "
-            "veles_tpu_torch.export, veles_tpu_torch.restful\n"
+            "veles_tpu_torch.export, veles_tpu_torch.restful, "
+            "veles_tpu_torch.accelerated_units, "
+            "veles_tpu_torch.znicz.samples.tinylm, "
+            "veles_tpu_torch.ops.flash_attention, "
+            "veles_tpu_torch.ops.attention, veles_tpu_torch.__main__\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib', 'veles_tpu.')) or "
             "m == 'veles_tpu')\n"

@@ -1,0 +1,216 @@
+"""The port's command line: the local-mode subset of ``python -m
+veles_tpu``.
+
+Usage::
+
+    python -m veles_tpu_torch path/to/workflow.py [root.x.y=v ...] \
+        [--random-seed N] [--result-file F] [--max-epochs N] \
+        [--device cuda|cpu] [-v debug|info|warning|error]
+
+It applies the ``root.x.y=v`` overrides, seeds generator 0, imports
+the workflow module and calls its ``run(load, main)`` hook: ``load``
+builds the workflow under a local :class:`~veles_tpu_torch.launcher.
+Launcher`, ``main`` initializes it on the device (the CUDA card unless
+``--device cpu``), runs it and writes the results JSON.  The JAX CLI's
+other modes — snapshots, config files, master/worker, multi-process,
+genetics, ensembles, populations, profiling — are not yet ported: their
+flags raise.
+"""
+
+import argparse
+import importlib
+import importlib.util
+import logging
+import os
+import sys
+
+from . import prng
+from .config import root
+from .error import Bug
+from .json_encoders import dump_json
+from .launcher import Launcher
+from .logger import Logger
+
+#: Flags of the JAX CLI that the port refuses, with the ROADMAP queue
+#: that brings each.
+NOT_PORTED = {
+    "-s": "A1", "--snapshot": "A1", "-c": "A8", "--config-list": "A8",
+    "--chaos": "A7", "-l": "A7", "--listen-address": "A7",
+    "--blacklist-cooldown": "A7", "-m": "A7", "--master-address": "A7",
+    "--nodes": "A7", "--jax-coordinator": "A6",
+    "--jax-num-processes": "A6", "--jax-process-id": "A6",
+    "-a": "A8", "--backend": "A8", "--dry-run": "A8",
+    "--workflow-graph": "A8", "--dump-config": "A8", "--optimize": "A7",
+    "--ensemble-train": "A7", "--ensemble-test": "A7",
+    "--profile": "A8", "--frontend": "A8", "--population": "A7",
+    "--pbt": "A7",
+}
+
+
+def make_parser():
+    parser = argparse.ArgumentParser(
+        prog="veles_tpu_torch",
+        description="Runs a workflow module of the PyTorch port.")
+    parser.add_argument(
+        "workflow", help="path to the workflow module (a .py file "
+        "defining run(load, main)) or a dotted module name")
+    parser.add_argument(
+        "config", nargs="*", default=[],
+        help="root.path=value override assignments")
+    parser.add_argument(
+        "-r", "--random-seed", default="", metavar="SPEC",
+        help="seed of generator 0: an integer, or file:count:dtype")
+    parser.add_argument(
+        "--result-file", default="", metavar="FILE",
+        help="write the run's metrics JSON here")
+    parser.add_argument(
+        "--max-epochs", type=int, default=None,
+        help="override the decision's max_epochs")
+    parser.add_argument(
+        "--device", default="cuda", choices=("cuda", "cpu"),
+        help="device of the run (default: the CUDA card)")
+    parser.add_argument(
+        "-v", "--verbosity", default="info",
+        choices=("debug", "info", "warning", "error"), help="log level")
+    return parser
+
+
+def import_workflow_module(spec):
+    """Imports a workflow module from a ``.py`` path (by its package
+    name when it sits in a package, so relative imports work) or a
+    dotted name."""
+    if not spec.endswith(".py"):
+        return importlib.import_module(spec)
+    path = os.path.abspath(spec)
+    if not os.path.isfile(path):
+        raise FileNotFoundError("workflow module not found: %s" % spec)
+    parts = [os.path.splitext(os.path.basename(path))[0]]
+    parent = os.path.dirname(path)
+    while os.path.isfile(os.path.join(parent, "__init__.py")):
+        parts.insert(0, os.path.basename(parent))
+        parent = os.path.dirname(parent)
+    if len(parts) > 1:
+        if parent not in sys.path:
+            sys.path.insert(0, parent)
+        return importlib.import_module(".".join(parts))
+    mod_name = "veles_tpu_torch_workflow_" + parts[0]
+    spec_obj = importlib.util.spec_from_file_location(mod_name, path)
+    module = importlib.util.module_from_spec(spec_obj)
+    sys.modules[mod_name] = module
+    spec_obj.loader.exec_module(module)
+    return module
+
+
+def apply_overrides(sources):
+    """Executes ``root.x=y`` assignments with ``root`` in scope."""
+    for src in sources:
+        if "=" not in src or not src.lstrip().startswith("root."):
+            raise NotImplementedError(
+                "config source %r: config files are not yet ported "
+                "(ROADMAP A8); pass root.x=y overrides" % src)
+        exec(compile(src, "<override>", "exec"), {"root": root})
+
+
+class Main(Logger):
+    """The command-line driver."""
+
+    EXIT_SUCCESS = 0
+    EXIT_FAILURE = 1
+
+    def __init__(self, argv=None):
+        super(Main, self).__init__()
+        self.argv = list(sys.argv[1:] if argv is None else argv)
+        self.args = None
+        self.launcher = None
+        self.workflow = None
+        self.module = None
+
+    def parse(self):
+        for arg in self.argv:
+            flag = arg.split("=", 1)[0]
+            if flag in NOT_PORTED:
+                raise NotImplementedError(
+                    "%s of the veles_tpu command line is not yet ported "
+                    "(ROADMAP %s)" % (flag, NOT_PORTED[flag]))
+        self.args = make_parser().parse_intermixed_args(self.argv)
+        logging.getLogger().setLevel(self.args.verbosity.upper())
+        return self.args
+
+    def seed_random(self):
+        spec = self.args.random_seed
+        if not spec:
+            return
+        try:
+            seed = int(spec)
+        except ValueError:
+            seed = spec  # file:count:dtype
+        prng.get(0).seed(seed)
+
+    def load(self, WorkflowClass, **kwargs):
+        """The ``load`` closure of the module's ``run`` hook."""
+        kwargs.setdefault("result_file", self.args.result_file or None)
+        self.launcher = Launcher()
+        self.workflow = WorkflowClass(self.launcher, **kwargs)
+        if self.args.max_epochs:
+            decision = getattr(self.workflow, "decision", None)
+            if decision is None:
+                raise Bug("--max-epochs given but the workflow has no "
+                          "decision unit")
+            decision.max_epochs = int(self.args.max_epochs)
+        return self.workflow, False
+
+    def main(self, **kwargs):
+        """The ``main`` closure: initialize → run → results."""
+        if self.workflow is None:
+            raise Bug("main() called before load()")
+        kwargs.setdefault("device", self.args.device)
+        self.launcher.initialize(**kwargs)
+        self.launcher.run()
+        self.write_results()
+
+    def write_results(self):
+        path = self.args.result_file
+        if not path:
+            return
+        dump_json({
+            "workflow": self.workflow.name,
+            "class": type(self.workflow).__name__,
+            "checksum": self.workflow.checksum,
+            "mode": self.launcher.mode,
+            "device": self.args.device,
+            "seed": repr(prng.get(0).seed_value),
+            "runtime": self.launcher.runtime,
+            "units": len(self.workflow.units),
+            "results": self.workflow.gather_results(),
+        }, path)
+        self.info("results -> %s", path)
+
+    def run(self):
+        if not logging.getLogger().handlers:
+            logging.basicConfig(
+                format="%(asctime)s %(levelname).1s %(name)s: "
+                       "%(message)s", datefmt="%H:%M:%S")
+        self.parse()
+        self.seed_random()
+        apply_overrides(self.args.config)
+        self.module = import_workflow_module(self.args.workflow)
+        run_hook = getattr(self.module, "run", None)
+        if run_hook is None:
+            raise Bug("workflow module %s has no run(load, main) hook"
+                      % self.module.__name__)
+        try:
+            run_hook(self.load, self.main)
+        except KeyboardInterrupt:
+            self.warning("interrupted")
+            if self.launcher is not None:
+                self.launcher.stop()
+            return self.EXIT_FAILURE
+        return self.EXIT_SUCCESS
+
+
+def main(argv=None):
+    return Main(argv).run()
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,13 +1,21 @@
-"""The deadlock-sniffing lock of the JAX package's distributable
-module — the only part of it that the serving path uses.
+"""Pickling base class, the unit data lock and the distribution hooks
+(the JAX package's ``distributable`` module).
 
-The JAX package's ``SniffedLock`` also reports every acquisition to a
-lock-order recorder (its ``analysis.runtime`` module); that recorder
-imports JAX and is not ported yet, so this lock only sniffs.
+* :class:`SniffedLock` — a lock that logs a suspected deadlock.  The
+  JAX package's version also reports every acquisition to a
+  lock-order recorder (its ``analysis.runtime`` module); that recorder
+  is not ported yet (ROADMAP A8), so this lock only sniffs.
+* :class:`Pickleable` — attributes ending with ``_`` are transient:
+  left out of pickles and recreated by ``init_unpickled``.
+* :class:`Distributable` — the no-op hooks of the master/worker
+  contract; the port runs local mode only, and the distributed control
+  plane (with the unit data lock) waits for ROADMAP A7.
 """
 
 import logging
 import threading
+
+from .logger import Logger
 
 #: Seconds after which a lock acquisition is logged as a suspected
 #: deadlock.
@@ -53,3 +61,44 @@ class SniffedLock(object):
 
     def __exit__(self, *exc):
         self.release()
+
+
+class Pickleable(Logger):
+    """Base class whose attributes ending with ``_`` are excluded from
+    pickling and recreated by :meth:`init_unpickled`."""
+
+    def __init__(self, **kwargs):
+        super(Pickleable, self).__init__(**kwargs)
+        self.init_unpickled()
+
+    def init_unpickled(self):
+        """Recreates transient (underscore-suffixed) state; called from
+        both ``__init__`` and ``__setstate__``."""
+        self._logger_ = None  # recreated lazily by Logger.logger
+
+    def __getstate__(self):
+        return {key: value for key, value in self.__dict__.items()
+                if not key.endswith("_")}
+
+    def __setstate__(self, state):
+        self.__dict__.update(state)
+        self.init_unpickled()
+
+
+class Distributable(Pickleable):
+    """The default (no-op) hooks of the master/worker contract."""
+
+    def generate_data_for_slave(self, slave=None):
+        return None
+
+    def apply_data_from_slave(self, data, slave=None):
+        pass
+
+    def drop_slave(self, slave=None):
+        pass
+
+    def generate_data_for_master(self):
+        return None
+
+    def apply_data_from_master(self, data):
+        pass

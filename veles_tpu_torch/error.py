@@ -1,5 +1,5 @@
 """Framework error types of the port (the JAX package's ``error``
-module, the classes the port raises)."""
+module)."""
 
 
 class VelesError(Exception):
@@ -9,6 +9,18 @@ class VelesError(Exception):
 class Bug(VelesError):
     """Internal invariant violation, or a request for what is not
     ported yet."""
+
+
+class BadFormatError(VelesError):
+    """Malformed input data or configuration."""
+
+
+class AlreadyExistsError(VelesError):
+    """Attempt to register a duplicate object."""
+
+
+class NotExistsError(VelesError):
+    """Lookup of an unregistered object."""
 
 
 class DeviceNotFoundError(VelesError):

@@ -41,3 +41,10 @@ class NumpyJSONEncoder(json.JSONEncoder):
 
 def dumps_json(obj, **kwargs):
     return json.dumps(obj, cls=NumpyJSONEncoder, **kwargs)
+
+
+def dump_json(obj, path, **kwargs):
+    """Writes ``obj`` as JSON to ``path`` (indented by default)."""
+    kwargs.setdefault("indent", 2)
+    with open(path, "w") as fout:
+        json.dump(obj, fout, cls=NumpyJSONEncoder, **kwargs)

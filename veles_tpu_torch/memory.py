@@ -1,0 +1,229 @@
+"""Host/device array pairs (the JAX package's ``memory``).
+
+Every tensor a unit owns is a :class:`Vector` pairing a host numpy
+array with a device ``torch.Tensor``, moved between the two by the
+explicit ``map_read`` / ``map_write`` / ``map_invalidate`` / ``unmap``
+protocol, so host code never observes stale data:
+
+* ``map_read`` pulls device → host only when the device copy is newer;
+* ``map_write`` makes the host copy authoritative; the next
+  ``devmem`` access (or ``unmap``) uploads it;
+* ``devmem = tensor`` (the output of a step) makes the device copy
+  authoritative without any transfer.
+
+The device is the one the Vector was initialized with (a
+``backends.Device``); a Vector never initialized lives on the CPU.
+Pickling maps device → host first.
+"""
+
+import threading
+
+import numpy
+import torch
+
+from .distributable import Pickleable
+
+
+def torch_device(device):
+    """The ``torch.device`` of a port Device (or None → the CPU)."""
+    if device is None:
+        return torch.device("cpu")
+    return getattr(device, "torch_device", None) or torch.device(device)
+
+
+class Vector(Pickleable):
+    """A host+device array."""
+
+    def __init__(self, data=None):
+        super(Vector, self).__init__()
+        self._mem = None
+        if data is not None:
+            self.mem = data
+
+    def init_unpickled(self):
+        super(Vector, self).init_unpickled()
+        self._devmem_ = None
+        self._device_ = None
+        # Host authoritative (_host_dirty_), device authoritative with
+        # a stale host (_host_stale_), or synced (neither).
+        self._host_dirty_ = True
+        self._host_stale_ = False
+        self._lock_ = threading.RLock()
+
+    # -- host side ---------------------------------------------------------
+
+    @property
+    def mem(self):
+        return self._mem
+
+    @mem.setter
+    def mem(self, value):
+        with self._lock_:
+            if value is None:
+                self.reset()
+                return
+            self._mem = numpy.ascontiguousarray(value)
+            self._host_dirty_ = True
+            self._host_stale_ = False
+
+    @property
+    def shape(self):
+        if self._mem is not None:
+            return self._mem.shape
+        if self._devmem_ is not None:
+            return tuple(self._devmem_.shape)
+        return None
+
+    @property
+    def dtype(self):
+        if self._mem is not None:
+            return self._mem.dtype
+        if self._devmem_ is not None:
+            # numpy has no bfloat16: such a tensor reports its torch
+            # dtype.
+            dt = self._devmem_.dtype
+            return dt if dt == torch.bfloat16 else numpy.dtype(
+                str(dt).replace("torch.", ""))
+        return None
+
+    @property
+    def size(self):
+        shape = self.shape
+        if shape is None:
+            return 0
+        n = 1
+        for d in shape:
+            n *= d
+        return n
+
+    @property
+    def nbytes(self):
+        if self._mem is not None:
+            return self._mem.nbytes
+        if self._devmem_ is not None:
+            return self._devmem_.numel() * self._devmem_.element_size()
+        return 0
+
+    def __bool__(self):
+        return self._mem is not None or self._devmem_ is not None
+
+    def __len__(self):
+        shape = self.shape
+        return shape[0] if shape else 0
+
+    def __getitem__(self, key):
+        self.map_read()
+        return self._mem[key]
+
+    def __setitem__(self, key, value):
+        self.map_write()
+        self._mem[key] = value
+
+    def __repr__(self):
+        return "<Vector shape=%s dtype=%s device=%s>" % (
+            self.shape, self.dtype,
+            self._devmem_.device if self._devmem_ is not None else "no")
+
+    # -- device side -------------------------------------------------------
+
+    @property
+    def device(self):
+        return self._device_
+
+    def initialize(self, device):
+        """Attaches to a device; the upload is lazy."""
+        with self._lock_:
+            if device is self._device_:
+                return
+            if self._devmem_ is not None:
+                self._host_sync()
+                self._free_device()
+            self._device_ = device
+
+    @property
+    def devmem(self):
+        """The current device tensor — uploads host data first if the
+        host copy is authoritative."""
+        with self._lock_:
+            if self._host_dirty_ or self._devmem_ is None:
+                self._upload()
+            return self._devmem_
+
+    @devmem.setter
+    def devmem(self, value):
+        """Takes a freshly computed device tensor: the device copy
+        becomes authoritative and the host copy stale, with no
+        transfer until ``map_read``."""
+        with self._lock_:
+            self._devmem_ = value
+            self._host_dirty_ = False
+            self._host_stale_ = value is not None
+            if value is not None and self._mem is not None and \
+                    tuple(value.shape) != self._mem.shape:
+                self._mem = None
+
+    def _upload(self):
+        if self._mem is None:
+            return
+        # A copy: torch.from_numpy alone would alias the host array on
+        # the CPU device.
+        self._devmem_ = torch.from_numpy(self._mem).to(
+            torch_device(self._device_), copy=True)
+        self._host_dirty_ = False
+        self._host_stale_ = False
+
+    def _host_sync(self):
+        """Device → host, only when the device copy is authoritative
+        and the host copy stale."""
+        if self._devmem_ is not None and self._host_stale_:
+            self._mem = self._devmem_.detach().cpu().numpy().copy()
+            self._host_stale_ = False
+
+    def _free_device(self):
+        self._devmem_ = None
+        self._host_dirty_ = self._mem is not None
+        self._host_stale_ = False
+
+    # -- map protocol ------------------------------------------------------
+
+    def map_read(self):
+        """Ensures the host copy reflects the freshest data."""
+        with self._lock_:
+            self._host_sync()
+
+    def map_write(self):
+        """Host copy becomes authoritative; device copy is stale."""
+        with self._lock_:
+            self._host_sync()
+            self._host_dirty_ = True
+            self._host_stale_ = False
+
+    def map_invalidate(self):
+        """Host copy becomes authoritative WITHOUT downloading first
+        (the caller will overwrite everything)."""
+        with self._lock_:
+            self._host_dirty_ = True
+            self._host_stale_ = False
+
+    def unmap(self):
+        """Pushes host data to the device if the host copy is
+        authoritative."""
+        with self._lock_:
+            if self._host_dirty_ and self._mem is not None and \
+                    self._device_ is not None:
+                self._upload()
+
+    def reset(self, new_mem=None):
+        """Drops all data."""
+        with self._lock_:
+            self._free_device()
+            self._mem = None
+            if new_mem is not None:
+                self.mem = new_mem
+
+    # -- pickling ----------------------------------------------------------
+
+    def __getstate__(self):
+        self.map_read()
+        return super(Vector, self).__getstate__()
+

@@ -1,0 +1,171 @@
+"""Attention ops (the JAX package's ``ops.attention``, single device).
+
+* :func:`attention` — full attention over (B, S, H, D), the reference
+  formulation;
+* :func:`blockwise_attention` — the same with a streaming softmax over
+  key blocks and the ``kv_len`` padding bound;
+* the dispatch: under ``root.common.engine.attention_kernel`` "auto"
+  (the default) or "pallas", CUDA tensors run the hand-written CUDA
+  kernels (B1 forward, B2/B3 backward) with the matmul operand dtype
+  of ``attention_dtype``, and a geometry outside their contract
+  (``flash_attention.supports``) raises; "xla", and every CPU tensor,
+  take the plain formulation below.
+
+Both plain formulations share one streaming-softmax block update: the
+running max and normalizer are always float32; the score/probability
+tensors and the output accumulator are in the ``attention_dtype``
+("f32" default, or "bf16"); every product multiplies its (rounded)
+operands in float32, as the JAX package's
+``preferred_element_type=float32`` does.
+
+Ring, Ulysses and sequence-parallel attention wait for ROADMAP A6.
+"""
+
+import torch
+
+from ..config import root, get as config_get
+
+NEG_INF = -1e30
+
+#: Valid attention-kernel dispatch modes.
+KERNEL_MODES = ("xla", "pallas", "auto")
+DEFAULT_KERNEL_MODE = "auto"
+
+
+def attention_compute_dtype(precision=None):
+    """The score/accumulator dtype: the explicit ``precision`` wins,
+    else ``root.common.engine.attention_dtype`` ("f32" default).
+    Unknown strings raise."""
+    if precision is None:
+        precision = config_get(root.common.engine.attention_dtype, "f32")
+    if isinstance(precision, torch.dtype):
+        return precision
+    if precision == "bf16":
+        return torch.bfloat16
+    if precision == "f32":
+        return torch.float32
+    raise ValueError("unknown attention dtype %r — valid: 'f32', "
+                     "'bf16' (or a torch dtype)" % (precision,))
+
+
+def _kernel_mode():
+    mode = str(config_get(root.common.engine.attention_kernel,
+                          DEFAULT_KERNEL_MODE))
+    if mode not in KERNEL_MODES:
+        raise ValueError("unknown attention kernel mode %r — valid: "
+                         "%s" % (mode, list(KERNEL_MODES)))
+    return mode
+
+
+def _try_kernel(q, k, v, causal, kv_len=None, mode=None,
+                precision=None):
+    """Runs the flash kernels for CUDA tensors unless the mode is
+    "xla"; returns None (→ the plain formulation) for "xla" and for CPU
+    tensors.  On the card the kernel launches or raises — a geometry
+    outside the kernels' contract included."""
+    if (mode or _kernel_mode()) == "xla" or q.device.type != "cuda":
+        return None
+    from . import flash_attention as FA
+    return FA.flash_attention(
+        q, k, v, causal=causal, kv_len=kv_len,
+        operand_dtype=attention_compute_dtype(precision))
+
+
+def _block_update(acc, m, l, q, k, v, scale, mask=None):
+    """One streaming-softmax update: folds the (q·kᵀ) scores of a
+    key/value block into the running (acc, m, l).  q (B, Sq, H, D);
+    k/v (B, Sk, H, D); acc (B, Sq, H, D) in the compute dtype; m/l
+    (B, Sq, H) float32; ``mask`` (Sq, Sk) True = attend."""
+    dt = acc.dtype
+    scores = (torch.einsum("bqhd,bkhd->bqhk", q.float(), k.float()) *
+              scale).to(dt)
+    if mask is not None:
+        scores = scores.masked_fill(~mask[None, :, None, :], NEG_INF)
+    block_max = scores.amax(dim=-1).float()
+    new_m = torch.maximum(m, block_max)
+    correction = torch.exp(m - new_m)
+    p = torch.exp(scores - new_m[..., None].to(dt))
+    if mask is not None:
+        # Guards the fully masked row, where new_m itself is NEG_INF.
+        p = p.masked_fill(~mask[None, :, None, :], 0.0)
+    new_l = l * correction + p.sum(dim=-1, dtype=torch.float32)
+    pv = torch.einsum("bqhk,bkhd->bqhd", p.float(), v.to(dt).float())
+    new_acc = (acc.float() * correction[..., None] + pv).to(dt)
+    return new_acc, new_m, new_l
+
+
+def _finish(acc, l, dtype):
+    return (acc.float() / l.clamp_min(1e-30)[..., None]).to(dtype)
+
+
+def _causal_mask(sq, sk, q_offset, k_offset, device):
+    qpos = q_offset + torch.arange(sq, device=device)[:, None]
+    kpos = k_offset + torch.arange(sk, device=device)[None, :]
+    return qpos >= kpos
+
+
+def _init(q, dt):
+    B, S, H, D = q.shape
+    return (torch.zeros((B, S, H, D), dtype=dt, device=q.device),
+            torch.full((B, S, H), NEG_INF, dtype=torch.float32,
+                       device=q.device),
+            torch.zeros((B, S, H), dtype=torch.float32, device=q.device))
+
+
+def attention(q, k, v, causal=False, precision=None, kernel=None):
+    """Full attention over (B, S, H, D).  ``precision``: None → the
+    ``attention_dtype`` knob; "f32"/"bf16" forces.  ``kernel``: None →
+    the ``attention_kernel`` knob; "xla" forces the plain
+    formulation."""
+    out = _try_kernel(q, k, v, causal, mode=kernel, precision=precision)
+    if out is not None:
+        return out
+    dt = attention_compute_dtype(precision)
+    scale = 1.0 / (q.shape[-1] ** 0.5)
+    mask = _causal_mask(q.shape[1], k.shape[1], 0, 0, q.device) \
+        if causal else None
+    acc, m, l = _block_update(*_init(q, dt), q, k, v, scale, mask)
+    return _finish(acc, l, q.dtype)
+
+
+def blockwise_attention(q, k, v, block_size=128, causal=False,
+                        kv_len=None, precision=None, kernel=None):
+    """Flash-style attention: a loop over key/value blocks with the
+    streaming accumulator.  ``kv_len`` masks keys at positions >=
+    kv_len (the padding contract).  ``precision``/``kernel`` as in
+    :func:`attention`."""
+    out = _try_kernel(q, k, v, causal, kv_len=kv_len, mode=kernel,
+                      precision=precision)
+    if out is not None:
+        return out
+    dt = attention_compute_dtype(precision)
+    B, S, H, D = q.shape
+    if S % block_size:
+        raise ValueError("sequence %d not divisible by block %d" %
+                         (S, block_size))
+    scale = 1.0 / (D ** 0.5)
+    acc, m, l = _init(q, dt)
+    for k_off in range(0, S, block_size):
+        cols = slice(k_off, k_off + block_size)
+        mask = _causal_mask(S, block_size, 0, k_off, q.device) \
+            if causal else None
+        if kv_len is not None:
+            kvalid = (k_off + torch.arange(block_size, device=q.device)
+                      < kv_len)[None, :].expand(S, block_size)
+            mask = kvalid if mask is None else mask & kvalid
+        acc, m, l = _block_update(acc, m, l, q, k[:, cols], v[:, cols],
+                                  scale, mask)
+    return _finish(acc, l, q.dtype)
+
+
+def _not_ported(name):
+    def refuse(*args, **kwargs):
+        raise NotImplementedError(
+            "%s is not yet ported (ROADMAP A6)" % name)
+    refuse.__name__ = name
+    return refuse
+
+
+ring_attention = _not_ported("ring_attention")
+ulysses_attention = _not_ported("ulysses_attention")
+sequence_parallel_attention = _not_ported("sequence_parallel_attention")

@@ -27,14 +27,12 @@ all False gets out = 0, as in the TPU kernel.
 """
 
 import ctypes
-import hashlib
 import os
-import shutil
-import subprocess
 import threading
-import time
 
 import torch
+
+from . import nvcc
 
 #: Past this many query rows a chunk is a prefill, served by the dense
 #: path (the JAX package's ``DECODE_MAX_Q``).
@@ -46,13 +44,8 @@ KEYS_PER_SPLIT = 64
 #: The masked-score fill of the TPU kernel and the dense path.
 NEG_INF = -1e30
 
-_HERE = os.path.dirname(os.path.abspath(__file__))
-SOURCE = os.path.join(_HERE, "csrc", "decode_attention.cu")
-BUILD_DIR = os.path.join(_HERE, "build")
-#: nvcc flags: Hopper's architecture-specific target, no fast math
-#: (expf/logf stay IEEE-accurate), ptxas resource report in the log.
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc",
+                      "decode_attention.cu")
 
 
 def supports_decode(q_shape, k_shape):
@@ -154,49 +147,12 @@ decode_attention.launches = 0
 
 _lib = [None]
 _lib_lock = threading.Lock()
-#: The last build: ``{"path", "seconds", "log"}`` (``seconds`` 0.0 and
-#: an empty log when an earlier build of the same source was found).
-build_info = {}
-
-
-def _nvcc():
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    candidate = os.path.join(cuda_home, "bin", "nvcc")
-    if os.path.isfile(candidate):
-        return candidate
-    raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin) — the "
-                       "decode-attention kernel cannot be built")
 
 
 def build():
-    """Compiles ``csrc/decode_attention.cu`` for ``sm_90a`` into
-    ``build/`` (named by the source's hash, written atomically) unless
-    that library already exists; returns its path.  Raises when
-    ``nvcc`` is missing or fails."""
-    with open(SOURCE, "rb") as fin:
-        digest = hashlib.sha1(fin.read() + " ".join(NVCC_FLAGS)
-                              .encode()).hexdigest()[:16]
-    path = os.path.join(BUILD_DIR,
-                        "libveles_decode_attention-%s.so" % digest)
-    if os.path.isfile(path):
-        build_info.update(path=path, seconds=0.0, log="")
-        return path
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = "%s.%d.tmp" % (path, os.getpid())
-    t0 = time.monotonic()
-    proc = subprocess.run(
-        [_nvcc()] + list(NVCC_FLAGS) + ["-o", tmp, SOURCE],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    if proc.returncode:
-        raise RuntimeError("nvcc failed (exit %d) building %s:\n%s" %
-                           (proc.returncode, SOURCE, proc.stdout))
-    os.replace(tmp, path)
-    build_info.update(path=path, seconds=time.monotonic() - t0,
-                      log=proc.stdout)
-    return path
+    """Compiles ``csrc/decode_attention.cu`` (see :mod:`.nvcc`) unless
+    its library exists; returns the library's path."""
+    return nvcc.build(SOURCE)[0]
 
 
 def _library():

@@ -1,0 +1,166 @@
+"""Deterministic, state-preserving pseudo-random generators (the JAX
+package's ``prng``).
+
+Every generator owns two halves:
+
+* a host ``numpy.random.RandomState`` for loader shuffles and weight
+  init on the host.  Its seeding is the JAX package's code, byte for
+  byte, so the same seed gives the same draws in both packages — and
+  so bit-equal initial weights;
+* a seeded ``torch.Generator`` per device, in place of the JAX
+  package's threefry key chain, for randomness inside the step
+  (dropout, sampling).  It is seeded from the same 32-bit value the
+  threefry key was, but draws other numbers: parity tests hand both
+  packages the same host-made inputs instead.
+
+Both halves are captured by ``__getstate__``, so a pickled generator
+resumes with identical randomness.
+"""
+
+import numpy
+import torch
+
+from .logger import Logger
+
+_np_random = numpy.random
+
+
+class RandomGenerator(Logger):
+    """A named deterministic generator."""
+
+    def __init__(self, key):
+        super(RandomGenerator, self).__init__()
+        self.key = key
+        self._seed = None
+        self._state = _np_random.RandomState()
+        self._torch = {}
+        self.seed(numpy.frombuffer(b"seed" + bytes([key & 0xFF]),
+                                   dtype=numpy.uint8))
+
+    # -- seeding -----------------------------------------------------------
+
+    @property
+    def seed_value(self):
+        return self._seed
+
+    def seed(self, seed, count=None, dtype=None):
+        """Seeds from an int, array, bytes, or ``file:count:dtype``
+        spec."""
+        if seed is None:
+            import os as _os
+            seed = numpy.frombuffer(_os.urandom(16), dtype=numpy.uint32)
+        if isinstance(seed, str):
+            seed = self._seed_from_spec(seed)
+        if isinstance(seed, (bytes, bytearray)):
+            seed = numpy.frombuffer(seed, dtype=numpy.uint8)
+        if count is not None and dtype is not None and \
+                not isinstance(seed, numpy.ndarray):
+            raise ValueError("count/dtype only apply to file specs")
+        self._seed = seed
+        if isinstance(seed, numpy.ndarray):
+            mixed = numpy.uint32(
+                numpy.bitwise_xor.reduce(
+                    seed.view(numpy.uint8).astype(numpy.uint32) *
+                    numpy.arange(1, seed.nbytes + 1, dtype=numpy.uint32)))
+            self._state = _np_random.RandomState(
+                seed.view(numpy.uint8).astype(numpy.uint32))
+            dseed = int(mixed)
+        else:
+            self._state = _np_random.RandomState(seed)
+            dseed = int(seed) & 0xFFFFFFFF
+        self._device_seed = dseed ^ (self.key * 0x9E3779B9 & 0xFFFFFFFF)
+        self._torch = {}
+        return self
+
+    @staticmethod
+    def _seed_from_spec(spec):
+        """Parses ``/dev/urandom:16:uint32``-style seed specs."""
+        parts = spec.split(":")
+        count = int(parts[1]) if len(parts) > 1 else 16
+        dtype = numpy.dtype(parts[2] if len(parts) > 2 else "uint8")
+        with open(parts[0], "rb") as fin:
+            data = fin.read(count * dtype.itemsize)
+        return numpy.frombuffer(data, dtype=dtype).copy()
+
+    # -- host-side API (numpy semantics) -----------------------------------
+
+    def fill(self, arr, vle_min=-1.0, vle_max=1.0):
+        """Uniform fill in place."""
+        arr[...] = self._state.uniform(
+            low=vle_min, high=vle_max, size=arr.shape).astype(arr.dtype)
+
+    def fill_normal(self, arr, mean=0.0, stddev=1.0):
+        arr[...] = self._state.normal(
+            loc=mean, scale=stddev, size=arr.shape).astype(arr.dtype)
+
+    def normal(self, loc=0.0, scale=1.0, size=None):
+        return self._state.normal(loc=loc, scale=scale, size=size)
+
+    def uniform(self, low=0.0, high=1.0, size=None):
+        return self._state.uniform(low=low, high=high, size=size)
+
+    def shuffle(self, arr):
+        self._state.shuffle(arr)
+
+    def permutation(self, x):
+        return self._state.permutation(x)
+
+    def randint(self, low, high=None, size=None):
+        return self._state.randint(low, high=high, size=size)
+
+    def random_sample(self, size=None):
+        return self._state.random_sample(size=size)
+
+    def choice(self, a, size=None, replace=True, p=None):
+        return self._state.choice(a, size=size, replace=replace, p=p)
+
+    # -- device-side API ---------------------------------------------------
+
+    def torch_generator(self, device="cpu"):
+        """The seeded ``torch.Generator`` of ``device``: one stream per
+        device, advanced by every draw made with it."""
+        device = torch.device(device)
+        name = str(device)
+        gen = self._torch.get(name)
+        if gen is None:
+            gen = torch.Generator(device=device)
+            gen.manual_seed(self._device_seed)
+            self._torch[name] = gen
+        return gen
+
+    # -- state -------------------------------------------------------------
+
+    def __getstate__(self):
+        return {"key": self.key, "seed": self._seed,
+                "np_state": self._state.get_state(),
+                "device_seed": self._device_seed,
+                "torch": {name: gen.get_state().numpy().tobytes()
+                          for name, gen in self._torch.items()}}
+
+    def __setstate__(self, state):
+        super(RandomGenerator, self).__init__()
+        self.key = state["key"]
+        self._seed = state["seed"]
+        self._state = _np_random.RandomState()
+        self._state.set_state(state["np_state"])
+        self._device_seed = state["device_seed"]
+        self._torch = {}
+        for name, raw in state["torch"].items():
+            gen = self.torch_generator(name)
+            gen.set_state(torch.frombuffer(bytearray(raw),
+                                           dtype=torch.uint8))
+
+
+_generators = {}
+
+
+def get(key=0):
+    """The global generator registry."""
+    gen = _generators.get(key)
+    if gen is None:
+        gen = _generators[key] = RandomGenerator(key)
+    return gen
+
+
+def reset():
+    _generators.clear()

@@ -1,0 +1,182 @@
+"""Decision units: epoch accounting, convergence, stop control (the
+JAX package's ``znicz.decision``).
+
+The decision unit sits after the evaluator and, at epoch boundaries,
+reads the evaluator's on-device epoch accumulators (one host sync per
+class-epoch), records per-class error, loss and health, tracks
+validation improvement, and decides whether training is complete —
+flipping the ``complete`` Bool that gates the Repeater loop and the
+EndPoint.  The master-side accumulation of worker metrics waits for
+ROADMAP A7.
+"""
+
+import numpy
+
+from ..mutable import Bool
+from ..result_provider import IResultProvider
+from ..units import Unit
+from ..loader.base import TRAIN, VALID, CLASS_NAME
+
+
+class DecisionBase(Unit):
+    hide_from_registry = True
+
+    def __init__(self, workflow, **kwargs):
+        super(DecisionBase, self).__init__(workflow, **kwargs)
+        self.view_group = "PLUMBING"
+        self.complete = Bool(False)
+        self.improved = Bool(False)
+        self.snapshot_suffix = ""
+        self.max_epochs = kwargs.get("max_epochs")
+        # Links from the loader:
+        self.demand("minibatch_class", "last_minibatch", "epoch_ended",
+                    "epoch_number")
+
+    def on_last_minibatch(self, cls):
+        """Epoch-boundary hook for a sample class."""
+
+    def initialize(self, **kwargs):
+        """On snapshot resume the stop condition is re-evaluated so a
+        raised ``max_epochs`` (or widened fail window) lets training
+        continue (reference resume semantics: workflow.py:326-328,
+        gates recomputed on ``initialize(snapshot=True)``)."""
+        super(DecisionBase, self).initialize(**kwargs)
+        if bool(self.complete) and not self.should_stop():
+            self.complete <<= False
+
+    def should_stop(self):
+        return self.max_epochs is not None and \
+            self.epoch_number >= self.max_epochs
+
+    def on_epoch_ended(self):
+        if self.max_epochs is not None and \
+                self.epoch_number >= self.max_epochs:
+            self.complete <<= True
+
+    def run(self):
+        if self.last_minibatch:
+            self.on_last_minibatch(self.minibatch_class)
+            if self.epoch_ended:
+                self.on_epoch_ended()
+
+
+class DecisionGD(DecisionBase, IResultProvider):
+    """Supervised-training decision (znicz ``DecisionGD`` analogue):
+    tracks per-class error counts, detects validation improvement,
+    stops after ``fail_iterations`` epochs without improvement or at
+    ``max_epochs``."""
+
+    def __init__(self, workflow, **kwargs):
+        super(DecisionGD, self).__init__(workflow, **kwargs)
+        self.fail_iterations = kwargs.get("fail_iterations", 100)
+        self.evaluator = kwargs.get("evaluator")
+        self.epoch_n_err = [0.0, 0.0, 0.0]
+        self.epoch_n_valid = [0.0, 0.0, 0.0]
+        self.epoch_loss = [0.0, 0.0, 0.0]
+        self.epoch_metrics = [None, None, None]
+        # Health rows fetched with the epoch accumulator (guardian
+        # inputs): non-finite tick count and mean/max gradient norm
+        # per class-epoch.
+        self.epoch_nonfinite = [0.0, 0.0, 0.0]
+        self.epoch_grad_norm = [0.0, 0.0, 0.0]
+        self.epoch_grad_norm_max = [0.0, 0.0, 0.0]
+        self.min_validation_err = 1.0e30
+        self.min_validation_epoch = 0
+        self.min_train_err = 1.0e30
+
+    def run(self):
+        """Per tick this is pure host bookkeeping — metrics accumulate
+        ON DEVICE inside the fused step (EvaluatorBase.epoch_acc); the
+        only device→host sync is the epoch-boundary fetch below."""
+        if self.last_minibatch:
+            cls = self.minibatch_class
+            self._fetch_class_metrics(cls)
+            self.on_last_minibatch(cls)
+            if self.epoch_ended:
+                self.on_epoch_ended()
+
+    def _fetch_class_metrics(self, cls):
+        if self.evaluator is None:
+            return
+        row = self.evaluator.read_epoch_acc(cls)
+        self.epoch_n_err[cls] = float(row[0])
+        self.epoch_n_valid[cls] = float(row[1])
+        ticks = max(float(row[3]), 1.0)
+        self.epoch_loss[cls] = float(row[2]) / ticks
+        self.evaluator.reset_epoch_acc(cls)
+        health = self.evaluator.read_health_acc(cls)
+        self.epoch_nonfinite[cls] = float(health[0])
+        finite_ticks = max(float(health[3]) - float(health[0]), 1.0)
+        self.epoch_grad_norm[cls] = float(health[1]) / finite_ticks
+        self.epoch_grad_norm_max[cls] = float(health[2])
+        self.evaluator.reset_health_acc(cls)
+
+    def error_rate(self, cls):
+        n = self.epoch_n_valid[cls]
+        return self.epoch_n_err[cls] / n if n else 0.0
+
+    def on_last_minibatch(self, cls):
+        n = self.epoch_n_valid[cls]
+        if not n or not numpy.isfinite(n):
+            # No samples evaluated (empty class, dropped workers) or
+            # a poisoned epoch (NaN flowed into the accumulator):
+            # ``error_rate`` would read 0.0 / NaN, register a bogus
+            # "perfect" epoch, flip ``improved`` and trigger a junk
+            # snapshot — skip improvement/early-stop accounting
+            # entirely for this class-epoch.
+            if cls == VALID:
+                self.improved <<= False
+            self.info(
+                "epoch %d %s: no evaluable samples (n_valid=%s) — "
+                "improvement accounting skipped", self.epoch_number,
+                CLASS_NAME[cls], n)
+            return
+        rate = self.error_rate(cls)
+        self.epoch_metrics[cls] = rate
+        self.info("epoch %d %s: err %.2f%% (%d/%d) loss %.4f",
+                  self.epoch_number, CLASS_NAME[cls], rate * 100.0,
+                  int(self.epoch_n_err[cls]),
+                  int(self.epoch_n_valid[cls]),
+                  self.epoch_loss[cls])
+        if cls == VALID:
+            if rate < self.min_validation_err:
+                self.min_validation_err = rate
+                self.min_validation_epoch = self.epoch_number
+                self.improved <<= True
+                self.snapshot_suffix = "%.2fpt" % (rate * 100.0)
+            else:
+                self.improved <<= False
+        elif cls == TRAIN:
+            self.min_train_err = min(self.min_train_err, rate)
+
+    def should_stop(self):
+        if super(DecisionGD, self).should_stop():
+            return True
+        has_valid = self.epoch_metrics[VALID] is not None
+        return has_valid and (self.epoch_number -
+                              self.min_validation_epoch >
+                              self.fail_iterations)
+
+    def on_epoch_ended(self):
+        super(DecisionGD, self).on_epoch_ended()
+        has_valid = self.epoch_metrics[VALID] is not None
+        if has_valid and (self.epoch_number -
+                          self.min_validation_epoch >
+                          self.fail_iterations):
+            self.info("no validation improvement for %d epochs — stop",
+                      self.fail_iterations)
+            self.complete <<= True
+
+    # -- results -----------------------------------------------------------
+
+    def get_metric_names(self):
+        return ["min_validation_err", "min_train_err", "epochs"]
+
+    def get_metric_values(self):
+        return {"min_validation_err": self.min_validation_err,
+                "min_train_err": self.min_train_err,
+                "epochs": self.epoch_number,
+                "EvaluationFitness":
+                    1.0 - (self.min_validation_err
+                           if self.epoch_metrics[VALID] is not None
+                           else self.min_train_err)}
