@@ -5,21 +5,25 @@ Run from the root of a checkout, on a machine with one CUDA card:
 
     python3 chip_smoke.py
 
-It drives the port's two paths once each, at the full width of the LM
-bench geometry (embed 2048, 16 heads of dim 128, MLP 8192, 12 blocks,
-vocab 16384, positional table / sequence 1024, random weights from a
-numpy seed) — training the TinyLM workflow through the fused tick, and
-serving an exported LM — in phases; any failure exits non-zero:
+It drives the port's three paths once each, at full width — training
+the TinyLM workflow through the fused tick and serving an exported LM,
+both at the LM bench geometry (embed 2048, 16 heads of dim 128, MLP
+8192, 12 blocks, vocab 16384, positional table / sequence 1024), and
+training the full-width ungrouped AlexNet through ``StandardWorkflow``
+(227 px, 1000 classes, batch 512) — with random weights from a seed, in
+phases; any failure exits non-zero:
 
 1. device — the card's name, count, and ``nvidia-smi`` name and power
    limit; no CUDA fails;
-2. build — ``nvcc`` builds every kernel of both paths from the sources
-   in the checkout, one process per source, all at once
-   (``veles_tpu_torch/ops/csrc/decode_attention.cu`` — B4 — and
-   ``flash_attention.cu`` — B1 forward, B2 dq, B3 dk/dv);
+2. build — ``nvcc`` builds every kernel of the three paths from the
+   sources in the checkout, one process per source, all at once
+   (``veles_tpu_torch/ops/csrc/decode_attention.cu`` — B4 —,
+   ``flash_attention.cu`` — B1 forward, B2 dq, B3 dk/dv — and
+   ``lrn.cu`` — B6 LRN forward, B7 LRN backward);
 3. kernel check — each kernel's wrapper against its plain PyTorch
-   version on the card, at the shapes its path gives it and at ragged
-   and masked edge cases, within the stated tolerances;
+   version on the card, at the shapes its path gives it and at ragged,
+   masked and (LRN) strong-constant edge cases, within the stated
+   tolerances; planted LRN faults must be flagged;
 4. kernel timing — kernel, plain version, one PyTorch library call
    computing the same function where there is one, and the least time
    the card could take;
@@ -32,16 +36,25 @@ serving an exported LM — in phases; any failure exits non-zero:
    tick's loss and the parameters after every train tick to the plain
    ticks, and each kernel's launch count to what the ticks imply; a
    planted error (dq, then dk, halved) must fail the parameter gate;
-6. serving — writes the artifact, loads it on the card, starts the
+6. AlexNet — ``AlexNetWorkflow`` (ImagenetLoader's synthetic set cut
+   to 1536 train + 512 validation images, mean-disp normalizer,
+   bfloat16 stream, momentum SGD with decay) runs one validation and
+   three train ticks through ``Launcher.run`` with the LRN kernels, then
+   each tick again from the same state (dropout masks included) with
+   the plain LRN (``pallas_lrn = False``); losses, parameters and the
+   LRN launch counts are held as in phase 5, a planted B7 fault must
+   fail the gate, and one warm tick is profiled;
+7. serving — writes the artifact, loads it on the card, starts the
    server with ``--warmup``, serves mixed concurrent ``/api/generate``
    requests over loopback HTTP through the paged engine, then a
    repeated prompt (prefix cache + copy-on-write);
-7. serving checks — every answer token-identical to the port's
+8. serving checks — every answer token-identical to the port's
    ``generate(..., attend=decode_attention_reference)`` on the card,
    and the kernel's launch count equal to what the run implies;
-8. exit — drains the server, prints the training and serving numbers
-   and the kernels as JSON lines, the card's name and power limit, and
-   ``{"ok": true, "device": {...}}`` last.
+9. exit — drains the server, prints the training, AlexNet and serving
+   numbers and the kernels as JSON lines, the command's time, the
+   card's name and power limit, and ``{"ok": true, "device": {...}}``
+   last.
 """
 
 import concurrent.futures
@@ -130,11 +143,13 @@ def phase_build():
     from veles_tpu_torch.ops import nvcc
     from veles_tpu_torch.ops import decode_attention as DA
     from veles_tpu_torch.ops import flash_attention as FA
+    from veles_tpu_torch.ops import lrn as L
+    sources = (DA.SOURCE, FA.SOURCE, L.SOURCE)
     t0 = time.monotonic()
-    nvcc.build(DA.SOURCE, FA.SOURCE)
+    nvcc.build(*sources)
     print("build: %d sources for sm_90a in %.2f s" %
-          (2, time.monotonic() - t0))
-    for source in (DA.SOURCE, FA.SOURCE):
+          (len(sources), time.monotonic() - t0))
+    for source in sources:
         info = nvcc.build_info[source]
         print("  %s: %.2f s (%s)" % (os.path.basename(source),
                                      info["seconds"],
@@ -422,6 +437,240 @@ def flash_timings():
                   else "n/a", sdpa_fb_ms, t["bound_ms"], t["bound_by"],
                   t["gflop_bf16"], t["gflop_f32"], t["gbytes"]))
     return timings
+
+
+#: LRN kernels (B6 forward, B7 backward) against their plain versions.
+#: float32: the forward within rtol 1e-5 (the window sums run in another
+#: order, a few float32 ulps); the backward within 1e-5 of the sum of the
+#: magnitudes of every term of dx (``lrn_backward_formula``'s scale: dx
+#: is a difference of two terms that may cancel, so its own magnitude is
+#: no error scale).  bfloat16: the forward within one bfloat16 ulp of the
+#: output (2^-7 of |y|: the square rounds to bfloat16 identically on both
+#: sides, and a float32 denominator one ulp apart can move the output's
+#: one rounding by one ulp); the backward within 2^-7 of (that scale +
+#: |dx|): the plain version is autograd through ``lrn_reference``, which
+#: rounds the first term, the square's gradient and x times it to
+#: bfloat16 (2^-8 each) before their sum rounds once more, while the
+#: kernel rounds dx once.
+LRN_F32_RTOL, LRN_BF16_RTOL = 1e-5, 2.0 ** -7
+#: AlexNet's constants (k, n, alpha, beta) and the two LRN inputs of the
+#: main path at batch 512 (NHWC, bfloat16 at precision_level 0).
+ALEXNET_LRN = dict(n=5, alpha=1e-4, beta=0.75, k=2.0)
+ALEXNET_BATCH = 512
+LRN_SHAPES = (("lrn1", (ALEXNET_BATCH, 55, 55, 96)),
+              ("lrn2", (ALEXNET_BATCH, 27, 27, 256)))
+#: At AlexNet's constants the window term is ~1e-4 of the denominator, so
+#: a wrong window passes any check there; these constants make it
+#: dominate: k = 1, alpha = n (coef 1), beta = 0.75, n in {3, 4, 5} (4:
+#: the asymmetric even window), C in {7, 96, 256}, over a ragged P of
+#: 3·37·41 = 4551 rows (no multiple of any tile), plus P = 1, C = 1 and
+#: C = 2 (windows wider than the row) and the C = 4096 limit.
+LRN_STRONG = [("strong_n%d_c%d" % (n, c), (3, 37, 41, c),
+               dict(n=n, alpha=float(n), beta=0.75, k=1.0))
+              for n in (3, 4, 5) for c in (7, 96, 256)] + [
+    ("strong_p1", (1, 1, 1, 96), dict(n=5, alpha=5.0, beta=0.75, k=1.0)),
+    ("strong_c1", (2, 3, 5, 1), dict(n=5, alpha=5.0, beta=0.75, k=1.0)),
+    ("strong_c2", (2, 3, 5, 2), dict(n=5, alpha=5.0, beta=0.75, k=1.0)),
+    ("strong_c4096", (2, 3, 3, 4096),
+     dict(n=5, alpha=5.0, beta=0.75, k=1.0))]
+
+
+def lrn_tolerance(dtype, want, scale=None):
+    """The tolerance tensor of one LRN output (see LRN_F32_RTOL)."""
+    import torch
+    if scale is None:   # forward
+        rtol = LRN_F32_RTOL if dtype == torch.float32 else LRN_BF16_RTOL
+        return rtol * want.abs()
+    if dtype == torch.float32:
+        return LRN_F32_RTOL * scale
+    return LRN_BF16_RTOL * (scale + want.abs())
+
+
+def lrn_faults(x, dy, n, alpha, beta, k):
+    """Planted faults of the kind the strong constants exist to catch,
+    as float32 outputs: the forward with its band shifted by one
+    channel, and the backward with its second term dropped and (even n)
+    with the window of its second term not transposed."""
+    import torch
+    from veles_tpu_torch.ops import lrn as L
+    c = x.shape[-1]
+    band = L.band_matrix(c, n, torch.float32, x.device)
+    sq = (x * x).float()
+    shifted = band.roll(1, dims=1)
+    y_shift = x.float() / (k + (alpha / n) * (sq @ shifted)) ** beta
+    d = k + (alpha / n) * (sq @ band)
+    pw = d ** beta
+    g, xf = dy.float(), x.float()
+    first = g / pw
+    t = g * xf / (pw * d)
+    untransposed = first - 2.0 * beta * (alpha / n) * xf * (t @ band)
+    faults = {"forward_band_shifted": y_shift,
+              "backward_second_term_dropped": first}
+    if n % 2 == 0:   # an odd window's band is symmetric: Bᵀ = B
+        faults["backward_window_not_transposed"] = untransposed
+    return faults
+
+
+def lrn_shares(x, dy, n, alpha, beta, k, y, dx):
+    """(forward share, backward share, max abs errs, fault shares) of
+    the kernel outputs y, dx against the plain versions: the largest
+    |got − want| / tolerance; a fault's share is the same reading
+    against the faulty output."""
+    import torch
+    from veles_tpu_torch.ops import lrn as L
+    want_y = L.lrn_reference(x, n, alpha, beta, k).float()
+    want_dx = L.lrn_backward_reference(x, dy, n, alpha, beta, k).float()
+    _, scale = L.lrn_backward_formula(x, dy, n, alpha, beta, k)
+    tol_y = lrn_tolerance(x.dtype, want_y)
+    tol_dx = lrn_tolerance(x.dtype, want_dx, scale)
+    yf, dxf = y.float(), dx.float()
+
+    def share(got, want, tol):
+        return ((got - want).abs() / tol).nan_to_num(
+            nan=0.0, posinf=float("inf")).max().item()
+
+    faults = {}
+    for name, bad in lrn_faults(x, dy, n, alpha, beta, k).items():
+        if name.startswith("forward"):
+            faults[name] = share(yf, bad, tol_y)
+        else:
+            faults[name] = share(dxf, bad, tol_dx)
+    if not (torch.isfinite(yf).all() and torch.isfinite(dxf).all()):
+        fail("lrn kernel output not finite")
+    return (share(yf, want_y, tol_y), share(dxf, want_dx, tol_dx),
+            ((yf - want_y).abs().max().item(),
+             (dxf - want_dx).abs().max().item()), faults)
+
+
+def phase_lrn_kernels():
+    """Phases 3-4 for the AlexNet kernels (B6 forward, B7 backward):
+    each against its plain version at both main-path shapes in bfloat16
+    and float32, at the strong constants, even n, a ragged P, P = 1 and
+    the channel limit; the planted faults must be flagged at the strong
+    constants.  Then timed at the main-path shapes."""
+    import torch
+    from veles_tpu_torch.ops import lrn as L
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    rows, worst, main_err = [], {}, {}
+    fault_rows = []
+    cases = [(name, shape, ALEXNET_LRN) for name, shape in LRN_SHAPES] + \
+        LRN_STRONG
+    for name, shape, kw in cases:
+        for dtype in (torch.bfloat16, torch.float32):
+            x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+            dy = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+            y = L.lrn_forward(x, **kw)
+            dx = L.lrn_backward(x, dy, **kw)
+            torch.cuda.synchronize()
+            fwd, bwd, errs, faults = lrn_shares(x, dy, y=y, dx=dx, **kw)
+            label = "bf16" if dtype == torch.bfloat16 else "f32"
+            rows.append((name, label, fwd, bwd, errs))
+            for key, val in (("forward", fwd), ("backward", bwd)):
+                was = worst.get((label, key), (0.0, None))
+                if val > was[0]:
+                    worst[(label, key)] = (val, name)
+            if name.startswith("lrn") and dtype == torch.bfloat16:
+                main_err["lrn_forward"] = max(
+                    main_err.get("lrn_forward", 0.0), errs[0])
+                main_err["lrn_backward"] = max(
+                    main_err.get("lrn_backward", 0.0), errs[1])
+            if name == "lrn1" or name.startswith("strong_n5_c96") or \
+                    name.startswith("strong_n4_c96"):
+                fault_rows.append((name, label, faults))
+            del x, dy, y, dx
+    print("kernel check: lrn_forward/lrn_backward == lrn_reference / "
+          "autograd through it; tolerance f32 fwd rtol %g, bwd %g x the "
+          "terms' magnitude; bf16 fwd 2^-7 x |y| (one ulp), bwd 2^-7 x "
+          "(terms' magnitude + |dx|); largest share of the tolerance:" %
+          (LRN_F32_RTOL, LRN_F32_RTOL))
+    for (label, key), (val, name) in sorted(worst.items()):
+        print("  %s %-8s %.3g (%s)" % (label, key, val, name))
+    for name, label, fwd, bwd, errs in rows:
+        if name.startswith("lrn"):
+            print("  %s %s: fwd share %.3g (max abs err %.3g), bwd share "
+                  "%.3g (max abs err %.3g)" % (name, label, fwd, errs[0],
+                                                bwd, errs[1]))
+    print("planted faults (share of the same tolerance; > 1 = flagged):")
+    for name, label, faults in fault_rows:
+        print("  %s %s: %s" % (name, label, ", ".join(
+            "%s %.3g" % kv for kv in sorted(faults.items()))))
+    for name, label, fwd, bwd, errs in rows:
+        if not (fwd <= 1.0 and bwd <= 1.0):
+            fail("lrn kernels disagree with their plain versions (%s, %s):"
+                 " forward %.3g, backward %.3g of the tolerance" % (
+                     name, label, fwd, bwd))
+    for name, label, faults in fault_rows:
+        if name.startswith("strong") and not min(faults.values()) > 1.0:
+            fail("a planted LRN fault passes the check at the strong "
+                 "constants (%s, %s): %s" % (name, label, faults))
+    return main_err, worst, fault_rows, lrn_timings()
+
+
+def lrn_timings():
+    """B6 and B7 at the two main-path shapes (bfloat16): kernel, plain
+    version (the backward's plain version is autograd through
+    lrn_reference, its forward included), F.local_response_norm forward
+    and forward+backward, and the bound: bytes moved (x read and y
+    written; x and dy read and dx written) at 3.35 TB/s against the
+    float32 operations ((n + 5) per element forward, (2n + 12)
+    backward) at 67 TFLOP/s."""
+    import torch
+    import torch.nn.functional as F
+    from veles_tpu_torch.ops import lrn as L
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    kw = ALEXNET_LRN
+    out = {}
+    for name, shape in LRN_SHAPES:
+        x = torch.randn(shape, generator=gen, device="cuda").to(
+            torch.bfloat16)
+        dy = torch.randn(shape, generator=gen, device="cuda").to(
+            torch.bfloat16)
+        leaf = x.permute(0, 3, 1, 2).detach().requires_grad_(True)
+        dyc = dy.permute(0, 3, 1, 2)
+
+        def library_fwd():
+            return F.local_response_norm(
+                x.permute(0, 3, 1, 2), kw["n"], kw["alpha"], kw["beta"],
+                kw["k"])
+
+        def library_fwd_bwd():
+            y = F.local_response_norm(leaf, kw["n"], kw["alpha"],
+                                      kw["beta"], kw["k"])
+            torch.autograd.grad(y, leaf, dyc)
+
+        elem = x.numel()
+        t = {
+            "lrn_forward": dict(
+                kernel_ms=cuda_ms(lambda: L.lrn_forward(x, **kw)),
+                plain_ms=cuda_ms(lambda: L.lrn_reference(x, **kw),
+                                 iters=10, warmup=2),
+                library_ms=cuda_ms(library_fwd, iters=10, warmup=2),
+                bytes=2 * 2 * elem, ops=(kw["n"] + 5) * elem),
+            "lrn_backward": dict(
+                kernel_ms=cuda_ms(lambda: L.lrn_backward(x, dy, **kw)),
+                plain_ms=cuda_ms(
+                    lambda: L.lrn_backward_reference(x, dy, **kw),
+                    iters=10, warmup=2),
+                library_ms=cuda_ms(library_fwd_bwd, iters=10, warmup=2),
+                bytes=3 * 2 * elem, ops=(2 * kw["n"] + 12) * elem),
+        }
+        for kernel, row in t.items():
+            bytes_ms = row["bytes"] / HBM_BYTES_PER_S * 1e3
+            ops_ms = row["ops"] / F32_FLOP_PER_S * 1e3
+            row["bound_ms"] = max(bytes_ms, ops_ms)
+            row["bound_by"] = "bytes" if bytes_ms >= ops_ms else \
+                "operations"
+            print("kernel timing %s %s %s bf16: kernel %.4f ms, plain "
+                  "%.4f ms, F.local_response_norm %s %.4f ms, bound %.4f "
+                  "ms (%s; %.1f MB, %.2f GFLOP)" % (
+                      kernel, name, shape, row["kernel_ms"],
+                      row["plain_ms"], "forward" if kernel ==
+                      "lrn_forward" else "forward+backward",
+                      row["library_ms"], row["bound_ms"], row["bound_by"],
+                      row["bytes"] / 1e6, row["ops"] / 1e9))
+            out[(kernel, name)] = row
+        del x, dy, leaf, dyc
+    return out
 
 
 #: Training phase: one validation tick, then this many train ticks,
@@ -716,6 +965,344 @@ def phase_training(smi):
     return launches, numbers
 
 
+#: AlexNet phase: bench.py's batch, one epoch of one validation tick
+#: and ALEXNET_TICKS train ticks (the dataset's count is the only cut).
+ALEXNET_TICKS = 3
+#: Each AlexNet tick is held to a tick run from the SAME state (the
+#: parameters, momentum slots, accumulators and the step generator's
+#: state, so dropout draws the same masks) with the plain banded LRN
+#: (``pallas_lrn = False``): the loss within rtol 1e-4, and after every
+#: train tick each parameter tensor's gap (norm) within 0.01 of the norm
+#: of that tick's change plus 1e-9 per sqrt(element) (for a change of
+#: zero).  The two runs differ only in the LRN outputs' bfloat16
+#: roundings, where the kernels' float32 values land a few ulps from the
+#: plain versions' (one bfloat16 ulp at rare elements), which reach conv1
+#: and conv2 and, through them, every later gradient.  Calibration, on an
+#: H100 at this geometry: kernel vs plain read at most 6.8e-5 of the
+#: change (conv1's weights), a tick of the kernel run repeated from the
+#: same state reads 0 (the card's run-to-run noise), and a planted fault
+#: — the first train tick again with every dx of the backward kernel
+#: halved — reads 0.57 of the change in conv1's weights and 0.11 in
+#: conv2's, whose change at initialization is mostly weight decay
+#: (AlexNet's std-0.01 weights pass little gradient that deep).  The
+#: gate requires that fault to fail it in both.
+ALEXNET_LOSS_RTOL, ALEXNET_CHANGE_TOL, ALEXNET_FLOOR = 1e-4, 0.01, 1e-9
+ALEXNET_PLANTED_SCALE = 0.5
+
+
+def kernel_family(name):
+    """A device kernel's family, by its name."""
+    low = name.lower()
+    if "lrn_" in low:
+        return "lrn (B6/B7)"
+    if "conv" in low or "fprop" in low or "dgrad" in low or \
+            "wgrad" in low or "implicit" in low:
+        return "convolution"
+    if "gemm" in low or "cutlass" in low:
+        return "matmul"
+    if "pool" in low:
+        return "pooling"
+    return "elementwise and other"
+
+
+def profile_tick(run):
+    """One tick under ``torch.profiler`` (CPU and CUDA activities): the
+    device time of its kernels (the trace's CUDA events only) by family
+    and the ten largest, and the device's idle share of the tick's wall
+    time (with the profiler's own overhead on the host side).  "not
+    measured" when the trace holds no device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        start = time.monotonic()
+        run()
+        torch.cuda.synchronize()
+        wall_ms = (time.monotonic() - start) * 1e3
+    kernels = {}
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA:
+            continue   # host ops also carry their kernels' device time
+        us = getattr(ev, "self_device_time_total",
+                     getattr(ev, "self_cuda_time_total", 0.0))
+        if us > 0:
+            kernels[ev.key] = kernels.get(ev.key, 0.0) + us / 1e3
+    device_ms = sum(kernels.values())
+    if not device_ms:
+        print("alexnet profile: not measured (the trace holds no device "
+              "time)")
+        return {"device_ms": "not measured"}
+    families = {}
+    for name, ms in kernels.items():
+        fam = kernel_family(name)
+        families[fam] = families.get(fam, 0.0) + ms
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:10]
+    out = {"wall_ms": wall_ms, "device_ms": device_ms,
+           "idle_share": max(0.0, 1.0 - device_ms / wall_ms),
+           "families_ms": families,
+           "top_kernels_ms": [[n[:90], ms] for n, ms in top]}
+    print("alexnet profile of one warm train tick (torch.profiler): wall "
+          "%.2f ms, kernels %.2f ms, device idle %.1f %%; by family %s" % (
+              wall_ms, device_ms, 100 * out["idle_share"],
+              {k: round(v, 3) for k, v in sorted(families.items())}))
+    for name, ms in top:
+        print("  %8.3f ms  %s" % (ms, name[:110]))
+    return out
+
+
+def phase_alexnet(smi):
+    """The AlexNet phase: the full-width ungrouped AlexNet through
+    ``StandardWorkflow`` (``AlexNetWorkflow``, ``ImagenetLoader``'s
+    synthetic 227 px / 1000-class set, ``MeanDispNormalizer``) at batch
+    512, bfloat16 stream, one validation and ALEXNET_TICKS train ticks
+    through ``Launcher.run`` with the LRN kernels; then each tick again
+    from the same state with the plain LRN, the first train tick again
+    with the kernels (noise) and with a planted B7 fault."""
+    import math
+    import numpy
+    import torch
+    from veles_tpu_torch import prng
+    from veles_tpu_torch.config import root
+    from veles_tpu_torch.launcher import Launcher
+    from veles_tpu_torch.ops import lrn as L
+    from veles_tpu_torch.znicz.samples.imagenet import AlexNetWorkflow
+    engine = root.common.engine
+    engine.precision_level = 0
+    engine.pallas_lrn = True
+    prng.reset()
+    prng.get(0).seed(42)
+    t0 = time.monotonic()
+    launcher = Launcher()
+    wf = AlexNetWorkflow(
+        launcher, minibatch_size=ALEXNET_BATCH, max_epochs=1,
+        loader_config={"sim_train": ALEXNET_BATCH * ALEXNET_TICKS,
+                       "sim_valid": ALEXNET_BATCH, "sim_image_size": 227,
+                       "sim_classes": 1000, "validate_labels": False})
+    launcher.initialize(device="cuda")
+    compiler = wf.compiler
+    compiler._ensure_compiled()
+    n_params = sum(v.size for v in compiler._param_vecs.values())
+    gen = compiler._generator()
+    torch.cuda.synchronize()
+    print("alexnet: %d layers, %.2fM parameters, batch %d, 227 px, 1000 "
+          "classes, %d train + %d validation images; host init + upload "
+          "%.1f s" % (len(wf.forwards), n_params / 1e6, ALEXNET_BATCH,
+                      ALEXNET_BATCH * ALEXNET_TICKS, ALEXNET_BATCH,
+                      time.monotonic() - t0))
+
+    def state():
+        out = {n: v.devmem.to("cpu") for n, v in
+               compiler._param_vecs.items()}
+        out.update({n: v.devmem.to("cpu") for n, v in
+                    compiler._state_vecs.items()})
+        return out
+
+    ticks = []   # (training, loss, seconds, state, batch, generator)
+    execute = compiler.execute
+
+    def timed_execute(training=True):
+        before = state()
+        batch = [v.mem.copy() for v in compiler.batch_vectors]
+        rng_state = gen.get_state()
+        torch.cuda.synchronize()
+        start = time.monotonic()
+        metrics = execute(training=training)
+        loss = float(metrics["loss"])
+        torch.cuda.synchronize()
+        ticks.append((training, loss, time.monotonic() - start, before,
+                      batch, rng_state))
+        return metrics
+
+    compiler.execute = timed_execute
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    L.lrn_forward.launches = L.lrn_backward.launches = 0
+    launcher.run()
+    torch.cuda.synchronize()
+    launches = {"lrn_forward": L.lrn_forward.launches,
+                "lrn_backward": L.lrn_backward.launches}
+    peak = torch.cuda.max_memory_allocated()
+    compiler.execute = execute
+    results = wf.gather_results()
+    afters = [t[3] for t in ticks[1:]] + [state()]
+    classes = [t[0] for t in ticks]
+    if classes != [False] + [True] * ALEXNET_TICKS:
+        fail("alexnet ran ticks %s, expected one validation tick then %d "
+             "train ticks" % (classes, ALEXNET_TICKS))
+    expected = {"lrn_forward": 2 * len(ticks),
+                "lrn_backward": 2 * ALEXNET_TICKS}
+    print("alexnet: LRN kernel launches %s (expected %s: 2 forward + 2 "
+          "backward per train tick, 2 forward per validation tick)" %
+          (launches, expected))
+    if launches != expected:
+        fail("LRN kernels launched %s times, the ticks imply %s" %
+             (launches, expected))
+    device = next(iter(compiler._param_vecs.values())).devmem.device
+
+    def restore(tick):
+        _, _, _, snapshot, batch, rng_state = tick
+        for n, v in list(compiler._param_vecs.items()) + \
+                list(compiler._state_vecs.items()):
+            v.devmem = snapshot[n].to(device)
+        for vec, arr in zip(compiler.batch_vectors, batch):
+            vec.mem = arr
+        gen.set_state(rng_state)
+
+    def compare(after, before):
+        rows = {}
+        for name, vec in compiler._param_vecs.items():
+            now = vec.devmem
+            gap = (after[name].to(device) - now).norm().item()
+            change = (now - before[name].to(device)).norm().item()
+            rows[name] = (gap, change, ALEXNET_CHANGE_TOL * change +
+                          ALEXNET_FLOOR * math.sqrt(now.numel()),
+                          now.numel())
+        return rows
+
+    def timed(training):
+        torch.cuda.synchronize()
+        start = time.monotonic()
+        loss = float(execute(training=training)["loss"])
+        torch.cuda.synchronize()
+        return loss, time.monotonic() - start
+
+    # Each tick again, from the same state, with the plain LRN.
+    engine.pallas_lrn = False
+    plain_losses, plain_s, tick_rows = [], [], []
+    for tick, after in zip(ticks, afters):
+        restore(tick)
+        loss, seconds = timed(tick[0])
+        plain_losses.append(loss)
+        plain_s.append(seconds)
+        if tick[0]:
+            tick_rows.append(compare(after, tick[3]))
+    engine.pallas_lrn = True
+    restore(ticks[0])
+    _, warm_validation_s = timed(False)
+    first = classes.index(True)
+    restore(ticks[first])
+    timed(True)
+    noise = compare(afters[first], ticks[first][3])
+    restore(ticks[first])
+    profile = profile_tick(lambda: execute(training=True))
+    launch = L._launch
+
+    def planted_launch(fn, name, *args):
+        launch(fn, name, *args)
+        if fn == "veles_lrn_bwd":
+            args[3].mul_(ALEXNET_PLANTED_SCALE)
+
+    restore(ticks[first])
+    L._launch = planted_launch
+    try:
+        timed(True)
+    finally:
+        L._launch = launch
+    planted = compare(afters[first], ticks[first][3])
+    torch.cuda.synchronize()
+
+    losses = [t[1] for t in ticks]
+    print("alexnet: losses with the LRN kernels %s, plain LRN from the "
+          "same state %s, ln(1000) %.4f" % (
+              ["%.6f" % x for x in losses],
+              ["%.6f" % x for x in plain_losses], math.log(1000)))
+
+    def family(name):
+        return name.split("/")[0] + "/" + name.split("/")[-1]
+
+    fam = {}   # name -> [min change RMS, max gap RMS, max gap/change]
+    for rows in tick_rows:
+        for name, (gap, change, _, n) in rows.items():
+            f = fam.setdefault(family(name), [math.inf, 0.0, 0.0])
+            f[0] = min(f[0], change / math.sqrt(n))
+            f[1] = max(f[1], gap / math.sqrt(n))
+            f[2] = max(f[2], gap / max(change, 1e-30))
+    print("alexnet readings per parameter over the %d train ticks (kernel "
+          "vs plain LRN from the same state): min change RMS / max gap "
+          "RMS / max gap over change; then the kernel tick repeated "
+          "(noise) and the planted fault (every dx x %g), gap over "
+          "change on the first train tick" % (len(tick_rows),
+                                              ALEXNET_PLANTED_SCALE))
+    for name, (c, g, r) in sorted(fam.items()):
+        print("  %-22s %.3g / %.3g / %.3g; noise %.3g; planted %.3g" % (
+            name, c, g, r, noise[name][0] / max(noise[name][1], 1e-30),
+            planted[name][0] / max(planted[name][1], 1e-30)))
+    for i, (lk, lp) in enumerate(zip(losses, plain_losses)):
+        if not (math.isfinite(lk) and math.isfinite(lp)):
+            fail("alexnet tick %d loss not finite: kernel %r, plain %r" %
+                 (i, lk, lp))
+        if abs(lk - lp) > ALEXNET_LOSS_RTOL * abs(lp):
+            fail("alexnet tick %d loss: kernel %.6f vs plain %.6f (rtol "
+                 "%g)" % (i, lk, lp, ALEXNET_LOSS_RTOL))
+    if abs(losses[0] - math.log(1000)) > 0.5:
+        fail("first-tick loss %.4f far from ln(1000) = %.4f for a "
+             "randomly initialized 1000-class model" %
+             (losses[0], math.log(1000)))
+    worst, worst_name = 0.0, None
+    for i, rows in enumerate(tick_rows):
+        for name, (gap, change, bound, n) in rows.items():
+            if gap / bound > worst:
+                worst, worst_name = gap / bound, "%s (train tick %d)" % (
+                    name, i + 1)
+            if not gap <= bound:
+                fail("alexnet parameter %s after train tick %d: kernel vs "
+                     "plain LRN gap %.3g > %.3g (the tick's change %.3g)" %
+                     (name, i + 1, gap, bound, change))
+    targets = ["%s/weights" % wf.forwards[i].name for i in (0, 3)]
+    planted_share = {n: planted[n][0] / planted[n][2] for n in targets}
+    flagged = sorted(n for n, r in planted.items() if r[0] > r[2])
+    print("alexnet: planted fault flags %d tensors: %s" % (len(flagged),
+                                                           flagged))
+    if len(targets) != 2 or not min(planted_share.values()) > 1.0:
+        fail("the alexnet parameter gate does not see every dx x %g of "
+             "the LRN backward kernel in conv1/conv2's weights: %s" %
+             (ALEXNET_PLANTED_SCALE, planted_share))
+    train_s = [t[2] for t in ticks if t[0]]
+    plain_train_s = [s for s, t in zip(plain_s, ticks) if t[0]]
+    p50 = float(numpy.median(train_s))
+    numbers = {
+        "losses": losses,
+        "plain_losses": plain_losses,
+        "train_tick_s": train_s,
+        "train_tick_p50_s": p50,
+        "images_per_s_at_p50": ALEXNET_BATCH / p50,
+        "validation_tick_cold_s": ticks[0][2],
+        "validation_tick_warm_s": warm_validation_s,
+        "profile": profile,
+        "plain_lrn_train_tick_s": plain_train_s,
+        "plain_lrn_train_tick_p50_s": float(numpy.median(plain_train_s)),
+        "plain_lrn_validation_tick_s": plain_s[0],
+        "peak_bytes": peak,
+        "worst_param_gap_over_bound": worst,
+        "worst_param": worst_name,
+        "param_gap_over_change": {k: v[2] for k, v in fam.items()},
+        "planted_gap_over_bound": planted_share,
+        "planted_flagged": flagged,
+        "decision": results,
+    }
+    print("alexnet check: %d ticks, every loss within rtol %g of the "
+          "plain-LRN tick from the same state; after every train tick "
+          "every parameter within %g of that tick's change + %g/sqrt("
+          "element) (largest share of the bound %.3g, %s); the planted "
+          "B7 fault fails the gate in conv1's and conv2's weights (%.3g, "
+          "%.3g of the bound)" % (
+              len(ticks), ALEXNET_LOSS_RTOL, ALEXNET_CHANGE_TOL,
+              ALEXNET_FLOOR, worst, worst_name,
+              *[planted_share[n] for n in targets]))
+    print("alexnet readings on %s (smoke, not a benchmark): train ticks "
+          "%s s (p50 %.4f s = %.1f images/s), validation tick %.4f s "
+          "(the first tick, cold; warm %.4f s); plain LRN: train ticks %s "
+          "s, validation tick %.4f s; peak device memory %.2f GB" % (
+              smi, ["%.4f" % x for x in train_s], p50, ALEXNET_BATCH / p50,
+              ticks[0][2], warm_validation_s,
+              ["%.4f" % x for x in plain_train_s], plain_s[0],
+              peak / 1e9))
+    del ticks, afters
+    return launches, numbers
+
+
 def post(url, body, timeout=600):
     req = urllib.request.Request(
         url, data=json.dumps(body).encode(),
@@ -739,8 +1326,8 @@ def phase_serving(workdir, smi):
     path = os.path.join(workdir, "lm.veles.tgz")
     t0 = time.monotonic()
     X.random_lm_artifact(path, VOCAB, EMBED, HEADS, BLOCKS, HIDDEN,
-                         POSITIONS, seed=SEED, compresslevel=1)
-    print("artifact write: %.1f s (%.2f GB, gzip level 1)" %
+                         POSITIONS, seed=SEED, compresslevel=0)
+    print("artifact write: %.1f s (%.2f GB, gzip level 0)" %
           (time.monotonic() - t0, os.path.getsize(path) / 1e9))
     t0 = time.monotonic()
     model = X.ExportedModel(path, device="cuda")
@@ -855,6 +1442,7 @@ def phase_serving(workdir, smi):
 
 
 def main():
+    started = time.monotonic()
     if not os.path.isdir(os.path.join(HERE, "veles_tpu_torch")):
         fail("veles_tpu_torch/ not found beside chip_smoke.py — run it "
              "from the root of a checkout")
@@ -872,7 +1460,13 @@ def main():
     phase_build()
     max_err, timings = phase_kernels()
     flash_err, flash_times = phase_flash_kernels()
+    lrn_err, lrn_worst, lrn_faults_read, lrn_times = phase_lrn_kernels()
+    gc.collect()
+    torch.cuda.empty_cache()
     flash_launches, training = phase_training(smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    lrn_launches, alexnet = phase_alexnet(smi)
     gc.collect()
     torch.cuda.empty_cache()
     workdir = os.path.join(HERE, ".chip_smoke")
@@ -925,9 +1519,45 @@ def main():
                        else None,
             "sdpa_fwd_bwd_ms": t["sdpa_fwd_bwd_ms"],
         })
+    for name, line in (("lrn_forward", 81), ("lrn_backward", 87)):
+        rows = [lrn_times[(name, shape)] for shape, _ in LRN_SHAPES]
+        kernels["kernels"].append({
+            "name": name,
+            "route": "cuda",
+            "source": "veles_tpu_torch/ops/csrc/lrn.cu",
+            "replaces": "veles_tpu/ops/pallas_lrn.py:%d" % line,
+            "shape": "one call each at %s, bf16, AlexNet constants; the "
+                     "times are the two calls' sum (one train tick)" %
+                     " and ".join("%s %s" % (n, sh) for n, sh in
+                                  LRN_SHAPES),
+            "launches": lrn_launches[name],
+            "max_abs_err": lrn_err[name],
+            "tol": "f32 fwd rtol %g, bwd %g x the terms' magnitude; bf16 "
+                   "fwd 2^-7 x |y|, bwd 2^-7 x (terms' magnitude + |dx|)"
+                   % (LRN_F32_RTOL, LRN_F32_RTOL),
+            "largest_share_of_tol": {
+                "%s %s" % k: v[0] for k, v in lrn_worst.items()},
+            "planted_faults": {"%s %s" % (n, lab): f for n, lab, f in
+                               lrn_faults_read},
+            "ms": sum(r["kernel_ms"] for r in rows),
+            "per_shape_ms": [r["kernel_ms"] for r in rows],
+            "plain_ms": sum(r["plain_ms"] for r in rows),
+            "bound_ms": sum(r["bound_ms"] for r in rows),
+            "bound_by": rows[0]["bound_by"],
+            # No one PyTorch call computes the backward alone: its
+            # yardstick is the library's forward+backward, kept apart.
+            "library_ms": sum(r["library_ms"] for r in rows)
+            if name == "lrn_forward" else None,
+            "library": "torch.nn.functional.local_response_norm"
+            if name == "lrn_forward" else None,
+            "library_fwd_bwd_ms": None if name == "lrn_forward" else
+            sum(r["library_ms"] for r in rows),
+        })
     print(json.dumps({"training": training}))
+    print(json.dumps({"alexnet": alexnet}))
     print(json.dumps({"serving": numbers}))
     print(json.dumps(kernels))
+    print("chip_smoke: command time %.1f s" % (time.monotonic() - started))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": count}}))

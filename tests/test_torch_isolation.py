@@ -26,7 +26,12 @@ def test_import_leaves_jax_and_veles_tpu_out():
             "veles_tpu_torch.accelerated_units, "
             "veles_tpu_torch.znicz.samples.tinylm, "
             "veles_tpu_torch.ops.flash_attention, "
-            "veles_tpu_torch.ops.attention, veles_tpu_torch.__main__\n"
+            "veles_tpu_torch.ops.attention, veles_tpu_torch.__main__, "
+            "veles_tpu_torch.ops.lrn, veles_tpu_torch.guardian, "
+            "veles_tpu_torch.mean_disp_normalizer, veles_tpu_torch.znicz, "
+            "veles_tpu_torch.znicz.standard_workflow, "
+            "veles_tpu_torch.znicz.samples.imagenet, "
+            "veles_tpu_torch.znicz.samples.mnist\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib', 'veles_tpu.')) or "
             "m == 'veles_tpu')\n"

@@ -6,8 +6,12 @@ tests in ``tests/test_torch_*.py``.  It imports ``torch`` and never
 ``jax``, and nothing of ``veles_tpu``.  Its entry points run on the CUDA
 card unless the caller asks for the CPU.
 
-Ported so far: serving an exported causal LM — the artifact reader and
+Ported so far: serving an exported causal LM (the artifact reader and
 writer, the paged KV block pool, the continuous-batching serving
-engine, the HTTP server, and the flash-decode attention kernel
-(``ops/decode_attention.py``, CUDA C++ for Hopper).
+engine, the HTTP server, the flash-decode kernel); training through the
+fused tick (the TinyLM workflow with the flash-attention kernels); and
+the znicz layer library with ``StandardWorkflow``, the MNIST FC sample
+and the AlexNet sample, whose LRN layers run hand-written forward and
+backward kernels (``ops/lrn.py``).  Every kernel is CUDA C++ for
+Hopper under ``ops/csrc/``.
 """

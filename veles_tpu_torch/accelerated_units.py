@@ -79,6 +79,13 @@ def step_compute_dtype():
     return torch.bfloat16 if level == 0 else torch.float32
 
 
+def select_by_training(ctx, train_fn, eval_fn):
+    """The train or the eval branch of a unit, by the tick's training
+    flag (a Python bool in every tick the port runs, block mode
+    included)."""
+    return train_fn() if ctx.training else eval_fn()
+
+
 class AcceleratedUnit(Unit):
     """A unit owning device-resident Vectors: ``initialize`` binds the
     device and attaches every Vector attribute to it."""

@@ -25,8 +25,10 @@ class FullBatchLoader(Loader, TracedUnit):
         super(FullBatchLoader, self).__init__(workflow, **kwargs)
         self.original_data = Vector()
         self.original_labels = Vector()
+        self.original_targets = Vector()
         self.minibatch_data = Vector()
         self.minibatch_labels = Vector()
+        self.minibatch_targets = Vector()
 
     # -- ILoader -----------------------------------------------------------
 
@@ -41,6 +43,10 @@ class FullBatchLoader(Loader, TracedUnit):
         if self.original_labels:
             self.minibatch_labels.mem = numpy.zeros(
                 mb, dtype=numpy.int32)
+        if self.original_targets:
+            self.minibatch_targets.mem = numpy.zeros(
+                (mb,) + tuple(self.original_targets.shape[1:]),
+                dtype=self.original_targets.dtype)
 
     def dataset_labels(self):
         """Class-sliced views of the resident labels (originals are
@@ -51,7 +57,8 @@ class FullBatchLoader(Loader, TracedUnit):
 
     def initialize(self, **kwargs):
         super(FullBatchLoader, self).initialize(**kwargs)
-        for vec in (self.original_data, self.original_labels):
+        for vec in (self.original_data, self.original_labels,
+                    self.original_targets):
             if vec:
                 vec.initialize(self.device)
 
@@ -67,6 +74,8 @@ class FullBatchLoader(Loader, TracedUnit):
         consts = [self.original_data]
         if self.original_labels:
             consts.append(self.original_labels)
+        if self.original_targets:
+            consts.append(self.original_targets)
         return consts
 
     def tforward(self, read, write, params, ctx, state=None):
@@ -77,6 +86,9 @@ class FullBatchLoader(Loader, TracedUnit):
         if self.original_labels:
             write(self.minibatch_labels,
                   torch.index_select(read(self.original_labels), 0, idx))
+        if self.original_targets:
+            write(self.minibatch_targets,
+                  torch.index_select(read(self.original_targets), 0, idx))
 
     def run(self):
         """Host part of the tick: serve indices, then trigger the step

@@ -25,7 +25,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..config import root, get as config_get
 from ..memory import Vector
-from .nn_units import ForwardBase, GradientDescentBase
+from .nn_units import ForwardBase, GradientDescentBase, dot as _dot
 from .evaluator import EvaluatorBase
 
 
@@ -98,12 +98,6 @@ def _layer_norm(x, gamma, beta, eps=1e-5):
     var = ((xf - mu) ** 2).mean(dim=-1, keepdim=True)
     return ((xf - mu) * torch.reciprocal(torch.sqrt(var + eps)) * gamma +
             beta).to(x.dtype)
-
-
-def _dot(a, w, cdt):
-    """``a @ w`` with both operands rounded to ``cdt`` and a float32
-    result."""
-    return torch.matmul(a.to(cdt).float(), w.to(cdt).float())
 
 
 def transformer_block_apply(params, x, n_heads, causal, cdt,

@@ -4,8 +4,10 @@ The evaluator closes the forward chain: it computes the scalar loss
 (``ctx.set_loss``, differentiated by the step) and the batch metrics
 that the Decision unit consumes, and adds them into ON-DEVICE epoch
 accumulators inside the step, so the host reads them once per
-class-epoch.  The LM evaluator is ``znicz.attention.EvaluatorLM``; the
-softmax and MSE evaluators come with the MNIST tick (ROADMAP A1).
+class-epoch.  Here: the base, the masked softmax cross-entropy
+(:class:`EvaluatorSoftmax`, with optional per-sample probability
+capture) and the masked mean-squared error (:class:`EvaluatorMSE`); the
+LM evaluator is ``znicz.attention.EvaluatorLM``.
 """
 
 import numpy
@@ -97,3 +99,106 @@ class EvaluatorBase(TracedUnit):
     def reset_health_acc(self, cls):
         self.health_acc.map_write()
         self.health_acc.mem[cls] = 0.0
+
+
+class EvaluatorSoftmax(EvaluatorBase):
+    """Masked softmax cross-entropy from the logits, and the error
+    count.
+
+    Links: ``input`` ← the softmax layer's ``logits``; ``labels`` ← the
+    loader's ``minibatch_labels``; ``mask`` ← ``minibatch_mask``.
+    """
+
+    def __init__(self, workflow, **kwargs):
+        super(EvaluatorSoftmax, self).__init__(workflow, **kwargs)
+        self.labels = None
+        # Per-sample probability capture: a (total_samples + 1,
+        # n_classes) device buffer written at the minibatch indices
+        # inside the step; the extra row takes the padded lanes.
+        self.capture_outputs = False
+        self.sample_indices = None
+        self.capture = Vector()
+        self.demand("labels", "mask", "minibatch_class_vec")
+
+    def enable_capture(self, loader):
+        """Arms probability capture (after initialize: the width comes
+        from the allocated logits); the step picks the new state tensor
+        up at its next fingerprint check."""
+        self.capture_outputs = True
+        self.sample_indices = loader.minibatch_indices
+        width = int(self.input.shape[-1])
+        self.capture.mem = numpy.zeros(
+            (loader.total_samples + 1, width), dtype=numpy.float32)
+
+    def read_capture(self):
+        """Host copy of the captured per-sample probabilities (the trash
+        row stripped)."""
+        self.capture.map_read()
+        return numpy.array(self.capture.mem[:-1])
+
+    @property
+    def tstate(self):
+        state = dict(super(EvaluatorSoftmax, self).tstate)
+        if self.capture_outputs and self.capture:
+            state["capture"] = self.capture
+        return state
+
+    def tforward(self, read, write, params, ctx, state=None):
+        logits = read(self.input)
+        labels = read(self.labels).long()
+        mask = read(self.mask)
+        n_valid = torch.clamp_min(mask.sum(), 1.0)
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        nll = -torch.gather(logp, 1, labels[:, None])[:, 0]
+        loss = (nll * mask).sum() / n_valid
+        pred = torch.argmax(logits, dim=-1)
+        n_err = ((pred != labels).float() * mask).sum()
+        ctx.set_loss(loss)
+        ctx.add_metric("n_err", n_err)
+        ctx.add_metric("n_valid", mask.sum())
+        updates = self._accumulate(read, state, n_err, mask.sum(), loss)
+        if state is not None and "capture" in state:
+            idx = read(self.sample_indices).long()
+            trash = state["capture"].shape[0] - 1
+            safe = torch.where(mask > 0, idx, torch.full_like(idx, trash))
+            updates = dict(updates or {})
+            updates["capture"] = state["capture"].index_put(
+                (safe,), torch.exp(logp) * mask[:, None])
+        return updates
+
+
+class EvaluatorMSE(EvaluatorBase):
+    """Masked mean squared error against ``target`` (or, when the
+    loader serves no targets, against ``fallback_target`` — usually the
+    input, for autoencoders).  ``OWNS_LOSS = False`` subclasses compute
+    the metrics without claiming the step's loss."""
+
+    OWNS_LOSS = True
+
+    def __init__(self, workflow, **kwargs):
+        super(EvaluatorMSE, self).__init__(workflow, **kwargs)
+        self.target = None
+        self.fallback_target = None
+        self.root_metric = kwargs.get("root", True)
+        self.demand("target", "mask", "minibatch_class_vec")
+
+    def tforward(self, read, write, params, ctx, state=None):
+        tgt = self.target
+        if not tgt and self.fallback_target is not None:
+            tgt = self.fallback_target
+        y = read(self.input).float()
+        t = read(tgt).float()
+        mask = read(self.mask)
+        batch = y.shape[0]
+        n_valid = torch.clamp_min(mask.sum(), 1.0)
+        se = ((y.reshape(batch, -1) - t.reshape(batch, -1)) ** 2).sum(1)
+        loss = (se * mask).sum() / n_valid
+        if self.OWNS_LOSS:
+            ctx.set_loss(loss)
+        ctx.add_metric("mse", torch.sqrt(loss) if self.root_metric
+                       else loss)
+        ctx.add_metric("n_valid", mask.sum())
+        # The error column carries the summed squared error, so the
+        # decision can report the epoch's MSE.
+        return self._accumulate(read, state, (se * mask).sum(),
+                                mask.sum(), loss)

@@ -13,6 +13,7 @@ belong to the distributed control plane (ROADMAP A7) and are not here.
 """
 
 import numpy
+import torch
 
 from .. import prng
 from ..accelerated_units import TracedUnit
@@ -20,6 +21,41 @@ from ..config import root, get as config_get
 from ..memory import Vector
 from ..registry import MappedUnitRegistry
 from . import optimizers
+
+
+#: znicz scaled-tanh constants (1.7159·tanh(0.6666·x)).
+TANH_A = 1.7159
+TANH_B = 0.6666
+
+
+# -- shared activation bodies (the all2all, conv and standalone
+# activation families) ---------------------------------------------------
+
+
+def act_tanh(v):
+    return TANH_A * torch.tanh(TANH_B * v)
+
+
+def act_softplus(v):
+    """znicz "RELU": log(1 + e^x)."""
+    return torch.nn.functional.softplus(v)
+
+
+def act_strict_relu(v):
+    """max(x, 0); a tie at 0 sends half the gradient each way, as
+    ``jnp.maximum`` does (``torch.relu`` would send none)."""
+    return torch.maximum(v, torch.zeros_like(v))
+
+
+def act_sigmoid(v):
+    return torch.sigmoid(v)
+
+
+def dot(a, w, cdt):
+    """``a @ w`` with both operands rounded to ``cdt`` and a float32
+    result — the JAX package's ``jnp.dot(a.astype(cdt), w.astype(cdt),
+    preferred_element_type=float32)``."""
+    return torch.matmul(a.to(cdt).float(), w.to(cdt).float())
 
 
 class ForwardUnitRegistry(MappedUnitRegistry):
@@ -33,10 +69,21 @@ class GDUnitRegistry(MappedUnitRegistry):
     registry = {}
 
 
+def gd_for(layer_or_mapping):
+    """The GD unit class paired with a forward layer (by its MAPPING
+    string)."""
+    mapping = getattr(layer_or_mapping, "MAPPING", layer_or_mapping)
+    return GDUnitRegistry.get_factory(mapping)
+
+
 class ForwardBase(TracedUnit, metaclass=ForwardUnitRegistry):
     """A forward layer unit."""
 
     hide_from_registry = True
+
+    #: Whether this layer type owns trainable parameters — static, so
+    #: workflow builders can pair GD units before weights exist.
+    HAS_PARAMS = True
 
     def __init__(self, workflow, **kwargs):
         super(ForwardBase, self).__init__(workflow, **kwargs)
@@ -47,6 +94,7 @@ class ForwardBase(TracedUnit, metaclass=ForwardUnitRegistry):
         self.bias = Vector()
         self.include_bias = kwargs.get("include_bias", True)
         self.weights_stddev = kwargs.get("weights_stddev")
+        self.bias_stddev = kwargs.get("bias_stddev")
         self.prng_key = kwargs.get("prng_key", 0)
         self.demand("input")
 
