@@ -5,25 +5,28 @@ Run from the root of a checkout, on a machine with one CUDA card:
 
     python3 chip_smoke.py
 
-It drives the port's three paths once each, at full width — training
+It drives the port's four paths once each, at full width — training
 the TinyLM workflow through the fused tick and serving an exported LM,
 both at the LM bench geometry (embed 2048, 16 heads of dim 128, MLP
-8192, 12 blocks, vocab 16384, positional table / sequence 1024), and
+8192, 12 blocks, vocab 16384, positional table / sequence 1024),
 training the full-width ungrouped AlexNet through ``StandardWorkflow``
-(227 px, 1000 classes, batch 512) — with random weights from a seed, in
-phases; any failure exits non-zero:
+(227 px, 1000 classes, batch 512), and serving the same LM from int8
+KV planes with int8 weights, speculative decoding and a hot reload —
+with random weights from a seed, in phases; any failure exits
+non-zero:
 
 1. device — the card's name, count, and ``nvidia-smi`` name and power
    limit; no CUDA fails;
-2. build — ``nvcc`` builds every kernel of the three paths from the
+2. build — ``nvcc`` builds every kernel of the four paths from the
    sources in the checkout, one process per source, all at once
-   (``veles_tpu_torch/ops/csrc/decode_attention.cu`` — B4 —,
+   (``veles_tpu_torch/ops/csrc/decode_attention.cu`` — B4, B5 —,
    ``flash_attention.cu`` — B1 forward, B2 dq, B3 dk/dv — and
    ``lrn.cu`` — B6 LRN forward, B7 LRN backward);
 3. kernel check — each kernel's wrapper against its plain PyTorch
    version on the card, at the shapes its path gives it and at ragged,
    masked and (LRN) strong-constant edge cases, within the stated
-   tolerances; planted LRN faults must be flagged;
+   tolerances; planted LRN and B5 faults must be flagged; rows of a
+   16-row B4/B5 launch must equal the same rows launched alone;
 4. kernel timing — kernel, plain version, one PyTorch library call
    computing the same function where there is one, and the least time
    the card could take;
@@ -50,8 +53,23 @@ phases; any failure exits non-zero:
    repeated prompt (prefix cache + copy-on-write);
 8. serving checks — every answer token-identical to the port's
    ``generate(..., attend=decode_attention_reference)`` on the card,
-   and the kernel's launch count equal to what the run implies;
-9. exit — drains the server, prints the training, AlexNet and serving
+   and the kernel's launch count equal to what the run implies; the
+   same wave with ``--spec`` (verify chunks through B4) answers the
+   same tokens;
+9. quantized serving — a second artifact (another seed) is written;
+   the first is served with ``--kv-dtype int8 --weight-dtype int8
+   --spec --warmup`` (and once without ``--spec``) to the mixed wave
+   plus prompts that repeat themselves; every device call of the run is
+   replayed with the plain quant attention on the same planes and must
+   answer as served; the ``--spec`` answers must equal those without;
+   B5 launches once per block for every step, every verify column and
+   every short extend row; then ``POST /admin/reload`` swaps in the
+   second artifact: version 2, the int8 weights re-quantized, the calls
+   after it replayed the same way, and two more prompt sets answer the
+   same with and without ``--spec``; one fp8 pass goes through the
+   model API alone, and a verify on the int8 and fp8 planes must answer
+   and store what plain steps do, bit for bit;
+10. exit — drains the servers, prints the training, AlexNet and serving
    numbers and the kernels as JSON lines, the command's time, the
    card's name and power limit, and ``{"ok": true, "device": {...}}``
    last.
@@ -217,6 +235,225 @@ def phase_kernels():
                       "kernel_ms", "plain_ms", "library_ms", "bound_ms",
                       "bound_by"))))
     return max_err, timings
+
+
+#: B5 (the quantized flash-decode kernel) against its plain version,
+#: dequantize-then-B4's reference: float32 arithmetic on both sides on
+#: exactly the same dequantized values (code · scale), only the order of
+#: the sums differs — B4's tolerance.  Shapes: the decode step (Sq = 1)
+#: and the short chunks an extend of at most 16 tokens sends through B5
+#: (5: the wave's shortest prompt; 16: the widest), over the full table
+#: and a ragged one.
+QUANT_SQ, QUANT_L = (1, 5, 16), (POSITIONS, 1000)
+QUANT_CODES = (("int8", "int8", 127.0), ("fp8", "float8_e4m3fn", 448.0))
+
+
+def quant_inputs(B, Sq, H, D, L, code_dtype, qmax, gen):
+    """q, codes and (B, L, H) scales as the pool hands them to B5:
+    normal float32 keys and values quantized per (block of KV_BLOCK
+    positions, head) at scale amax / qmax, so every block and head holds
+    a code at ±qmax, and the scale broadcast over the block's positions;
+    block 1 of every row then gets scale 0 over its nonzero codes.  The
+    key mask is ragged with one fully masked query row."""
+    import torch
+    q, k, v, mask = decode_inputs(B, Sq, H, D, L, gen)
+    n_blocks = -(-L // KV_BLOCK)
+
+    def quantize(x):
+        pad = torch.zeros((B, n_blocks * KV_BLOCK - L, H, D),
+                          device="cuda")
+        blocks = torch.cat([x, pad], 1).view(B, n_blocks, KV_BLOCK, H, D)
+        scale = blocks.abs().amax(dim=(2, 4)) / qmax   # (B, n_blocks, H)
+        c = (blocks / scale[:, :, None, :, None]).clamp(-qmax, qmax)
+        if code_dtype == torch.int8:
+            c = torch.round(c)
+        c = c.reshape(B, -1, H, D)[:, :L].to(code_dtype)
+        if n_blocks > 1:
+            scale[:, 1] = 0.0
+        return c, scale.repeat_interleave(KV_BLOCK, dim=1)[:, :L]
+
+    (kc, ks), (vc, vs) = quantize(k), quantize(v)
+    return q, kc, vc, mask, ks, vs
+
+
+def share_of_tol(got, want):
+    """The largest |got − want| / (atol + rtol·|want|) (B4's tolerance):
+    at most 1 passes."""
+    return ((got - want).abs() / (ATOL + RTOL * want.abs())).max().item()
+
+
+def phase_quant_kernels():
+    """Phases 3-4 for B5: int8 and fp8 codes against
+    decode_attention_quant_reference at B=8, H=16, D=128, Sq in
+    QUANT_SQ, L in QUANT_L; planted faults (k's and v's scales swapped,
+    codes read with no scale, fp8 read as e5m2) must be flagged; rows of
+    one Sq=16 launch equal the same rows launched alone (Sq=1), bit for
+    bit, for B4 and B5; then timed at the decode step's and the verify
+    chunk's shapes beside B4 on the same keys as f32, the plain version,
+    dequantize + SDPA, and the bound."""
+    import torch
+    from veles_tpu_torch.ops import decode_attention as DA
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    B, H, D = MAX_BATCH, HEADS, EMBED // HEADS
+    worst, faults, b4_equal = {}, {}, {}
+    for label, dtype_name, qmax in QUANT_CODES:
+        code_dtype = getattr(torch, dtype_name)
+        for Sq in QUANT_SQ:
+            for L in QUANT_L:
+                q, kc, vc, mask, ks, vs = quant_inputs(
+                    B, Sq, H, D, L, code_dtype, qmax, gen)
+                out = DA.decode_attention(q, kc, vc, mask, k_scale=ks,
+                                          v_scale=vs)
+                torch.cuda.synchronize()
+                if not torch.isfinite(out).all():
+                    fail("B5 output not finite (%s, Sq=%d, L=%d)" %
+                         (label, Sq, L))
+                if out[0, Sq - 1].abs().max().item() != 0.0:
+                    fail("B5: fully masked row not zero (%s, Sq=%d, L=%d)"
+                         % (label, Sq, L))
+                ref = DA.decode_attention_quant_reference(q, kc, vc, mask,
+                                                          ks, vs)
+                share = share_of_tol(out, ref)
+                err = (out - ref).abs().max().item()
+                was = worst.get(label, (0.0, 0.0))
+                worst[label] = (max(was[0], err), max(was[1], share))
+                if not share <= 1.0:
+                    fail("B5 (%s) disagrees with its plain version at "
+                         "Sq=%d L=%d: max abs err %.3g, %.3g of the "
+                         "tolerance" % (label, Sq, L, err, share))
+                # B4 on the dequantized table: the same arithmetic.
+                b4 = DA.decode_attention(q, DA.dequantize(kc, ks),
+                                         DA.dequantize(vc, vs), mask)
+                b4_equal[(label, Sq, L)] = bool(torch.equal(out, b4))
+                planted = {
+                    "scales_swapped": DA.decode_attention_quant_reference(
+                        q, kc, vc, mask, vs, ks),
+                    "no_scale": DA.decode_attention_quant_reference(
+                        q, kc, vc, mask, torch.ones_like(ks),
+                        torch.ones_like(vs)),
+                }
+                if label == "fp8":
+                    planted["read_as_e5m2"] = \
+                        DA.decode_attention_quant_reference(
+                            q, kc.view(torch.float8_e5m2),
+                            vc.view(torch.float8_e5m2), mask, ks, vs)
+                for name, bad in planted.items():
+                    key = "%s %s" % (label, name)
+                    faults[key] = min(faults.get(key, float("inf")),
+                                      share_of_tol(out, bad))
+                del q, kc, vc, mask, ks, vs, out, ref, b4, planted
+    print("kernel check: decode_attention (B5) == "
+          "decode_attention_quant_reference at B=%d H=%d D=%d Sq in %s, L "
+          "in %s, int8 and fp8 codes with ±qmax, a zero-scale block, "
+          "ragged masks and a fully masked row (rtol %g, atol %g): %s" % (
+              B, H, D, QUANT_SQ, QUANT_L, RTOL, ATOL, ", ".join(
+                  "%s max abs err %.3g (share %.3g)" % (k, v[0], v[1])
+                  for k, v in sorted(worst.items()))))
+    print("  B5 on codes == B4 on the dequantized table, bit for bit: "
+          "%d of %d shapes" % (sum(b4_equal.values()), len(b4_equal)))
+    print("planted B5 faults (smallest share of the tolerance over the "
+          "shapes; > 1 = flagged): %s" % ", ".join(
+              "%s %.3g" % kv for kv in sorted(faults.items())))
+    for name, share in faults.items():
+        if not share > 1.0:
+            fail("planted fault %s passes the B5 check (share %.3g)" %
+                 (name, share))
+    sq_rows = sq_invariance(gen)
+    return worst, faults, b4_equal, sq_rows, quant_timings(gen)
+
+
+def sq_invariance(gen):
+    """Every row of an Sq=16 launch against the same row launched alone
+    over the same keys (Sq=1), for B4 (f32) and B5 (int8, fp8), at
+    L=POSITIONS: bit-identical, or a row's attention would depend on the
+    rows launched beside it (B4: the f32 verify chunk against plain
+    steps)."""
+    import torch
+    from veles_tpu_torch.ops import decode_attention as DA
+    B, H, D, Sq, L = MAX_BATCH, HEADS, EMBED // HEADS, 16, POSITIONS
+    rows = {}
+    for label, dtype_name, qmax in (("f32", None, None),) + QUANT_CODES:
+        if dtype_name is None:
+            q, k, v, mask = decode_inputs(B, Sq, H, D, L, gen,
+                                          fully_masked_row=False)
+            kw = {}
+        else:
+            q, k, v, mask, ks, vs = quant_inputs(
+                B, Sq, H, D, L, getattr(torch, dtype_name), qmax, gen)
+            kw = dict(k_scale=ks, v_scale=vs)
+        wide = DA.decode_attention(q, k, v, mask, **kw)
+        same = 0
+        for r in range(Sq):
+            one = DA.decode_attention(q[:, r:r + 1].contiguous(), k, v,
+                                      mask[:, r:r + 1].contiguous(), **kw)
+            same += bool(torch.equal(one[:, 0], wide[:, r]))
+        torch.cuda.synchronize()
+        rows[label] = same
+        if same != Sq:
+            fail("%s decode kernel: only %d of %d rows of an Sq=%d launch "
+                 "equal the Sq=1 launches bit for bit" % (
+                     "B4" if label == "f32" else "B5 " + label, same, Sq,
+                     Sq))
+    print("kernel check: rows of an Sq=16 launch == Sq=1 launches over "
+          "the same keys, bit for bit, at B=%d H=%d D=%d L=%d: B4 %d/16, "
+          "B5 int8 %d/16, fp8 %d/16" % (B, H, D, L, rows["f32"],
+                                       rows["int8"], rows["fp8"]))
+    return rows
+
+
+def quant_timings(gen):
+    """B5 at the decode step's shape (Sq=1) and the 16-row verify shape,
+    L=POSITIONS, int8 and fp8: kernel; B4 on the same keys as f32; the
+    plain version; dequantize + SDPA (no one PyTorch call computes B5);
+    and the bound: the bytes B5 must move — the codes, the per-position
+    scales (the layout it is given), q, the mask and the output — at
+    3.35 TB/s against its float32 operations (4·Sq·D per key and head
+    plus the 2·D dequantizing multiplies) at 67 TFLOP/s."""
+    import torch
+    import torch.nn.functional as F
+    from veles_tpu_torch.ops import decode_attention as DA
+    B, H, D, L = MAX_BATCH, HEADS, EMBED // HEADS, POSITIONS
+    out = {}
+    for label, dtype_name, qmax in QUANT_CODES:
+        for Sq in (1, 16):
+            q, kc, vc, mask, ks, vs = quant_inputs(
+                B, Sq, H, D, L, getattr(torch, dtype_name), qmax, gen)
+            mask[0, Sq - 1] = True   # no empty row when timing
+            kf, vf = DA.dequantize(kc, ks), DA.dequantize(vc, vs)
+            qt = q.transpose(1, 2)
+            amask = mask[:, None]
+
+            def library():
+                return F.scaled_dot_product_attention(
+                    qt, DA.dequantize(kc, ks).transpose(1, 2),
+                    DA.dequantize(vc, vs).transpose(1, 2), attn_mask=amask)
+
+            n_bytes = (2 * B * L * H * D + 2 * 4 * B * L * H +
+                       2 * 4 * B * Sq * H * D + B * Sq * L)
+            ops = 4 * B * H * Sq * L * D + 2 * B * L * H * D
+            bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+            ops_ms = ops / F32_FLOP_PER_S * 1e3
+            row = dict(
+                kernel_ms=cuda_ms(lambda: DA.decode_attention(
+                    q, kc, vc, mask, k_scale=ks, v_scale=vs)),
+                b4_f32_ms=cuda_ms(lambda: DA.decode_attention(
+                    q, kf, vf, mask)),
+                plain_ms=cuda_ms(lambda: DA.decode_attention_quant_reference(
+                    q, kc, vc, mask, ks, vs)),
+                library_ms=cuda_ms(library),
+                bound_ms=max(bytes_ms, ops_ms),
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                mbytes=n_bytes / 1e6)
+            out[(label, Sq)] = row
+            print("kernel timing B5 %s B=%d Sq=%d H=%d D=%d L=%d: kernel "
+                  "%.4f ms, B4 on the same keys as f32 %.4f ms, plain %.4f "
+                  "ms, dequantize + sdpa %.4f ms, bound %.4f ms (%s; %.2f "
+                  "MB with per-position scales)" % (
+                      label, B, Sq, H, D, L, row["kernel_ms"],
+                      row["b4_f32_ms"], row["plain_ms"], row["library_ms"],
+                      row["bound_ms"], row["bound_by"], row["mbytes"]))
+            del q, kc, vc, mask, ks, vs, kf, vf, qt, amask
+    return out
 
 
 #: Flash kernels (B1-B3) against their plain versions.  The lse is
@@ -995,6 +1232,8 @@ def kernel_family(name):
     low = name.lower()
     if "lrn_" in low:
         return "lrn (B6/B7)"
+    if "decode_partial" in low or "decode_merge" in low:
+        return "decode attention (B4/B5)"
     if "conv" in low or "fprop" in low or "dgrad" in low or \
             "wgrad" in low or "implicit" in low:
         return "convolution"
@@ -1005,7 +1244,7 @@ def kernel_family(name):
     return "elementwise and other"
 
 
-def profile_tick(run):
+def profile_tick(run, label="alexnet profile of one warm train tick"):
     """One tick under ``torch.profiler`` (CPU and CUDA activities): the
     device time of its kernels (the trace's CUDA events only) by family
     and the ten largest, and the device's idle share of the tick's wall
@@ -1031,8 +1270,7 @@ def profile_tick(run):
             kernels[ev.key] = kernels.get(ev.key, 0.0) + us / 1e3
     device_ms = sum(kernels.values())
     if not device_ms:
-        print("alexnet profile: not measured (the trace holds no device "
-              "time)")
+        print("%s: not measured (the trace holds no device time)" % label)
         return {"device_ms": "not measured"}
     families = {}
     for name, ms in kernels.items():
@@ -1043,9 +1281,9 @@ def profile_tick(run):
            "idle_share": max(0.0, 1.0 - device_ms / wall_ms),
            "families_ms": families,
            "top_kernels_ms": [[n[:90], ms] for n, ms in top]}
-    print("alexnet profile of one warm train tick (torch.profiler): wall "
-          "%.2f ms, kernels %.2f ms, device idle %.1f %%; by family %s" % (
-              wall_ms, device_ms, 100 * out["idle_share"],
+    print("%s (torch.profiler): wall %.2f ms, kernels %.2f ms, device "
+          "idle %.1f %%; by family %s" % (
+              label, wall_ms, device_ms, 100 * out["idle_share"],
               {k: round(v, 3) for k, v in sorted(families.items())}))
     for name, ms in top:
         print("  %8.3f ms  %s" % (ms, name[:110]))
@@ -1303,10 +1541,12 @@ def phase_alexnet(smi):
     return launches, numbers
 
 
-def post(url, body, timeout=600):
-    req = urllib.request.Request(
-        url, data=json.dumps(body).encode(),
-        headers={"Content-Type": "application/json"})
+def post(url, body, timeout=600, token=None):
+    headers = {"Content-Type": "application/json"}
+    if token is not None:
+        headers["X-Status-Token"] = token
+    req = urllib.request.Request(url, data=json.dumps(body).encode(),
+                                 headers=headers)
     with urllib.request.urlopen(req, timeout=timeout) as resp:
         return json.loads(resp.read())
 
@@ -1317,7 +1557,8 @@ def get(url):
 
 
 def phase_serving(workdir, smi):
-    """Phases 5-6: returns (launches, numbers)."""
+    """Phases 7-8 on the f32 plane: returns (launches, numbers, and the
+    model, prompts and answers the later phases reuse)."""
     import numpy
     import torch
     from veles_tpu_torch import export as X
@@ -1417,6 +1658,7 @@ def phase_serving(workdir, smi):
                      top2[1] - top2[0]))
     print("serving check: %d answers token-identical to generate(attend="
           "decode_attention_reference) on the card" % len(answers))
+    served = dict(model=model, prompts=all_prompts, answers=answers)
     n_tokens = MAX_NEW * len(prompts)
     ttft = stats["latency"].get("ttft.generate", {})
     numbers = {
@@ -1438,7 +1680,727 @@ def phase_serving(workdir, smi):
               numbers["wave_tok_per_s"], numbers["ttft_median_ms"],
               numbers["ttft_largest_ms"], numbers["itl_p50_ms"],
               peak / 1e9))
-    return launches, numbers
+    return launches, numbers, served
+
+
+#: The quantized serving path: --kv-dtype int8 --weight-dtype int8 --spec
+#: at --spec-max-k 4 (verifies of up to 5 columns).  Beside the mixed wave,
+#: two prompts that repeat a short pattern, where the n-gram drafter
+#: finds its matches.
+SPEC_K = 4
+REPEATING = ((8, 8), (5, 30))   # (pattern length, repeats)
+TOKEN = "chip-smoke"
+
+
+class CallLog(object):
+    """Wraps a model's paged entry points and a pool's block copy: counts
+    the times a call's attention went through a decode kernel (see
+    :meth:`programs`; one launch per block each) and, while recording,
+    keeps every call's inputs and output in order, with the pool's
+    contents at the start, so the run can be replayed call for call."""
+
+    KINDS = ("paged_extend", "paged_step", "paged_verify")
+
+    def __init__(self, model):
+        self.model = model
+        self.originals = {k: getattr(model, k) for k in self.KINDS}
+        self.records, self.snapshot, self.recording = [], None, False
+        self.calls = {}
+        for kind in self.KINDS:
+            setattr(model, kind, self._wrap(kind))
+
+    def _wrap(self, kind):
+        import numpy
+        from veles_tpu_torch.ops import decode_attention as DA
+        fn = self.originals[kind]
+
+        def call(pool, *args, **kw):
+            out = fn(pool, *args, **kw)
+            n = self.programs(kind, pool, args, out)
+            if n:
+                self.calls[kind] = self.calls.get(kind, 0) + n
+            if self.recording:
+                self.records.append((kind, [numpy.array(a) for a in args],
+                                     numpy.array(out)))
+            return out
+        return call
+
+    @staticmethod
+    def programs(kind, pool, args, out):
+        """How many times a call ran its attention through a decode
+        kernel (one launch per block each).  On the f32 plane: a step,
+        a verify, an extend of at most DECODE_MAX_Q columns, once.  On
+        the int8/fp8 planes an extend runs each real row alone (at its
+        own chunk length: once per row of at most DECODE_MAX_Q tokens),
+        and a verify runs the step program once per column reached:
+        1 + the most drafts a row accepted."""
+        import numpy
+        from veles_tpu_torch.ops import decode_attention as DA
+        from veles_tpu_torch.serving.speculation import accept_lengths
+        scaled = pool.kv_dtype in ("int8", "fp8")
+        if kind == "paged_extend":
+            if not scaled:
+                return int(args[1].shape[1] <= DA.DECODE_MAX_Q)
+            tables, clens = numpy.asarray(args[0]), numpy.asarray(args[3])
+            return int(((tables[:, 0] != 0) & (clens > 0) &
+                        (clens <= DA.DECODE_MAX_Q)).sum())
+        if kind == "paged_verify" and scaled:
+            toks = numpy.asarray(args[2])
+            return 1 + int(accept_lengths(toks[:, 1:], args[3],
+                                          out).max())
+        return 1
+
+    def watch(self, pool):
+        """Records the pool's block copies (copy-on-write) and, on a
+        scaled plane, the zeroing of freshly allocated blocks."""
+        fn, reset_fn = pool._copy_fn, pool._reset_fn
+
+        def copy(storage, src, dst):
+            if self.recording:
+                self.records.append(("copy", (src, dst), None))
+            return fn(storage, src, dst)
+
+        def reset(storage, ids):
+            if self.recording:
+                self.records.append(("reset", list(ids), None))
+            return reset_fn(storage, ids)
+        pool._copy_fn = copy
+        if reset_fn is not None:
+            pool._reset_fn = reset
+
+    def start(self, pool):
+        import torch
+        torch.cuda.synchronize()
+        self.snapshot = [[t.clone() for t in group]
+                         for group in pool.storage]
+        self.records, self.calls, self.recording = [], {}, True
+
+    def stop(self):
+        self.recording = False
+        return self.records, self.snapshot
+
+    def kernel_calls(self):
+        return sum(self.calls.values())
+
+    def restore(self):
+        for kind, fn in self.originals.items():
+            setattr(self.model, kind, fn)
+
+    def replay(self, records, snapshot, pool_args):
+        """Every recorded call again, in order, on a pool that starts
+        from the snapshot, with the kernels — which rebuilds the served
+        run's planes call by call — and, before each call, the same call
+        on a copy of the pool as it stands with the plain attention
+        (dequantize + the dense softmax): B5 against its plain version
+        on the same int8 planes, at every call of the main path.
+        Returns (calls compared, mismatches of the plain version,
+        mismatches of the kernel replay, mismatches of an independent
+        plain replay), each mismatch (call, kind, row) where the output
+        of a real row (columns up to its draft count, for a verify)
+        differs from the served one.  The independent replay runs the
+        plain attention alone from the snapshot, so its planes drift
+        from the served ones as quantization amplifies the ulp-level
+        differences of the sums: a reading, not a gate."""
+        import copy
+        from veles_tpu_torch.ops import decode_attention as DA
+        pools = [self.model.make_kv_pool(*pool_args) for _ in range(2)]
+        for pool in pools:
+            for group, saved in zip(pool.storage, snapshot):
+                for t, s in zip(group, saved):
+                    t.copy_(s)
+        main, alone = pools
+        bad = {"plain": [], "kernel": [], "alone": []}
+        compared = 0
+        for i, (kind, args, want) in enumerate(records):
+            if kind == "copy":
+                for pool in pools:
+                    self.model._kv_copy_block(pool.storage, *args)
+                continue
+            if kind == "reset":
+                for pool in pools:
+                    self.model._kv_reset_blocks(pool.storage, args)
+                continue
+            compared += 1
+            fn = self.originals[kind]
+            scratch = copy.copy(main)
+            scratch.storage = tuple([t.clone() for t in group]
+                                    for group in main.storage)
+            ref = DA.decode_attention_reference
+            outs = {"plain": fn(scratch, *args, attend=ref),
+                    "kernel": fn(main, *args),
+                    "alone": fn(alone, *args, attend=ref)}
+            del scratch
+            for name, got in outs.items():
+                if not self.same(kind, args, got, want):
+                    bad[name].append((i, kind))
+        return compared, bad["plain"], bad["kernel"], bad["alone"]
+
+    @staticmethod
+    def same(kind, args, got, want):
+        """Whether every real row (a table that is not all trash) of a
+        call's output equals the served one, over the columns up to its
+        draft count for a verify."""
+        import numpy
+        for r in numpy.flatnonzero(args[0][:, 0] != 0):
+            n = int(args[3][r]) + 1 if kind == "paged_verify" else None
+            if not numpy.array_equal(got[r, :n] if n else got[r],
+                                     want[r, :n] if n else want[r]):
+                return False
+        return True
+
+
+def gate_replay(name, replayed):
+    """The replay's gate: every call of the run, with the plain
+    attention on the same planes, answers as served; the kernel replay
+    rebuilt those planes bit for bit."""
+    compared, plain, kernel, alone = replayed
+    print("%s check: %d device calls replayed; with attend = the plain "
+          "quant reference on the same planes %d differ, the kernel "
+          "replay %d, an independent plain replay %d %s" % (
+              name, compared, len(plain), len(kernel), len(alone),
+              alone[:6]))
+    if plain or kernel or not compared:
+        fail("%s: the served tokens differ from the plain-quant attention "
+             "on the same planes at %s, from the kernel replay at %s" % (
+                 name, plain[:10], kernel[:10]))
+
+
+def gate_spec_vs_plain(spec, plain):
+    """The --spec answers against the same server's without --spec on
+    the int8 planes, token for token.  On a scaled plane what a block
+    stores depends on how its positions were grouped into writes and on
+    the exact floats written, so the port makes each row's run a
+    function of the row alone there: a verify runs the plain step
+    program column by column and writes only accepted positions, and an
+    extend runs each row alone (``ExportedModel.paged_verify``,
+    ``paged_extend``)."""
+    for i, (a, b) in enumerate(zip(spec, plain)):
+        if a != b:
+            fail("int8 --spec answer %d differs from the answer without "
+                 "--spec at generated position %d" % (
+                     i, divergence(a, b)[0]))
+    print("int8 --spec serving check: %d answers token-identical to the "
+          "same server's without --spec" % len(spec))
+
+
+def replay_readings(replayed):
+    compared, plain, kernel, alone = replayed
+    return {"calls": compared, "plain_same_planes_mismatches": len(plain),
+            "kernel_replay_mismatches": len(kernel),
+            "independent_plain_mismatches": len(alone)}
+
+
+def profile_decode_steps(model):
+    """One warm decode step of the 8-row batch over 1024-position tables
+    (blocks 1..64 of a fresh pool per row), profiled on the f32 plane
+    with f32 weights and on the int8 plane with int8 weights."""
+    import numpy
+    from veles_tpu_torch.config import root
+    mode = root.common.serving.weight_dtype
+    per = POSITIONS // KV_BLOCK
+    tables = (1 + numpy.arange(MAX_BATCH * per, dtype=numpy.int32)
+              ).reshape(MAX_BATCH, per)
+    pos = numpy.full(MAX_BATCH, POSITIONS - 1, numpy.int32)
+    zeros = numpy.zeros(MAX_BATCH, numpy.int32)
+    out = {}
+    for kv_dtype, weights in (("f32", "f32"), ("int8", "int8")):
+        root.common.serving.weight_dtype = weights
+        pool = model.make_kv_pool(MAX_BATCH * per + 1, KV_BLOCK,
+                                  kv_dtype=kv_dtype)
+
+        def step():
+            model.paged_step(pool, tables, pos, zeros, zeros,
+                             numpy.zeros(MAX_BATCH, numpy.float32),
+                             numpy.zeros(MAX_BATCH, numpy.uint32))
+
+        step()
+        out["%s/%s" % (kv_dtype, weights)] = profile_tick(
+            step, "decode step B=%d L=%d, %s KV plane, %s weights" % (
+                MAX_BATCH, POSITIONS, kv_dtype, weights))
+        del pool
+    root.common.serving.weight_dtype = mode
+    return out
+
+
+def quant_prompts(prompts):
+    import numpy
+    rng = numpy.random.RandomState(SEED % (1 << 31) + 1)
+    return list(prompts[:len(PROMPT_LENGTHS)]) + [
+        numpy.tile(rng.randint(0, VOCAB, n), reps).tolist()
+        for n, reps in REPEATING]
+
+
+def serve_wave(model, prompts, repeat, log=None, **server_kw):
+    """A server on ``model`` with ``--warmup`` and ``server_kw``; the
+    decode-kernel counts and ``log``'s counts and records zeroed just
+    before ``prompts`` go out as one concurrent wave of /api/generate
+    requests and ``repeat`` one by one after it, and read just after.
+    Returns (answers, numbers) with the server still running in
+    numbers["server"]."""
+    import torch
+    from veles_tpu_torch.ops import decode_attention as DA
+    from veles_tpu_torch.restful import ModelServer
+    server = ModelServer(model, host="127.0.0.1", port=0,
+                         max_batch=MAX_BATCH, kv_block_size=KV_BLOCK,
+                         deadline=600.0, warmup=True, token=TOKEN,
+                         **server_kw)
+    t0 = time.monotonic()
+    server.start()
+    torch.cuda.synchronize()
+    warmup_s = time.monotonic() - t0
+    base = "http://127.0.0.1:%d" % server.port
+    if log is not None:
+        log.watch(server.engine.kv_pool)
+        log.start(server.engine.kv_pool)
+    torch.cuda.reset_peak_memory_stats()
+    DA.decode_attention.launches = DA.decode_attention.quant_launches = 0
+    t0 = time.monotonic()
+    with concurrent.futures.ThreadPoolExecutor(len(prompts)) as ex:
+        futs = [ex.submit(post, base + "/api/generate",
+                          {"tokens": [p], "max_new_tokens": MAX_NEW},
+                          token=TOKEN) for p in prompts]
+        answers = [f.result()["generated"][0] for f in futs]
+    wave_s = time.monotonic() - t0
+    for p in repeat:
+        answers.append(post(base + "/api/generate", {
+            "tokens": [p], "max_new_tokens": MAX_NEW},
+            token=TOKEN)["generated"][0])
+    torch.cuda.synchronize()
+    numbers = dict(
+        server=server, base=base, warmup_s=warmup_s, wave_s=wave_s,
+        b4=DA.decode_attention.launches, b5=DA.decode_attention.quant_launches,
+        peak=torch.cuda.max_memory_allocated(), stats=get(base + "/stats"))
+    if log is not None:
+        numbers["calls"] = dict(log.calls)
+        numbers["records"], numbers["snapshot"] = log.stop()
+    return answers, numbers
+
+
+def divergence(got, want):
+    """(first position where two answers differ or their length, share
+    of equal positions)."""
+    first = next((j for j, (a, b) in enumerate(zip(got, want)) if a != b),
+                 len(want))
+    return first, sum(a == b for a, b in zip(got, want)) / len(want)
+
+
+def check_launches(name, numbers, log, b4, b5):
+    """The decode kernels launched what the run implies: one launch per
+    block for each call ``log`` counted, on the kernel the pool's plane
+    calls for (``b4``/``b5``: whether that kernel serves this run)."""
+    implied = BLOCKS * log.kernel_calls()
+    want = (implied if b4 else 0, implied if b5 else 0)
+    got = (numbers["b4"], numbers["b5"])
+    print("%s: device calls through a decode kernel %s, launches B4 %d, "
+          "B5 %d (implied %s = %d layers x calls)" % (
+              name, dict(log.calls), got[0], got[1], want, BLOCKS))
+    if got != want or implied == 0:
+        fail("%s: decode kernels launched B4 %d, B5 %d times; the run "
+             "implies %s" % (name, got[0], got[1], want))
+
+
+def phase_f32_spec(served, log):
+    """The f32 plane with --spec: verify chunks of K+1 rows through B4.
+    Greedy answers equal the f32 server's without --spec, token for
+    token: every verify column is the argmax over what a plain step
+    would compute."""
+    answers, numbers = serve_wave(
+        served["model"], served["prompts"][:-1], served["prompts"][-1:],
+        log=log, spec=True, spec_max_k=SPEC_K)
+    numbers["server"].stop(drain=True)
+    check_launches("f32 --spec serving", numbers, log, True, False)
+    for i, (got, want) in enumerate(zip(answers, served["answers"])):
+        if got != want:
+            fail("f32 --spec answer %d differs from the f32 answer without "
+                 "--spec at generated position %d" % (
+                     i, divergence(got, want)[0]))
+    c = numbers["stats"]["counters"]
+    print("f32 --spec serving check: %d answers token-identical to the f32 "
+          "answers without --spec (%d verify rounds, %d of %d drafts "
+          "accepted)" % (len(answers), c.get("spec.rounds", 0),
+                         c.get("spec.accepted", 0), c.get("spec.drafted",
+                                                         0)))
+    return {"verify_rounds": c.get("spec.rounds", 0),
+            "accepted": c.get("spec.accepted", 0),
+            "drafted": c.get("spec.drafted", 0)}
+
+
+def phase_quant_serving(served, reload_path, smi):
+    """The quantized serving path at full width: the f32-weight artifact
+    served with --kv-dtype int8 --weight-dtype int8 --spec; every
+    device call of the run replayed on the plain attention (dequantize
+    + dense softmax) from the same pool contents; B5's launch count; a
+    second server without --spec for readings; then POST /admin/reload
+    to an artifact of the same geometry from another seed, whose wave is
+    replayed the same way with the new weights."""
+    import torch
+    from veles_tpu_torch.config import root
+    from veles_tpu_torch.ops import decode_attention as DA
+    from veles_tpu_torch.serving.reload import write_manifest
+    model = served["model"]
+    prompts = quant_prompts(served["prompts"])
+    repeat = [prompts[REPEAT_INDEX]]
+    log = CallLog(model)
+    out = {}
+    try:
+        out["f32_spec"] = phase_f32_spec(served, log)
+        root.common.serving.weight_dtype = "int8"
+        plain, plain_numbers = serve_wave(model, prompts, repeat,
+                                          kv_dtype="int8")
+        plain_numbers["server"].stop(drain=True)
+        answers, numbers = serve_wave(model, prompts, repeat, log=log,
+                                      kv_dtype="int8", spec=True,
+                                      spec_max_k=SPEC_K)
+        server, base = numbers["server"], numbers["base"]
+        pool = server.engine.kv_pool
+        pool_args = (pool.n_blocks, pool.block_size, pool.kv_dtype)
+        try:
+            check_launches("int8 --spec serving", numbers, log, False, True)
+            replayed = log.replay(numbers["records"], numbers["snapshot"],
+                                  pool_args)
+            gate_replay("int8 --spec serving", replayed)
+            gate_spec_vs_plain(answers, plain)
+            nll = nll_delta(served)   # the weights that served the answers
+            codes_before = model._lm_params()["blocks"][0]["wq"].clone()
+            write_manifest(reload_path)
+            t0 = time.monotonic()
+            reply = post(base + "/admin/reload", {"artifact": reload_path},
+                         token=TOKEN)
+            reload_s = time.monotonic() - t0
+            log.start(pool)
+            DA.decode_attention.launches = 0
+            DA.decode_attention.quant_launches = 0
+            after = [post(base + "/api/generate", {
+                "tokens": [p], "max_new_tokens": MAX_NEW},
+                token=TOKEN)["generated"][0] for p in prompts[:3]]
+            torch.cuda.synchronize()
+            after_numbers = dict(b4=DA.decode_attention.launches,
+                                 b5=DA.decode_attention.quant_launches)
+            records, snapshot = log.stop()
+            stats_after = get(base + "/stats")
+            check_launches("int8 --spec serving after the reload",
+                           after_numbers, log, False, True)
+            params = model._lm_params()
+            codes_after = params["blocks"][0]["wq"]
+            requantized = model._device_weights()["blocks"][0]["wq"]
+            want_codes = torch.clamp(torch.round(
+                requantized / torch.where(params["blocks"][0]["wq__s"] > 0,
+                                          params["blocks"][0]["wq__s"], 1.0)),
+                -127, 127).to(torch.int8)
+            r_replayed = log.replay(records, snapshot, pool_args)
+        finally:
+            server.stop(drain=True)
+    finally:
+        log.restore()
+    version = (reply.get("weight_version"), stats_after["weight_version"])
+    print("reload: POST /admin/reload %.1f s -> %s; weight_version %s; "
+          "int8 codes of block 0's wq rebuilt from the new weights: %s, "
+          "differ from before: %s" % (
+              reload_s, reply.get("status"), version,
+              bool(torch.equal(codes_after, want_codes)),
+              not torch.equal(codes_after, codes_before)))
+    if version != (2, 2):
+        fail("weight_version after the reload is %s, not 2" % (version,))
+    gate_replay("int8 --spec serving after the reload, new weights",
+                r_replayed)
+    if codes_after.dtype != torch.int8 or \
+            not torch.equal(codes_after, want_codes) or \
+            torch.equal(codes_after, codes_before):
+        fail("the int8 decode parameters were not rebuilt from the new "
+             "weights")
+    out.update(reload_s=reload_s, replay=replay_readings(replayed),
+               reload_replay=replay_readings(r_replayed))
+    out.update(quant_readings(served, prompts, answers, numbers, plain,
+                              nll, smi))
+    out["spec_vs_plain_more_sets"] = spec_divergence_readings(model)
+    out["step_profiles"] = profile_decode_steps(model)
+    return numbers["b5"], out
+
+
+#: Further prompt sets (numpy seeds) for the int8 --spec check.
+MORE_SPEC_SETS = (1, 2)
+
+
+def spec_divergence_readings(model):
+    """The int8 --spec answers against the same server's without --spec
+    on further prompt sets (built as the gated wave is, from other
+    seeds; the reloaded weights), token for token, as the gated wave:
+    returns the first divergence of each answer."""
+    import numpy
+    out = {}
+    for seed in MORE_SPEC_SETS:
+        rng = numpy.random.RandomState(SEED % (1 << 31) + 100 * seed)
+        prompts = quant_prompts([rng.randint(0, VOCAB, n).tolist()
+                                 for n in PROMPT_LENGTHS])
+        repeat = [prompts[REPEAT_INDEX]]
+        answers = {}
+        for spec in (False, True):
+            answers[spec], numbers = serve_wave(
+                model, prompts, repeat, kv_dtype="int8", spec=spec,
+                spec_max_k=SPEC_K)
+            numbers["server"].stop(drain=True)
+        out[seed] = [divergence(a, b)[0]
+                     for a, b in zip(answers[True], answers[False])]
+    parted = sum(d < MAX_NEW for firsts in out.values() for d in firsts)
+    total = sum(len(firsts) for firsts in out.values())
+    print("int8 --spec vs without --spec on %d more prompt sets (the "
+          "reloaded weights): first divergence per answer %s; %d of %d "
+          "answers part" % (len(out), out, parted, total))
+    if parted:
+        fail("int8 --spec answers differ from the same server's without "
+             "--spec on further prompt sets: %s" % out)
+    return {"first_divergence": out, "parted": parted, "answers": total}
+
+
+def quant_readings(served, prompts, answers, numbers, plain, nll, smi):
+    """Readings of the quantized run, no gate: the wave's tok/s, TTFT and
+    decode step; peak memory and the pool's block bytes against f32;
+    speculation's acceptance; how the answers track the same server
+    without --spec and the f32 answers; the teacher-forced NLL delta of
+    the int8 weights against f32."""
+    stats = numbers["stats"]
+    c, g, lat = stats["counters"], stats["gauges"], stats["latency"]
+    pool = stats["kv_pool"]
+    L, H, D = served["model"]._paged_geometry()
+    f32_block = 2 * L * KV_BLOCK * H * D * 4
+    spec_vs_plain = [divergence(a, b) for a, b in zip(answers, plain)]
+    # The f32 answers: the wave's prompts and the repeated one.
+    n = len(PROMPT_LENGTHS)
+    pairs = list(zip(plain[:n], served["answers"][:n])) + \
+        [(plain[-1], served["answers"][-1])]
+    vs_f32 = [divergence(a, b) for a, b in pairs]
+    r = {
+        "wave_tok_per_s": MAX_NEW * len(prompts) / numbers["wave_s"],
+        "wave_seconds": numbers["wave_s"],
+        "warmup_s": numbers["warmup_s"],
+        "ttft_median_ms": lat.get("ttft.generate", {}).get("p50_ms"),
+        "ttft_largest_ms": lat.get("ttft.generate", {}).get("p99_ms"),
+        "itl_p50_ms": lat.get("itl.decode", {}).get("p50_ms"),
+        "peak_bytes": numbers["peak"],
+        "block_bytes": pool["block_bytes"],
+        "f32_block_bytes": f32_block,
+        "kv_bytes_total": pool["bytes_total"],
+        "spec_rounds": c.get("spec.rounds", 0),
+        "spec_drafted": c.get("spec.drafted", 0),
+        "spec_accepted": c.get("spec.accepted", 0),
+        "spec_accept_rate_ewma": g.get("spec.accept_rate"),
+        "spec_tokens_per_step_ewma": g.get("spec.tokens_per_step"),
+        "decode_steps": c.get("batches.decode", 0),
+        "verify_batches": c.get("batches.verify", 0),
+        "spec_vs_plain_first_divergence": [d for d, _ in spec_vs_plain],
+        "spec_vs_plain_match_share": sum(m for _, m in spec_vs_plain) /
+        len(spec_vs_plain),
+        "int8_vs_f32_first_divergence": [d for d, _ in vs_f32],
+        "int8_vs_f32_match_share": sum(m for _, m in vs_f32) / len(vs_f32),
+        "nll": nll,
+    }
+    print("int8 --spec serving readings on %s (one wave, not a benchmark): "
+          "%d concurrent requests, %d tokens in %.3f s = %.1f tok/s; TTFT "
+          "median %s ms, largest %s ms; decode step p50 %s ms; peak device "
+          "memory %.2f GB; pool block %d bytes (f32: %d, %.3fx); %d verify "
+          "rounds, %d of %d drafts accepted (EWMA accept %s, tokens per "
+          "verify %s)" % (
+              smi, len(prompts), MAX_NEW * len(prompts), r["wave_seconds"],
+              r["wave_tok_per_s"], r["ttft_median_ms"], r["ttft_largest_ms"],
+              r["itl_p50_ms"], r["peak_bytes"] / 1e9, r["block_bytes"],
+              f32_block, r["block_bytes"] / f32_block, r["spec_rounds"],
+              r["spec_accepted"], r["spec_drafted"],
+              r["spec_accept_rate_ewma"], r["spec_tokens_per_step_ewma"]))
+    print("int8 readings: --spec vs the same server without --spec, first "
+          "divergence per answer %s (match share %.4f); int8/int8 without "
+          "--spec vs the f32 answers %s (match share %.4f); weight int8 "
+          "teacher-forced NLL %s" % (
+              r["spec_vs_plain_first_divergence"],
+              r["spec_vs_plain_match_share"],
+              r["int8_vs_f32_first_divergence"],
+              r["int8_vs_f32_match_share"], r["nll"]))
+    return r
+
+
+def nll_delta(served):
+    """Teacher-forced mean NLL of each f32 answer's tokens (the model's
+    own greedy text), every position predicted from its true prefix in
+    one padded batch per answer, under the f32 and the int8 decode
+    weights; the int8 delta in nats."""
+    import numpy
+    from veles_tpu_torch.config import root
+    model = served["model"]
+    mode = root.common.serving.weight_dtype
+    nll = {}
+    for weights in ("f32", "int8"):
+        root.common.serving.weight_dtype = weights
+        total, count = 0.0, 0
+        for prompt, answer in zip(served["prompts"], served["answers"]):
+            text = numpy.asarray(prompt + answer, numpy.int32)
+            lengths = len(prompt) + numpy.arange(len(answer))
+            width = 1 << int(lengths.max() - 1).bit_length()
+            rows = numpy.zeros((len(answer), width), numpy.int32)
+            for i, n in enumerate(lengths):
+                rows[i, :n] = text[:n]
+            _, logits = model.generate_bucketed(rows, lengths, 1,
+                                                return_logits=True)
+            z = logits[:, 0].astype(numpy.float64)
+            lse = z.max(-1) + numpy.log(numpy.exp(
+                z - z.max(-1, keepdims=True)).sum(-1))
+            total -= (z[numpy.arange(len(answer)), answer] - lse).sum()
+            count += len(answer)
+        nll[weights] = total / count
+    root.common.serving.weight_dtype = mode
+    return {"f32": nll["f32"], "int8": nll["int8"],
+            "delta": nll["int8"] - nll["f32"]}
+
+
+def phase_fp8(served):
+    """One fp8 pass through the model API, no HTTP: a batch of four
+    prompts extended into a float8_e4m3fn pool and stepped to MAX_NEW
+    tokens with the kernels (int8 weights), every call replayed with the
+    plain quant reference on the same planes; B5 launched once per block
+    for each step."""
+    import numpy
+    import torch
+    from veles_tpu_torch.ops import decode_attention as DA
+    model = served["model"]
+    prompts = [served["prompts"][i] for i in (0, 2, 3, 4)]
+    lengths = numpy.array([len(p) for p in prompts], numpy.int32)
+    B = len(prompts)
+    per = -(-(int(lengths.max()) + MAX_NEW) // KV_BLOCK)
+    tables = (1 + numpy.arange(B * per, dtype=numpy.int32)).reshape(B, per)
+    width = 1 << int(lengths.max() - 1).bit_length()
+    tokens = numpy.zeros((B, width), numpy.int32)
+    for i, p in enumerate(prompts):
+        tokens[i, :len(p)] = p
+    zeros = numpy.zeros(B, numpy.float32)
+    seeds = numpy.zeros(B, numpy.uint32)
+    log = CallLog(model)
+    try:
+        pool = model.make_kv_pool(B * per + 1, KV_BLOCK, kv_dtype="fp8")
+        log.start(pool)
+        DA.decode_attention.launches = DA.decode_attention.quant_launches = 0
+        tok = model.paged_extend(pool, tables, tokens,
+                                 numpy.zeros(B, numpy.int32), lengths,
+                                 zeros, seeds)
+        out = [tok]
+        for j in range(1, MAX_NEW):
+            tok = model.paged_step(pool, tables, lengths + j - 1, tok,
+                                   numpy.full(B, j, numpy.int32), zeros,
+                                   seeds)
+            out.append(tok)
+        torch.cuda.synchronize()
+        numbers = dict(b4=DA.decode_attention.launches,
+                       b5=DA.decode_attention.quant_launches)
+        records, snapshot = log.stop()
+        replayed = log.replay(records, snapshot,
+                              (pool.n_blocks, KV_BLOCK, "fp8"))
+        check_launches("fp8 pass (model API, %d prompts of %s tokens, %d "
+                       "tokens each)" % (B, lengths.tolist(), MAX_NEW),
+                       numbers, log, False, True)
+    finally:
+        log.restore()
+    gate_replay("fp8 pass", replayed)
+    return {"launches_b5": numbers["b5"], "tokens": B * MAX_NEW,
+            "replay": replay_readings(replayed)}
+
+
+def row_count_reading(model):
+    """A reading, no gate: whether a row's result depends on how many
+    rows share the call — 8 rows (a decode step at max_batch) alone
+    against the same 8 among 40 (a verify chunk of 5 columns) — for each
+    product of block 0 and the head under both weight modes, and for
+    the layer norm.  Returns {name: largest difference}; 0 is bit for
+    bit."""
+    import torch
+    from veles_tpu_torch import export as X
+    from veles_tpu_torch.config import root
+    mode = root.common.serving.weight_dtype
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    out = {}
+    for weights in ("f32", "int8"):
+        root.common.serving.weight_dtype = weights
+        params = model._lm_params()
+        block = params["blocks"][0]
+        for name, p in [(n, block) for n in ("wq", "w1", "w2")] + \
+                [("head_w", params)]:
+            h = torch.randn(40, p[name].shape[0], device="cuda",
+                            generator=gen)
+            alone, among = X._mm(h[:8], p, name), X._mm(h, p, name)[:8]
+            out["%s %s" % (weights, name)] = float(
+                (alone - among).abs().max())
+    root.common.serving.weight_dtype = mode
+    g = torch.ones(EMBED, device="cuda")
+    x = torch.randn(40, EMBED, device="cuda", generator=gen)
+    out["layer norm"] = float((X._ln(x[:8], g, g * 0) -
+                               X._ln(x, g, g * 0)[:8]).abs().max())
+    print("row-count reading: largest difference of 8 rows alone against "
+          "the same rows among 40 (0 = bit for bit): %s" % out)
+    return out
+
+
+def phase_verify_exact(served):
+    """On the int8 and fp8 planes a verify answers and stores exactly
+    what plain steps do (model API, no HTTP, int8 weights).  Four
+    prompts are extended, then SPEC_K + 1 plain steps run (the pool
+    copied after each); from the extended pool one verify follows whose
+    drafts are the steps' own tokens, except that row 1's second draft
+    is wrong and row 3 has none.  Gates: every column a row reached
+    equals the step's token, and each row's blocks hold bit for bit
+    what the plain steps left after 1 + its accepted drafts."""
+    import numpy
+    import torch
+    from veles_tpu_torch.serving.speculation import accept_lengths
+    model = served["model"]
+    prompts = [served["prompts"][i] for i in (1, 2, 3, 5)]
+    lengths = numpy.array([len(p) for p in prompts], numpy.int32)
+    B = len(prompts)
+    per = -(-(int(lengths.max()) + SPEC_K + 1) // KV_BLOCK)
+    tables = (1 + numpy.arange(B * per, dtype=numpy.int32)).reshape(B, per)
+    tokens = numpy.zeros((B, int(lengths.max())), numpy.int32)
+    for i, p in enumerate(prompts):
+        tokens[i, :len(p)] = p
+    zeros = numpy.zeros(B, numpy.float32)
+    seeds = numpy.zeros(B, numpy.uint32)
+    out = {}
+    for kv_dtype in ("int8", "fp8"):
+        pool = model.make_kv_pool(B * per + 1, KV_BLOCK, kv_dtype=kv_dtype)
+        tok = model.paged_extend(pool, tables, tokens,
+                                 numpy.zeros(B, numpy.int32), lengths,
+                                 zeros, seeds)
+        start = [[t.clone() for t in group] for group in pool.storage]
+        steps, after = [tok], []
+        for j in range(SPEC_K + 1):
+            steps.append(model.paged_step(
+                pool, tables, lengths + j, steps[-1],
+                numpy.full(B, j + 1, numpy.int32), zeros, seeds))
+            after.append([[t.clone() for t in group]
+                          for group in pool.storage])
+        for group, saved in zip(pool.storage, start):
+            for t, s in zip(group, saved):
+                t.copy_(s)
+        steps = numpy.stack(steps, axis=1)   # (B, SPEC_K + 2)
+        toks = steps[:, :SPEC_K + 1].copy()
+        toks[1, 2] = (toks[1, 2] + 1) % VOCAB
+        dlens = numpy.array([SPEC_K, SPEC_K, SPEC_K, 0])
+        got = model.paged_verify(pool, tables, lengths, toks, dlens,
+                                 numpy.ones(B, numpy.int32), zeros, seeds)
+        acc = accept_lengths(toks[:, 1:], dlens, got)
+        torch.cuda.synchronize()
+        for r in range(B):
+            a = int(acc[r])
+            if not numpy.array_equal(got[r, :a + 1], steps[r, 1:a + 2]):
+                fail("%s verify row %d answers %s, plain steps %s" % (
+                    kv_dtype, r, got[r].tolist(), steps[r].tolist()))
+            blocks = torch.as_tensor(tables[r], dtype=torch.long,
+                                     device=pool.storage[0][0].device)
+            for group, saved in zip(pool.storage, after[a]):
+                for t, s in zip(group, saved):
+                    if not torch.equal(t[blocks], s[blocks]):
+                        fail("%s verify row %d (%d drafts accepted) left "
+                             "other planes than %d plain steps" % (
+                                 kv_dtype, r, a, a + 1))
+        out[kv_dtype] = acc.tolist()
+        del pool, start, after
+    print("verify on the scaled planes: tokens and every row's blocks "
+          "bit-equal to plain steps (accepted drafts per row %s)" % out)
+    return out
 
 
 def main():
@@ -1459,6 +2421,8 @@ def main():
     resolve_device("cuda")  # TF32 off, as every port entry point sets
     phase_build()
     max_err, timings = phase_kernels()
+    quant_worst, quant_faults, quant_b4_equal, sq_rows, quant_times = \
+        phase_quant_kernels()
     flash_err, flash_times = phase_flash_kernels()
     lrn_err, lrn_worst, lrn_faults_read, lrn_times = phase_lrn_kernels()
     gc.collect()
@@ -1472,7 +2436,20 @@ def main():
     workdir = os.path.join(HERE, ".chip_smoke")
     os.makedirs(workdir, exist_ok=True)
     try:
-        launches, numbers = phase_serving(workdir, smi)
+        launches, numbers, served = phase_serving(workdir, smi)
+        reload_path = os.path.join(workdir, "lm-reload.veles.tgz")
+        t0 = time.monotonic()
+        from veles_tpu_torch import export as X
+        X.random_lm_artifact(reload_path, VOCAB, EMBED, HEADS, BLOCKS,
+                             HIDDEN, POSITIONS, seed=SEED + 1,
+                             compresslevel=0)
+        print("reload artifact write: %.1f s (seed %d)" % (
+            time.monotonic() - t0, SEED + 1))
+        quant_launches, quant = phase_quant_serving(served, reload_path,
+                                                    smi)
+        quant["fp8"] = phase_fp8(served)
+        quant["verify_exact_accepted"] = phase_verify_exact(served)
+        quant["row_count_reading"] = row_count_reading(served["model"])
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     step = timings[(1, POSITIONS)]
@@ -1494,7 +2471,39 @@ def main():
         "bound_by": step["bound_by"],
         "library_ms": step["library_ms"],
         "library": "torch.nn.functional.scaled_dot_product_attention",
+        "sq_invariant_rows": sq_rows["f32"],
     }]}
+    q8, q8v = quant_times[("int8", 1)], quant_times[("int8", 16)]
+    kernels["kernels"].append({
+        "name": "decode_attention_quant",
+        "route": "cuda",
+        "source": "veles_tpu_torch/ops/csrc/decode_attention.cu",
+        "replaces": "veles_tpu/ops/pallas_attention.py:639",
+        "shape": "B=%d Sq=1 H=%d D=%d L=%d int8 codes, (B, L, H) f32 "
+                 "scales" % (MAX_BATCH, HEADS, EMBED // HEADS, POSITIONS),
+        "launches": quant_launches,
+        "max_abs_err": max(v[0] for v in quant_worst.values()),
+        "max_err_by_code": {k: v[0] for k, v in quant_worst.items()},
+        "tol": {"rtol": RTOL, "atol": ATOL},
+        "ms": q8["kernel_ms"],
+        "plain_ms": q8["plain_ms"],
+        "bound_ms": q8["bound_ms"],
+        "bound_by": q8["bound_by"],
+        "library_ms": q8["library_ms"],
+        "library": "dequantize + torch.nn.functional."
+                   "scaled_dot_product_attention",
+        "b4_same_keys_f32_ms": q8["b4_f32_ms"],
+        "verify_sq16": {k: q8v[k] for k in ("kernel_ms", "b4_f32_ms",
+                                            "plain_ms", "library_ms",
+                                            "bound_ms")},
+        "fp8": {"%s" % sq: {k: quant_times[("fp8", sq)][k] for k in (
+            "kernel_ms", "b4_f32_ms", "plain_ms", "library_ms",
+            "bound_ms")} for sq in (1, 16)},
+        "planted_faults": quant_faults,
+        "b5_equals_b4_on_dequantized": "%d/%d" % (
+            sum(quant_b4_equal.values()), len(quant_b4_equal)),
+        "sq_invariant_rows": {k: sq_rows[k] for k in ("int8", "fp8")},
+    })
     replaces = {"flash_forward": 211, "flash_dq": 258, "flash_dkv": 293}
     for name, line in replaces.items():
         t = flash_times[name]
@@ -1556,6 +2565,7 @@ def main():
     print(json.dumps({"training": training}))
     print(json.dumps({"alexnet": alexnet}))
     print(json.dumps({"serving": numbers}))
+    print(json.dumps({"quant_serving": quant}))
     print(json.dumps(kernels))
     print("chip_smoke: command time %.1f s" % (time.monotonic() - started))
     print(smi)

@@ -271,8 +271,11 @@ def test_port_artifact_loads_in_jax(tmp_path, port_model):
 
 
 def test_refusals(tmp_path, port_model):
+    pool = port_model.make_kv_pool(8, kv_dtype="int8")
     with pytest.raises(Bug, match="not yet ported"):
-        port_model.make_kv_pool(8, kv_dtype="int8")
+        port_model.export_kv_blocks(pool, [1])
+    with pytest.raises(Bug, match="not yet ported"):
+        port_model.import_kv_blocks(pool, [1], None)
     with pytest.raises(Bug, match="unknown KV storage dtype"):
         port_model.make_kv_pool(8, kv_dtype="f16")
     manifest, weights = _lm_weights(BLOCKS=1)
@@ -281,6 +284,11 @@ def test_refusals(tmp_path, port_model):
     path = X.write_artifact(str(tmp_path / "fc.tgz"), manifest, weights)
     with pytest.raises(Bug, match="'all2all'.*not yet ported"):
         X.ExportedModel(path, device="cpu")
+    moe, moe_weights = _lm_weights(BLOCKS=1)
+    moe["units"][1]["type"] = "moe_transformer_block"
+    moe_path = X.write_artifact(str(tmp_path / "moe.tgz"), moe, moe_weights)
+    with pytest.raises(Bug, match="moe_transformer_block.*not yet ported"):
+        X.ExportedModel(moe_path, device="cpu")
     with pytest.raises(DeviceNotFoundError, match="unknown device"):
         X.ExportedModel(path, device="tpu")
     if not torch.cuda.is_available():

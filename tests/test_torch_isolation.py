@@ -31,7 +31,10 @@ def test_import_leaves_jax_and_veles_tpu_out():
             "veles_tpu_torch.mean_disp_normalizer, veles_tpu_torch.znicz, "
             "veles_tpu_torch.znicz.standard_workflow, "
             "veles_tpu_torch.znicz.samples.imagenet, "
-            "veles_tpu_torch.znicz.samples.mnist\n"
+            "veles_tpu_torch.znicz.samples.mnist, "
+            "veles_tpu_torch.serving.speculation, "
+            "veles_tpu_torch.serving.reload, "
+            "veles_tpu_torch.ops.decode_attention\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib', 'veles_tpu.')) or "
             "m == 'veles_tpu')\n"

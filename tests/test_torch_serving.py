@@ -197,15 +197,19 @@ def test_device_fault_recovery_is_token_identical(artifact, prompts,
     assert engine.stats.get("readopt.rows") == 1
 
 
-def test_not_ported_options_refuse(artifact):
+def test_not_ported_options_refuse(artifact, capsys):
+    """What the port leaves out refuses with "not yet ported": KV
+    export/adopt between engines, and the serving fabric's flags
+    (replicas, disaggregated prefill, tenants)."""
     model = X.ExportedModel(artifact, device="cpu")
-    with pytest.raises(Bug, match="not yet ported"):
-        ServingEngine(model, spec=True)
-    with pytest.raises(Bug, match="not yet ported"):
-        ServingEngine(model, kv_dtype="int8").start()
     engine = ServingEngine(model)
     with pytest.raises(Bug, match="not yet ported"):
-        engine.reload(model)
+        engine.adopt_kv_prefix([1, 2, 3], {"weight_version": 1})
+    with pytest.raises(Bug, match="not yet ported"):
+        engine.export_kv_prefix([1, 2, 3])
     from veles_tpu_torch import serve
-    with pytest.raises(SystemExit):
-        serve.main([artifact, "--device", "cpu", "--kv-dtype", "int8"])
+    for flags in (["--fabric-replicas", "2"], ["--fabric-disagg"],
+                  ["--tenant", "a=1"]):
+        with pytest.raises(SystemExit):
+            serve.main([artifact, "--device", "cpu"] + flags)
+        assert "not yet ported" in capsys.readouterr().err

@@ -5,10 +5,11 @@ An auto-vivifying attribute tree (``root.tinylm.n_blocks = 2``),
 default without vivifying it.  The port reads the engine knobs of the
 training tick from it — ``remat``, ``attention_kernel``,
 ``attention_dtype``, ``fused_qkv``, ``precision_level`` and
-``optimizer`` under ``root.common.engine`` — with the same names and
-defaults as the JAX package.  Unlike the JAX package it executes no
-site or user configuration file: the CLI applies ``root.x=y``
-overrides, and programs set leaves directly.
+``optimizer`` under ``root.common.engine`` — and the serving planes
+(``weight_dtype``, ``kv_dtype`` under ``root.common.serving``), with
+the same names and defaults as the JAX package.  Unlike the JAX
+package it executes no site or user configuration file: the CLI
+applies ``root.x=y`` overrides, and programs set leaves directly.
 """
 
 PROTECTED_KEYS = {"update", "keys", "items", "path_str", "as_dict",
@@ -108,5 +109,12 @@ root.common.update({
     },
     "loader": {
         "shuffle_limit": -1,
+    },
+    "serving": {
+        # The decode programs' weight plane: "f32" or "int8"
+        # (weight-only int8 matmuls, per-output-channel scales).
+        "weight_dtype": "f32",
+        # The paged KV pool's storage plane when the caller names none.
+        "kv_dtype": "f32",
     },
 })

@@ -12,21 +12,33 @@ The port of ``veles_tpu/export.py`` for causal LMs.  Three groups:
   copy-on-write, TRASH block 0.
 * **Device side** — the LM chain's ``forward``, ``generate``,
   ``generate_bucketed`` (the engine's whole-request path) and the
-  paged programs ``paged_extend`` / ``paged_step`` over per-layer
-  ``(n_blocks, block_size, H, D)`` float32 pool tensors.  Every chunk
-  of at most ``DECODE_MAX_Q`` query rows attends through the
-  hand-written flash-decode kernel
-  (:func:`~veles_tpu_torch.ops.decode_attention.decode_attention`);
-  longer prefill chunks use the dense masked softmax, as the JAX
-  package does by design.
-* **Weight carry-over** — :func:`lm_params_from_numpy` turns the JAX
-  package's parameters (numpy arrays, as its ``ExportedModel.weights``
-  holds them) into the port's parameter dict.
+  paged programs ``paged_extend`` / ``paged_step`` / ``paged_verify``
+  (speculative decoding's K+1-row chunks) over per-layer
+  ``(n_blocks, block_size, H, D)`` pool tensors in one of four KV
+  storage planes (``KV_DTYPES``): f32, a scale-free bf16 cast, and
+  int8 / fp8-e4m3 codes with per-(block, head) float32 scales.  On
+  the scaled planes what a block stores depends on how its positions
+  were grouped into writes and on the exact floats written, so there
+  every row's run is a function of the row alone: an extend runs each
+  row by itself, a verify runs the step program column by column, and
+  a freshly allocated block starts at zero.  Every
+  chunk of at most ``DECODE_MAX_Q`` query rows attends through the
+  hand-written flash-decode kernels
+  (:func:`~veles_tpu_torch.ops.decode_attention.decode_attention`: B4
+  on the f32 and bf16 planes, B5 on the int8 and fp8 codes); longer
+  prefill chunks use the dense masked softmax, as the JAX package does
+  by design.  The decode programs run in one of two weight modes
+  (``root.common.serving.weight_dtype``): f32, or weight-only int8
+  matmuls with per-output-channel scales; ``forward`` stays f32.
+* **Weight carry-over and swap** — :func:`lm_params_from_numpy` turns
+  the JAX package's parameters (numpy arrays, as its
+  ``ExportedModel.weights`` holds them) into the port's parameter
+  dict; :meth:`ExportedModel.swap_weights` hot-swaps a same-geometry
+  artifact's weights in place.
 
 Not ported yet, and refused with :class:`~veles_tpu_torch.error.Bug`:
 unit types other than the causal LM chain (embedding → transformer
-blocks → lm_head), the int8/fp8/bf16 KV planes, weight-only int8,
-speculative verify, KV export/adopt across pools and hot weight swap.
+blocks → lm_head) and KV export/adopt across pools.
 
 Sampling: the JAX package draws from threefry keys
 (``PRNGKey(seed)``, ``fold_in(gen_idx)``), whose bits torch cannot
@@ -49,6 +61,8 @@ import numpy
 import torch
 
 from .backends import resolve_device
+from .config import get as config_get
+from .config import root
 from .distributable import SniffedLock
 from .error import Bug
 from .json_encoders import dumps_json
@@ -64,21 +78,62 @@ MAGIC = b"VTPM"
 #: Unit types the port executes: the causal LM chain.
 PORTED_UNITS = ("embedding", "transformer_block", "lm_head", "dropout")
 
-#: KV storage planes of the JAX package; the port holds "f32" only.
+#: Storage dtypes of the paged KV pool.  "f32" is the exact path;
+#: "bf16" a scale-free cast; "int8" and "fp8" carry per-(block, head)
+#: float32 scales beside the block tensors and quantize on scatter /
+#: dequantize on gather (block granularity, so refcounts, COW and the
+#: prefix cache's sha1 keys never see the quantization).
 KV_DTYPES = ("f32", "bf16", "int8", "fp8")
+
+#: Symmetric clip range per scaled storage dtype (None: scale-free).
+_KV_QMAX = {"f32": None, "bf16": None, "int8": 127.0, "fp8": 448.0}
+
+#: Bytes per stored k/v element.
+_KV_ITEMSIZE = {"f32": 4, "bf16": 2, "int8": 1, "fp8": 1}
+
+#: The torch dtype of each storage plane.
+_KV_TORCH = {"f32": torch.float32, "bf16": torch.bfloat16,
+             "int8": torch.int8, "fp8": torch.float8_e4m3fn}
+
+
+def kv_dtype_supported(kv_dtype):
+    """Whether the storage dtype is one the port holds (every plane of
+    ``KV_DTYPES``: torch has ``float8_e4m3fn`` on every device)."""
+    return kv_dtype in KV_DTYPES
 
 
 def check_kv_dtype(kv_dtype):
-    """Canonical KV storage dtype name (None → "f32"), or Bug: unknown
-    names, and the planes not ported yet."""
+    """Canonical KV storage dtype name (None → "f32"), or Bug naming
+    the valid set for unknown names."""
     kv_dtype = "f32" if kv_dtype is None else str(kv_dtype)
-    if kv_dtype not in KV_DTYPES:
+    if not kv_dtype_supported(kv_dtype):
         raise Bug("unknown KV storage dtype %r — valid: %s" %
                   (kv_dtype, ", ".join(KV_DTYPES)))
-    if kv_dtype != "f32":
-        raise Bug("KV storage dtype %r is not yet ported — the torch "
-                  "port serves the f32 plane" % (kv_dtype,))
     return kv_dtype
+
+
+def _kv_unpack(storage):
+    """``(ks, vs, sks, svs)`` from a pool storage tuple — the scale
+    lists are None for scale-free (f32/bf16) pools."""
+    if len(storage) == 4:
+        return storage
+    ks, vs = storage
+    return ks, vs, None, None
+
+
+def _kv_quantize(vals, scale_full, kv_dtype):
+    """Quantizes float32 ``vals`` at an already-broadcast
+    ``scale_full`` (zero scale → zero code, so never-written rows stay
+    exact zeros).  int8 rounds half to even (``torch.round``); fp8
+    clips to ±448, then the cast rounds to nearest even — both as the
+    JAX package does, bit for bit."""
+    qmax = _KV_QMAX[kv_dtype]
+    positive = scale_full > 0.0
+    safe = torch.where(positive, scale_full, 1.0)
+    x = torch.clamp(vals / safe, -qmax, qmax)
+    if kv_dtype == "int8":
+        x = torch.round(x)
+    return torch.where(positive, x, 0.0).to(_KV_TORCH[kv_dtype])
 
 
 # -- artifact writer ------------------------------------------------------
@@ -236,7 +291,12 @@ class KVBlockPool(object):
     a shared block gets a private copy first).  Device tensors are
     opaque here — the owning model supplies ``copy_fn(storage, src,
     dst) -> storage`` and updates ``storage`` through its own
-    scatter/gather programs.
+    scatter/gather programs; on a scaled plane also ``reset_fn(storage,
+    ids) -> storage``, run on every freshly allocated block, which
+    zeroes the blocks' codes and scales: a scale only grows with
+    writes, so a reused block would otherwise quantize its new owner's
+    first write at its previous owner's scale, and what a row stores
+    would depend on which blocks the pool happened to hand it.
 
     Block 0 is the TRASH block: table padding and out-of-range
     writes land there, so padded rows in a coalesced device batch
@@ -249,7 +309,7 @@ class KVBlockPool(object):
 
     def __init__(self, n_blocks, block_size, storage=None,
                  copy_fn=None, prefix_capacity=256, kv_dtype=None,
-                 block_bytes=0):
+                 block_bytes=0, reset_fn=None):
         n_blocks = int(n_blocks)
         block_size = int(block_size)
         if n_blocks < 2:
@@ -261,6 +321,7 @@ class KVBlockPool(object):
         self.block_size = block_size
         self.storage = storage
         self._copy_fn = copy_fn
+        self._reset_fn = reset_fn
         # Storage dtype + per-block device bytes: immutable after
         # construction, so occupancy() reads them lock-free — only
         # the COUNTS need the lock.
@@ -314,7 +375,9 @@ class KVBlockPool(object):
             out = [self._free.pop() for _ in range(n)]
             for b in out:
                 self._refs[b] = 1
-            return out
+        if self._reset_fn is not None and out:
+            self.storage = self._reset_fn(self.storage, out)
+        return out
 
     def retain(self, ids):
         """Adds one ref per block — the generic counterpart of
@@ -589,14 +652,34 @@ def _ln(v, g, b, eps=1e-5):
     return (v - mu) * torch.reciprocal(torch.sqrt(var + eps)) * g + b
 
 
-def _attend(q, kc, vc, key_mask, attend=decode_attention):
+def _attend(q, kc, vc, key_mask, attend=decode_attention, k_scale=None,
+            v_scale=None):
     """The seam: chunks of at most ``DECODE_MAX_Q`` query rows go
     through ``attend`` (the flash-decode wrapper in serving), longer
     ones (prefills) through the dense masked softmax, by design, as in
-    the JAX package's ``_paged_block``."""
+    the JAX package's ``_paged_block``.  Given scales, k/v are stored
+    codes: ``attend`` receives them with their per-position scales
+    (B5 on the card), the dense path dequantizes."""
     if q.shape[1] <= DECODE_MAX_Q:
-        return attend(q, kc, vc, key_mask)
-    return decode_attention_reference(q, kc, vc, key_mask)
+        if k_scale is None:
+            return attend(q, kc, vc, key_mask)
+        return attend(q, kc, vc, key_mask, k_scale=k_scale,
+                      v_scale=v_scale)
+    return decode_attention_reference(q, kc, vc, key_mask, k_scale,
+                                      v_scale)
+
+
+def _mm(h, p, name):
+    """``h @ W`` for a decode-program weight: when the parameter dict
+    carries a ``<name>__s`` per-output-channel scale (the weight-only
+    int8 plane), the int8 weight is widened for the product and the
+    scale applies to the result — ``(h @ W.float()) * s``, as the JAX
+    package computes it outside any kernel; the widened copy lives for
+    the one product only."""
+    s = p.get(name + "__s")
+    if s is None:
+        return h @ p[name]
+    return (h @ p[name].to(s.dtype)) * s
 
 
 def _block(p, x, n_heads, attn_fn):
@@ -611,21 +694,24 @@ def _block(p, x, n_heads, attn_fn):
     h = _ln(x, p["ln1_g"], p["ln1_b"])
     if "wqkv" in p:
         # Fused-QKV artifact: one head-major (E, 3E) projection.
-        qkv = (h @ p["wqkv"] + p["bqkv"]).reshape(B, S, H, 3, D)
+        qkv = (_mm(h, p, "wqkv") + p["bqkv"]).reshape(B, S, H, 3, D)
         q, k, v = qkv[..., 0, :], qkv[..., 1, :], qkv[..., 2, :]
     else:
-        q = (h @ p["wq"] + p["bq"]).reshape(B, S, H, D)
-        k = (h @ p["wk"] + p["bk"]).reshape(B, S, H, D)
-        v = (h @ p["wv"] + p["bv"]).reshape(B, S, H, D)
+        q = (_mm(h, p, "wq") + p["bq"]).reshape(B, S, H, D)
+        k = (_mm(h, p, "wk") + p["bk"]).reshape(B, S, H, D)
+        v = (_mm(h, p, "wv") + p["bv"]).reshape(B, S, H, D)
     attn = attn_fn(q, k, v)
-    x = x + attn.reshape(B, S, E) @ p["wo"] + p["bo"]
+    x = x + _mm(attn.reshape(B, S, E), p, "wo") + p["bo"]
     h = _ln(x, p["ln2_g"], p["ln2_b"])
-    return x + torch.relu(h @ p["w1"] + p["b1"]) @ p["w2"] + p["b2"]
+    return x + _mm(torch.relu(_mm(h, p, "w1") + p["b1"]), p, "w2") + \
+        p["b2"]
 
 
-def _head_logits(x_last, head_w, head_b):
-    y = x_last @ head_w
-    return y + head_b if head_b is not None else y
+def _head_logits(x_last, params):
+    """The lm_head projection of the decode programs (its int8 weight
+    and per-output-channel scale under the int8 weight mode)."""
+    y = _mm(x_last, params, "head_w")
+    return y + params["head_b"] if params["head_b"] is not None else y
 
 
 _MASK32 = 0xFFFFFFFF
@@ -722,13 +808,15 @@ class ExportedModel(object):
         #: Per-shape accounting of the entry points (hits/misses feed
         #: ``/stats``); the port runs eagerly and builds nothing.
         self.compile_cache = CompileCache(capacity=int(compile_capacity))
-        #: Weight generation served — 1; hot swap is not ported yet.
+        #: Monotonically increasing weight generation: 1 at load,
+        #: bumped by every :meth:`swap_weights`.
         self.weight_version = 1
         _, H, D = self._paged_geometry()
         if D > MAX_HEAD_DIM:
             raise Bug("head dim %d exceeds the decode kernel's maximum "
                       "(%d)" % (D, MAX_HEAD_DIM))
-        self._params = None
+        self._device = None
+        self._lm_params_cache = None
 
     @property
     def max_position(self):
@@ -737,12 +825,107 @@ class ExportedModel(object):
         emb, _, _ = lm_chain(self.units)
         return int(self.weights[emb["params"]["pos"]].shape[0])
 
-    def _lm_params(self):
-        """The parameter dict on the model's device, built once."""
-        if self._params is None:
-            self._params = lm_params_from_numpy(
+    # ---- weights: the decode weight mode and hot swap -----------------
+
+    def _device_weights(self):
+        """The float32 parameter dict on the model's device — one
+        upload per weight generation; ``forward`` reads it as it is."""
+        if self._device is None:
+            self._device = lm_params_from_numpy(
                 self.units, self.weights, self.device)
-        return self._params
+        return self._device
+
+    @staticmethod
+    def _decode_weight_mode():
+        """The weight plane of the decode programs:
+        ``root.common.serving.weight_dtype`` — "f32" (default) or
+        "int8" (weight-only int8 matmuls with per-output-channel
+        scales).  ``forward`` never quantizes: it stays the f32 oracle.
+        The mode rides every decode compile-cache key."""
+        mode = str(config_get(root.common.serving.weight_dtype, "f32"))
+        if mode not in ("f32", "int8"):
+            raise Bug("unknown decode weight dtype %r — valid: f32, "
+                      "int8" % (mode,))
+        return mode
+
+    #: 2-D decode matmul weights that ride the weight-only int8 plane
+    #: (embeddings are gathers, norms and biases stay f32).
+    _WQ_NAMES = ("wq", "wk", "wv", "wqkv", "wo", "w1", "w2")
+
+    @staticmethod
+    def _quantize_weight(d, name):
+        """Per-output-channel symmetric int8: ``W ≈ Q · s`` with
+        ``s = amax(|W|, axis=0) / 127`` — stored as ``<name>`` (int8)
+        plus ``<name>__s`` (f32 row vector).  Zero columns quantize to
+        zero codes with zero scale, an exact round trip."""
+        w = d.get(name)
+        if w is None or w.ndim != 2:
+            return
+        s = torch.amax(torch.abs(w), dim=0) / 127.0
+        safe = torch.where(s > 0.0, s, 1.0)
+        d[name] = torch.clamp(torch.round(w / safe), -127,
+                              127).to(torch.int8)
+        d[name + "__s"] = s
+
+    def _lm_params(self):
+        """The decode programs' parameter dict under the current weight
+        mode, cached per mode and dropped by :meth:`swap_weights` — so a
+        hot swap re-quantizes: the swapped weights rebuild it, on the
+        thread that runs the decode programs."""
+        mode = self._decode_weight_mode()
+        cached = self._lm_params_cache
+        if cached is None or cached[0] != mode:
+            dev = self._device_weights()
+            params = dict(dev, blocks=[dict(bp) for bp in dev["blocks"]])
+            if mode == "int8":
+                with torch.inference_mode():
+                    for bp in params["blocks"]:
+                        for name in self._WQ_NAMES:
+                            self._quantize_weight(bp, name)
+                    self._quantize_weight(params, "head_w")
+            self._lm_params_cache = (mode, params)
+        return self._lm_params_cache[1]
+
+    def geometry_of(self):
+        """The swap-compatibility fingerprint: the unit table plus
+        every weight's shape.  Two artifacts with equal geometry can
+        hot-swap weights in place."""
+        return (self.units,
+                {k: tuple(v.shape) for k, v in self.weights.items()})
+
+    def same_geometry(self, other):
+        """True when ``other``'s weights can be swapped into this model
+        in place."""
+        return self.geometry_of() == other.geometry_of()
+
+    def swap_weights(self, new_weights):
+        """In-place hot weight swap: replaces every parameter with the
+        same-named array from ``new_weights`` and bumps
+        :attr:`weight_version`.  The compile-cache accounting survives;
+        the device parameters are rebuilt (and, under the int8 weight
+        mode, re-quantized) at their next use.  Raises :class:`Bug` on
+        any geometry mismatch (missing/extra/reshaped keys); the caller
+        falls back to a full model replacement (drain-and-swap)."""
+        new = {k: numpy.asarray(v, dtype=numpy.float32)
+               for k, v in new_weights.items()}
+        mine = {k: tuple(v.shape) for k, v in self.weights.items()}
+        theirs = {k: tuple(v.shape) for k, v in new.items()}
+        if mine != theirs:
+            missing = sorted(set(mine) - set(theirs))
+            extra = sorted(set(theirs) - set(mine))
+            reshaped = sorted(
+                "%s %s->%s" % (k, mine[k], theirs[k])
+                for k in set(mine) & set(theirs)
+                if mine[k] != theirs[k])
+            raise Bug(
+                "weight geometry mismatch — in-place swap impossible"
+                " (missing: %s; new: %s; reshaped: %s)" %
+                (missing or "-", extra or "-", reshaped or "-"))
+        self.weights = new
+        self._device = None
+        self._lm_params_cache = None
+        self.weight_version += 1
+        return self.weight_version
 
     def _tensor(self, array, dtype):
         return torch.as_tensor(numpy.array(array), dtype=dtype,
@@ -773,7 +956,7 @@ class ExportedModel(object):
                               torch.float32)
         if tokens.ndim == 1:
             tokens = tokens[None]
-        params = self._lm_params()
+        params = self._device_weights()
         n_heads, P, V = self._lm_static()
         B, S = tokens.shape
         if S > P:
@@ -788,7 +971,7 @@ class ExportedModel(object):
             for p, H in zip(params["blocks"], n_heads):
                 x = _block(p, x, H, lambda q, k, v: decode_attention_reference(
                     q, k, v, causal))
-            y = _head_logits(x, params["head_w"], params["head_b"])
+            y = _head_logits(x, params)
         return y.cpu().numpy()
 
     def forward_bucketed(self, x, batch_bucket):
@@ -920,8 +1103,9 @@ class ExportedModel(object):
             raise Bug(
                 "prompt of %d tokens exceeds the model's positional "
                 "table (%d)" % (max(S0b, int(lengths.max())), P))
-        self.compile_cache.get_or_build(("genb", B, S0b, max_new),
-                                        lambda: True)
+        self.compile_cache.get_or_build(
+            ("genb", B, S0b, max_new, self._decode_weight_mode()),
+            lambda: True)
         params = self._lm_params()
         dev = self.torch_device
         L = S0b + max_new
@@ -943,8 +1127,7 @@ class ExportedModel(object):
                 caches.append((ck, cv))
             rows = torch.arange(B, device=dev)
             idx = torch.clamp(lengths_t - 1, 0, S0b - 1)
-            logits = _head_logits(x[rows, idx], params["head_w"],
-                                  params["head_b"])
+            logits = _head_logits(x[rows, idx], params)
             tok = _sample_rows(logits, seeds_t,
                                torch.zeros_like(seeds_t), temps_t)
             toks, all_logits = [tok], [logits]
@@ -962,8 +1145,7 @@ class ExportedModel(object):
                     xj = self._cached_block(p, xj, ck, cv, slot, H,
                                             key_mask=kmask,
                                             attend=attend)
-                logits = _head_logits(xj[:, 0], params["head_w"],
-                                      params["head_b"])
+                logits = _head_logits(xj[:, 0], params)
                 tok = _sample_rows(
                     logits, seeds_t, torch.full_like(seeds_t, j + 1),
                     temps_t)
@@ -993,57 +1175,190 @@ class ExportedModel(object):
         return len(blocks), H, E // H
 
     def make_kv_pool(self, n_blocks, block_size=16, kv_dtype=None):
-        """A :class:`KVBlockPool` backed by per-layer float32 device
-        tensors of ``(n_blocks, block_size, H, D)`` k/v blocks — the
-        paged substrate of the serving engine's decode-step batching.
-        ``kv_dtype`` other than "f32" raises (not yet ported)."""
+        """A :class:`KVBlockPool` backed by per-layer device tensors of
+        ``(n_blocks, block_size, H, D)`` k/v blocks — the paged
+        substrate of the serving engine's decode-step batching.
+        ``kv_dtype`` picks the storage plane (default: the
+        ``root.common.serving.kv_dtype`` config, "f32"): "f32" is the
+        exact path, "bf16" a scale-free cast, "int8"/"fp8" codes with
+        per-(block, head) float32 scale tensors ``(n_blocks, H)`` beside
+        the blocks (storage ``(ks, vs, sks, svs)``; ``block_bytes``
+        counts the scales; a freshly allocated block is zeroed)."""
+        if kv_dtype is None:
+            kv_dtype = config_get(root.common.serving.kv_dtype, "f32")
         kv_dtype = check_kv_dtype(kv_dtype)
         L, H, D = self._paged_geometry()
         n, bs = int(n_blocks), int(block_size)
-        ks = [torch.zeros((n, bs, H, D), dtype=torch.float32,
-                          device=self.torch_device) for _ in range(L)]
+        dev = self.torch_device
+        ks = [torch.zeros((n, bs, H, D), dtype=_KV_TORCH[kv_dtype],
+                          device=dev) for _ in range(L)]
         vs = [torch.zeros_like(k) for k in ks]
-        return KVBlockPool(n_blocks, block_size, storage=(ks, vs),
+        block_bytes = 2 * L * bs * H * D * _KV_ITEMSIZE[kv_dtype]
+        if _KV_QMAX[kv_dtype] is not None:
+            sks = [torch.zeros((n, H), dtype=torch.float32, device=dev)
+                   for _ in range(L)]
+            svs = [torch.zeros_like(t) for t in sks]
+            storage = (ks, vs, sks, svs)
+            block_bytes += 2 * L * H * 4
+        else:
+            storage = (ks, vs)
+        return KVBlockPool(n_blocks, block_size, storage=storage,
                            copy_fn=self._kv_copy_block,
-                           kv_dtype=kv_dtype,
-                           block_bytes=2 * L * bs * H * D * 4)
+                           kv_dtype=kv_dtype, block_bytes=block_bytes,
+                           reset_fn=self._kv_reset_blocks
+                           if len(storage) == 4 else None)
 
     @staticmethod
     def _kv_copy_block(storage, src, dst):
         """Copy-on-write of one block, in place in every layer's
-        tensors."""
-        ks, vs = storage
+        tensors — on a quantized pool the scale rows copy with the
+        codes, bit for bit, so the copy dequantizes to exactly the
+        shared original's values."""
         with torch.inference_mode():
-            for t in list(ks) + list(vs):
-                t[dst].copy_(t[src])
+            for tensors in storage:
+                for t in tensors:
+                    t[dst].copy_(t[src])
         return storage
 
     @staticmethod
-    def _paged_block(p, x, pk, pv, tables, wblock, wslot, key_mask,
-                     n_heads):
+    def _kv_reset_blocks(storage, ids):
+        """Zeroes blocks ``ids`` — codes and scale rows — in every layer
+        of a scaled pool, in place, so a reused block is what a fresh
+        pool's is: its first write quantizes at its own amax."""
+        ks, vs, sks, svs = storage
+        idx = torch.as_tensor(ids, dtype=torch.int64, device=ks[0].device)
+        with torch.inference_mode():
+            for t in list(ks) + list(vs):
+                t.view(torch.uint8).index_fill_(0, idx, 0)
+            for t in list(sks) + list(svs):
+                t.index_fill_(0, idx, 0.0)
+        return storage
+
+    def export_kv_blocks(self, pool, ids):
+        """KV export to another pool (prefill/decode disaggregation) —
+        not yet ported."""
+        raise Bug("KV export/adopt (export_kv_blocks) is not yet ported")
+
+    def import_kv_blocks(self, pool, ids, blocks):
+        """KV adoption from another pool — not yet ported."""
+        raise Bug("KV export/adopt (import_kv_blocks) is not yet ported")
+
+    def _write_index(self, tables, start, n_cols, n_real, bs):
+        """Where a chunk's k/v go, computed on the host from host
+        arrays: ``(wblock, wslot, written)`` device tensors — per row
+        and chunk column the physical block and in-block slot of
+        position ``start + column`` (clipped to the table), and the
+        sorted distinct blocks written.  Columns at or past a row's
+        ``n_real`` write to the TRASH block: tables cover exactly the
+        row's real span, so a clipped junk column could land on a real
+        slot, and a scatter whose duplicate indices carry different
+        values is order-undefined."""
+        T = tables.shape[1]
+        offs = numpy.arange(n_cols)
+        wpos = numpy.clip(numpy.asarray(start)[:, None] + offs[None, :],
+                          0, T * bs - 1)
+        wblock = numpy.take_along_axis(tables, wpos // bs, axis=1)
+        wblock = numpy.where(offs[None, :] < numpy.asarray(n_real)[:, None],
+                             wblock, KVBlockPool.TRASH)
+        return (self._tensor(wblock, torch.int64),
+                self._tensor(wpos % bs, torch.int64),
+                self._tensor(numpy.unique(wblock), torch.int64))
+
+    @staticmethod
+    def _quantized_write(codes, scales, vals, wblock, wslot, written,
+                         kv_dtype):
+        """The quantized plane's scatter, in place, in the JAX
+        package's four steps: (1) scatter-max ``amax / qmax`` of the
+        chunk's values into the written blocks' scales; (2) rescale the
+        written blocks' stored codes by old / new scale (rounded for
+        int8) — a block whose scale did not grow has a ratio of exactly
+        1.0, an exact code round trip; blocks the chunk does not write
+        are not touched, so a shared prefix block stays bit-stable;
+        (3) quantize the chunk at the grown scales and scatter it.  The
+        old codes and scales are read before any write of the step.
+        (4), the gather, is the caller's."""
+        qmax = _KV_QMAX[kv_dtype]
+        H = scales.shape[1]
+        amax = torch.amax(torch.abs(vals), dim=-1) / qmax  # (B, S, H)
+        old = scales[written]
+        old_codes = codes[written].to(torch.float32)
+        scales.scatter_reduce_(
+            0, wblock.reshape(-1, 1).expand(-1, H), amax.reshape(-1, H),
+            "amax", include_self=True)
+        new = scales[written]
+        ratio = old / torch.where(new > 0.0, new, 1.0)
+        rescaled = old_codes * ratio[:, None, :, None]
+        if kv_dtype == "int8":
+            rescaled = torch.round(rescaled)
+        codes[written] = rescaled.to(codes.dtype)
+        codes[wblock, wslot] = _kv_quantize(
+            vals, scales[wblock][..., None], kv_dtype)
+
+    @classmethod
+    def _paged_block(cls, p, x, pk, pv, tables, write, key_mask, n_heads,
+                     attend=decode_attention, sk=None, sv=None,
+                     kv_dtype="f32"):
         """One pre-LN block against the POOLED cache: the chunk's k/v
-        scatter IN PLACE to ``(wblock, wslot)`` (physical block,
-        in-block slot — per row AND per chunk position, so rows at
-        different sequence positions share one batch), then the whole
-        table is gathered back ``(B, T·bs, H, D)`` and the queries
-        attend it under ``key_mask``.  Pad columns write to the TRASH
-        block only: a scatter with duplicate indices is order-
-        undefined, so a junk write must never share a slot with a real
-        one."""
+        scatter IN PLACE to ``write`` = ``(wblock, wslot, written)``
+        (physical block and in-block slot per row AND chunk position,
+        so rows at different sequence positions share one batch), then
+        the whole table is gathered back ``(B, T·bs, H, D)`` and the
+        queries attend it under ``key_mask``.  On the bf16 plane the
+        gather is widened to float32 (B4); on the int8/fp8 planes
+        (``sk``/``sv``: per-(block, head) scales) the write quantizes
+        (:meth:`_quantized_write`) and the gather keeps the codes and
+        broadcasts the scales to ``(B, T·bs, H)``, so ``attend`` (B5)
+        dequantizes inside the kernel."""
         B = x.shape[0]
+        wblock, wslot, written = write
 
         def attn_fn(q, kn, vn):
-            pk[wblock, wslot] = kn
-            pv[wblock, wslot] = vn
-            H, D = pk.shape[2], pk.shape[3]
-            kc = pk[tables].reshape(B, -1, H, D)
-            vc = pv[tables].reshape(B, -1, H, D)
-            return _attend(q, kc, vc, key_mask)
+            T, bs, H, D = tables.shape[1], pk.shape[1], pk.shape[2], \
+                pk.shape[3]
+            if sk is None:
+                pk[wblock, wslot] = kn.to(pk.dtype)
+                pv[wblock, wslot] = vn.to(pv.dtype)
+                kc = pk[tables].reshape(B, -1, H, D)
+                vc = pv[tables].reshape(B, -1, H, D)
+                return _attend(q, kc.to(torch.float32),
+                               vc.to(torch.float32), key_mask, attend)
+            cls._quantized_write(pk, sk, kn, wblock, wslot, written,
+                                 kv_dtype)
+            cls._quantized_write(pv, sv, vn, wblock, wslot, written,
+                                 kv_dtype)
+
+            def per_position(scales):
+                return scales[tables][:, :, None, :].expand(
+                    B, T, bs, H).reshape(B, T * bs, H)
+
+            return _attend(q, pk[tables].reshape(B, -1, H, D),
+                           pv[tables].reshape(B, -1, H, D), key_mask,
+                           attend, per_position(sk), per_position(sv))
 
         return _block(p, x, n_heads, attn_fn)
 
+    def _paged_layers(self, pool, params, x, tables_t, write, key_mask,
+                      attend):
+        """The chunk through every block against ``pool``'s planes."""
+        n_heads, _, _ = self._lm_static()
+        ks, vs, sks, svs = _kv_unpack(pool.storage)
+        for i, (p, H) in enumerate(zip(params["blocks"], n_heads)):
+            x = self._paged_block(
+                p, x, ks[i], vs[i], tables_t, write, key_mask, H, attend,
+                sks[i] if sks is not None else None,
+                svs[i] if svs is not None else None, pool.kv_dtype)
+        return x
+
+    def _paged_key(self, kind, pool, *shape):
+        """The compile-cache key of a paged entry point: its shape, the
+        pool geometry and both quantization modes."""
+        self.compile_cache.get_or_build(
+            (kind,) + shape + (pool.n_blocks, pool.block_size,
+                               pool.kv_dtype, self._decode_weight_mode()),
+            lambda: True)
+
     def paged_extend(self, pool, tables, tokens, prior, chunk_lens,
-                     temps, seeds):
+                     temps, seeds, attend=decode_attention):
         """Prefill/extend entry point for the serving engine:
         ``tables`` (B, T) int32 block tables (trash-padded),
         ``tokens`` (B, Sc) right-padded chunk tokens, ``prior`` (B,)
@@ -1054,42 +1369,62 @@ class ExportedModel(object):
         absolute positions — ``prior = 0`` is a fresh prefill,
         ``prior = k·bs`` extends a shared prefix of k cached blocks.
         Updates ``pool.storage`` in place and returns the (B,) first
-        generated tokens (sampling stream index 0)."""
+        generated tokens (sampling stream index 0).  ``attend`` is the
+        attention of chunks of at most ``DECODE_MAX_Q`` rows (the
+        kernels; tests and the chip check pass the plain version).
+
+        On the int8/fp8 planes each real row (a table that is not all
+        TRASH) runs alone, at its own chunk length and table span, so
+        what it stores is a function of the row alone (see
+        :meth:`paged_verify`); pad rows return 0."""
         tables = numpy.ascontiguousarray(tables, dtype=numpy.int32)
         tokens = numpy.ascontiguousarray(tokens, dtype=numpy.int32)
         B, T = tables.shape
+        self._paged_key("pext", pool, B, tokens.shape[1], T)
+        if _KV_QMAX[pool.kv_dtype] is None:
+            return self._extend(pool, tables, tokens, prior, chunk_lens,
+                                temps, seeds, attend)
+        prior = numpy.asarray(prior, dtype=numpy.int64)
+        clens = numpy.asarray(chunk_lens, dtype=numpy.int64)
+        temps = numpy.asarray(temps, dtype=numpy.float32)
+        seeds = numpy.asarray(seeds)
+        bs = pool.block_size
+        out = numpy.zeros(B, numpy.int32)
+        for r in numpy.flatnonzero((tables[:, 0] != KVBlockPool.TRASH) &
+                                   (clens > 0)):
+            n = int(clens[r])
+            span = min(T, -(-(int(prior[r]) + n) // bs))
+            out[r] = self._extend(
+                pool, tables[r:r + 1, :span], tokens[r:r + 1, :n],
+                prior[r:r + 1], clens[r:r + 1], temps[r:r + 1],
+                seeds[r:r + 1], attend)[0]
+        return out
+
+    def _extend(self, pool, tables, tokens, prior, chunk_lens, temps,
+                seeds, attend):
+        """:meth:`paged_extend`'s program over one batch of rows."""
+        B, T = tables.shape
         Sc = tokens.shape[1]
-        self.compile_cache.get_or_build(
-            ("pext", B, Sc, T, pool.n_blocks, pool.block_size,
-             pool.kv_dtype), lambda: True)
         n_heads, P, V = self._lm_static()
         params = self._lm_params()
-        ks, vs = pool.storage
         dev = self.torch_device
         bs = pool.block_size
-        S_keys = T * bs
         with torch.inference_mode():
-            tables_t = self._tensor(tables, torch.int64)
             prior_t = self._tensor(prior, torch.int64)
             clen_t = self._tensor(chunk_lens, torch.int64)
-            offs = torch.arange(Sc, device=dev)
-            qpos = prior_t[:, None] + offs[None, :]
+            qpos = prior_t[:, None] + torch.arange(Sc, device=dev)[None, :]
             t = torch.clamp(self._tensor(tokens, torch.int64), 0, V - 1)
             x = params["emb_w"][t] + \
                 params["emb_pos"][torch.clamp(qpos, 0, P - 1)]
-            wpos = torch.clamp(qpos, 0, S_keys - 1)
-            wblock = torch.gather(tables_t, 1, wpos // bs)
-            wblock = torch.where(offs[None, :] < clen_t[:, None],
-                                 wblock, KVBlockPool.TRASH)
-            wslot = wpos % bs
-            key_mask = (torch.arange(S_keys, device=dev)[None, None, :]
+            write = self._write_index(tables, prior, Sc, chunk_lens, bs)
+            key_mask = (torch.arange(T * bs, device=dev)[None, None, :]
                         <= qpos[:, :, None])
-            for pk, pv, p, H in zip(ks, vs, params["blocks"], n_heads):
-                x = self._paged_block(p, x, pk, pv, tables_t, wblock,
-                                      wslot, key_mask, H)
+            x = self._paged_layers(pool, params, x,
+                                   self._tensor(tables, torch.int64),
+                                   write, key_mask, attend)
             idx = torch.clamp(clen_t - 1, 0, Sc - 1)
             logits = _head_logits(x[torch.arange(B, device=dev), idx],
-                                  params["head_w"], params["head_b"])
+                                  params)
             seeds_t = self._tensor(seeds, torch.int64)
             tok0 = _sample_rows(logits, seeds_t,
                                 torch.zeros_like(seeds_t),
@@ -1097,7 +1432,7 @@ class ExportedModel(object):
             return tok0.to(torch.int32).cpu().numpy()
 
     def paged_step(self, pool, tables, pos, tok, gen_idx, temps,
-                   seeds):
+                   seeds, attend=decode_attention):
         """One decode step for the engine's continuous batch: each
         row feeds its previous token at position ``pos`` (k/v
         scattered to table block ``pos // bs``, slot ``pos % bs``),
@@ -1108,33 +1443,124 @@ class ExportedModel(object):
         all-trash tables and scatter junk into block 0."""
         tables = numpy.ascontiguousarray(tables, dtype=numpy.int32)
         B, T = tables.shape
-        self.compile_cache.get_or_build(
-            ("pstep", B, T, pool.n_blocks, pool.block_size,
-             pool.kv_dtype), lambda: True)
+        self._paged_key("pstep", pool, B, T)
+        return self._step(pool, tables, pos, tok, numpy.ones(B), gen_idx,
+                          temps, seeds, attend)
+
+    def _step(self, pool, tables, pos, tok, writes, gen_idx, temps, seeds,
+              attend):
+        """:meth:`paged_step`'s program; rows whose ``writes`` entry is
+        0 send their k/v to the TRASH block."""
+        B, T = tables.shape
         n_heads, P, V = self._lm_static()
         params = self._lm_params()
-        ks, vs = pool.storage
         dev = self.torch_device
         bs = pool.block_size
-        S_keys = T * bs
         with torch.inference_mode():
-            tables_t = self._tensor(tables, torch.int64)
             pos_t = self._tensor(pos, torch.int64)
             tok_t = torch.clamp(self._tensor(tok, torch.int64), 0, V - 1)
             x = (params["emb_w"][tok_t] +
                  params["emb_pos"][torch.clamp(pos_t, 0, P - 1)])[:, None]
-            wpos = torch.clamp(pos_t, 0, S_keys - 1)
-            wblock = torch.gather(tables_t, 1, (wpos // bs)[:, None])
-            wslot = (wpos % bs)[:, None]
-            key_mask = (torch.arange(S_keys, device=dev)[None, None, :]
+            write = self._write_index(tables, pos, 1, writes, bs)
+            key_mask = (torch.arange(T * bs, device=dev)[None, None, :]
                         <= pos_t[:, None, None])
-            for pk, pv, p, H in zip(ks, vs, params["blocks"], n_heads):
-                x = self._paged_block(p, x, pk, pv, tables_t, wblock,
-                                      wslot, key_mask, H)
-            logits = _head_logits(x[:, 0], params["head_w"],
-                                  params["head_b"])
+            x = self._paged_layers(pool, params, x,
+                                   self._tensor(tables, torch.int64),
+                                   write, key_mask, attend)
+            logits = _head_logits(x[:, 0], params)
             tok_new = _sample_rows(
                 logits, self._tensor(seeds, torch.int64),
                 self._tensor(gen_idx, torch.int64),
                 self._temps(temps))
             return tok_new.to(torch.int32).cpu().numpy()
+
+    def paged_verify(self, pool, tables, pos, toks, draft_lens,
+                     gen_idx, temps, seeds, attend=decode_attention):
+        """Speculative verify entry point for the serving engine:
+        ``toks`` (B, K+1) holds each row's current token followed by up
+        to K draft tokens (``draft_lens`` true counts) at positions
+        ``pos..pos+K``.  Returns the (B, K+1) TARGET tokens: column
+        ``j`` sampled at stream index ``gen_idx + j``, the stream the
+        plain step would use at that generation index.  The caller
+        accepts the longest prefix where draft j+1 equals output j and
+        feeds the output at the first mismatch as the bonus token, so
+        greedy decode is the argmax over the same logits as plain
+        decode, and sampled decode draws the same stream.
+
+        On the f32 and bf16 planes the columns are one chunk (k/v
+        scattered through the table like a prefill chunk) under the
+        per-position causal mask; junk columns past a row's draft count
+        write to the TRASH block, and K+1 <= ``DECODE_MAX_Q`` rows
+        attend through ``attend`` (B4).
+
+        On the int8/fp8 planes a block's scale grows with each write
+        and re-rounds the block's codes, so what a block stores depends
+        on how its positions were grouped into writes, and a rejected
+        draft would grow it too: a chunk cannot store what plain decode
+        stores.  There column j runs as the plain step program itself,
+        at the step's shapes (B5 at one query row), and a row writes
+        only while its drafts are accepted; the columns stop once every
+        row has rejected, and a column a row did not reach returns -1.
+        The planes then hold exactly what plain decode leaves, and the
+        tokens are plain decode's, bit for bit."""
+        tables = numpy.ascontiguousarray(tables, dtype=numpy.int32)
+        toks = numpy.ascontiguousarray(toks, dtype=numpy.int32)
+        B, T = tables.shape
+        Sq = toks.shape[1]
+        self._paged_key("pver", pool, B, Sq, T)
+        if _KV_QMAX[pool.kv_dtype] is not None:
+            return self._verify_stepwise(pool, tables, pos, toks,
+                                         draft_lens, gen_idx, temps,
+                                         seeds, attend)
+        n_heads, P, V = self._lm_static()
+        params = self._lm_params()
+        dev = self.torch_device
+        bs = pool.block_size
+        with torch.inference_mode():
+            pos_t = self._tensor(pos, torch.int64)
+            qpos = pos_t[:, None] + torch.arange(Sq, device=dev)[None, :]
+            t = torch.clamp(self._tensor(toks, torch.int64), 0, V - 1)
+            x = params["emb_w"][t] + \
+                params["emb_pos"][torch.clamp(qpos, 0, P - 1)]
+            # Column 0 is the row's current token, columns 1..dlen its
+            # drafts: dlen + 1 real columns.
+            write = self._write_index(
+                tables, pos, Sq,
+                numpy.asarray(draft_lens, dtype=numpy.int64) + 1, bs)
+            key_mask = (torch.arange(T * bs, device=dev)[None, None, :]
+                        <= qpos[:, :, None])
+            x = self._paged_layers(pool, params, x,
+                                   self._tensor(tables, torch.int64),
+                                   write, key_mask, attend)
+            logits = _head_logits(x, params)  # (B, Sq, V)
+            temps_t = self._temps(temps)
+            if temps_t is None:
+                out = torch.argmax(logits, dim=-1)
+            else:
+                seeds_t = self._tensor(seeds, torch.int64)
+                gen_t = self._tensor(gen_idx, torch.int64)
+                out = torch.stack([
+                    _sample_rows(logits[:, j], seeds_t, gen_t + j,
+                                 temps_t) for j in range(Sq)], dim=1)
+            return out.to(torch.int32).cpu().numpy()
+
+    def _verify_stepwise(self, pool, tables, pos, toks, draft_lens,
+                         gen_idx, temps, seeds, attend):
+        """:meth:`paged_verify` on a scaled plane: column by column
+        through :meth:`_step`, each row writing while it accepts."""
+        B, Sq = toks.shape
+        pos = numpy.asarray(pos, dtype=numpy.int64)
+        gen_idx = numpy.asarray(gen_idx, dtype=numpy.int64)
+        dlens = numpy.asarray(draft_lens, dtype=numpy.int64)
+        out = numpy.full((B, Sq), -1, numpy.int32)
+        live = numpy.ones(B, bool)
+        for j in range(Sq):
+            got = self._step(pool, tables, pos + j, toks[:, j], live,
+                             gen_idx + j, temps, seeds, attend)
+            out[live, j] = got[live]
+            if j + 1 == Sq:
+                break
+            live &= (dlens > j) & (got == toks[:, j + 1])
+            if not live.any():
+                break
+        return out

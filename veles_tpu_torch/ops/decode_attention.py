@@ -1,16 +1,22 @@
 """Flash-decode attention: a small query chunk against a long key table.
 
-The port of the TPU kernel ``_decode_kernel``
-(``veles_tpu/ops/pallas_attention.py``, launched by
-``pallas_decode_attention``).  Four things live here:
+The port of two TPU kernels of ``veles_tpu/ops/pallas_attention.py``,
+both launched by ``pallas_decode_attention``: ``_decode_kernel`` (B4,
+float32 keys and values) and ``_decode_kernel_quant`` (B5, keys and
+values stored as int8 or float8_e4m3fn codes with a float32 scale per
+position and head, dequantized inside the kernel as ``code · scale``).
+Five things live here:
 
 * :func:`supports_decode` — the port's own geometry contract;
-* :func:`decode_attention_reference` — the plain PyTorch version;
-* :func:`decode_attention` — the wrapper: the plain version for CPU
-  tensors, the hand-written CUDA kernel
-  (``csrc/decode_attention.cu``) for CUDA tensors;
-* ``decode_attention.launches`` — a plain integer, one more for every
-  kernel launch, so a run can show that it went through the kernel.
+* :func:`decode_attention_reference` — the plain PyTorch version, and
+  :func:`decode_attention_quant_reference`, B5's: dequantize to float32,
+  then the same;
+* :func:`decode_attention` — the wrapper: the plain versions for CPU
+  tensors, the hand-written CUDA kernels (``csrc/decode_attention.cu``)
+  for CUDA tensors; given ``k_scale``/``v_scale`` it is B5;
+* ``decode_attention.launches`` and ``decode_attention.quant_launches``
+  — plain integers, one more for every launch of B4 and of B5, so a run
+  can show that it went through each kernel.
 
 The kernel is CUDA C++ for ``sm_90a``, built at first use with
 ``nvcc`` into a shared library with a plain C interface (loaded with
@@ -23,7 +29,11 @@ Contract (:func:`supports_decode`): q ``(B, Sq, H, D)`` with
 (a ragged tail is masked in the kernel, unlike the TPU kernel's
 ``L % 128 == 0``), ``D <= MAX_HEAD_DIM``, float32 throughout, and
 ``key_mask`` ``(B, Sq, L)`` bool, True = attend.  A row whose mask is
-all False gets out = 0, as in the TPU kernel.
+all False gets out = 0, as in the TPU kernel.  B5 takes k/v as int8 or
+float8_e4m3fn codes of the same shape and ``k_scale``/``v_scale``
+``(B, L, H)`` float32, one scale per position and head (the pool's
+per-(block, head) scales broadcast over each block's positions, as the
+JAX package passes them).
 """
 
 import ctypes
@@ -43,6 +53,8 @@ MAX_HEAD_DIM = 128
 KEYS_PER_SPLIT = 64
 #: The masked-score fill of the TPU kernel and the dense path.
 NEG_INF = -1e30
+#: Code types of B5, by the kernel's ``code_kind`` argument.
+CODE_KINDS = {torch.int8: 0, torch.float8_e4m3fn: 1}
 
 SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc",
                       "decode_attention.cu")
@@ -60,13 +72,19 @@ def supports_decode(q_shape, k_shape):
     return 1 <= Sq <= DECODE_MAX_Q and L >= 1 and 1 <= D <= MAX_HEAD_DIM
 
 
-def decode_attention_reference(q, k, v, key_mask):
+def decode_attention_reference(q, k, v, key_mask, k_scale=None,
+                               v_scale=None):
     """The plain version: the dense masked softmax, written as the
     JAX package's paged block writes it (``export.py``
     ``_paged_block``) — scores scaled by 1/√D, masked slots at
     ``NEG_INF``, softmax, weighted sum.  A row whose mask is all False
     returns 0, the kernel's contract (the dense formula alone would
-    average every value there; serving never builds such a row)."""
+    average every value there; serving never builds such a row).
+    Given scales, k/v are codes: :func:`decode_attention_quant_reference`
+    (so one ``attend`` serves every KV plane)."""
+    if k_scale is not None:
+        return decode_attention_quant_reference(q, k, v, key_mask,
+                                                k_scale, v_scale)
     D = q.shape[-1]
     scores = torch.einsum("bqhd,bkhd->bqhk", q, k) / (D ** 0.5)
     scores = scores.masked_fill(~key_mask[:, :, None, :], NEG_INF)
@@ -75,7 +93,23 @@ def decode_attention_reference(q, k, v, key_mask):
     return out.masked_fill(~key_mask.any(-1)[:, :, None, None], 0.0)
 
 
-def _check(q, k, v, key_mask):
+def dequantize(codes, scale):
+    """float32 ``codes · scale`` of ``(B, L, H, D)`` codes under their
+    ``(B, L, H)`` scales — the value B5 forms in registers."""
+    return codes.to(torch.float32) * scale[..., None]
+
+
+def decode_attention_quant_reference(q, k_codes, v_codes, key_mask,
+                                     k_scale, v_scale):
+    """B5's plain version: dequantize k and v to float32, then
+    :func:`decode_attention_reference` — exactly what pre-dequantized
+    operands produce."""
+    return decode_attention_reference(
+        q, dequantize(k_codes, k_scale), dequantize(v_codes, v_scale),
+        key_mask)
+
+
+def _check(q, k, v, key_mask, k_scale=None, v_scale=None):
     if not supports_decode(tuple(q.shape), tuple(k.shape)):
         raise ValueError(
             "geometry q %s × k %s is outside the decode-kernel "
@@ -91,24 +125,43 @@ def _check(q, k, v, key_mask):
         raise ValueError("key_mask must be bool %s, got %s %s" %
                          ((B, Sq, k.shape[1]), key_mask.dtype,
                           tuple(key_mask.shape)))
-    for name, t in (("q", q), ("k", k), ("v", v)):
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError("k_scale and v_scale go together")
+    if k_scale is None:
+        floats = (("q", q), ("k", k), ("v", v))
+    else:
+        floats = (("q", q), ("k_scale", k_scale), ("v_scale", v_scale))
+        if k.dtype not in CODE_KINDS or v.dtype != k.dtype:
+            raise ValueError("quantized k/v must both be int8 or "
+                             "float8_e4m3fn, got %s, %s" %
+                             (k.dtype, v.dtype))
+        want = tuple(k.shape[:3])
+        for name, t in (("k_scale", k_scale), ("v_scale", v_scale)):
+            if tuple(t.shape) != want:
+                raise ValueError("%s must be %s, got %s" %
+                                 (name, want, tuple(t.shape)))
+    for name, t in floats:
         if t.dtype != torch.float32:
             raise ValueError("%s must be float32, got %s" %
                              (name, t.dtype))
-    devices = {t.device for t in (q, k, v, key_mask)}
+    operands = (q, k, v, key_mask) if k_scale is None else \
+        (q, k, v, key_mask, k_scale, v_scale)
+    devices = {t.device for t in operands}
     if len(devices) != 1:
         raise ValueError("operands on several devices: %s" %
                          sorted(map(str, devices)))
 
 
-def decode_attention(q, k, v, key_mask):
+def decode_attention(q, k, v, key_mask, k_scale=None, v_scale=None):
     """Flash-decode: returns ``(B, Sq, H, D)`` float32.  CPU tensors
-    take :func:`decode_attention_reference`; CUDA tensors launch the
-    kernel (adding one to ``decode_attention.launches``) on the
+    take the plain version; CUDA tensors launch B4 (adding one to
+    ``decode_attention.launches``) or, given ``k_scale``/``v_scale``,
+    B5 (adding one to ``decode_attention.quant_launches``) on the
     calling thread's current stream, or raise."""
-    _check(q, k, v, key_mask)
+    _check(q, k, v, key_mask, k_scale, v_scale)
     if q.device.type == "cpu":
-        return decode_attention_reference(q, k, v, key_mask)
+        return decode_attention_reference(q, k, v, key_mask, k_scale,
+                                          v_scale)
     if q.device.type != "cuda":
         raise ValueError("decode_attention runs on cpu or cuda "
                          "tensors, not %s" % q.device)
@@ -128,19 +181,33 @@ def decode_attention(q, k, v, key_mask):
                       device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.veles_decode_attention(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
-            o_part.data_ptr(), lse_part.data_ptr(), out.data_ptr(),
-            B, Sq, L, H, D, 1.0 / (D ** 0.5), stream)
+        if k_scale is None:
+            err = lib.veles_decode_attention(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                mask.data_ptr(), o_part.data_ptr(), lse_part.data_ptr(),
+                out.data_ptr(), B, Sq, L, H, D, 1.0 / (D ** 0.5), stream)
+        else:
+            k_scale = k_scale.contiguous()
+            v_scale = v_scale.contiguous()
+            err = lib.veles_decode_attention_quant(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                k_scale.data_ptr(), v_scale.data_ptr(), mask.data_ptr(),
+                o_part.data_ptr(), lse_part.data_ptr(), out.data_ptr(),
+                B, Sq, L, H, D, 1.0 / (D ** 0.5), CODE_KINDS[k.dtype],
+                stream)
     if err:
         raise RuntimeError(
             "decode_attention kernel launch failed: %s (CUDA error "
             "%d)" % (lib.veles_cuda_error_string(err).decode(), err))
-    decode_attention.launches += 1
+    if k_scale is None:
+        decode_attention.launches += 1
+    else:
+        decode_attention.quant_launches += 1
     return out
 
 
 decode_attention.launches = 0
+decode_attention.quant_launches = 0
 
 
 # -- build and load -------------------------------------------------------
@@ -166,6 +233,10 @@ def _library():
                     vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci,
                     ctypes.c_float, vp]
                 lib.veles_decode_attention.restype = ci
+                lib.veles_decode_attention_quant.argtypes = [
+                    vp, vp, vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci,
+                    ci, ctypes.c_float, ci, vp]
+                lib.veles_decode_attention_quant.restype = ci
                 lib.veles_cuda_error_string.argtypes = [ci]
                 lib.veles_cuda_error_string.restype = ctypes.c_char_p
                 for fn in ("veles_decode_max_sq", "veles_decode_max_d",

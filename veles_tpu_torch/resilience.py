@@ -13,10 +13,10 @@ serving engine uses:
 * :data:`stats` — a thread-safe counter registry over the process
   metrics registry.
 
-The serving engine consults one injection point,
-``serve.device_fault``, before every device call.  The control-plane
-points of the JAX package (network, worker, snapshot) come with the
-distributed slice.
+The serving engine consults ``serve.device_fault`` before every device
+call, and the hot-reload verifier ``serve.reload_corrupt`` after it
+reads an artifact.  The control-plane points of the JAX package
+(network, worker, snapshot) come with the distributed slice.
 
 Chaos-plan grammar (comma-separated entries)::
 
@@ -56,6 +56,13 @@ class InjectedDeviceFault(InjectedFault):
     catches it on the device thread, rebuilds the KV pool, and
     re-adopts surviving streams from their request-side token
     prefixes — the exact recovery path a real device fault drives."""
+
+
+class InjectedReloadCorruption(InjectedFault):
+    """Bit-rot on a serving artifact about to be hot-deployed: the
+    reload verifier catches this and flips one byte of the blob it
+    just read, so the sha256 manifest gate must reject the artifact
+    and the old weights must keep serving."""
 
 
 # -- stats -----------------------------------------------------------------
@@ -124,6 +131,8 @@ class Deadline(object):
 #: fault name -> (injection point, exception class)
 FAULTS = {
     "serve.device_fault": ("serve.device_fault", InjectedDeviceFault),
+    "serve.reload_corrupt": ("serve.reload_corrupt",
+                             InjectedReloadCorruption),
 }
 
 class _Rule(object):

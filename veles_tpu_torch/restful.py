@@ -12,12 +12,15 @@ per-request deadlines that cancel abandoned work.
 
 Endpoints: ``GET /health`` (never touches the device), ``POST /api``
 (the LM forward), ``POST /api/generate`` (gated by ``X-Status-Token``
-when the server holds a ``token``), ``GET /stats`` and
-``GET /metrics`` (Prometheus text).
+when the server holds a ``token``), ``POST /admin/reload`` (hot weight
+reload of a named or the watched artifact; only with a ``token``),
+``GET /stats`` and ``GET /metrics`` (Prometheus text).  With
+``reload_watch`` an :class:`~veles_tpu_torch.serving.reload
+.ArtifactWatcher` hot-swaps every new manifest-verified artifact the
+target names.
 
 Not yet ported: the serving fabric (replicas, disaggregated prefill,
-tenants), hot reload (``/admin/reload`` and the artifact watcher) and
-the in-workflow ``RESTfulAPI`` unit.
+tenants) and the in-workflow ``RESTfulAPI`` unit.
 """
 
 import base64
@@ -29,6 +32,8 @@ from .export import ExportedModel
 from .http_common import JsonHttpServer, JsonRequestHandler
 from .resilience import Deadline
 from .serving import AdmissionError, RateLimiter, ServingEngine
+from .serving.reload import (ArtifactRejected, ArtifactWatcher,
+                             read_verified, resolve_artifact)
 
 
 def _decode_input(payload, input_shape):
@@ -62,7 +67,9 @@ class ModelServer(JsonHttpServer):
                  max_batch=8, queue_depth=64, rate_limit=None,
                  deadline=30.0, warmup=False, policy=None,
                  paged=None, kv_blocks=None, kv_block_size=16,
-                 kv_dtype=None, drain_timeout=30.0, device="cuda"):
+                 kv_dtype=None, drain_timeout=30.0, reload_watch=None,
+                 reload_poll=5.0, spec=False, spec_draft=None,
+                 spec_max_k=4, spec_draft_blocks=None, device="cuda"):
         if isinstance(model, str):
             model = ExportedModel(model, device=device)
         self.token = token
@@ -72,8 +79,13 @@ class ModelServer(JsonHttpServer):
             model, max_batch=max_batch, queue_depth=queue_depth,
             policy=policy, default_deadline=deadline, paged=paged,
             kv_blocks=kv_blocks, kv_block_size=kv_block_size,
-            kv_dtype=kv_dtype, drain_timeout=drain_timeout)
+            kv_dtype=kv_dtype, spec=spec, spec_draft=spec_draft,
+            spec_max_k=spec_max_k, spec_draft_blocks=spec_draft_blocks,
+            drain_timeout=drain_timeout)
         self.limiter = RateLimiter(rate_limit) if rate_limit else None
+        self.reload_watch = reload_watch
+        self.reload_poll = reload_poll
+        self.watcher = None
 
         class Handler(JsonRequestHandler):
             def do_GET(self):
@@ -128,6 +140,9 @@ class ModelServer(JsonHttpServer):
                 outer = self.outer
                 if self.path == "/api/generate":
                     self._generate()
+                    return
+                if self.path == "/admin/reload":
+                    self._admin_reload()
                     return
                 if self.path != "/api":
                     self.reply(404, {"error": "not found"})
@@ -235,14 +250,107 @@ class ModelServer(JsonHttpServer):
                     "generated": full[:, tokens.shape[1]:],
                 })
 
+            def _admin_reload(self):
+                """POST /admin/reload — hot weight reload of a named
+                (``{"artifact": path}``) or the watched artifact;
+                ``{"draft": true}`` reloads the speculative draft
+                model.  AUTHENTICATED: the server must hold a token and
+                the X-Status-Token header must match — an open
+                endpoint that loads operator-supplied paths would be an
+                arbitrary-file primitive, so tokenless servers refuse
+                outright."""
+                outer = self.outer
+                try:
+                    payload = self.read_json()
+                except Exception as e:
+                    self.reply(400, {"error": str(e)})
+                    return
+                if outer.token is None:
+                    self.reply(403, {"error": "reload requires the "
+                                              "server to hold a "
+                                              "--token"})
+                    return
+                if not self.check_token(outer.token):
+                    self.reply(403, {"error": "bad token"})
+                    return
+                path = payload.get("artifact")
+                try:
+                    if payload.get("draft"):
+                        version = outer.reload_draft_artifact(path)
+                    else:
+                        version = outer.reload_artifact(path)
+                except ArtifactRejected as e:
+                    self.reply(409, {"error": str(e)})
+                    return
+                except AdmissionError as e:
+                    self.reply(e.status, {"error": str(e)},
+                               headers=_retry_headers(e))
+                    return
+                except Exception as e:
+                    outer.exception("/admin/reload failed")
+                    self.reply(500, {"error": str(e)})
+                    return
+                self.reply(200, {"status": "reloaded",
+                                 "weight_version": version})
+
         super(ModelServer, self).__init__(
             Handler, host=host, port=port,
             thread_name="veles-model-server")
 
     @property
     def model(self):
-        """The served model — owned by the engine."""
+        """The CURRENTLY served model — owned by the engine, so a
+        drain-and-swap reload is visible to /health and /stats the
+        moment it lands."""
         return self.engine.model
+
+    def reload_artifact(self, path=None, require_manifest=None):
+        """Verify-and-reload: ``path`` (default: whatever the watch
+        target currently names) is read once, gated through its sha256
+        sidecar manifest (and the ``serve.reload_corrupt`` chaos
+        point), and hot-swapped into the engine.  Manifests are
+        REQUIRED for watcher-driven reloads and optional for explicit
+        operator paths.  Returns the new weight version; raises
+        :class:`~veles_tpu_torch.serving.reload.ArtifactRejected` and
+        keeps the old weights on any verification failure."""
+        explicit = path is not None
+        if path is None:
+            if self.reload_watch is None:
+                raise ArtifactRejected(
+                    "no artifact named and no --reload-watch target "
+                    "configured")
+            path = resolve_artifact(self.reload_watch)
+            if path is None:
+                raise ArtifactRejected(
+                    "watch target %s names no serving artifact yet"
+                    % self.reload_watch)
+        if require_manifest is None:
+            require_manifest = not explicit
+        blob = read_verified(path, injector=self.engine.injector,
+                             require_manifest=require_manifest)
+        version = self.engine.reload(blob)
+        self.engine.stats.incr("reload.artifacts")
+        self.info("hot-reloaded %s -> weight version %d", path,
+                  version)
+        return version
+
+    def reload_draft_artifact(self, path):
+        """Verify-and-reload for the speculative DRAFT model: read once
+        through the same sha256-sidecar gate, vocabulary-checked
+        against the served model, and hot-swapped into the drafter."""
+        if path is None:
+            raise ArtifactRejected(
+                "a draft reload needs an explicit artifact path")
+        blob = read_verified(path, injector=self.engine.injector,
+                             require_manifest=False)
+        version = self.engine.reload_draft(blob)
+        self.engine.stats.incr("spec.draft_artifacts")
+        self.info("hot-reloaded draft %s -> draft version %d", path,
+                  version)
+        return version
+
+    def _on_watch_change(self, path):
+        self.reload_artifact(path, require_manifest=True)
 
     def stats_payload(self):
         """The /stats body: engine + compile-cache observability."""
@@ -283,6 +391,10 @@ class ModelServer(JsonHttpServer):
         self.engine.start()
         if self.warmup:
             self.engine.warmup()
+        if self.reload_watch is not None and self.watcher is None:
+            self.watcher = ArtifactWatcher(
+                self.reload_watch, self._on_watch_change,
+                poll=self.reload_poll).start()
 
     def start(self):
         self._spin_up()
@@ -299,6 +411,9 @@ class ModelServer(JsonHttpServer):
         within the drain budget, THEN the listener goes down — so
         every in-flight HTTP response is delivered and late arrivals
         get an honest 503 instead of a connection reset."""
+        if self.watcher is not None:
+            self.watcher.stop()
+            self.watcher = None
         if drain:
             self.engine.stop(drain=True, timeout=timeout)
             super(ModelServer, self).stop()

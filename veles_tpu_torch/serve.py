@@ -1,15 +1,18 @@
 """``python -m veles_tpu_torch.serve model.veles.tgz [--device cuda]``
 — serve an exported LM artifact over HTTP through the port's serving
 engine: paged KV-cache decode-step continuous batching
-(``--kv-blocks`` / ``--kv-block-size`` / ``--no-paged-decode``),
-``--warmup`` bucket-grid warmup, per-client rate limiting,
-queue-depth backpressure and graceful SIGTERM drain
-(``--drain-timeout``).
+(``--kv-blocks`` / ``--kv-block-size`` / ``--no-paged-decode``) over an
+f32, bf16, int8 or fp8 KV plane (``--kv-dtype``), weight-only int8
+decode matmuls (``--weight-dtype int8``), speculative decoding
+(``--spec`` n-gram drafting, ``--spec-draft`` draft model,
+``--spec-max-k`` verify width), ``--warmup`` bucket-grid warmup,
+per-client rate limiting, queue-depth backpressure, hot weight reload
+(``--reload-watch`` / authenticated ``POST /admin/reload``) and
+graceful SIGTERM drain (``--drain-timeout``).
 
 ``--device`` is ``cuda`` unless ``cpu`` is asked for; without a card
-``cuda`` raises.  The JAX server's flags whose machinery is not ported
-yet (``--kv-dtype`` other than f32, ``--weight-dtype int8``,
-speculation, hot reload, the fabric) are accepted only to fail with a
+``cuda`` raises.  The JAX server's fabric flags (``--fabric-replicas``,
+``--fabric-disagg``, ``--tenant``) are accepted only to fail with a
 clear "not yet ported" error."""
 
 import argparse
@@ -22,9 +25,7 @@ from .restful import ModelServer
 
 #: Flags of the JAX package's server whose machinery the port has not
 #: ported yet; giving any of them fails.
-NOT_PORTED = ("spec", "spec_draft", "spec_max_k", "spec_draft_blocks",
-              "reload_watch", "reload_poll", "fabric_replicas",
-              "fabric_disagg", "tenant")
+NOT_PORTED = ("fabric_replicas", "fabric_disagg", "tenant")
 
 
 def main(argv=None):
@@ -70,38 +71,66 @@ def main(argv=None):
         help="tokens per paged KV cache block (default 16)")
     parser.add_argument(
         "--kv-dtype", default=None, choices=KV_DTYPES,
-        help="paged KV cache storage dtype; the port holds f32 only")
+        help="paged KV cache storage dtype (default f32); int8/fp8 "
+             "quantize per (block, head) with f32 scales stored beside "
+             "the blocks and attend through the quantized decode "
+             "kernel")
     parser.add_argument(
         "--weight-dtype", default=None, choices=("f32", "int8"),
-        help="decode-matmul weight storage; the port holds f32 only")
+        help="decode-matmul weight storage (default f32); int8 = "
+             "weight-only quantization, per-output-channel scales")
     parser.add_argument(
         "--no-paged-decode", action="store_true",
         help="disable paged decode-step continuous batching and "
              "fall back to whole-request generate batching")
+    parser.add_argument(
+        "--spec", action="store_true",
+        help="speculative decoding on the paged decode loop with the "
+             "prompt-lookup (n-gram) drafter — greedy output is the "
+             "plain decode's on the f32 plane")
+    parser.add_argument(
+        "--spec-draft", default=None, metavar="PATH",
+        help="speculative draft model: a second exported artifact "
+             "(same vocabulary, geometry-checked) proposing tokens "
+             "through its own paged pool; implies --spec")
+    parser.add_argument(
+        "--spec-max-k", type=int, default=4, metavar="K",
+        help="max draft tokens verified per dispatch (1..15; "
+             "default 4)")
+    parser.add_argument(
+        "--spec-draft-blocks", type=int, default=None, metavar="N",
+        help="draft-model KV pool size in blocks (default: the "
+             "target pool's size)")
     parser.add_argument(
         "--drain-timeout", type=float, default=30.0, metavar="SEC",
         help="graceful-stop budget: on SIGTERM admissions close "
              "with 503 + Retry-After and live decode rows get this "
              "long to finish before the process exits 0 (default "
              "30)")
+    parser.add_argument(
+        "--reload-watch", default=None, metavar="PATH",
+        help="hot-reload watch target: a serving artifact or a "
+             "*_current.lnk snapshot pointer — when it changes, the "
+             "sha256-manifest-verified artifact is hot-swapped in "
+             "without dropping live streams")
+    parser.add_argument(
+        "--reload-poll", type=float, default=5.0, metavar="SEC",
+        help="reload-watch poll interval (default 5)")
     not_ported = parser.add_argument_group("not yet ported")
-    not_ported.add_argument("--spec", action="store_true")
-    for flag in ("--spec-draft", "--spec-max-k", "--spec-draft-blocks",
-                 "--reload-watch", "--reload-poll",
-                 "--fabric-replicas"):
-        not_ported.add_argument(flag, default=None)
+    not_ported.add_argument("--fabric-replicas", default=None)
     not_ported.add_argument("--fabric-disagg", action="store_true")
     not_ported.add_argument("--tenant", action="append", default=None)
     args = parser.parse_args(argv)
     given = [name for name in NOT_PORTED if getattr(args, name)]
-    if args.kv_dtype not in (None, "f32"):
-        given.append("kv_dtype %s" % args.kv_dtype)
-    if args.weight_dtype not in (None, "f32"):
-        given.append("weight_dtype %s" % args.weight_dtype)
     if given:
         parser.error("not yet ported in veles_tpu_torch: %s" %
                      ", ".join("--" + g.replace("_", "-")
                                for g in given))
+    if args.weight_dtype is not None:
+        # The decode programs read the weight mode from the config and
+        # quantize at their next parameter look-up.
+        from .config import root
+        root.common.serving.weight_dtype = args.weight_dtype
     server = ModelServer(
         args.artifact, host=args.host, port=args.port,
         token=args.token, max_batch=args.max_batch,
@@ -109,7 +138,12 @@ def main(argv=None):
         deadline=args.deadline, warmup=args.warmup,
         paged=False if args.no_paged_decode else None,
         kv_blocks=args.kv_blocks, kv_block_size=args.kv_block_size,
-        drain_timeout=args.drain_timeout, device=args.device)
+        kv_dtype=args.kv_dtype, spec=args.spec,
+        spec_draft=args.spec_draft, spec_max_k=args.spec_max_k,
+        spec_draft_blocks=args.spec_draft_blocks,
+        drain_timeout=args.drain_timeout,
+        reload_watch=args.reload_watch, reload_poll=args.reload_poll,
+        device=args.device)
     install_sigterm_drain(server)
     try:
         server.serve()

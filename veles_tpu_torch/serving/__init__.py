@@ -12,10 +12,15 @@ handlers (:mod:`veles_tpu_torch.restful`) and the device.
   :class:`~veles_tpu_torch.serving.engine.ServingEngine`: a bounded
   request queue and a dedicated device thread, running LM generate
   traffic through decode-step continuous batching on a paged KV block
-  pool.
+  pool (f32, bf16, int8 or fp8 planes);
+* :mod:`~veles_tpu_torch.serving.speculation` — speculative decoding's
+  drafters (n-gram prompt lookup, draft model), the acceptance rule and
+  the per-row adaptive draft budget;
+* :mod:`~veles_tpu_torch.serving.reload` — artifact verification
+  against its sha256 manifest and the watcher behind hot reload.
 
-Speculative decoding, hot reload and the serving fabric of the JAX
-package are not ported yet.
+The serving fabric of the JAX package (replicas, disaggregated prefill,
+tenants) is not ported yet.
 """
 
 from .admission import (AdmissionError, DeadlineExceeded,  # noqa: F401,E501
@@ -24,4 +29,8 @@ from .admission import (AdmissionError, DeadlineExceeded,  # noqa: F401,E501
                         TokenBucket)
 from .buckets import BucketPolicy, CompileCache, next_pow2  # noqa: F401
 from .engine import ServingEngine  # noqa: F401
-from .metrics import ServingStats  # noqa: F401
+from .metrics import ServingStats, live_serving_summary  # noqa: F401
+from .reload import (ArtifactRejected, ArtifactWatcher,  # noqa: F401
+                     read_verified, resolve_artifact)
+from .speculation import (MAX_SPEC_K, NGramDrafter,  # noqa: F401
+                          accept_lengths, check_draft_compat)

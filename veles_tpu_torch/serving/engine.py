@@ -36,9 +36,24 @@ committed raises
 expires while queued — or mid-decode — is cancelled without spending
 another device millisecond on it.
 
+* **Speculative decoding** (``spec=True``: n-gram prompt-lookup
+  drafting; ``spec_draft``: a second exported LM proposing through its
+  own pool) — rows holding drafts ride one ``paged_verify`` dispatch of
+  K+1 positions; the longest prefix matching the target's own sampled
+  stream is accepted, so greedy and sampled output are the plain
+  stream's; rejected blocks are rewound at the same boundary.
+
+* **Hot weight reload** (:meth:`ServingEngine.reload`) — a
+  same-geometry artifact swaps in place at a decode-step boundary
+  (live rows keep their tables, the prefix cache is flushed); another
+  geometry drains and swaps the whole model and pool.
+
+The KV storage plane (``kv_dtype``: f32, bf16, int8, fp8) and the weight
+mode live behind the model's paged surface; the engine only passes the
+plane through and reports it (``quant.kv.<dtype>``, ``kv_bytes_*``).
+
 Not yet ported, and refused with :class:`~veles_tpu_torch.error.Bug`:
-speculative decoding (n-gram and draft-model drafters), hot weight
-reload, and KV export/adopt between replicas.
+KV export/adopt between replicas (the fabric's disaggregated prefill).
 """
 
 import collections
@@ -55,7 +70,10 @@ from ..resilience import Deadline
 from .admission import (DeadlineExceeded, EngineStopped,
                         PoolExhausted, QueueFull, ServiceUnavailable)
 from .buckets import BucketPolicy, next_pow2
-from .metrics import ServingStats
+from .metrics import ServingStats, register_engine, unregister_engine
+from .speculation import (MAX_SPEC_K, NO_DRAFTS, NGramDrafter,
+                          SpecState, accept_lengths,
+                          check_draft_compat)
 
 
 class _Request(object):
@@ -94,10 +112,13 @@ class _PagedRow(object):
     tables are allocated LAZILY — the prompt span at adoption, then
     one block at a time as the write position advances — so a row
     only ever holds blocks for tokens that exist (admission still
-    reserves the worst case, so growth cannot dead-lock the pool)."""
+    reserves the worst case, so growth cannot dead-lock the pool).
+    ``spec``/``draft_row`` carry the speculative-decoding state when
+    the engine runs with a drafter."""
 
     __slots__ = ("req", "row_idx", "table", "n_blocks", "pos", "tok",
-                 "gen", "prior", "chunk", "prefix_chain")
+                 "gen", "prior", "chunk", "prefix_chain", "spec",
+                 "draft_row")
 
     def __init__(self, req, row_idx, table, n_blocks):
         self.req = req
@@ -110,6 +131,24 @@ class _PagedRow(object):
         self.prior = 0              # cached positions at prefill
         self.chunk = None           # prompt remainder to prefill
         self.prefix_chain = None    # prompt block digests (reused)
+        self.spec = None            # SpecState (speculation on)
+        self.draft_row = None       # _DraftRow (draft-model drafter)
+
+
+class _DraftRow(object):
+    """The draft model's mirror of a target row: its own block table
+    in the DRAFT pool plus the position/token cursor — advanced
+    while drafting, re-synced to the target after every verify
+    (rejected draft k/v beyond the cursor is masked until
+    overwritten, so a plain cursor reset is a full rewind)."""
+
+    __slots__ = ("table", "n_blocks", "pos", "tok")
+
+    def __init__(self, table, n_blocks):
+        self.table = table
+        self.n_blocks = n_blocks
+        self.pos = 0
+        self.tok = 0
 
 
 class ServingEngine(Logger):
@@ -128,25 +167,59 @@ class ServingEngine(Logger):
                  kv_dtype=None,
                  injector=None, max_replays=2, breaker_limit=3,
                  breaker_window=60.0, drain_timeout=30.0,
-                 spec=False, spec_draft=None):
+                 spec=False, spec_draft=None, spec_max_k=4,
+                 spec_draft_blocks=None, spec_adaptive=True):
         super(ServingEngine, self).__init__()
-        if spec or spec_draft is not None:
-            raise Bug("speculative decoding (--spec, --spec-draft) is "
-                      "not yet ported")
         self.max_batch = int(max_batch)
         self.queue_depth = int(queue_depth)
+        self._policy_explicit = policy is not None
         self._paged_arg = paged
         self.stats = stats or ServingStats()
         self.default_deadline = default_deadline
         self.kv_block_size = int(kv_block_size)
         self.kv_blocks = kv_blocks
-        #: KV cache storage dtype (None = "f32"), passed through to
-        #: ``make_kv_pool``.
+        #: KV cache storage dtype ("f32"/"bf16"/"int8"/"fp8", None =
+        #: config / f32).  Passed through to ``make_kv_pool``; the
+        #: quantization itself lives entirely behind the paged
+        #: surface in export.py.
         self.kv_dtype = kv_dtype
         self.kv_pool = None
         self._adopt_model(model, policy)
-        #: Fault injector consulted at the ``serve.device_fault``
-        #: point before every device call; None injects nothing.
+        #: Speculative decoding: "off" | "ngram" (prompt-lookup
+        #: drafting, no second model) | "draft" (a second exported
+        #: LM proposes greedily through its own paged pool).
+        self.spec_mode = "draft" if spec_draft is not None else \
+            ("ngram" if spec else "off")
+        self.spec_max_k = int(spec_max_k)
+        self.spec_adaptive = bool(spec_adaptive)
+        self.spec_draft_blocks = spec_draft_blocks
+        self.draft_model = None
+        self.draft_pool = None
+        self._drafter = NGramDrafter()
+        #: EWMA speculative gauges (device thread only).
+        self._spec_accept_ewma = None
+        self._spec_tps_ewma = None
+        self._spec_gate_skips = 0
+        if self.spec_mode != "off":
+            if not 1 <= self.spec_max_k <= MAX_SPEC_K:
+                raise Bug("--spec-max-k must lie in 1..%d (the "
+                          "flash-decode verify width), got %d" %
+                          (MAX_SPEC_K, self.spec_max_k))
+            if not self.paged:
+                raise Bug("speculative decoding requires the paged "
+                          "decode path (an LM artifact without "
+                          "--no-paged-decode)")
+            if not hasattr(model, "paged_verify"):
+                raise Bug("speculative decoding requested but the "
+                          "model exposes no paged_verify surface")
+        if self.spec_mode == "draft":
+            draft = spec_draft
+            if not hasattr(draft, "weights"):
+                draft = self._load_model(draft)
+            check_draft_compat(model, draft)
+            self.draft_model = draft
+        #: Fault injector consulted at the ``serve.device_fault`` /
+        #: ``serve.reload_corrupt`` points; None injects nothing.
         self.injector = injector
         #: Per-request supervised-recovery budget: how many pool
         #: rebuilds a single request may be replayed through before
@@ -160,8 +233,10 @@ class ServingEngine(Logger):
         self.breaker_window = float(breaker_window)
         #: Default budget for ``stop(drain=True)``.
         self.drain_timeout = float(drain_timeout)
-        #: Weight generation served — surfaced as the
-        #: ``weight_version`` gauge on /stats and /metrics.
+        #: Monotonic weight generation served by this engine — bumped
+        #: by every successful :meth:`reload` (in-place or
+        #: drain-and-swap) and surfaced as the ``weight_version``
+        #: gauge on /stats, /metrics and the live serving summary.
         self.weight_version = int(getattr(model, "weight_version",
                                           None) or 1)
         # The engine condition rides a SniffedLock so stuck
@@ -179,23 +254,41 @@ class ServingEngine(Logger):
         self._breaker = "closed"                # guarded-by: _cond
         # rebuild timestamps
         self._rebuilds = collections.deque()    # guarded-by: _cond
+        # device-thread ops
+        self._ops = collections.deque()         # guarded-by: _cond
+        # full swap quiescing
+        self._reload_waiting = False            # guarded-by: _cond
         #: Device thread mid-iteration (a taken batch or an adoption
-        #: whose rows are not yet in ``_rows``): drain must wait on
-        #: this too, or work in the adoption window would be
-        #: invisible to it and die at the hard stop.
+        #: whose rows are not yet in ``_rows``): drain and quiesce
+        #: must wait on this too, or work in the adoption window
+        #: would be invisible to them and die at the hard stop.
         self._busy = False                      # guarded-by: _cond
         # kind -> recent device-batch cost
         self._batch_ewma = {}                   # guarded-by: _cond
 
+    def _load_model(self, path_or_file):
+        """An artifact (a path or a file object) loaded as an
+        :class:`~veles_tpu_torch.export.ExportedModel` on the served
+        model's device."""
+        from ..export import ExportedModel
+        return ExportedModel(path_or_file,
+                             device=getattr(self.model, "device", "cuda"))
+
     def _adopt_model(self, model, policy=None):
         """Binds ``model`` as the served model: caches its geometry
-        and computes the paged-surface support and bucket policy."""
+        and recomputes the paged-surface support and bucket policy —
+        shared by the constructor and the drain-and-swap reload
+        path."""
         self.model = model
         # Cached once: ExportedModel.max_position re-parses the unit
         # chain per access, too heavy for the per-request hot path.
         self._max_position = getattr(model, "max_position", None)
-        self.policy = policy if policy is not None else BucketPolicy(
-            max_batch=self.max_batch, prompt_cap=self._max_position)
+        if policy is not None:
+            self.policy = policy
+        elif not self._policy_explicit:
+            self.policy = BucketPolicy(
+                max_batch=self.max_batch,
+                prompt_cap=self._max_position)
         supported = bool(
             self._max_position and
             hasattr(model, "make_kv_pool") and
@@ -233,6 +326,13 @@ class ServingEngine(Logger):
             # pools were built with, visible next to the shed/usage
             # counters it changes.
             self.stats.incr("quant.kv.%s" % self.kv_pool.kv_dtype)
+        if self.spec_mode == "draft" and self.draft_pool is None:
+            n = self.spec_draft_blocks or self.kv_blocks or \
+                self._default_kv_blocks()
+            self.draft_pool = self.draft_model.make_kv_pool(
+                n, self.kv_block_size, kv_dtype=self.kv_dtype)
+            self.info("speculative draft pool: %d blocks x %d slots",
+                      n, self.kv_block_size)
         return self.kv_pool
 
     def start(self):
@@ -247,6 +347,7 @@ class ServingEngine(Logger):
             target=self._loop, daemon=True,
             name="veles-serving-device")
         self._thread.start()
+        register_engine(self)
         return self
 
     #: Retry-After quoted to requests a non-draining stop() caught
@@ -259,7 +360,7 @@ class ServingEngine(Logger):
         everything immediately; ``drain=True`` is the graceful path:
         admissions close (503 + ``Retry-After``), queued-but-
         unstarted requests are failed with
-        :class:`~veles_tpu.serving.admission.ServiceUnavailable`
+        :class:`~veles_tpu_torch.serving.admission.ServiceUnavailable`
         (their clients retry the restarted replica), live decode rows
         run to completion up to ``timeout`` (default
         :attr:`drain_timeout`), and the final stats are flushed to
@@ -308,6 +409,7 @@ class ServingEngine(Logger):
         if self._thread is not None:
             self._thread.join(timeout=10)
             self._thread = None
+        unregister_engine(self)
         # Anything still queued or mid-decode is cancelled, not
         # silently dropped — a blocked submitter must wake with an
         # error (503: the server's state, retryable, never a client
@@ -322,6 +424,12 @@ class ServingEngine(Logger):
                 "serving engine stopped — retry against the "
                 "restarted replica",
                 retry_after=self.RESTART_RETRY_AFTER)
+        # Unblock any reload waiting on the device thread.
+        with self._cond:
+            ops, self._ops = list(self._ops), collections.deque()
+        for op in ops:
+            op["error"] = EngineStopped("serving engine stopped")
+            op["event"].set()
 
     def _fail_queued_locked(self, reason, retry_after):
         """Fails every queued-but-unstarted request with 503 +
@@ -338,11 +446,172 @@ class ServingEngine(Logger):
                                            retry_after=retry_after)
             req.event.set()
 
-    # -- not yet ported ----------------------------------------------------
+    # -- hot weight reload -------------------------------------------------
 
     def reload(self, model_or_path, timeout=60.0):
-        """Hot weight reload — not yet ported."""
-        raise Bug("hot weight reload is not yet ported")
+        """Swaps in new weights WITHOUT dropping live streams.
+
+        ``model_or_path`` is an already-verified model object, a
+        path, or a file object holding an artifact.  Same-geometry
+        artifacts do an IN-PLACE weight swap applied by the device
+        thread at a decode-step boundary — the compile-cache accounting
+        and the KV pool survive (live rows keep their tables; only the
+        prompt-prefix cache is flushed, its entries hold old-weight
+        k/v); different-geometry artifacts fall back to
+        DRAIN-AND-SWAP: admissions close (503 + ``Retry-After``),
+        in-flight work runs to completion, then the whole model (and
+        pool) is replaced.  Returns the new monotonically-increased
+        :attr:`weight_version`.  Blocks up to ``timeout`` seconds;
+        raises whatever the swap raised (the old weights keep serving
+        on any failure)."""
+        new = model_or_path
+        if not hasattr(new, "weights"):
+            new = self._load_model(new)
+        try:
+            same = bool(self.model.same_geometry(new))
+        except AttributeError:
+            same = False  # duck-typed model: full swap only
+        if self._thread is None:
+            return self._apply_reload(new, same)
+        op = {"new": new, "same": same, "event": threading.Event(),
+              "result": None, "error": None}
+        with self._cond:
+            if self._stopped:
+                raise EngineStopped("serving engine is not running")
+            self._ops.append(op)
+            self._cond.notify_all()
+        if not op["event"].wait(timeout):
+            # CANCEL the op: a reload the caller was told failed
+            # must never land later behind their back (an operator
+            # retry would then double-apply).  If it cannot be
+            # removed, the device thread is applying it RIGHT NOW —
+            # wait briefly for the definitive outcome instead.
+            with self._cond:
+                try:
+                    self._ops.remove(op)
+                    cancelled = True
+                except ValueError:
+                    cancelled = False
+                if cancelled and not self._ops:
+                    # Admissions were closed for a pending full
+                    # swap; with the queue now empty nobody else
+                    # owns that hold — reopen.  (Remaining ops keep
+                    # it: their own apply/cancel clears it.)
+                    self._reload_waiting = False
+                self._cond.notify_all()
+            if not cancelled and op["event"].wait(10.0):
+                if op["error"] is not None:
+                    raise op["error"]
+                return op["result"]
+            raise ServiceUnavailable(
+                "reload cancelled: live work did not quiesce within "
+                "%gs" % timeout, retry_after=timeout)
+        if op["error"] is not None:
+            raise op["error"]
+        return op["result"]
+
+    def reload_draft(self, model_or_path, timeout=60.0):
+        """Hot-swaps the speculative DRAFT model through the same
+        export/reload chain as the target: geometry-checked like
+        ``swap_weights`` (same-geometry drafts swap weights in
+        place; different geometry replaces the model and rebuilds
+        the draft pool), applied by the device thread at a decode
+        boundary.  Live rows drop their draft mirrors and re-arm on
+        their next drafting round; target streams never notice.
+        Raises on incompatibility (``check_draft_compat``) with the
+        old draft still serving.  Also the RECOVERY path after a
+        draft fault degraded the engine to the n-gram drafter: a
+        successful reload restores draft-model drafting."""
+        if self.draft_model is None and self.spec_mode != "draft":
+            raise Bug("no draft model is configured "
+                      "(--spec-draft) — nothing to reload")
+        new = model_or_path
+        if not hasattr(new, "weights"):
+            new = self._load_model(new)
+        check_draft_compat(self.model, new)
+        if self._thread is None:
+            return self._apply_draft_reload(new)
+        op = {"new": new, "same": True, "draft": True,
+              "event": threading.Event(), "result": None,
+              "error": None}
+        with self._cond:
+            if self._stopped:
+                raise EngineStopped("serving engine is not running")
+            self._ops.append(op)
+            self._cond.notify_all()
+        if not op["event"].wait(timeout):
+            with self._cond:
+                try:
+                    self._ops.remove(op)
+                except ValueError:
+                    pass
+            raise ServiceUnavailable(
+                "draft reload did not apply within %gs" % timeout,
+                retry_after=timeout)
+        if op["error"] is not None:
+            raise op["error"]
+        return op["result"]
+
+    def _apply_draft_reload(self, new):
+        """Device-thread body of :meth:`reload_draft`: live mirrors
+        are released (their k/v belongs to the old draft), then the
+        weights swap in place when the geometry matches or the
+        model+pool are replaced outright.  Live rows get FRESH empty
+        mirrors — the stale-mirror catch-up in
+        :meth:`_draft_model_propose` refills each one with prompt +
+        emitted on its next drafting round, so long-lived streams
+        keep speculating across the reload."""
+        if not self.paged or not hasattr(self.model, "paged_verify"):
+            # A drain-and-swap may have replaced the TARGET with a
+            # model that cannot speculate (spec_mode went "off");
+            # re-arming the draft against it would fault every
+            # verify into the circuit breaker.
+            raise Bug("the served model has no paged_verify surface "
+                      "— swap a speculation-capable target before "
+                      "reloading the draft")
+        with self._cond:
+            live = list(self._rows)
+        for row in live:
+            self._release_draft(row)
+        try:
+            same = bool(self.draft_model.same_geometry(new))
+        except AttributeError:
+            same = False
+        if same:
+            self.draft_model.swap_weights(new.weights)
+        else:
+            self.draft_model = new
+        # A reload also RECOVERS a drafter degraded to n-gram by an
+        # earlier draft fault: the pool rebuild below starts clean.
+        self.spec_mode = "draft"
+        if not same or self.draft_pool is None:
+            self.draft_pool = None
+            try:
+                self._ensure_pool()
+            except Exception:
+                # A failed rebuild must not leave spec_mode pointing
+                # at a pool that does not exist — the next adoption
+                # would kill the device thread.  Degrade exactly like
+                # a draft fault; the error still reaches the caller.
+                self.spec_mode = "ngram"
+                self.stats.incr("spec.draft_degraded")
+                self.warning("draft pool rebuild failed — degrading "
+                             "to the n-gram drafter")
+                raise
+        pool = self.draft_pool
+        for row in live:
+            if row.spec is None:
+                continue
+            ids = pool.alloc(1)
+            if ids is None:
+                self.stats.incr("spec.draft_degraded")
+                continue
+            row.draft_row = _DraftRow(ids, 1)  # catch-up refills
+        self.stats.incr("spec.draft_reloads")
+        self.info("draft model reloaded (%s), %d live mirror(s) "
+                  "re-armed", "in-place" if same
+                  else "replaced + pool rebuilt", len(live))
+        return getattr(self.draft_model, "weight_version", 1)
 
     def adopt_kv_prefix(self, tokens, payload, timeout=30.0):
         """KV adoption from a prefill worker — not yet ported."""
@@ -351,6 +620,81 @@ class ServingEngine(Logger):
     def export_kv_prefix(self, tokens, timeout=30.0):
         """KV export to a decode replica — not yet ported."""
         raise Bug("KV export/adopt is not yet ported")
+
+    def _apply_reload_op(self, op):
+        if op.get("draft"):
+            try:
+                op["result"] = self._apply_draft_reload(op["new"])
+            except Exception as e:  # surfaced to reload_draft()
+                self.exception("draft reload failed — the old draft "
+                               "keeps proposing")
+                op["error"] = e
+            finally:
+                op["event"].set()
+            return
+        try:
+            op["result"] = self._apply_reload(op["new"], op["same"])
+        except Exception as e:  # surfaced to the reload() caller
+            self.exception("reload failed — old weights keep serving")
+            op["error"] = e
+        finally:
+            with self._cond:
+                self._reload_waiting = False
+                self._cond.notify_all()
+            op["event"].set()
+
+    def _apply_reload(self, new, same):
+        t0 = time.monotonic()
+        if same:
+            self.model.swap_weights(new.weights)
+            if self.kv_pool is not None:
+                dropped = self.kv_pool.drop_prefixes()
+                if dropped:
+                    self.debug("reload: flushed %d cached prefixes",
+                               dropped)
+            self.stats.incr("reload.inplace")
+        else:
+            # The device thread only applies a full swap once the
+            # engine is quiet, so nothing references the old model or
+            # pool anymore.  Adoption can still FAIL (explicit
+            # paged=True against a surface-less artifact, pool build
+            # OOM) — restore every mutated binding so "old weights
+            # keep serving" stays true.
+            old = (self.model, self._max_position, self.policy,
+                   self.paged, self.kv_pool)
+            try:
+                self._adopt_model(new)
+                self.kv_pool = None
+                self._ensure_pool()
+            except BaseException:
+                (self.model, self._max_position, self.policy,
+                 self.paged, self.kv_pool) = old
+                raise
+            if self.spec_mode != "off":
+                # The swapped-in model must still carry the spec
+                # surface (and match the draft's token space); a
+                # mismatch disables speculation, never the swap.
+                try:
+                    if not self.paged or \
+                            not hasattr(new, "paged_verify"):
+                        raise Bug("new model has no paged_verify "
+                                  "surface")
+                    if self.spec_mode == "draft":
+                        check_draft_compat(new, self.draft_model)
+                except Bug as e:
+                    self.warning("speculation disabled after model "
+                                 "swap: %s", e)
+                    self.spec_mode = "off"
+                    self.draft_pool = None
+            self.stats.incr("reload.swap")
+        self.weight_version += 1
+        self.stats.set_gauge("weight_version", self.weight_version)
+        self.stats.observe_latency("reload.apply",
+                                   time.monotonic() - t0)
+        self.info("weights reloaded (%s) -> version %d",
+                  "in-place" if same else "drain-and-swap",
+                  self.weight_version)
+        return self.weight_version
 
     def queue_depth_now(self):
         with self._cond:
@@ -388,6 +732,12 @@ class ServingEngine(Logger):
         remaining = min(row.req.max_new - len(row.gen or ())
                         for row in self._rows)
         step = self._batch_ewma.get("decode", 0.05)
+        if self.spec_mode != "off" and self._spec_tps_ewma:
+            # Speculating rows retire tokens-per-step times faster,
+            # at the verify dispatch's own (separately-keyed) cost.
+            vstep = self._batch_ewma.get("verify", step)
+            return min(60.0, max(1.0, remaining * vstep / max(
+                self._spec_tps_ewma, 1.0)))
         return min(60.0, max(1.0, remaining * step))
 
     # -- submission (HTTP handler threads) ---------------------------------
@@ -400,10 +750,12 @@ class ServingEngine(Logger):
         once tripped)."""
         if self._stopped:
             raise EngineStopped("serving engine is not running")
-        if self._draining:
+        if self._draining or self._reload_waiting:
             self.stats.incr("rejected.draining")
             raise ServiceUnavailable(
-                "serving engine is draining — retry shortly",
+                "serving engine is %s — retry shortly" %
+                ("draining" if self._draining
+                 else "swapping models"),
                 retry_after=max(1.0, self._drain_estimate_locked()))
         if self._breaker == "tripped":
             self.stats.incr("rejected.breaker")
@@ -610,15 +962,31 @@ class ServingEngine(Logger):
         while True:
             with self._cond:
                 while not (self._pending or self._paged_wait or
-                           self._rows or self._stopped):
+                           self._rows or self._ops or self._stopped):
                     self._cond.wait(0.5)
                 if self._stopped:
                     return
+                op = None
+                if self._ops:
+                    head = self._ops[0]
+                    if head["same"] or self._quiet_locked():
+                        # In-place swaps apply at ANY decode-step
+                        # boundary; a full model swap waits for the
+                        # engine to quiesce (drain-and-swap) with
+                        # admissions closed meanwhile.
+                        op = self._ops.popleft()
+                    else:
+                        self._reload_waiting = True
                 batch = None
-                if self._pending:
-                    batch = self._take_batch_locked()
-                adopt = self._take_paged_locked()
+                adopt = []
+                if op is None:
+                    if self._pending:
+                        batch = self._take_batch_locked()
+                    adopt = self._take_paged_locked()
                 self._busy = bool(batch or adopt)
+            if op is not None:
+                self._apply_reload_op(op)
+                continue
             try:
                 if adopt:
                     self._paged_prefill(adopt)
@@ -630,6 +998,12 @@ class ServingEngine(Logger):
                     self._cond.notify_all()
             if self._rows:
                 self._paged_step_once()
+
+    def _quiet_locked(self):
+        """No queued, adopting, or live work — the drain-and-swap
+        quiesce condition (caller holds the lock)."""
+        return not (self._pending or self._paged_wait or
+                    self._rows or self._busy)
 
     def _take_batch_locked(self):
         """Head-of-queue plus every compatible waiting request, up to
@@ -826,6 +1200,8 @@ class ServingEngine(Logger):
             else:
                 live.append(row)
         if live:
+            if self.spec_mode != "off":
+                self._spec_adopt(live)
             with self._cond:
                 self._rows.extend(live)
         self.stats.note_tokens(len(rows))
@@ -841,9 +1217,9 @@ class ServingEngine(Logger):
         tokens_row = req.tokens[i]
         length = req.length
         # LAZY tables: the prompt span only — decode blocks arrive
-        # one at a time as the write position advances, so the pool
-        # holds blocks for tokens that exist, not for worst-case
-        # budgets.
+        # one at a time as the write position advances (and leave
+        # immediately on speculative rewind), so the pool holds
+        # blocks for tokens that exist, not for worst-case budgets.
         # Admission still reserves the worst case, so growth can
         # always be satisfied (alloc evicts cached prefixes under
         # pressure before refusing).
@@ -943,7 +1319,12 @@ class ServingEngine(Logger):
         """Advance every active decode row — the heart of
         iteration-level scheduling: rows of different requests, ages,
         and lengths share the call; finished rows retire immediately
-        and new requests are adopted at the next boundary."""
+        and new requests are adopted at the next boundary.  With
+        speculation on, rows holding draft proposals ride ONE
+        ``paged_verify`` dispatch (up to K+1 tokens each) while the
+        rest ride the plain one-token ``paged_step`` — both pinned at
+        ``max_batch`` rows, so the spec/plain mix never recompiles
+        the hot programs."""
         progress = {}
         for row in self._rows:
             req = row.req
@@ -959,7 +1340,17 @@ class ServingEngine(Logger):
         if not rows:
             self._update_gauges()
             return
-        if self._plain_step_once(rows):
+        spec_rows = self._plan_drafts(rows) \
+            if self.spec_mode != "off" else []
+        if spec_rows:
+            # EVERY active row rides the one verify dispatch — rows
+            # without drafts as zero-draft columns (column 0 IS a
+            # plain step), so a mixed spec/plain batch never pays a
+            # second dispatch.
+            ok = self._verify_once(rows)
+        else:
+            ok = self._plain_step_once(rows)
+        if ok:
             self._update_gauges()
 
     def _shed_unwritable(self, rows, span_of):
@@ -990,8 +1381,8 @@ class ServingEngine(Logger):
         return [r for r in rows if r.req not in failed]
 
     def _plain_step_once(self, rows):
-        """One-token decode for every active row.  Returns False
-        after a device fault (recovery ran)."""
+        """One-token decode for rows without accepted drafts.
+        Returns False after a device fault (recovery ran)."""
         pool = self.kv_pool
         rows = self._shed_unwritable(rows, lambda row: row.pos)
         if not rows:
@@ -1038,12 +1429,428 @@ class ServingEngine(Logger):
         for at, row in enumerate(rows):
             row.tok = int(new_tok[at])
             row.gen.append(row.tok)
+            if row.spec is not None:
+                row.spec.extend_ctx([row.tok])
             row.pos += 1
             if len(row.gen) >= row.req.max_new:
                 finished.append(row)
         for row in finished:
             self._retire_row(row)
         return True
+
+    # -- speculative decoding ----------------------------------------------
+
+    def _spec_adopt(self, rows):
+        """Arms speculation for freshly adopted rows: the host-side
+        context buffer prompt-lookup matches against, and — under
+        the draft-model drafter — a mirror row prefilled through the
+        draft pool in ONE coalesced extend.  Failures degrade rows
+        to plain decode, never the requests."""
+        for row in rows:
+            req = row.req
+            st = SpecState(self.spec_max_k,
+                           req.length + req.max_new)
+            st.extend_ctx(req.tokens[row.row_idx][:req.length])
+            st.extend_ctx([row.tok])
+            row.spec = st
+        if self.spec_mode != "draft":
+            return
+        pool = self.draft_pool
+        armed = []
+        for row in rows:
+            n = pool.blocks_for(row.req.length)
+            ids = pool.alloc(n)
+            if ids is None:
+                # Draft blocks are not admission-reserved — a full
+                # draft pool degrades the row to plain decode.
+                self.stats.incr("spec.draft_degraded")
+                continue
+            row.draft_row = _DraftRow(ids, n)
+            armed.append(row)
+        if armed:
+            self._draft_prefill(armed)
+
+    def _draft_prefill(self, rows, chunks=None):
+        """Coalesced draft-pool prefill, grouped by (chunk, table)
+        bucket exactly like the target's :meth:`_run_paged_extend`
+        — a 1-token catch-up chunk beside a long fresh prompt would
+        otherwise mint an unbounded shape set on the DRAFT
+        model's cache too.  ``chunks`` (default: each row's full
+        prompt) land at each row's draft cursor.  On a draft fault
+        the drafter is degraded to n-gram and the target rows keep
+        decoding untouched."""
+        if chunks is None:
+            chunks = {id(row): row.req.tokens[row.row_idx]
+                      [:row.req.length] for row in rows}
+        groups = {}
+        for row in rows:
+            key = (self.policy.prompt_bucket(
+                       max(len(chunks[id(row)]), 1)),
+                   next_pow2(row.draft_row.n_blocks))
+            groups.setdefault(key, []).append(row)
+        for group in groups.values():
+            if not self._draft_prefill_group(group, chunks):
+                return False
+        return True
+
+    def _draft_prefill_group(self, rows, chunks):
+        pool = self.draft_pool
+        n = len(rows)
+        B = self.policy.batch_bucket(n)
+        Sc = self.policy.prompt_bucket(
+            max(len(chunks[id(r)]) for r in rows))
+        limit = self._max_position
+        if limit is not None:
+            Sc = min(Sc, limit)
+        T = next_pow2(max(r.draft_row.n_blocks for r in rows))
+        tables = numpy.zeros((B, T), numpy.int32)
+        tokens = numpy.zeros((B, Sc), numpy.int32)
+        prior = numpy.zeros(B, numpy.int32)
+        clens = numpy.ones(B, numpy.int32)
+        temps = numpy.zeros(B, numpy.float32)
+        seeds = numpy.zeros(B, numpy.uint32)
+        for at, row in enumerate(rows):
+            drow = row.draft_row
+            chunk = chunks[id(row)]
+            tables[at, :drow.n_blocks] = drow.table
+            tokens[at, :len(chunk)] = chunk
+            prior[at] = drow.pos
+            clens[at] = len(chunk)
+        try:
+            # The sampled token is discarded: the draft only ever
+            # proposes from the target's REAL tokens.
+            self.draft_model.paged_extend(pool, tables, tokens,
+                                          prior, clens, temps, seeds)
+        except Exception:
+            self.exception("draft prefill failed")
+            self._degrade_draft(rows)
+            return False
+        for at, row in enumerate(rows):
+            row.draft_row.pos = int(prior[at]) + int(clens[at])
+            row.draft_row.tok = row.tok
+        return True
+
+    def _degrade_draft(self, rows=None):
+        """A draft-model dispatch failed: release every mirror row
+        and fall back to the free n-gram drafter — speculation stays
+        on, the broken draft pool is out of the loop, and the target
+        streams never notice (drafts are proposals, not truth)."""
+        self.stats.incr("spec.draft_faults")
+        self.warning("draft-model drafter failed — degrading to the "
+                     "n-gram drafter")
+        with self._cond:
+            live = list(self._rows)
+        for row in set(live).union(rows or ()):
+            self._release_draft(row)
+        self.spec_mode = "ngram"
+        self.draft_pool = None
+
+    def _plan_drafts(self, rows):
+        """Draft proposals for this round: host-side n-gram matching
+        (no device work) or K batched greedy draft-model steps.  Returns the
+        rows that ride ``paged_verify``; each has its table grown to
+        cover the verify span (a row the pool cannot cover decodes
+        plain this round)."""
+        t0 = time.monotonic()
+        pool = self.kv_pool
+        want = []
+        for row in rows:
+            st = row.spec
+            if st is None:
+                continue
+            st.drafts = None
+            remaining = row.req.max_new - len(row.gen)
+            if remaining <= 1:
+                continue
+            k = min(st.budget(self.spec_max_k, self.spec_adaptive),
+                    remaining - 1)
+            if k >= 1:
+                want.append((row, k))
+        if not want or not self._spec_gate(rows, want):
+            return []
+        if self.spec_mode == "draft":
+            proposals = self._draft_model_propose(
+                [rw for rw, _k in want],
+                max(k for _rw, k in want))
+            for row, k in want:
+                d = proposals.get(id(row))
+                if d is not None and len(d):
+                    row.spec.drafts = d[:k]
+        else:
+            for row, k in want:
+                st = row.spec
+                d = self._drafter.propose(st.ctx, st.n_ctx, k)
+                if len(d):
+                    st.drafts = d
+        out = []
+        for row, _k in want:
+            st = row.spec
+            if st.drafts is None:
+                continue
+            if not self._ensure_writable(pool, row,
+                                         row.pos + len(st.drafts)):
+                st.drafts = None
+                continue
+            out.append(row)
+        if out:
+            self._note_spec_gauge("spec.draft_ms",
+                                  (time.monotonic() - t0) * 1000.0)
+        return out
+
+    #: Assumed verify/step dispatch-cost ratio before both EWMAs
+    #: have real signal.
+    SPEC_COST_RATIO = 2.5
+    #: Gated-off iterations before one forced verify round — keeps
+    #: the acceptance estimates fresh so a stream that TURNS
+    #: repetitive is rediscovered.
+    SPEC_GATE_PROBE = 64
+
+    def _spec_gate(self, rows, want):
+        """Iteration-level speculation gate: a verify dispatch costs
+        ~(verify/decode cost ratio)× a plain step over the same
+        pinned batch, so the EXPECTED accepted tokens (per-row draft
+        budget × acceptance EWMA) must cover the premium for the
+        whole riding batch; otherwise everyone plain-steps this
+        round and the drafters (and the draft model's K dispatches)
+        cost nothing."""
+        v = self._batch_ewma.get("verify")
+        s = self._batch_ewma.get("decode")
+        ratio = (v / s) if v and s else self.SPEC_COST_RATIO
+        a_est = sum(k * rw.spec.ewma for rw, k in want)
+        need = max(0.0, ratio - 1.0) * len(rows)
+        if a_est >= need or \
+                self._spec_gate_skips >= self.SPEC_GATE_PROBE:
+            self._spec_gate_skips = 0
+            return True
+        self._spec_gate_skips += 1
+        return False
+
+    def _draft_model_propose(self, rows, k_round):
+        """``k_round`` batched greedy one-token steps through the
+        draft model's own pool — K cheap dispatches propose K tokens
+        for every drafting row at once.  Mirrors that fell behind
+        the target (their row rode plain steps, or a recovery
+        replay) are caught up with one coalesced draft extend first.
+        Returns {id(row): tokens}; a draft fault degrades the
+        drafter and proposes nothing this round."""
+        pool = self.draft_pool
+        rows = [r for r in rows if r.draft_row is not None]
+        out = {}
+        if not rows:
+            return out
+        stale, synced = [], []
+        for row in rows:
+            drow = row.draft_row
+            if drow.pos > row.pos:
+                # Mirror ran ahead (rejected drafts): junk past the
+                # cursor is masked until overwritten — a cursor
+                # reset IS the rewind.
+                drow.pos = row.pos
+                drow.tok = row.tok
+                synced.append(row)
+            elif drow.pos < row.pos:
+                stale.append(row)
+            else:
+                drow.tok = row.tok
+                synced.append(row)
+        if stale:
+            chunks = {}
+            ok = []
+            for row in stale:
+                drow = row.draft_row
+                chunk = row.spec.ctx[drow.pos:row.pos]
+                if self._ensure_writable(pool, drow, row.pos - 1):
+                    chunks[id(row)] = chunk
+                    ok.append(row)
+                else:
+                    self.stats.incr("spec.draft_degraded")
+            if ok and not self._draft_prefill(ok, chunks=chunks):
+                return {}
+            synced.extend(r for r in ok
+                          if r.draft_row is not None)
+        rows = [r for r in synced if r.draft_row is not None]
+        if not rows:
+            return out
+        out = {id(r): [] for r in rows}
+        B = self.max_batch
+        try:
+            for _j in range(int(k_round)):
+                live = []
+                for row in rows:
+                    drow = row.draft_row
+                    if self._ensure_writable(pool, drow, drow.pos):
+                        live.append(row)
+                    else:
+                        self.stats.incr("spec.draft_degraded")
+                rows = live
+                if not rows:
+                    break
+                T = next_pow2(max(r.draft_row.n_blocks
+                                  for r in rows))
+                tables = numpy.zeros((B, T), numpy.int32)
+                pos = numpy.zeros(B, numpy.int32)
+                tok = numpy.zeros(B, numpy.int32)
+                gidx = numpy.zeros(B, numpy.int32)
+                temps = numpy.zeros(B, numpy.float32)  # greedy
+                seeds = numpy.zeros(B, numpy.uint32)
+                for at, row in enumerate(rows):
+                    drow = row.draft_row
+                    tables[at, :drow.n_blocks] = drow.table
+                    pos[at] = drow.pos
+                    tok[at] = drow.tok
+                new = self.draft_model.paged_step(
+                    pool, tables, pos, tok, gidx, temps, seeds)
+                for at, row in enumerate(rows):
+                    drow = row.draft_row
+                    drow.pos += 1
+                    drow.tok = int(new[at])
+                    out[id(row)].append(drow.tok)
+        except Exception:
+            self.exception("draft-model drafting failed")
+            self._degrade_draft(rows)
+            return {}
+        return {key: numpy.asarray(v, numpy.int32)
+                for key, v in out.items()}
+
+    def _verify_once(self, rows):
+        """One ``paged_verify`` dispatch for the WHOLE active batch:
+        rows holding drafts score current + K draft positions, rows
+        without ride as zero-draft columns (their column 0 is
+        exactly a plain step).  The target accepts each row's
+        longest prefix matching its own sampled stream (greedy ⇒
+        argmax ⇒ bit-identical to plain decode), emits the bonus
+        token, and REWINDS — rejected positions roll the write
+        cursor back and whole rejected blocks return to the pool.
+        Returns False after a device fault (supervised recovery
+        ran)."""
+        pool = self.kv_pool
+
+        def span_of(row):
+            st = row.spec
+            d = st.drafts if st is not None else None
+            return row.pos + (len(d) if d is not None else 0)
+
+        rows = self._shed_unwritable(rows, span_of)
+        if not rows:
+            return True
+        n = len(rows)
+        B = self.max_batch
+        K = self.spec_max_k
+        tables = numpy.zeros((B, next_pow2(max(r.n_blocks
+                                               for r in rows))),
+                             numpy.int32)
+        pos = numpy.zeros(B, numpy.int32)
+        toks = numpy.zeros((B, K + 1), numpy.int32)
+        drafts = numpy.zeros((B, K), numpy.int32)
+        dlens = numpy.zeros(B, numpy.int64)
+        gen_idx = numpy.zeros(B, numpy.int32)
+        temps = numpy.zeros(B, numpy.float32)
+        seeds = numpy.zeros(B, numpy.uint32)
+        for at, row in enumerate(rows):
+            req = row.req
+            st = row.spec
+            d = st.drafts if st is not None and \
+                st.drafts is not None else NO_DRAFTS
+            tables[at, :row.n_blocks] = row.table
+            pos[at] = row.pos
+            toks[at, 0] = row.tok
+            toks[at, 1:1 + len(d)] = d
+            drafts[at, :len(d)] = d
+            dlens[at] = len(d)
+            gen_idx[at] = len(row.gen)
+            temps[at] = req.temperature
+            seeds[at] = (req.seed + row.row_idx) & 0xFFFFFFFF
+        t0 = time.monotonic()
+        try:
+            resilience.effective(self.injector).check(
+                "serve.device_fault")
+            target = self.model.paged_verify(pool, tables, pos, toks,
+                                             dlens, gen_idx, temps,
+                                             seeds)
+        except Exception as e:
+            self.exception("speculative verify failed")
+            self._supervised_recover(rows, e)
+            return False
+        dt = time.monotonic() - t0
+        self.stats.observe_batch("verify", n, dt)
+        # Keyed on DISPATCH kind: a K+1-wide verify costs more than
+        # a one-token step, and folding it into the "decode" EWMA
+        # would poison the Retry-After quotes non-speculative
+        # clients get.
+        self._note_ewma("verify", dt)
+        acc = accept_lengths(drafts[:n], dlens[:n], target[:n])
+        emitted = 0
+        accepted_total = 0
+        drafted_total = 0
+        rewound = 0
+        finished = []
+        for at, row in enumerate(rows):
+            st = row.spec
+            a = int(acc[at])
+            d = st.drafts if st is not None and \
+                st.drafts is not None else NO_DRAFTS
+            new_toks = [int(t) for t in d[:a]]
+            new_toks.append(int(target[at, a]))
+            row.gen.extend(new_toks)
+            row.pos += a + 1
+            row.tok = new_toks[-1]
+            rewound += self._rewind_row_table(pool, row)
+            if st is not None:
+                st.drafts = None
+                st.extend_ctx(new_toks)
+                st.update(a, len(d), self.spec_max_k,
+                          self.spec_adaptive)
+            emitted += a + 1
+            accepted_total += a
+            drafted_total += len(d)
+            if len(row.gen) >= row.req.max_new:
+                finished.append(row)
+        # ITL stays a PER-TOKEN gap: a verify advances each riding
+        # row by (accepted+1) tokens in one dispatch, so the honest
+        # inter-token sample is the dispatch wall over the average
+        # tokens emitted — not the raw dispatch wall, which would
+        # read as a latency REGRESSION exactly when speculation is
+        # winning.
+        self.stats.observe_latency("itl.decode",
+                                   dt * n / max(emitted, 1))
+        self.stats.note_tokens(emitted)
+        self.stats.incr("tokens.generated", emitted)
+        self.stats.incr("spec.drafted", drafted_total)
+        self.stats.incr("spec.accepted", accepted_total)
+        self.stats.incr("spec.rounds")
+        if rewound:
+            self.stats.incr("spec.rewound_blocks", rewound)
+        self._note_spec_round(accepted_total, drafted_total,
+                              emitted, n, dt)
+        for row in finished:
+            self._retire_row(row)
+        return True
+
+    def _note_spec_round(self, accepted, drafted, emitted, rows, dt):
+        """EWMA speculative gauges after one verify round — the
+        ``serving.spec.*`` family on /stats, /metrics, and the live
+        serving summary."""
+        rate = accepted / float(max(drafted, 1))
+        ewma = self._spec_accept_ewma
+        self._spec_accept_ewma = rate if ewma is None \
+            else 0.8 * ewma + 0.2 * rate
+        tps = emitted / float(max(rows, 1))
+        ewma = self._spec_tps_ewma
+        self._spec_tps_ewma = tps if ewma is None \
+            else 0.8 * ewma + 0.2 * tps
+        self.stats.set_gauge("spec.accept_rate",
+                             round(self._spec_accept_ewma, 4))
+        self.stats.set_gauge("spec.mean_accepted_len",
+                             round(accepted / float(max(rows, 1)),
+                                   3))
+        self.stats.set_gauge("spec.tokens_per_step",
+                             round(self._spec_tps_ewma, 3))
+        self._note_spec_gauge("spec.verify_ms", dt * 1000.0)
+
+    def _note_spec_gauge(self, name, ms):
+        prev = self.stats.gauge(name)
+        value = ms if prev is None else 0.8 * prev + 0.2 * ms
+        self.stats.set_gauge(name, round(value, 3))
 
     def _ensure_writable(self, pool, row, last_write_pos):
         """Grows ``row``'s table to cover write positions up to
@@ -1087,6 +1894,33 @@ class ServingEngine(Logger):
             row.n_blocks = needed
         return True
 
+    def _rewind_row_table(self, pool, row):
+        """Truncates the table past the block the next write lands
+        in — rejected speculative blocks go back to the pool at this
+        very boundary (the pool is the scarce resource; a waiting
+        request can take them before this row needs them again)."""
+        keep = row.pos // pool.block_size + 1
+        with self._cond:
+            if row.table is None or keep >= row.n_blocks:
+                return 0
+            drop = row.table[keep:]
+            del row.table[keep:]
+            row.n_blocks = keep
+        pool.release(drop)
+        return len(drop)
+
+    def _release_draft(self, row):
+        """Releases a row's draft-pool mirror exactly once (the
+        draft twin of :meth:`_release_row_blocks`)."""
+        drow = row.draft_row
+        if drow is None:
+            return
+        with self._cond:
+            table, drow.table = drow.table, None
+        row.draft_row = None
+        if table is not None and self.draft_pool is not None:
+            self.draft_pool.release(table)
+
     def _release_row_blocks(self, row):
         """Releases a row's table exactly once (claimed under the
         engine lock) — a row can reach both the retire and fail
@@ -1117,6 +1951,7 @@ class ServingEngine(Logger):
             self._kv_committed -= req.kv_commit // req.rows
             req.rows_done += 1
         self.kv_pool.release(table)
+        self._release_draft(row)
         req.row_results[row.row_idx] = row.gen
         if req.rows_done < req.rows:
             return
@@ -1139,6 +1974,8 @@ class ServingEngine(Logger):
                 (req.rows - req.rows_done) // req.rows
         for table in tables:
             self.kv_pool.release(table)
+        for row in mine:
+            self._release_draft(row)
         if req.error is None:
             req.error = error
         req.event.set()
@@ -1150,7 +1987,7 @@ class ServingEngine(Logger):
 
     def _supervised_recover(self, rows, error):
         """A paged device call failed mid-decode.  The pool's device
-        storage is in an undefined (half-donated) state, so it is
+        storage is in an undefined (half-written) state, so it is
         rebuilt anew — but live requests are NOT failed: each
         generate request holds its prompt and every emitted token, so
         after the rebuild surviving rows are re-adopted by replaying
@@ -1200,6 +2037,8 @@ class ServingEngine(Logger):
                 "%.0f s — failing live paged work permanently",
                 len(self._rebuilds), self.breaker_window)
             self.stats.incr("breaker.trips")
+            for row in all_rows:
+                self._release_draft(row)
             for req in {row.req for row in all_rows}:
                 self._fail_req(req, error)
             with self._cond:
@@ -1229,10 +2068,14 @@ class ServingEngine(Logger):
             req.replays += 1
             if req.deadline is not None and req.deadline.expired:
                 self.stats.incr("cancelled.deadline")
+                for row in req_rows:
+                    self._release_draft(row)
                 self._fail_req(req, DeadlineExceeded(
                     "deadline expired during KV pool rebuild"))
             elif req.replays > self.max_replays:
                 self.stats.incr("readopt.exhausted")
+                for row in req_rows:
+                    self._release_draft(row)
                 self._fail_req(req, error)
             else:
                 replayable.extend(req_rows)
@@ -1289,6 +2132,7 @@ class ServingEngine(Logger):
                 if row.req in failed:
                     ok.remove(row)
                     self._release_row_blocks(row)
+                    self._release_draft(row)
             for req, err in failed.items():
                 self._fail_req(req, err)
         if not ok:
@@ -1373,10 +2217,15 @@ class ServingEngine(Logger):
         if manifest:
             features = int(numpy.prod(
                 manifest["input"]["sample_shape"]))
+            fwd = getattr(self.model, "forward_bucketed", None)
             for b, _, _ in self.policy.grid():
                 x = numpy.zeros((1, features), numpy.float32)
                 try:
-                    self.model.forward_bucketed(x, b)
+                    if fwd is not None:
+                        fwd(x, b)
+                    else:
+                        self.model.forward(numpy.zeros(
+                            (b, features), numpy.float32))
                     compiles += 1
                 except Exception as e:
                     self.warning("classify warmup (batch %d) "
@@ -1391,7 +2240,8 @@ class ServingEngine(Logger):
         longest = longest_prompt or max(1, limit - max_new)
         if self.paged:
             compiles += self._warmup_paged(longest, max_new)
-        else:
+        elif getattr(self.model, "generate_bucketed", None) \
+                is not None:
             for b, s, m in self.policy.grid(longest, max_new):
                 s = min(s, limit)
                 prompts = numpy.zeros((b, s), numpy.int32)
@@ -1482,9 +2332,48 @@ class ServingEngine(Logger):
                     numpy.zeros(self.max_batch, numpy.float32),
                     numpy.zeros(self.max_batch, numpy.uint32))
                 compiles += 1
+            compiles += self._warmup_spec(steps)
         except Exception as e:
             self.warning("paged warmup failed after %d compiles: %s",
                          compiles, e)
+        return compiles
+
+    def _warmup_spec(self, steps):
+        """Warm the speculative programs beside the step grid: one
+        ``paged_verify`` per step-table width (same pinned batch,
+        K+1 columns), and under the draft-model drafter the draft
+        pool's own step widths — all against trash tables, costing
+        compiles, not blocks."""
+        if self.spec_mode == "off":
+            return 0
+        pool = self.kv_pool
+        compiles = 0
+        B = self.max_batch
+        for T in steps:
+            self.model.paged_verify(
+                pool, numpy.zeros((B, T), numpy.int32),
+                numpy.zeros(B, numpy.int32),
+                numpy.zeros((B, self.spec_max_k + 1), numpy.int32),
+                numpy.zeros(B, numpy.int32),
+                numpy.zeros(B, numpy.int32),
+                numpy.zeros(B, numpy.float32),
+                numpy.zeros(B, numpy.uint32))
+            compiles += 1
+        if self.spec_mode != "draft":
+            return compiles
+        dpool = self.draft_pool
+        T_full = next_pow2(dpool.blocks_for(self._max_position))
+        T = 1
+        while T <= T_full:
+            self.draft_model.paged_step(
+                dpool, numpy.zeros((B, T), numpy.int32),
+                numpy.zeros(B, numpy.int32),
+                numpy.zeros(B, numpy.int32),
+                numpy.zeros(B, numpy.int32),
+                numpy.zeros(B, numpy.float32),
+                numpy.zeros(B, numpy.uint32))
+            compiles += 1
+            T *= 2
         return compiles
 
     def _grow_compile_cache(self, longest_prompt, max_new):
@@ -1501,9 +2390,13 @@ class ServingEngine(Logger):
             m = self.DEFAULT_MAX_NEW if max_new is None else max_new
             longest = longest_prompt or max(1, limit - m)
             if self.paged:
-                # the exact warm key sets + the copy program.
+                # the exact warm key sets + the copy program (and
+                # the verify program per step width when
+                # speculating).
                 extends, steps = self._paged_warm_keys(longest, m)
                 needed += len(extends) + len(steps) + 1
+                if self.spec_mode != "off":
+                    needed += len(steps)
             else:
                 needed += len(self.policy.grid(longest, m))
         needed += 8  # non-bucketed generate() headroom
@@ -1511,3 +2404,9 @@ class ServingEngine(Logger):
             self.info("compile cache capacity %d -> %d (warmup grid)",
                       cache.capacity, needed)
             cache.capacity = needed
+        if self.spec_mode == "draft":
+            dcache = getattr(self.draft_model, "compile_cache", None)
+            if dcache is not None and \
+                    hasattr(dcache, "capacity") and \
+                    dcache.capacity < needed:
+                dcache.capacity = needed

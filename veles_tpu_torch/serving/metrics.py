@@ -13,6 +13,7 @@ numbers the ``bench.py --serve`` soak reports, live.
 import collections
 import threading
 import time
+import weakref
 
 from ..resilience import ResilienceStats
 
@@ -123,6 +124,12 @@ class ServingStats(object):
             "serving.latency_seconds",
             labels={"kind": key}).observe(seconds)
 
+    def gauge(self, name):
+        """The latest value of a named gauge, or None — the engine's
+        EWMA speculative gauges read back through this."""
+        with self._lock:
+            return self._gauges.get(name)
+
     def set_gauge(self, name, value):
         """Point-in-time value (KV blocks used, active decode rows);
         the latest write wins and rides ``snapshot()`` — and the
@@ -186,3 +193,79 @@ class ServingStats(object):
 
 def _ms(seconds):
     return None if seconds is None else round(seconds * 1000.0, 3)
+
+
+#: Live engines in this process (weak: a dropped engine vanishes on
+#: its own) — :func:`live_serving_summary` pulls a compact serving
+#: summary from here (tok/s, weight version, speculation, pool blocks
+#: and bytes) without the engines holding references to its readers.
+_LIVE_ENGINES = weakref.WeakSet()
+
+
+def register_engine(engine):
+    _LIVE_ENGINES.add(engine)
+
+
+def unregister_engine(engine):
+    _LIVE_ENGINES.discard(engine)
+
+
+def live_serving_summary():
+    """A small aggregate across this process's running engines, or None
+    when nothing serves."""
+    engines = [e for e in list(_LIVE_ENGINES)
+               if getattr(e, "_thread", None) is not None]
+    if not engines:
+        return None
+    out = {"engines": len(engines),
+           "tok_per_sec": round(sum(
+               e.stats.tokens_per_second() for e in engines), 2),
+           "queue_depth": sum(
+               e.queue_depth_now() for e in engines)}
+    versions = [e.weight_version for e in engines
+                if getattr(e, "weight_version", None)]
+    if versions:
+        out["weight_version"] = max(versions)
+    spec_rates = [e.stats.gauge("spec.accept_rate") for e in engines
+                  if getattr(e, "spec_mode", "off") != "off"]
+    spec_rates = [r for r in spec_rates if r is not None]
+    if spec_rates:
+        # The worst accept rate leads: a fleet member whose drafts
+        # stopped landing is the one the operator wants to see.
+        out["spec_accept_rate"] = min(spec_rates)
+        tps = [e.stats.gauge("spec.tokens_per_step")
+               for e in engines
+               if getattr(e, "spec_mode", "off") != "off"]
+        tps = [t for t in tps if t is not None]
+        if tps:
+            out["spec_tokens_per_step"] = round(
+                sum(tps) / len(tps), 3)
+    breakers = {getattr(e, "_breaker", "closed") for e in engines}
+    if breakers - {"closed"}:
+        # Degraded state leads the row: a rebuilding/tripped breaker
+        # is exactly what the operator opened the dashboard for.
+        out["breaker"] = sorted(breakers - {"closed"})[0]
+    used = total = bytes_used = bytes_total = 0
+    dtypes = set()
+    for e in engines:
+        pool = getattr(e, "kv_pool", None)
+        if pool is None:
+            continue
+        occ = pool.occupancy()
+        used += occ["blocks_used"]
+        total += occ["blocks_total"]
+        bytes_used += occ.get("bytes_used", 0)
+        bytes_total += occ.get("bytes_total", 0)
+        dtypes.add(occ.get("storage_dtype", "f32"))
+    if total:
+        out["kv_blocks_used"] = used
+        out["kv_blocks_total"] = total
+        if bytes_total:
+            # The byte figures make the quantized-pool win visible
+            # on the dashboard: same block count, a fraction of the
+            # HBM.
+            out["kv_bytes_used"] = bytes_used
+            out["kv_bytes_total"] = bytes_total
+        if dtypes:
+            out["kv_dtype"] = "/".join(sorted(dtypes))
+    return out
