@@ -20,7 +20,9 @@ non-zero:
 2. build — ``nvcc`` builds every kernel of the four paths from the
    sources in the checkout, one process per source, all at once
    (``veles_tpu_torch/ops/csrc/decode_attention.cu`` — B4, B5 —,
-   ``flash_attention.cu`` — B1 forward, B2 dq, B3 dk/dv — and
+   ``flash_attention.cu`` — B2 dq and the FP32-unit B1/B3 of the
+   f32/f32 pair —, ``flash_attention_tc.cu`` — B1 forward and B3 dk/dv
+   on the tensor cores — and
    ``lrn.cu`` — B6 LRN forward, B7 LRN backward);
 3. kernel check — each kernel's wrapper against its plain PyTorch
    version on the card, at the shapes its path gives it and at ragged,
@@ -162,7 +164,7 @@ def phase_build():
     from veles_tpu_torch.ops import decode_attention as DA
     from veles_tpu_torch.ops import flash_attention as FA
     from veles_tpu_torch.ops import lrn as L
-    sources = (DA.SOURCE, FA.SOURCE, L.SOURCE)
+    sources = (DA.SOURCE, FA.SOURCE, FA.TC_SOURCE, L.SOURCE)
     t0 = time.monotonic()
     nvcc.build(*sources)
     print("build: %d sources for sm_90a in %.2f s" %
@@ -482,6 +484,7 @@ FLASH_CASES = (
     ("masked_rows", 2, 64, 64, 2, 128,
      dict(causal=True, q_offset=0, k_offset=32)),
     ("ragged_1000", 1, 1000, 1000, 2, 128, dict(causal=True)),
+    ("d72", 2, 200, 200, 3, 72, dict(causal=True)),
     ("slice", 8, POSITIONS, POSITIONS, HEADS, EMBED // HEADS,
      dict(causal=True)),
 )
@@ -590,23 +593,128 @@ def phase_flash_kernels():
     for (label, output), (err, share) in sorted(worst.items()):
         print("  %s %-4s max abs err %.3g, largest share of the "
               "tolerance %.3g" % (label, output, err, share))
-    return slice_err, flash_timings()
+    return slice_err, phase_flash_split(), flash_timings()
+
+
+#: Split-sensitive inputs (B, S, H, D, non-causal): the products with
+#: an f32 operand nearly cancel, so the rounding of p or ds to one bf16
+#: term (2^-9 of each) shows far above the bf16/f32 tolerance, while
+#: the three-term split keeps f32 precision.  "cancel_v": tiny scores
+#: (q ~ 0.01), v and dO of constant magnitude alternating in sign over
+#: keys and query rows: out = Σ p·v / l and dv = Σ p·dO cancel.
+#: "cancel_q": q = ±q0 alternating over rows (q0 ~ 0.001), v = dO = 1
+#: and an lse cotangent of 1, so ds = p·scale and dk = Σ ds·q cancels.
+SPLIT_SHAPE = (2, 256, 2, 64)
+#: The outputs a one-term rounding of p or ds moves out of tolerance.
+SPLIT_FAULTED = {"cancel_v": ("out", "dv"), "cancel_q": ("dk",)}
+
+
+def split_inputs(kind, gen):
+    import torch
+    B, S, H, D = SPLIT_SHAPE
+    sign = (1.0 - 2.0 * (torch.arange(S, device="cuda") % 2))[
+        None, :, None, None].expand(B, S, H, D)
+    k = torch.randn((B, S, H, D), generator=gen, device="cuda")
+    if kind == "cancel_v":
+        q = 0.01 * torch.randn((B, S, H, D), generator=gen, device="cuda")
+        v = do = sign
+        dlse = torch.randn((B, S, H), generator=gen, device="cuda")
+    else:
+        q0 = 0.001 * torch.randn((B, 1, H, D), generator=gen,
+                                 device="cuda")
+        q = sign * q0
+        v = do = torch.ones((B, S, H, D), device="cuda")
+        dlse = torch.ones((B, S, H), device="cuda")
+    return [t.to(torch.bfloat16).contiguous() for t in (q, k, v, do)] + \
+        [dlse]
+
+
+def phase_flash_split():
+    """The three-term split against a planted one-term fault, on the
+    split-sensitive inputs: the kernels (bf16 storage, f32 operands)
+    must pass the bf16/f32 check of every output, and the plain
+    versions with bf16 operands — exactly what a kernel that rounds p
+    and ds to one bf16 term returns — must fail it for out and dv
+    ("cancel_v") and dk ("cancel_q").  Returns {(kind, output):
+    (kernel's share of the tolerance, the fault's)}."""
+    import torch
+    from veles_tpu_torch.ops import flash_attention as FA
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    f32, bf16 = torch.float32, torch.bfloat16
+    shares = {}
+    for kind in SPLIT_FAULTED:
+        q, k, v, do, dlse = split_inputs(kind, gen)
+        out, lse = FA.flash_forward(q, k, v, operand_dtype=f32)
+        delta = (do.float() * out.float()).sum(-1) - dlse
+        dq = FA.flash_dq(q, k, v, do, lse, delta, operand_dtype=f32)
+        dk, dv = FA.flash_dkv(q, k, v, do, lse, delta, operand_dtype=f32)
+        torch.cuda.synchronize()
+        want, faults = {}, {}
+        want["out"], want["lse"] = FA.flash_attention_reference(
+            q, k, v, operand_dtype=f32)
+        want["dq"] = FA.flash_attention_dq_reference(
+            q, k, v, do, lse, delta, operand_dtype=f32)
+        want["dk"], want["dv"] = FA.flash_attention_dkv_reference(
+            q, k, v, do, lse, delta, operand_dtype=f32)
+        faults["out"], faults["lse"] = FA.flash_attention_reference(
+            q, k, v, operand_dtype=bf16)
+        faults["dq"] = FA.flash_attention_dq_reference(
+            q, k, v, do, lse, delta, operand_dtype=bf16)
+        faults["dk"], faults["dv"] = FA.flash_attention_dkv_reference(
+            q, k, v, do, lse, delta, operand_dtype=bf16)
+        got = dict(out=out, lse=lse, dq=dq, dk=dk, dv=dv)
+        abs_v_out = FA.flash_attention_reference(
+            q, k, v.abs(), operand_dtype=f32)[0].float()
+        for output in ("out", "lse", "dq", "dk", "dv"):
+            w = want[output].float()
+            rtol, atol = flash_tolerance(MAIN_DTYPES, output, w, abs_v_out)
+
+            def share(x):
+                return ((x.float() - w).abs() /
+                        (atol + rtol * w.abs())).max().item()
+
+            shares[(kind, output)] = (share(got[output]),
+                                      share(faults[output]))
+    print("split check (%s, B=%d S=%d H=%d D=%d non-causal, bf16 storage, "
+          "f32 operands): largest share of the bf16/f32 tolerance, kernel "
+          "/ plain version with one bf16 term (the planted fault):" % (
+              "cancel_v: v and dO alternate in sign; cancel_q: q alternates"
+              " in sign", *SPLIT_SHAPE))
+    for (kind, output), (kern, fault) in sorted(shares.items()):
+        print("  %s %-4s kernel %.3g, fault %.3g" % (kind, output, kern,
+                                                     fault))
+    for (kind, output), (kern, fault) in shares.items():
+        if not kern <= 1.0:
+            fail("flash %s on the split-sensitive inputs (%s) disagrees "
+                 "with its plain version: %.3g of the tolerance" % (
+                     output, kind, kern))
+    for kind, faulted in SPLIT_FAULTED.items():
+        for output in faulted:
+            if not shares[(kind, output)][1] > 1.0:
+                fail("the bf16/f32 check does not see p or ds rounded to "
+                     "one bf16 term: %s (%s) at %.3g of the tolerance" % (
+                         output, kind, shares[(kind, output)][1]))
+    return shares
 
 
 def flash_timings():
     """B1-B3 at the training shape (causal, bf16 storage, f32
     operands): kernel, plain version, SDPA, and the bound — the larger
-    of the bytes each must move (3.35 TB/s) and the multiply-adds of
-    the causal half: products of two bf16 values (q·kᵀ and dO·vᵀ, whose
-    operands are the bf16 inputs) at the bf16 tensor-core rate
-    (989 TFLOP/s) plus products with an f32 operand (p and ds) at the
-    float32 rate outside the tensor cores (67 TFLOP/s)."""
+    of the bytes each must move (3.35 TB/s) and the products of the
+    causal half on the bf16 tensor cores (989 TFLOP/s): a product of two
+    bf16 values (q·kᵀ and dO·vᵀ, whose operands are the bf16 inputs)
+    once, a product with an f32 operand (p or ds) as three bf16 products
+    (the f32 value split into hi, mid and lo bf16 terms, each product
+    exact in f32) — the least work that keeps the f32 operand's
+    precision on the tensor cores.  Then B1 with bf16 operands beside
+    SDPA's forward, which rounds p to bf16 as well: the like-for-like
+    library comparison, checked against its plain version first."""
     import torch
     import torch.nn.functional as F
     from veles_tpu_torch.ops import flash_attention as FA
     gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
     B, S, H, D = TRAIN_BATCH, POSITIONS, HEADS, EMBED // HEADS
-    f32 = torch.float32
+    f32, bf16 = torch.float32, torch.bfloat16
     q, k, v, do, _ = flash_inputs(B, S, S, H, D, torch.bfloat16, gen)
     out, lse = FA.flash_forward(q, k, v, causal=True, operand_dtype=f32)
     delta = (do.float() * out.float()).sum(-1)
@@ -647,32 +755,75 @@ def flash_timings():
                 q, k, v, do, lse, delta, causal=True, operand_dtype=f32),
             None),
     }
+
+    def bound(bf16_flop, f32_flop, n_bytes):
+        ops_ms = (bf16_flop + 3 * f32_flop) / BF16_FLOP_PER_S * 1e3
+        bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+        return (max(ops_ms, bytes_ms),
+                "operations" if ops_ms >= bytes_ms else "bytes")
+
     sdpa_fb_ms = cuda_ms(sdpa_fwd_bwd, iters=20, warmup=3)
     timings = {}
     for kernel, (fn, plain, library) in runs.items():
         bf16_per_pair, f32_per_pair, n_bytes = per_kernel[kernel]
-        ops_ms = (bf16_per_pair * pairs / BF16_FLOP_PER_S +
-                  f32_per_pair * pairs / F32_FLOP_PER_S) * 1e3
-        bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+        bound_ms, bound_by = bound(bf16_per_pair * pairs,
+                                   f32_per_pair * pairs, n_bytes)
         timings[kernel] = dict(
             kernel_ms=cuda_ms(fn, iters=20, warmup=3),
             plain_ms=cuda_ms(plain, iters=5, warmup=1),
             library_ms=cuda_ms(library, iters=20, warmup=3)
             if library is not None else None,
-            sdpa_fwd_bwd_ms=sdpa_fb_ms,
-            bound_ms=max(ops_ms, bytes_ms),
-            bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+            sdpa_fwd_bwd_ms=sdpa_fb_ms, bound_ms=bound_ms,
+            bound_by=bound_by,
             gflop_bf16=bf16_per_pair * pairs / 1e9,
             gflop_f32=f32_per_pair * pairs / 1e9, gbytes=n_bytes / 1e9)
         t = timings[kernel]
+        t["share_of_bound"] = t["bound_ms"] / t["kernel_ms"]
         print("kernel timing %s B=%d S=%d H=%d D=%d causal bf16/f32: "
-              "kernel %.4f ms, plain %.4f ms, sdpa %s ms (fwd+bwd "
-              "%.4f ms), bound %.4f ms (%s; %.1f GFLOP on two bf16 "
-              "operands + %.1f GFLOP with an f32 operand, %.3f GB)" % (
-                  kernel, B, S, H, D, t["kernel_ms"], t["plain_ms"],
+              "kernel %.4f ms (%.1f%% of its bound), plain %.4f ms, sdpa "
+              "%s ms (fwd+bwd %.4f ms), bound %.4f ms (%s; %.1f GFLOP on "
+              "two bf16 operands + %.1f GFLOP with an f32 operand, each "
+              "counted as three bf16 tensor-core products; %.3f GB)" % (
+                  kernel, B, S, H, D, t["kernel_ms"],
+                  100 * t["share_of_bound"], t["plain_ms"],
                   "%.4f" % t["library_ms"] if t["library_ms"] is not None
                   else "n/a", sdpa_fb_ms, t["bound_ms"], t["bound_by"],
                   t["gflop_bf16"], t["gflop_f32"], t["gbytes"]))
+
+    # B1 with bf16 operands: SDPA's function (p rounded to bf16).
+    got, got_lse = FA.flash_forward(q, k, v, causal=True,
+                                    operand_dtype=bf16)
+    torch.cuda.synchronize()
+    want, want_lse = FA.flash_attention_reference(q, k, v, causal=True,
+                                                  operand_dtype=bf16)
+    abs_v_out = FA.flash_attention_reference(
+        q, k, v.abs(), causal=True, operand_dtype=bf16)[0].float()
+    for output, a, b in (("out", got, want), ("lse", got_lse, want_lse)):
+        a, b = a.float(), b.float()
+        rtol, atol = flash_tolerance("bf16/bf16", output, b, abs_v_out)
+        share = ((a - b).abs() / (atol + rtol * b.abs())).max().item()
+        if not share <= 1.0:
+            fail("flash_forward bf16/bf16 %s at the training shape "
+                 "disagrees with its plain version: %.3g of the "
+                 "tolerance" % (output, share))
+    del got, got_lse, want, want_lse, abs_v_out
+    bound_ms, bound_by = bound(2 * 2 * D * pairs, 0,
+                               2 * 4 * elem + 4 * B * S * H)
+    t = dict(
+        kernel_ms=cuda_ms(lambda: FA.flash_forward(
+            q, k, v, causal=True, operand_dtype=bf16), iters=20, warmup=3),
+        plain_ms=cuda_ms(lambda: FA.flash_attention_reference(
+            q, k, v, causal=True, operand_dtype=bf16), iters=5, warmup=1),
+        library_ms=cuda_ms(runs["flash_forward"][2], iters=20, warmup=3),
+        bound_ms=bound_ms, bound_by=bound_by)
+    t["share_of_bound"] = t["bound_ms"] / t["kernel_ms"]
+    timings["flash_forward"]["bf16_operands"] = t
+    print("kernel timing flash_forward B=%d S=%d H=%d D=%d causal "
+          "bf16/bf16 (SDPA's function): kernel %.4f ms (%.1f%% of its "
+          "bound), plain %.4f ms, sdpa %.4f ms, bound %.4f ms (%s)" % (
+              B, S, H, D, t["kernel_ms"], 100 * t["share_of_bound"],
+              t["plain_ms"], t["library_ms"], t["bound_ms"],
+              t["bound_by"]))
     return timings
 
 
@@ -1017,13 +1168,14 @@ def phase_training(smi):
     compiler.execute = timed_execute
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    FA.flash_forward.launches = FA.flash_dq.launches = \
-        FA.flash_dkv.launches = 0
+    FA.reset_launches()
     launcher.run()
     torch.cuda.synchronize()
     launches = {"flash_forward": FA.flash_forward.launches,
                 "flash_dq": FA.flash_dq.launches,
                 "flash_dkv": FA.flash_dkv.launches}
+    routes = {name: dict(getattr(FA, name).route_launches)
+              for name in launches}
     peak = torch.cuda.max_memory_allocated()
     compiler.execute = execute
     results = wf.gather_results()
@@ -1044,6 +1196,16 @@ def phase_training(smi):
     if launches != expected:
         fail("flash kernels launched %s times, the ticks imply %s" %
              (launches, expected))
+    # bf16 storage with f32 operands: B1 and B3 on the tensor cores, B2
+    # on the FP32 units.
+    want_routes = {name: {way: n if way == FA.route(name, torch.bfloat16,
+                                                      torch.float32)
+                          else 0 for way in FA.ROUTES}
+                   for name, n in expected.items()}
+    print("training: launches by route %s" % routes)
+    if routes != want_routes:
+        fail("flash kernels took the routes %s; the main path implies %s"
+             % (routes, want_routes))
 
     device = next(iter(compiler._param_vecs.values())).devmem.device
 
@@ -1083,7 +1245,7 @@ def phase_training(smi):
     launch = FA._launch
     planted = {}
     for fault, symbol in (("dq", "veles_flash_dq"),
-                          ("dk", "veles_flash_dkv")):
+                          ("dk", "veles_flash_dkv_tc")):
         def planted_launch(fn, name, *args):
             launch(fn, name, *args)
             if fn == symbol:
@@ -1198,6 +1360,7 @@ def phase_training(smi):
               smi, ["%.3f" % x for x in train_s],
               numbers["train_tick_p50_s"], numbers["validation_tick_s"],
               numbers["tokens_per_s"], peak / 1e9))
+    numbers["flash_routes"] = routes
     del ticks, afters
     return launches, numbers
 
@@ -1556,6 +1719,18 @@ def get(url):
         return json.loads(resp.read())
 
 
+def short_extend_rows(tables, clens):
+    """The rows of a ``paged_extend`` call that attend through a decode
+    kernel: each real row (a table that is not all TRASH) runs alone at
+    its own chunk length, through the kernel when that is at most
+    DECODE_MAX_Q tokens."""
+    import numpy
+    from veles_tpu_torch.ops import decode_attention as DA
+    tables, clens = numpy.asarray(tables), numpy.asarray(clens)
+    return int(((tables[:, 0] != 0) & (clens > 0) &
+                (clens <= DA.DECODE_MAX_Q)).sum())
+
+
 def phase_serving(workdir, smi):
     """Phases 7-8 on the f32 plane: returns (launches, numbers, and the
     model, prompts and answers the later phases reuse)."""
@@ -1578,7 +1753,8 @@ def phase_serving(workdir, smi):
     os.remove(path)
 
     # Count the device calls whose attention the kernel serves: every
-    # paged step, and every extend whose chunk has <= DECODE_MAX_Q rows.
+    # paged step, and every extend row (an extend runs each real row
+    # alone) of at most DECODE_MAX_Q tokens.
     calls = {"step": 0, "short_extend": 0}
     paged_step, paged_extend = model.paged_step, model.paged_extend
 
@@ -1587,8 +1763,7 @@ def phase_serving(workdir, smi):
         return paged_step(*args)
 
     def counted_extend(pool, tables, tokens, *args):
-        if tokens.shape[1] <= DA.DECODE_MAX_Q:
-            calls["short_extend"] += 1
+        calls["short_extend"] += short_extend_rows(tables, args[1])
         return paged_extend(pool, tables, tokens, *args)
 
     model.paged_step, model.paged_extend = counted_step, counted_extend
@@ -1728,22 +1903,16 @@ class CallLog(object):
     @staticmethod
     def programs(kind, pool, args, out):
         """How many times a call ran its attention through a decode
-        kernel (one launch per block each).  On the f32 plane: a step,
-        a verify, an extend of at most DECODE_MAX_Q columns, once.  On
-        the int8/fp8 planes an extend runs each real row alone (at its
-        own chunk length: once per row of at most DECODE_MAX_Q tokens),
-        and a verify runs the step program once per column reached:
-        1 + the most drafts a row accepted."""
+        kernel (one launch per block each).  A step, and on the f32
+        plane a verify, once; an extend runs each real row alone (at its
+        own chunk length: once per row of at most DECODE_MAX_Q tokens);
+        on the int8/fp8 planes a verify runs the step program once per
+        column reached: 1 + the most drafts a row accepted."""
         import numpy
-        from veles_tpu_torch.ops import decode_attention as DA
         from veles_tpu_torch.serving.speculation import accept_lengths
         scaled = pool.kv_dtype in ("int8", "fp8")
         if kind == "paged_extend":
-            if not scaled:
-                return int(args[1].shape[1] <= DA.DECODE_MAX_Q)
-            tables, clens = numpy.asarray(args[0]), numpy.asarray(args[3])
-            return int(((tables[:, 0] != 0) & (clens > 0) &
-                        (clens <= DA.DECODE_MAX_Q)).sum())
+            return short_extend_rows(args[0], args[3])
         if kind == "paged_verify" and scaled:
             toks = numpy.asarray(args[2])
             return 1 + int(accept_lengths(toks[:, 1:], args[3],
@@ -2302,12 +2471,14 @@ def phase_fp8(served):
 
 
 def row_count_reading(model):
-    """A reading, no gate: whether a row's result depends on how many
-    rows share the call — 8 rows (a decode step at max_batch) alone
-    against the same 8 among 40 (a verify chunk of 5 columns) — for each
-    product of block 0 and the head under both weight modes, and for
-    the layer norm.  Returns {name: largest difference}; 0 is bit for
-    bit."""
+    """Whether a row's result depends on how many rows share the call —
+    8 rows (a decode step at max_batch) alone against the same 8 among
+    40 (a verify chunk of 5 columns), at rows 5-12 of the 40, so that
+    their ``DECODE_ROWS``-row product holds other rows there and zero
+    padding alone — for each product of block 0 and the head under both
+    weight modes, and for the layer norm.  Every one runs on ``DECODE_ROWS``-row chunks, so each must
+    be bit for bit: a difference fails.  Returns {name: largest
+    difference}."""
     import torch
     from veles_tpu_torch import export as X
     from veles_tpu_torch.config import root
@@ -2322,16 +2493,20 @@ def row_count_reading(model):
                 [("head_w", params)]:
             h = torch.randn(40, p[name].shape[0], device="cuda",
                             generator=gen)
-            alone, among = X._mm(h[:8], p, name), X._mm(h, p, name)[:8]
+            alone = X._mm(h[5:13], p, name)
+            among = X._mm(h, p, name)[5:13]
             out["%s %s" % (weights, name)] = float(
                 (alone - among).abs().max())
     root.common.serving.weight_dtype = mode
     g = torch.ones(EMBED, device="cuda")
     x = torch.randn(40, EMBED, device="cuda", generator=gen)
-    out["layer norm"] = float((X._ln(x[:8], g, g * 0) -
-                               X._ln(x, g, g * 0)[:8]).abs().max())
-    print("row-count reading: largest difference of 8 rows alone against "
-          "the same rows among 40 (0 = bit for bit): %s" % out)
+    out["layer norm"] = float((X._ln(x[5:13], g, g * 0) -
+                               X._ln(x, g, g * 0)[5:13]).abs().max())
+    print("row-count check: largest difference of 8 rows alone against "
+          "the same rows at 5-12 among 40 (0 = bit for bit): %s" % out)
+    if any(out.values()):
+        fail("a decode-program product or layer norm depends on the "
+             "call's row count: %s" % out)
     return out
 
 
@@ -2418,12 +2593,13 @@ def main():
     print("device: %s x%d (torch %s, CUDA %s); nvidia-smi: %s" % (
         kind, count, torch.__version__, torch.version.cuda, smi))
     from veles_tpu_torch.backends import resolve_device
+    from veles_tpu_torch.ops import flash_attention as FA
     resolve_device("cuda")  # TF32 off, as every port entry point sets
     phase_build()
     max_err, timings = phase_kernels()
     quant_worst, quant_faults, quant_b4_equal, sq_rows, quant_times = \
         phase_quant_kernels()
-    flash_err, flash_times = phase_flash_kernels()
+    flash_err, split_shares, flash_times = phase_flash_kernels()
     lrn_err, lrn_worst, lrn_faults_read, lrn_times = phase_lrn_kernels()
     gc.collect()
     torch.cuda.empty_cache()
@@ -2507,27 +2683,41 @@ def main():
     replaces = {"flash_forward": 211, "flash_dq": 258, "flash_dkv": 293}
     for name, line in replaces.items():
         t = flash_times[name]
-        kernels["kernels"].append({
+        way = FA.route(name, torch.bfloat16, torch.float32)
+        entry = {
             "name": name,
             "route": "cuda",
-            "source": "veles_tpu_torch/ops/csrc/flash_attention.cu",
+            "source": "veles_tpu_torch/ops/csrc/%s" % (
+                "flash_attention_tc.cu" if way == "tensor_core"
+                else "flash_attention.cu"),
             "replaces": "veles_tpu/ops/pallas_attention.py:%d" % line,
             "shape": "B=%d S=%d H=%d D=%d causal, bf16 storage, f32 "
                      "operands" % (TRAIN_BATCH, POSITIONS, HEADS,
                                    EMBED // HEADS),
+            "units": way,
             "launches": flash_launches[name],
+            "launches_by_route": training["flash_routes"][name],
             "max_abs_err": flash_err[name],
             "tol": BF16_TOL_TEXT,
             "ms": t["kernel_ms"],
             "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"],
+            "share_of_bound": t["share_of_bound"],
             "library_ms": t["library_ms"],
             "library": "torch.nn.functional.scaled_dot_product_attention"
                        " (forward)" if t["library_ms"] is not None
                        else None,
             "sdpa_fwd_bwd_ms": t["sdpa_fwd_bwd_ms"],
-        })
+        }
+        if name == "flash_forward":
+            entry["bf16_operands"] = t["bf16_operands"]
+        if name in ("flash_forward", "flash_dkv"):
+            entry["split_check"] = {
+                "%s %s" % k: {"kernel_share": v[0], "fault_share": v[1]}
+                for k, v in split_shares.items()
+                if (k[1] in ("out", "lse")) == (name == "flash_forward")}
+        kernels["kernels"].append(entry)
     for name, line in (("lrn_forward", 81), ("lrn_backward", 87)):
         rows = [lrn_times[(name, shape)] for shape, _ in LRN_SHAPES]
         kernels["kernels"].append({

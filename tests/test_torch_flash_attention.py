@@ -259,6 +259,55 @@ def test_dispatch_on_the_card_never_takes_the_plain_path(
     assert reached == ["cuda", "cuda"]
 
 
+#: (storage, operand dtype) -> the C entry points of the forward, dq
+#: and dk/dv launches: the tensor cores for every pair whose q, k, v and
+#: dO are bf16-exact, the FP32 units for f32/f32 and for every dq.
+ENTRY_POINTS = {
+    (torch.float32, torch.float32): (
+        "veles_flash_fwd", "veles_flash_dq", "veles_flash_dkv"),
+    (torch.bfloat16, torch.float32): (
+        "veles_flash_fwd_tc", "veles_flash_dq", "veles_flash_dkv_tc"),
+    (torch.bfloat16, torch.bfloat16): (
+        "veles_flash_fwd_tc", "veles_flash_dq", "veles_flash_dkv_tc"),
+    (torch.float32, torch.bfloat16): (
+        "veles_flash_fwd_tc", "veles_flash_dq", "veles_flash_dkv_tc"),
+}
+
+
+@pytest.mark.parametrize("storage,od", sorted(ENTRY_POINTS, key=str))
+def test_each_dtype_pair_reaches_its_kernel(monkeypatch, storage, od):
+    """On CUDA tensors each storage/operand pair reaches its C entry
+    point (``_launch`` stubbed to record it) and counts the launch on
+    its route; none reaches a plain version."""
+    reached = []
+
+    def launch(fn, name, *args):
+        reached.append(fn)
+
+    def plain(*args, **kwargs):
+        raise AssertionError("a CUDA tensor reached a plain version")
+
+    monkeypatch.setattr(FA, "_launch", launch)
+    for name in ("flash_attention_reference", "flash_attention_dq_reference",
+                 "flash_attention_dkv_reference"):
+        monkeypatch.setattr(FA, name, plain)
+    x = torch.zeros((1, 8, 2, 16), dtype=storage).as_subclass(_CardTensor)
+    rows = torch.zeros((1, 8, 2)).as_subclass(_CardTensor)
+    before = {w: dict(getattr(FA, w).route_launches)
+              for w in ("flash_forward", "flash_dq", "flash_dkv")}
+    FA.flash_forward(x, x, x, causal=True, operand_dtype=od)
+    FA.flash_dq(x, x, x, x, rows, rows, causal=True, operand_dtype=od)
+    FA.flash_dkv(x, x, x, x, rows, rows, causal=True, operand_dtype=od)
+    assert tuple(reached) == ENTRY_POINTS[(storage, od)]
+    for wrapper, fn in zip(("flash_forward", "flash_dq", "flash_dkv"),
+                           reached):
+        way = "tensor_core" if fn.endswith("_tc") else "fp32"
+        assert FA.route(wrapper, storage, od) == way
+        counts = getattr(FA, wrapper).route_launches
+        assert counts[way] == before[wrapper][way] + 1
+        assert sum(counts.values()) == sum(before[wrapper].values()) + 1
+
+
 # -- on the card ---------------------------------------------------------------
 
 
@@ -283,20 +332,58 @@ def cuda_card():
 CARD_RTOL, CARD_ATOL_RMS = 2.0 ** -7, 1e-2
 
 
+def _split_inputs(kind, B=2, S=256, H=2, D=64, seed=5):
+    """Inputs on which a product with an f32 operand nearly cancels
+    (non-causal): "split_v" — tiny scores, v and dO of magnitude 1
+    alternating in sign over keys and rows (out and dv cancel);
+    "split_q" — q alternating in sign over rows, v = dO = 1, an lse
+    cotangent of 1 (dk cancels).  Rounding p or ds to one bf16 term
+    shows there far above the bf16 tolerance."""
+    rng = numpy.random.RandomState(seed)
+    sign = numpy.where(numpy.arange(S) % 2, -1.0, 1.0)[None, :, None,
+                                                        None]
+    sign = numpy.broadcast_to(sign, (B, S, H, D)).astype(numpy.float32)
+    k = rng.standard_normal((B, S, H, D)).astype(numpy.float32)
+    if kind == "split_v":
+        q = 0.01 * rng.standard_normal((B, S, H, D)).astype(numpy.float32)
+        v = do = sign
+        dlse = rng.standard_normal((B, S, H)).astype(numpy.float32)
+    else:
+        q = sign * 0.001 * rng.standard_normal((B, 1, H, D)).astype(
+            numpy.float32)
+        v = do = numpy.ones((B, S, H, D), numpy.float32)
+        dlse = numpy.ones((B, S, H), numpy.float32)
+    return [numpy.ascontiguousarray(a) for a in (q, k, v, do, dlse)]
+
+
+#: Split-sensitive cases: the outputs a one-term rounding of p or ds
+#: moves out of the bf16/f32 tolerance.
+SPLIT_FAULTED = {"split_v": ("out", "dv"), "split_q": ("dk",)}
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("storage,od", [
     (torch.float32, torch.float32), (torch.bfloat16, torch.float32),
     (torch.float32, torch.bfloat16)])
-@pytest.mark.parametrize("case", sorted(CASES) + ["ragged_1000"])
+@pytest.mark.parametrize("case", sorted(CASES) + [
+    "ragged_1000", "d72"] + sorted(SPLIT_FAULTED))
 def test_kernels_match_plain_versions_on_card(cuda_card, storage, od,
                                               case):
     """B1/B2/B3 against their plain versions on the card, with a
-    non-zero lse cotangent."""
+    non-zero lse cotangent; on the split-sensitive cases with bf16
+    storage and f32 operands, the plain versions with bf16 operands (a
+    kernel that rounds p and ds to one bf16 term) must fail the same
+    check."""
     if case == "ragged_1000":
         B, Sq, Sk, H, D, kw = 1, 1000, 1000, 2, 128, dict(causal=True)
+    elif case == "d72":
+        B, Sq, Sk, H, D, kw = 2, 200, 200, 3, 72, dict(causal=True)
+    elif case in SPLIT_FAULTED:
+        kw = {}
     else:
         B, Sq, Sk, H, D, kw = CASES[case]
-    arrays = _inputs(B, Sq, Sk, H, D, seed=4)
+    arrays = _split_inputs(case) if case in SPLIT_FAULTED else \
+        _inputs(B, Sq, Sk, H, D, seed=4)
     q, k, v, do = (torch.tensor(a, device=cuda_card).to(storage)
                    for a in arrays[:4])
     dlse = torch.tensor(arrays[4], device=cuda_card)
@@ -316,6 +403,14 @@ def test_kernels_match_plain_versions_on_card(cuda_card, storage, od,
     rdk, rdv = FA.flash_attention_dkv_reference(
         q, k, v, do, lse, delta, operand_dtype=od, **kw)
     exact = storage == od == torch.float32
+    faults = {}
+    if case in SPLIT_FAULTED and (storage, od) == (torch.bfloat16,
+                                                   torch.float32):
+        bf16 = torch.bfloat16
+        faults["out"] = FA.flash_attention_reference(
+            q, k, v, operand_dtype=bf16, **kw)[0]
+        faults["dk"], faults["dv"] = FA.flash_attention_dkv_reference(
+            q, k, v, do, lse, delta, operand_dtype=bf16, **kw)
     for name, a, b in (("out", out, ro), ("lse", lse, rl), ("dq", dq, rdq),
                        ("dk", dk, rdk), ("dv", dv, rdv)):
         a, b = a.float(), b.float()
@@ -331,3 +426,7 @@ def test_kernels_match_plain_versions_on_card(cuda_card, storage, od,
             atol = CARD_ATOL_RMS * b.square().mean().sqrt().item()
         assert ((a - b).abs() <= atol + rtol * b.abs()).all(), (
             name, (a - b).abs().max().item())
+        if name in faults and name in SPLIT_FAULTED[case]:
+            fault = faults[name].float()
+            assert not ((fault - b).abs() <= atol + rtol * b.abs()).all(), (
+                "one bf16 term passes the check", name)

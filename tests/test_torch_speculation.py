@@ -370,6 +370,106 @@ def _serve(model, prompts, max_new=10, concurrent=True, sampling=None,
         blocks_left
 
 
+def _row_blocks(pool, ids):
+    """Copies of every plane tensor's blocks ``ids``."""
+    return [t[torch.as_tensor(ids)].clone() for group in pool.storage
+            for t in group]
+
+
+def _pool_copy(model, pool):
+    new = model.make_kv_pool(pool.n_blocks, pool.block_size)
+    for src, dst in zip(pool.storage, new.storage):
+        for a, b in zip(src, dst):
+            b.copy_(a)
+    return new
+
+
+@pytest.mark.parametrize("schedule", ["extend", "step", "verify"])
+def test_f32_row_results_do_not_depend_on_schedule(model, monkeypatch,
+                                                   schedule):
+    """On the f32 plane a row's logits, token and stored k/v are the
+    same bit for bit however the engine schedules it: a one-token extend
+    alone or in a group of three rows ("extend"), a step alone or among
+    max_batch rows ("step"), the columns of one verify chunk or plain
+    steps at the same positions ("verify").  The engine groups rows by
+    their arrival and its spec gate picks verify or plain step from
+    measured dispatch times, so any difference here is a greedy token
+    that can flip with the host's load."""
+    seen = []
+    head = X._head_logits
+
+    def capture(x, params):
+        y = head(x, params)
+        seen.append(y.reshape(-1, y.shape[-1]).clone())
+        return y
+
+    monkeypatch.setattr(X, "_head_logits", capture)
+    prompts = [p[0] for p in _prompts()]
+    B, K = len(prompts), 3
+    # Row r owns blocks 1 + 8r .. 8 + 8r (block size 4, 32 positions).
+    tables = 1 + numpy.arange(8 * B, dtype=numpy.int32).reshape(B, 8)
+    lens = numpy.array([len(p) for p in prompts], numpy.int32)
+    tokens = numpy.zeros((B, 16), numpy.int32)
+    for r, p in enumerate(prompts):
+        tokens[r, :len(p)] = p
+    zeros = numpy.zeros(B, numpy.float32)
+    seeds = numpy.zeros(B, numpy.uint32)
+    ones = numpy.ones(B, numpy.int32)
+    pool = model.make_kv_pool(8 * B + 1, 4)
+    tok = model.paged_extend(pool, tables, tokens, numpy.zeros_like(lens),
+                             lens, zeros, seeds)
+
+    def run(fn, *args):
+        """(tokens, logits rows, pool) of one call on a copy of the
+        pool."""
+        del seen[:]
+        copy = _pool_copy(model, pool)
+        out = fn(copy, *args)
+        return numpy.asarray(out), torch.cat(seen), copy
+
+    r = 1
+    if schedule == "extend":
+        one = tok[:, None]
+        alone = run(model.paged_extend, tables[r:r + 1], one[r:r + 1],
+                    lens[r:r + 1], ones[:1], zeros[:1], seeds[:1])
+        pad = numpy.zeros_like(tables[:1])   # an all-TRASH pad row
+        group = run(model.paged_extend,
+                    numpy.concatenate([tables[:3], pad]),
+                    numpy.pad(one, ((0, 0), (0, 15))), lens, ones, zeros,
+                    seeds)
+    elif schedule == "step":
+        alone = run(model.paged_step, tables[r:r + 1], lens[r:r + 1],
+                    tok[r:r + 1], ones[:1], zeros[:1], seeds[:1])
+        group = run(model.paged_step, tables, lens, tok, ones, zeros,
+                    seeds)
+    if schedule in ("extend", "step"):
+        assert alone[0][0] == group[0][r]
+        assert torch.equal(alone[1][0], group[1][r])
+        for a, b in zip(_row_blocks(alone[2], tables[r]),
+                        _row_blocks(group[2], tables[r])):
+            assert torch.equal(a, b)
+        return
+    rng = numpy.random.RandomState(11)
+    toks = numpy.concatenate([tok[:, None],
+                              rng.randint(0, 13, (B, K))], axis=1)
+    toks = toks.astype(numpy.int32)
+    chunk = run(model.paged_verify, tables, lens, toks,
+                numpy.full(B, K, numpy.int64), ones, zeros, seeds)
+    steps = _pool_copy(model, pool)
+    logits = []
+    for j in range(K + 1):
+        del seen[:]
+        got = model.paged_step(steps, tables, lens + j, toks[:, j],
+                               ones + j, zeros, seeds)
+        numpy.testing.assert_array_equal(got, chunk[0][:, j])
+        logits.append(torch.cat(seen))
+    assert torch.equal(torch.stack(logits, dim=1),
+                       chunk[1].reshape(B, K + 1, -1))
+    for a, b in zip(_row_blocks(chunk[2], tables.ravel()),
+                    _row_blocks(steps, tables.ravel())):
+        assert torch.equal(a, b)
+
+
 def test_spec_greedy_token_identical_to_plain_f32(model):
     """Greedy n-gram speculation on the f32 plane — concurrent rows of
     different lengths, drafting, one-pass verify, rewind, adaptive K —

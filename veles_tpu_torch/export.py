@@ -16,12 +16,17 @@ The port of ``veles_tpu/export.py`` for causal LMs.  Three groups:
   (speculative decoding's K+1-row chunks) over per-layer
   ``(n_blocks, block_size, H, D)`` pool tensors in one of four KV
   storage planes (``KV_DTYPES``): f32, a scale-free bf16 cast, and
-  int8 / fp8-e4m3 codes with per-(block, head) float32 scales.  On
-  the scaled planes what a block stores depends on how its positions
-  were grouped into writes and on the exact floats written, so there
-  every row's run is a function of the row alone: an extend runs each
-  row by itself, a verify runs the step program column by column, and
-  a freshly allocated block starts at zero.  Every
+  int8 / fp8-e4m3 codes with per-(block, head) float32 scales.  A
+  row's results never depend on how many rows share its call: every
+  product of a decode chunk (a step, a verify, a short extend) runs on
+  exactly ``DECODE_ROWS`` rows (:func:`_mm` — a BLAS or cuBLAS product
+  picks its method by the row count, and its one-row path rounds
+  otherwise), the layer norm computes each row alone, and an extend
+  runs each row by itself, on every plane.
+  On the scaled planes what a block stores also depends on how its
+  positions were grouped into writes, so there a verify runs the step
+  program column by column, and a freshly allocated block starts at
+  zero.  Every
   chunk of at most ``DECODE_MAX_Q`` query rows attends through the
   hand-written flash-decode kernels
   (:func:`~veles_tpu_torch.ops.decode_attention.decode_attention`: B4
@@ -646,10 +651,20 @@ def lm_params_from_numpy(units, weights, device):
 # select, shared by forward, the dense bucketed programs and the paged
 # extend/step programs.
 
+#: Rows of every product of a decode chunk: a BLAS or cuBLAS product
+#: chooses its method by the row count (the CPU's one-row path rounds
+#: differently from two rows and more; cuBLAS at 8 rows from 40, and a
+#: batched product with the batch count), so the rows go through in
+#: products of exactly this many.  16 rows cost a step of 8 nothing
+#: measurable and a verify of 8 rows x 5 columns three products.
+DECODE_ROWS = 16
+
+
 def _ln(v, g, b, eps=1e-5):
-    mu = v.mean(dim=-1, keepdim=True)
-    var = ((v - mu) ** 2).mean(dim=-1, keepdim=True)
-    return (v - mu) * torch.reciprocal(torch.sqrt(var + eps)) * g + b
+    """Layer norm, ``(v − mean)·rsqrt(var + eps)·g + b`` over the last
+    dim: one kernel that computes each row alone, so a row's result does
+    not depend on how many rows share the call."""
+    return torch.nn.functional.layer_norm(v, v.shape[-1:], g, b, eps)
 
 
 def _attend(q, kc, vc, key_mask, attend=decode_attention, k_scale=None,
@@ -670,16 +685,33 @@ def _attend(q, kc, vc, key_mask, attend=decode_attention, k_scale=None,
 
 
 def _mm(h, p, name):
-    """``h @ W`` for a decode-program weight: when the parameter dict
-    carries a ``<name>__s`` per-output-channel scale (the weight-only
-    int8 plane), the int8 weight is widened for the product and the
-    scale applies to the result — ``(h @ W.float()) * s``, as the JAX
-    package computes it outside any kernel; the widened copy lives for
-    the one product only."""
+    """``h @ W`` for a decode-program weight.  The rows of a decode
+    chunk — at most ``DECODE_MAX_Q`` positions a sequence: a step, a
+    verify chunk, a short extend, which can compute the same position as
+    one another — go through in products of exactly ``DECODE_ROWS``
+    rows, the last one zero-padded, so each row's result is a function
+    of the row alone, whatever the call's row count; a longer prefill
+    chunk, which an extend runs alone for its row, is one product.  When
+    the parameter dict carries a ``<name>__s`` per-output-channel scale
+    (the weight-only int8 plane), the int8 weight is widened for the
+    product and the scale applies to the result — ``(h @ W.float()) *
+    s``, as the JAX package computes it outside any kernel; the widened
+    copy lives for the one product only."""
     s = p.get(name + "__s")
-    if s is None:
-        return h @ p[name]
-    return (h @ p[name].to(s.dtype)) * s
+    w = p[name] if s is None else p[name].to(s.dtype)
+    if h.dim() == 3 and h.shape[1] > DECODE_MAX_Q:
+        y = h @ w
+    else:
+        rows = h.reshape(-1, h.shape[-1])
+        n = rows.shape[0]
+        if n % DECODE_ROWS:
+            rows = torch.nn.functional.pad(
+                rows, (0, 0, 0, DECODE_ROWS - n % DECODE_ROWS))
+        chunks = rows.split(DECODE_ROWS)
+        y = chunks[0] @ w if len(chunks) == 1 else \
+            torch.cat([c @ w for c in chunks])
+        y = y[:n].reshape(*h.shape[:-1], w.shape[-1])
+    return y if s is None else y * s
 
 
 def _block(p, x, n_heads, attn_fn):
@@ -1373,17 +1405,14 @@ class ExportedModel(object):
         attention of chunks of at most ``DECODE_MAX_Q`` rows (the
         kernels; tests and the chip check pass the plain version).
 
-        On the int8/fp8 planes each real row (a table that is not all
-        TRASH) runs alone, at its own chunk length and table span, so
-        what it stores is a function of the row alone (see
-        :meth:`paged_verify`); pad rows return 0."""
+        Each real row (a table that is not all TRASH) runs alone, at its
+        own chunk length and table span, so what it computes and stores
+        is a function of the row alone, however the engine grouped the
+        rows (see :meth:`paged_verify`); pad rows return 0."""
         tables = numpy.ascontiguousarray(tables, dtype=numpy.int32)
         tokens = numpy.ascontiguousarray(tokens, dtype=numpy.int32)
         B, T = tables.shape
         self._paged_key("pext", pool, B, tokens.shape[1], T)
-        if _KV_QMAX[pool.kv_dtype] is None:
-            return self._extend(pool, tables, tokens, prior, chunk_lens,
-                                temps, seeds, attend)
         prior = numpy.asarray(prior, dtype=numpy.int64)
         clens = numpy.asarray(chunk_lens, dtype=numpy.int64)
         temps = numpy.asarray(temps, dtype=numpy.float32)
@@ -1491,7 +1520,10 @@ class ExportedModel(object):
         scattered through the table like a prefill chunk) under the
         per-position causal mask; junk columns past a row's draft count
         write to the TRASH block, and K+1 <= ``DECODE_MAX_Q`` rows
-        attend through ``attend`` (B4).
+        attend through ``attend`` (B4).  Every product runs on
+        ``DECODE_ROWS``-row chunks, as the step's do, and the layer
+        norm and B4 compute each row alone, so column j's logits are
+        the plain step's bit for bit.
 
         On the int8/fp8 planes a block's scale grows with each write
         and re-rounds the block's codes, so what a block stores depends

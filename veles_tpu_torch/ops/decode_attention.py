@@ -81,15 +81,29 @@ def decode_attention_reference(q, k, v, key_mask, k_scale=None,
     returns 0, the kernel's contract (the dense formula alone would
     average every value there; serving never builds such a row).
     Given scales, k/v are codes: :func:`decode_attention_quant_reference`
-    (so one ``attend`` serves every KV plane)."""
+    (so one ``attend`` serves every KV plane).
+
+    A chunk of at most ``DECODE_MAX_Q`` query rows — what the kernels
+    take — goes through elementwise products and sums, which compute
+    each row the same way, bit for bit, whatever the chunk's row count
+    or the table's width, as the kernels compute each row alone (a BLAS
+    product takes another path for one row and rounds apart, so a
+    one-row decode step and the same row of a verify chunk would
+    differ).  Longer prefill chunks use BLAS products."""
     if k_scale is not None:
         return decode_attention_quant_reference(q, k, v, key_mask,
                                                 k_scale, v_scale)
     D = q.shape[-1]
-    scores = torch.einsum("bqhd,bkhd->bqhk", q, k) / (D ** 0.5)
-    scores = scores.masked_fill(~key_mask[:, :, None, :], NEG_INF)
-    w = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bqhk,bkhd->bqhd", w, v)
+    if q.shape[1] <= DECODE_MAX_Q:
+        scores = (q[:, :, None] * k[:, None]).sum(-1) / (D ** 0.5)
+        scores = scores.masked_fill(~key_mask[..., None], NEG_INF)
+        w = torch.softmax(scores, dim=2)          # (B, Sq, L, H)
+        out = (w[..., None] * v[:, None]).sum(2)
+    else:
+        scores = torch.einsum("bqhd,bkhd->bqhk", q, k) / (D ** 0.5)
+        scores = scores.masked_fill(~key_mask[:, :, None, :], NEG_INF)
+        w = torch.softmax(scores, dim=-1)
+        out = torch.einsum("bqhk,bkhd->bqhd", w, v)
     return out.masked_fill(~key_mask.any(-1)[:, :, None, None], 0.0)
 
 

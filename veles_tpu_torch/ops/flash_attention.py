@@ -11,9 +11,10 @@ The port of the TPU kernels ``_fwd_kernel``, ``_dq_kernel`` and
   :func:`flash_attention_dkv_reference` (the explicit backward
   formulas of ``_dq_kernel`` and ``_dkv_kernel``);
 * the wrappers :func:`flash_forward`, :func:`flash_dq` and
-  :func:`flash_dkv` — the plain version for CPU tensors, the
-  hand-written CUDA kernel (``csrc/flash_attention.cu``) for CUDA
-  tensors — each with a ``launches`` count, one more per kernel launch;
+  :func:`flash_dkv` — the plain version for CPU tensors, a hand-written
+  CUDA kernel for CUDA tensors — each with a ``launches`` count, one
+  more per kernel launch, and ``route_launches``, the same count by
+  route (:func:`route`);
 * :func:`flash_chunk` (``(out, lse)`` through a
   ``torch.autograd.Function`` whose backward runs the dq and dk/dv
   wrappers and accepts the lse cotangent), :func:`flash_attention`
@@ -21,7 +22,17 @@ The port of the TPU kernels ``_fwd_kernel``, ``_dq_kernel`` and
   :func:`merge_partials` and :func:`flash_resume`.
 
 The kernels are CUDA C++ for ``sm_90a``, built at first use by
-:mod:`.nvcc`.  On a CUDA tensor a missing ``nvcc``, a build or launch
+:mod:`.nvcc`, on two routes:
+
+* ``"tensor_core"`` (``csrc/flash_attention_tc.cu``): the forward and
+  dk/dv of every pair whose q, k, v and dO are bf16-exact — bf16
+  storage with f32 or bf16 operands, f32 storage with bf16 operands —
+  run their products as ``wgmma`` on the bf16 tensor cores (an f32
+  operand p or ds as three bf16 terms);
+* ``"fp32"`` (``csrc/flash_attention.cu``): f32 storage with f32
+  operands (the parity mode: an f32 × f32 product is not exact in bf16
+  pieces) and the dq kernel of every pair, on the FP32 units.
+  On a CUDA tensor a missing ``nvcc``, a build or launch
 error, an unsupported dtype or a shape outside the contract raises:
 no path carries on without the kernel.
 
@@ -52,6 +63,9 @@ _CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc",
                       "flash_attention.cu")
+TC_SOURCE = os.path.join(os.path.dirname(SOURCE), "flash_attention_tc.cu")
+#: Kernel routes (:func:`route`).
+ROUTES = ("tensor_core", "fp32")
 
 
 def supports(q_shape, k_shape, kv_len=None):
@@ -196,8 +210,37 @@ def _geometry(q, k, causal, q_offset, k_offset, kv_len):
             else int(kv_len))
 
 
+def route(kernel, storage, operand_dtype):
+    """The route a CUDA launch of ``kernel`` ("flash_forward",
+    "flash_dq" or "flash_dkv") takes for a storage/operand dtype pair:
+    "fp32" for the dq kernel and for float32/float32, "tensor_core"
+    otherwise."""
+    if kernel == "flash_dq" or (storage == operand_dtype == torch.float32):
+        return "fp32"
+    return "tensor_core"
+
+
+#: C entry point of each (kernel, route).
+_ENTRY = {("flash_forward", "fp32"): "veles_flash_fwd",
+          ("flash_forward", "tensor_core"): "veles_flash_fwd_tc",
+          ("flash_dq", "fp32"): "veles_flash_dq",
+          ("flash_dkv", "fp32"): "veles_flash_dkv",
+          ("flash_dkv", "tensor_core"): "veles_flash_dkv_tc"}
+
+
+def _entry(kernel, storage, od):
+    """(C entry point, route) of one launch."""
+    way = route(kernel, storage, od)
+    return _ENTRY[(kernel, way)], way
+
+
+def _count(wrapper, way):
+    wrapper.launches += 1
+    wrapper.route_launches[way] += 1
+
+
 def _launch(fn, name, *args):
-    lib = _library()
+    lib = _library(fn.endswith("_tc"))
     device = args[2].device
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
@@ -206,16 +249,15 @@ def _launch(fn, name, *args):
             for a in args] + [stream])
     if err:
         raise RuntimeError("%s kernel launch failed: %s (CUDA error %d)"
-                           % (name, lib.veles_flash_error_string(err)
-                              .decode(), err))
+                           % (name, lib.error_string(err).decode(), err))
 
 
 def flash_forward(q, k, v, causal=False, q_offset=0, k_offset=0,
                   kv_len=None, operand_dtype=torch.float32):
     """Forward: ``(out, lse)``.  CPU tensors take
-    :func:`flash_attention_reference`; CUDA tensors launch the kernel
-    (adding one to ``flash_forward.launches``) on the current stream,
-    or raise."""
+    :func:`flash_attention_reference`; CUDA tensors launch the kernel of
+    their :func:`route` (adding one to ``flash_forward.launches`` and to
+    its ``route_launches``) on the current stream, or raise."""
     _check(q, k, v, kv_len, operand_dtype)
     if q.device.type == "cpu":
         return flash_attention_reference(q, k, v, causal, q_offset,
@@ -223,11 +265,12 @@ def flash_forward(q, k, v, causal=False, q_offset=0, k_offset=0,
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     B, Sq, H, _ = q.shape
     out = torch.empty_like(q)
-    lse = torch.empty((B, Sq, H), dtype=torch.float32, device=q.device)
-    _launch("veles_flash_fwd", "flash attention forward",
+    lse = q.new_empty((B, Sq, H), dtype=torch.float32)
+    fn, way = _entry("flash_forward", q.dtype, operand_dtype)
+    _launch(fn, "flash attention forward",
             _CODES[q.dtype], _CODES[operand_dtype], q, k, v, out, lse,
             *_geometry(q, k, causal, q_offset, k_offset, kv_len))
-    flash_forward.launches += 1
+    _count(flash_forward, way)
     return out, lse
 
 
@@ -255,10 +298,11 @@ def flash_dq(q, k, v, do, lse, delta, causal=False, q_offset=0,
             operand_dtype)
     q, k, v, do, lse, delta = _backward_inputs(q, k, v, do, lse, delta)
     dq = torch.empty_like(q)
-    _launch("veles_flash_dq", "flash attention dq", _CODES[q.dtype],
+    fn, way = _entry("flash_dq", q.dtype, operand_dtype)
+    _launch(fn, "flash attention dq", _CODES[q.dtype],
             _CODES[operand_dtype], q, k, v, do, lse, delta, dq,
             *_geometry(q, k, causal, q_offset, k_offset, kv_len))
-    flash_dq.launches += 1
+    _count(flash_dq, way)
     return dq
 
 
@@ -275,16 +319,22 @@ def flash_dkv(q, k, v, do, lse, delta, causal=False, q_offset=0,
     q, k, v, do, lse, delta = _backward_inputs(q, k, v, do, lse, delta)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    _launch("veles_flash_dkv", "flash attention dk/dv", _CODES[q.dtype],
+    fn, way = _entry("flash_dkv", q.dtype, operand_dtype)
+    _launch(fn, "flash attention dk/dv", _CODES[q.dtype],
             _CODES[operand_dtype], q, k, v, do, lse, delta, dk, dv,
             *_geometry(q, k, causal, q_offset, k_offset, kv_len))
-    flash_dkv.launches += 1
+    _count(flash_dkv, way)
     return dk, dv
 
 
-flash_forward.launches = 0
-flash_dq.launches = 0
-flash_dkv.launches = 0
+def reset_launches():
+    """Sets every wrapper's launch counts to 0."""
+    for wrapper in (flash_forward, flash_dq, flash_dkv):
+        wrapper.launches = 0
+        wrapper.route_launches = dict.fromkeys(ROUTES, 0)
+
+
+reset_launches()
 
 
 # -- differentiable entry points --------------------------------------------
@@ -363,39 +413,47 @@ def flash_resume(carry, q, k, v, **kwargs):
 
 # -- build and load -----------------------------------------------------------
 
-_lib = [None]
+_libs = {}
 _lib_lock = threading.Lock()
 
 
 def build():
-    """Compiles ``csrc/flash_attention.cu`` (see :mod:`.nvcc`) unless
-    its library exists; returns the library's path."""
-    return nvcc.build(SOURCE)[0]
+    """Compiles ``csrc/flash_attention.cu`` and
+    ``csrc/flash_attention_tc.cu`` (see :mod:`.nvcc`, one process each)
+    unless their libraries exist; returns the libraries' paths."""
+    return nvcc.build(SOURCE, TC_SOURCE)
 
 
-def _library():
-    """The loaded kernel library, built on first use."""
-    if _lib[0] is None:
+def _library(tc=False):
+    """The loaded kernel library of one route (``tc``: the tensor-core
+    source), built on first use; its error-string function is bound as
+    ``error_string``."""
+    if tc not in _libs:
         with _lib_lock:
-            if _lib[0] is None:
-                lib = ctypes.CDLL(build())
+            if tc not in _libs:
+                source = TC_SOURCE if tc else SOURCE
+                lib = ctypes.CDLL(nvcc.build(source)[0])
                 vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
                 geometry = [ci, ci, ci, ci, ci, cf, ci, ci, ci, ci, vp]
-                lib.veles_flash_fwd.argtypes = [ci, ci] + [vp] * 5 + \
-                    geometry
-                lib.veles_flash_dq.argtypes = [ci, ci] + [vp] * 7 + \
-                    geometry
-                lib.veles_flash_dkv.argtypes = [ci, ci] + [vp] * 8 + \
-                    geometry
-                for fn in ("veles_flash_fwd", "veles_flash_dq",
-                           "veles_flash_dkv", "veles_flash_max_d"):
-                    getattr(lib, fn).restype = ci
-                lib.veles_flash_error_string.argtypes = [ci]
-                lib.veles_flash_error_string.restype = ctypes.c_char_p
-                if lib.veles_flash_max_d() != MAX_HEAD_DIM:
+                suffix = "_tc" if tc else ""
+                entries = {"veles_flash_fwd": 5, "veles_flash_dkv": 8}
+                if not tc:
+                    entries["veles_flash_dq"] = 7
+                for fn, pointers in entries.items():
+                    f = getattr(lib, fn + suffix)
+                    f.argtypes = [ci, ci] + [vp] * pointers + geometry
+                    f.restype = ci
+                max_d = getattr(lib, "veles_flash%s_max_d" % suffix)
+                max_d.restype = ci
+                lib.error_string = getattr(
+                    lib, "veles_flash%s_error_string" % suffix)
+                lib.error_string.argtypes = [ci]
+                lib.error_string.restype = ctypes.c_char_p
+                if max_d() != MAX_HEAD_DIM:
                     raise RuntimeError(
-                        "kernel library head-dim limit %d disagrees "
-                        "with the wrapper's %d" %
-                        (lib.veles_flash_max_d(), MAX_HEAD_DIM))
-                _lib[0] = lib
-    return _lib[0]
+                        "kernel library %s: head-dim limit %d disagrees "
+                        "with the wrapper's %d" % (
+                            os.path.basename(source), max_d(),
+                            MAX_HEAD_DIM))
+                _libs[tc] = lib
+    return _libs[tc]

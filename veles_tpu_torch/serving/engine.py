@@ -263,8 +263,9 @@ class ServingEngine(Logger):
         #: must wait on this too, or work in the adoption window
         #: would be invisible to them and die at the hard stop.
         self._busy = False                      # guarded-by: _cond
-        # kind -> recent device-batch cost
+        # kind -> recent device-batch cost, and its number of samples
         self._batch_ewma = {}                   # guarded-by: _cond
+        self._batch_samples = {}                # guarded-by: _cond
 
     def _load_model(self, path_or_file):
         """An artifact (a path or a file object) loaded as an
@@ -1087,6 +1088,7 @@ class ServingEngine(Logger):
             ewma = self._batch_ewma.get(kind)
             self._batch_ewma[kind] = dt if ewma is None \
                 else 0.8 * ewma + 0.2 * dt
+            self._batch_samples[kind] = self._batch_samples.get(kind, 0) + 1
 
     def _run_classify(self, live):
         x = numpy.concatenate([r.x for r in live], axis=0)
@@ -1604,6 +1606,11 @@ class ServingEngine(Logger):
     #: the acceptance estimates fresh so a stream that TURNS
     #: repetitive is rediscovered.
     SPEC_GATE_PROBE = 64
+    #: Dispatches of each kind measured before their cost ratio takes
+    #: the place of SPEC_COST_RATIO: one slow sample (a cold first call,
+    #: a busy host) would otherwise close the gate for good, since a
+    #: closed gate measures no more verifies.
+    SPEC_GATE_MIN_SAMPLES = 3
 
     def _spec_gate(self, rows, want):
         """Iteration-level speculation gate: a verify dispatch costs
@@ -1615,7 +1622,10 @@ class ServingEngine(Logger):
         cost nothing."""
         v = self._batch_ewma.get("verify")
         s = self._batch_ewma.get("decode")
-        ratio = (v / s) if v and s else self.SPEC_COST_RATIO
+        seen = min(self._batch_samples.get("verify", 0),
+                   self._batch_samples.get("decode", 0))
+        ratio = (v / s) if v and s and \
+            seen >= self.SPEC_GATE_MIN_SAMPLES else self.SPEC_COST_RATIO
         a_est = sum(k * rw.spec.ewma for rw, k in want)
         need = max(0.0, ratio - 1.0) * len(rows)
         if a_est >= need or \
