@@ -20,8 +20,8 @@ non-zero:
 2. build — ``nvcc`` builds every kernel of the four paths from the
    sources in the checkout, one process per source, all at once
    (``veles_tpu_torch/ops/csrc/decode_attention.cu`` — B4, B5 —,
-   ``flash_attention.cu`` — B2 dq and the FP32-unit B1/B3 of the
-   f32/f32 pair —, ``flash_attention_tc.cu`` — B1 forward and B3 dk/dv
+   ``flash_attention.cu`` — B1-B3 of the f32/f32 pair on the FP32
+   units —, ``flash_attention_tc.cu`` — B1 forward, B2 dq and B3 dk/dv
    on the tensor cores — and
    ``lrn.cu`` — B6 LRN forward, B7 LRN backward);
 3. kernel check — each kernel's wrapper against its plain PyTorch
@@ -52,7 +52,8 @@ non-zero:
 7. serving — writes the artifact, loads it on the card, starts the
    server with ``--warmup``, serves mixed concurrent ``/api/generate``
    requests over loopback HTTP through the paged engine, then a
-   repeated prompt (prefix cache + copy-on-write);
+   repeated prompt (prefix cache + copy-on-write), whose first logits
+   must equal its first serving's bit for bit;
 8. serving checks — every answer token-identical to the port's
    ``generate(..., attend=decode_attention_reference)`` on the card,
    and the kernel's launch count equal to what the run implies; the
@@ -70,7 +71,10 @@ non-zero:
    after it replayed the same way, and two more prompt sets answer the
    same with and without ``--spec``; one fp8 pass goes through the
    model API alone, and a verify on the int8 and fp8 planes must answer
-   and store what plain steps do, bit for bit;
+   and store what plain steps do, bit for bit; on every plane served (f32,
+   int8, and fp8 through the model API) a whole-prompt prefix-cache hit
+   must compute its first logits, token and last-position k/v as the
+   prompt's first serving did, bit for bit;
 10. exit — drains the servers, prints the training, AlexNet and serving
    numbers and the kernels as JSON lines, the command's time, the
    card's name and power limit, and ``{"ok": true, "device": {...}}``
@@ -174,11 +178,17 @@ def phase_build():
         print("  %s: %.2f s (%s)" % (os.path.basename(source),
                                      info["seconds"],
                                      os.path.basename(info["path"])))
-        for line in info["log"].splitlines():
+        log = info["log"].splitlines()
+        for line in log:
             if "Compiling entry" in line:
                 print("  ptxas:", line.split("'")[1][:100])
-            elif "registers" in line or "spill" in line:
+            elif "Used" in line or "spill" in line or "C7520" in line:
                 print("  ptxas:", line.strip())
+        # C7519: a warpgroup.arrive the compiler added before a wgmma
+        # that reads registers (information, not a serialization).
+        print("  ptxas: %d C7519 and %d C7520 (wgmma serialized) "
+              "notes" % (sum("C7519" in x for x in log),
+                         sum("C7520" in x for x in log)))
 
 
 def phase_kernels():
@@ -604,9 +614,15 @@ def phase_flash_kernels():
 #: keys and query rows: out = Σ p·v / l and dv = Σ p·dO cancel.
 #: "cancel_q": q = ±q0 alternating over rows (q0 ~ 0.001), v = dO = 1
 #: and an lse cotangent of 1, so ds = p·scale and dk = Σ ds·q cancels.
+#: "cancel_k": k = ±k0 alternating over keys, tiny q (~ 0.001), v = dO =
+#: 1 and an lse cotangent of 1, so dq = Σ ds·k cancels.
 SPLIT_SHAPE = (2, 256, 2, 64)
+#: The kernel that computes each output.
+SPLIT_KERNEL = {"out": "flash_forward", "lse": "flash_forward",
+                "dq": "flash_dq", "dk": "flash_dkv", "dv": "flash_dkv"}
 #: The outputs a one-term rounding of p or ds moves out of tolerance.
-SPLIT_FAULTED = {"cancel_v": ("out", "dv"), "cancel_q": ("dk",)}
+SPLIT_FAULTED = {"cancel_v": ("out", "dv"), "cancel_q": ("dk",),
+                 "cancel_k": ("dq",)}
 
 
 def split_inputs(kind, gen):
@@ -620,9 +636,13 @@ def split_inputs(kind, gen):
         v = do = sign
         dlse = torch.randn((B, S, H), generator=gen, device="cuda")
     else:
-        q0 = 0.001 * torch.randn((B, 1, H, D), generator=gen,
-                                 device="cuda")
-        q = sign * q0
+        if kind == "cancel_q":
+            q = sign * 0.001 * torch.randn((B, 1, H, D), generator=gen,
+                                           device="cuda")
+        else:
+            q = 0.001 * torch.randn((B, S, H, D), generator=gen,
+                                    device="cuda")
+            k = sign * k[:, :1]
         v = do = torch.ones((B, S, H, D), device="cuda")
         dlse = torch.ones((B, S, H), device="cuda")
     return [t.to(torch.bfloat16).contiguous() for t in (q, k, v, do)] + \
@@ -635,8 +655,8 @@ def phase_flash_split():
     must pass the bf16/f32 check of every output, and the plain
     versions with bf16 operands — exactly what a kernel that rounds p
     and ds to one bf16 term returns — must fail it for out and dv
-    ("cancel_v") and dk ("cancel_q").  Returns {(kind, output):
-    (kernel's share of the tolerance, the fault's)}."""
+    ("cancel_v"), dk ("cancel_q") and dq ("cancel_k").  Returns
+    {(kind, output): (kernel's share of the tolerance, the fault's)}."""
     import torch
     from veles_tpu_torch.ops import flash_attention as FA
     gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
@@ -679,7 +699,7 @@ def phase_flash_split():
           "f32 operands): largest share of the bf16/f32 tolerance, kernel "
           "/ plain version with one bf16 term (the planted fault):" % (
               "cancel_v: v and dO alternate in sign; cancel_q: q alternates"
-              " in sign", *SPLIT_SHAPE))
+              " in sign; cancel_k: k alternates in sign", *SPLIT_SHAPE))
     for (kind, output), (kern, fault) in sorted(shares.items()):
         print("  %s %-4s kernel %.3g, fault %.3g" % (kind, output, kern,
                                                      fault))
@@ -789,6 +809,25 @@ def flash_timings():
                   "%.4f" % t["library_ms"] if t["library_ms"] is not None
                   else "n/a", sdpa_fb_ms, t["bound_ms"], t["bound_by"],
                   t["gflop_bf16"], t["gflop_f32"], t["gbytes"]))
+
+    # B2 on the FP32 units (flash_attention.cu, the f32/f32 route) on
+    # the same values in f32 storage: with f32 operands the function the
+    # tensor-core kernel computes.
+    qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
+    t = timings["flash_dq"]
+    t["fp32_units_ms"] = cuda_ms(lambda: FA.flash_dq(
+        qf, kf, vf, dof, lse, delta, causal=True, operand_dtype=f32),
+        iters=5, warmup=1)
+    del qf, kf, vf, dof
+    fwd_bwd = sum(timings[n]["kernel_ms"] for n in timings)
+    print("kernel timing flash_dq on the FP32 units (f32 storage of the "
+          "same values, f32/f32): %.4f ms against %.4f ms on the tensor "
+          "cores (%.1fx); B1 + B2 + B3 %.4f ms beside SDPA's forward + "
+          "backward %.4f ms" % (t["fp32_units_ms"], t["kernel_ms"],
+                                 t["fp32_units_ms"] / t["kernel_ms"],
+                                 fwd_bwd, sdpa_fb_ms))
+    for name in timings:
+        timings[name]["b1_b2_b3_ms"] = fwd_bwd
 
     # B1 with bf16 operands: SDPA's function (p rounded to bf16).
     got, got_lse = FA.flash_forward(q, k, v, causal=True,
@@ -1196,8 +1235,7 @@ def phase_training(smi):
     if launches != expected:
         fail("flash kernels launched %s times, the ticks imply %s" %
              (launches, expected))
-    # bf16 storage with f32 operands: B1 and B3 on the tensor cores, B2
-    # on the FP32 units.
+    # bf16 storage with f32 operands: B1, B2 and B3 on the tensor cores.
     want_routes = {name: {way: n if way == FA.route(name, torch.bfloat16,
                                                       torch.float32)
                           else 0 for way in FA.ROUTES}
@@ -1244,8 +1282,8 @@ def phase_training(smi):
     first = classes.index(True)
     launch = FA._launch
     planted = {}
-    for fault, symbol in (("dq", "veles_flash_dq"),
-                          ("dk", "veles_flash_dkv_tc")):
+    for fault, kernel in (("dq", "flash_dq"), ("dk", "flash_dkv")):
+        symbol = FA._entry(kernel, torch.bfloat16, torch.float32)[0]
         def planted_launch(fn, name, *args):
             launch(fn, name, *args)
             if fn == symbol:
@@ -1719,16 +1757,107 @@ def get(url):
         return json.loads(resp.read())
 
 
-def short_extend_rows(tables, clens):
-    """The rows of a ``paged_extend`` call that attend through a decode
-    kernel: each real row (a table that is not all TRASH) runs alone at
-    its own chunk length, through the kernel when that is at most
-    DECODE_MAX_Q tokens."""
+def short_extend_chunks(tables, clens):
+    """The chunks of a ``paged_extend`` call that attend through a
+    decode kernel: each real row (a table that is not all TRASH) runs
+    alone, in the chunks of ``extend_chunks`` (a row of more than
+    DECODE_MAX_Q tokens ends with its last position alone), each chunk
+    of at most DECODE_MAX_Q tokens through the kernel."""
     import numpy
+    from veles_tpu_torch import export as X
     from veles_tpu_torch.ops import decode_attention as DA
     tables, clens = numpy.asarray(tables), numpy.asarray(clens)
-    return int(((tables[:, 0] != 0) & (clens > 0) &
-                (clens <= DA.DECODE_MAX_Q)).sum())
+    return sum(n <= DA.DECODE_MAX_Q
+               for c in clens[(tables[:, 0] != 0) & (clens > 0)]
+               for n in X.extend_chunks(int(c)))
+
+
+class FirstLogits(object):
+    """Records, while installed on ``model``, the logits every extend
+    chunk that samples drew its first token from, with the position
+    after the chunk and the chunk's last token — the call a prompt's
+    first serving ends with and the one a whole-prompt prefix-cache hit
+    makes are both such a chunk, at the prompt's length and last
+    token."""
+
+    def __init__(self, model):
+        self.model, self.seen = model, []
+        extend = model._extend
+
+        def call(pool, tables, tokens, prior, chunk_lens, *args, **kw):
+            got = extend(pool, tables, tokens, prior, chunk_lens, *args,
+                         **kw)
+            if got is not None:
+                n = int(chunk_lens[0])
+                self.seen.append((int(prior[0]) + n, int(tokens[0, n - 1]),
+                                  got[1].clone()))
+            return got
+        model._extend = call
+
+    def restore(self):
+        del self.model._extend
+
+    def gate(self, name, prompt):
+        """The prompt's first serving (a miss) and its whole-prompt hit:
+        the same logits bit for bit."""
+        import torch
+        got = [logits for end, tok, logits in self.seen
+               if end == len(prompt) and tok == prompt[-1]]
+        if len(got) != 2:
+            fail("%s: the repeated %d-token prompt sampled its first token "
+                 "%d times, expected 2 (its first serving and its prefix "
+                 "hit)" % (name, len(prompt), len(got)))
+        if not torch.equal(got[0], got[1]):
+            fail("%s: the whole-prompt prefix hit's first logits differ "
+                 "from the first serving's (max abs difference %.3g)" % (
+                     name, (got[0] - got[1]).abs().max().item()))
+        print("%s prefix check: the repeated %d-token prompt's hit sampled "
+              "its first token from the first serving's logits, bit for "
+              "bit" % (name, len(prompt)))
+
+
+def prefix_hit_exact(model, kv_dtype, prompt):
+    """A prompt's first serving and its whole-prompt prefix-cache hit
+    through the model API, as the engine makes them, on one pool of
+    ``kv_dtype``: the whole prompt from position 0, then a copy-on-write
+    of its last block and the last token re-fed at position len − 1.
+    The hit's first logits and token must equal the first serving's,
+    and the block it rewrote the cached one in every plane tensor,
+    bit for bit."""
+    import numpy
+    import torch
+    n = len(prompt)
+    pool = model.make_kv_pool(n // KV_BLOCK + 2, KV_BLOCK,
+                              kv_dtype=kv_dtype)
+    ids = pool.alloc(n // KV_BLOCK)
+    zeros = numpy.zeros(1, numpy.float32)
+    seeds = numpy.zeros(1, numpy.uint32)
+    firsts = FirstLogits(model)
+    try:
+        miss = model.paged_extend(
+            pool, numpy.asarray([ids], numpy.int32),
+            numpy.asarray([prompt], numpy.int32), numpy.zeros(1, numpy.int32),
+            numpy.full(1, n, numpy.int32), zeros, seeds)
+        cached = [t[ids[-1]].clone() for group in pool.storage
+                  for t in group]
+        copy = pool.cow_copy(ids[-1])
+        hit = model.paged_extend(
+            pool, numpy.asarray([list(ids[:-1]) + [copy]], numpy.int32),
+            numpy.asarray([prompt[-1:]], numpy.int32),
+            numpy.full(1, n - 1, numpy.int32), numpy.ones(1, numpy.int32),
+            zeros, seeds)
+        torch.cuda.synchronize()
+    finally:
+        firsts.restore()
+    firsts.gate("%s model API" % kv_dtype, prompt)
+    rewritten = [t[copy] for group in pool.storage for t in group]
+    if miss[0] != hit[0] or not all(
+            torch.equal(a, b) for a, b in zip(cached, rewritten)):
+        fail("%s: the prefix hit's first token (%d against %d) or the "
+             "block it rewrote differs from the first serving's" % (
+                 kv_dtype, hit[0], miss[0]))
+    print("%s model API prefix check: first token and the rewritten "
+          "block's codes and scales equal the first serving's" % kv_dtype)
 
 
 def phase_serving(workdir, smi):
@@ -1753,8 +1882,9 @@ def phase_serving(workdir, smi):
     os.remove(path)
 
     # Count the device calls whose attention the kernel serves: every
-    # paged step, and every extend row (an extend runs each real row
-    # alone) of at most DECODE_MAX_Q tokens.
+    # paged step, and every extend chunk (an extend runs each real row
+    # alone, in the chunks of extend_chunks) of at most DECODE_MAX_Q
+    # tokens.
     calls = {"step": 0, "short_extend": 0}
     paged_step, paged_extend = model.paged_step, model.paged_extend
 
@@ -1763,7 +1893,7 @@ def phase_serving(workdir, smi):
         return paged_step(*args)
 
     def counted_extend(pool, tables, tokens, *args):
-        calls["short_extend"] += short_extend_rows(tables, args[1])
+        calls["short_extend"] += short_extend_chunks(tables, args[1])
         return paged_extend(pool, tables, tokens, *args)
 
     model.paged_step, model.paged_extend = counted_step, counted_extend
@@ -1780,6 +1910,7 @@ def phase_serving(workdir, smi):
     torch.cuda.synchronize()
     print("server warmup: %.1f s" % (time.monotonic() - t0))
     base = "http://127.0.0.1:%d" % server.port
+    firsts = FirstLogits(model)
     try:
         if get(base + "/health")["status"] != "ok":
             fail("/health not ok")
@@ -1802,6 +1933,7 @@ def phase_serving(workdir, smi):
         stats = get(base + "/stats")
     finally:
         server.stop(drain=True)
+        firsts.restore()
     model.paged_step, model.paged_extend = paged_step, paged_extend
     expected = BLOCKS * (calls["step"] + calls["short_extend"])
     print("serving: %d paged steps, %d short extends, kernel launches "
@@ -1815,6 +1947,7 @@ def phase_serving(workdir, smi):
     if pool["prefix_hits"] < 1 or pool["cow_copies"] < 1:
         fail("repeated prompt did not hit the prefix cache with a "
              "copy-on-write: %s" % pool)
+    firsts.gate("f32 serving", prompts[REPEAT_INDEX])
     all_prompts = prompts + [prompts[REPEAT_INDEX]]
     for i, (prompt, got) in enumerate(zip(all_prompts, answers)):
         full, logits = model.generate(
@@ -1904,15 +2037,16 @@ class CallLog(object):
     def programs(kind, pool, args, out):
         """How many times a call ran its attention through a decode
         kernel (one launch per block each).  A step, and on the f32
-        plane a verify, once; an extend runs each real row alone (at its
-        own chunk length: once per row of at most DECODE_MAX_Q tokens);
+        plane a verify, once; an extend runs each real row alone, once
+        per chunk of at most DECODE_MAX_Q tokens
+        (``short_extend_chunks``);
         on the int8/fp8 planes a verify runs the step program once per
         column reached: 1 + the most drafts a row accepted."""
         import numpy
         from veles_tpu_torch.serving.speculation import accept_lengths
         scaled = pool.kv_dtype in ("int8", "fp8")
         if kind == "paged_extend":
-            return short_extend_rows(args[0], args[3])
+            return short_extend_chunks(args[0], args[3])
         if kind == "paged_verify" and scaled:
             toks = numpy.asarray(args[2])
             return 1 + int(accept_lengths(toks[:, 1:], args[3],
@@ -2103,9 +2237,11 @@ def serve_wave(model, prompts, repeat, log=None, **server_kw):
     """A server on ``model`` with ``--warmup`` and ``server_kw``; the
     decode-kernel counts and ``log``'s counts and records zeroed just
     before ``prompts`` go out as one concurrent wave of /api/generate
-    requests and ``repeat`` one by one after it, and read just after.
-    Returns (answers, numbers) with the server still running in
-    numbers["server"]."""
+    requests and ``repeat`` one by one after it, and read just after;
+    each prompt of ``repeat`` (one of ``prompts``, whole blocks long)
+    must sample its first token from its first serving's logits, bit
+    for bit.  Returns (answers, numbers) with the server still running
+    in numbers["server"]."""
     import torch
     from veles_tpu_torch.ops import decode_attention as DA
     from veles_tpu_torch.restful import ModelServer
@@ -2123,18 +2259,26 @@ def serve_wave(model, prompts, repeat, log=None, **server_kw):
         log.start(server.engine.kv_pool)
     torch.cuda.reset_peak_memory_stats()
     DA.decode_attention.launches = DA.decode_attention.quant_launches = 0
-    t0 = time.monotonic()
-    with concurrent.futures.ThreadPoolExecutor(len(prompts)) as ex:
-        futs = [ex.submit(post, base + "/api/generate",
-                          {"tokens": [p], "max_new_tokens": MAX_NEW},
-                          token=TOKEN) for p in prompts]
-        answers = [f.result()["generated"][0] for f in futs]
-    wave_s = time.monotonic() - t0
+    firsts = FirstLogits(model)
+    try:
+        t0 = time.monotonic()
+        with concurrent.futures.ThreadPoolExecutor(len(prompts)) as ex:
+            futs = [ex.submit(post, base + "/api/generate",
+                              {"tokens": [p], "max_new_tokens": MAX_NEW},
+                              token=TOKEN) for p in prompts]
+            answers = [f.result()["generated"][0] for f in futs]
+        wave_s = time.monotonic() - t0
+        for p in repeat:
+            answers.append(post(base + "/api/generate", {
+                "tokens": [p], "max_new_tokens": MAX_NEW},
+                token=TOKEN)["generated"][0])
+        torch.cuda.synchronize()
+    finally:
+        firsts.restore()
+    name = "%s%s serving" % (server.engine.kv_pool.kv_dtype,
+                             " --spec" if server_kw.get("spec") else "")
     for p in repeat:
-        answers.append(post(base + "/api/generate", {
-            "tokens": [p], "max_new_tokens": MAX_NEW},
-            token=TOKEN)["generated"][0])
-    torch.cuda.synchronize()
+        firsts.gate(name, p)
     numbers = dict(
         server=server, base=base, warmup_s=warmup_s, wave_s=wave_s,
         b4=DA.decode_attention.launches, b5=DA.decode_attention.quant_launches,
@@ -2466,6 +2610,7 @@ def phase_fp8(served):
     finally:
         log.restore()
     gate_replay("fp8 pass", replayed)
+    prefix_hit_exact(model, "fp8", served["prompts"][REPEAT_INDEX])
     return {"launches_b5": numbers["b5"], "tokens": B * MAX_NEW,
             "replay": replay_readings(replayed)}
 
@@ -2712,11 +2857,12 @@ def main():
         }
         if name == "flash_forward":
             entry["bf16_operands"] = t["bf16_operands"]
-        if name in ("flash_forward", "flash_dkv"):
-            entry["split_check"] = {
-                "%s %s" % k: {"kernel_share": v[0], "fault_share": v[1]}
-                for k, v in split_shares.items()
-                if (k[1] in ("out", "lse")) == (name == "flash_forward")}
+        if name == "flash_dq":
+            entry["fp32_units_ms"] = t["fp32_units_ms"]
+        entry["b1_b2_b3_ms"] = t["b1_b2_b3_ms"]
+        entry["split_check"] = {
+            "%s %s" % k: {"kernel_share": v[0], "fault_share": v[1]}
+            for k, v in split_shares.items() if SPLIT_KERNEL[k[1]] == name}
         kernels["kernels"].append(entry)
     for name, line in (("lrn_forward", 81), ("lrn_backward", 87)):
         rows = [lrn_times[(name, shape)] for shape, _ in LRN_SHAPES]

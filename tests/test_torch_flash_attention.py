@@ -261,16 +261,16 @@ def test_dispatch_on_the_card_never_takes_the_plain_path(
 
 #: (storage, operand dtype) -> the C entry points of the forward, dq
 #: and dk/dv launches: the tensor cores for every pair whose q, k, v and
-#: dO are bf16-exact, the FP32 units for f32/f32 and for every dq.
+#: dO are bf16-exact, the FP32 units for f32/f32.
 ENTRY_POINTS = {
     (torch.float32, torch.float32): (
         "veles_flash_fwd", "veles_flash_dq", "veles_flash_dkv"),
     (torch.bfloat16, torch.float32): (
-        "veles_flash_fwd_tc", "veles_flash_dq", "veles_flash_dkv_tc"),
+        "veles_flash_fwd_tc", "veles_flash_dq_tc", "veles_flash_dkv_tc"),
     (torch.bfloat16, torch.bfloat16): (
-        "veles_flash_fwd_tc", "veles_flash_dq", "veles_flash_dkv_tc"),
+        "veles_flash_fwd_tc", "veles_flash_dq_tc", "veles_flash_dkv_tc"),
     (torch.float32, torch.bfloat16): (
-        "veles_flash_fwd_tc", "veles_flash_dq", "veles_flash_dkv_tc"),
+        "veles_flash_fwd_tc", "veles_flash_dq_tc", "veles_flash_dkv_tc"),
 }
 
 
@@ -337,8 +337,10 @@ def _split_inputs(kind, B=2, S=256, H=2, D=64, seed=5):
     (non-causal): "split_v" — tiny scores, v and dO of magnitude 1
     alternating in sign over keys and rows (out and dv cancel);
     "split_q" — q alternating in sign over rows, v = dO = 1, an lse
-    cotangent of 1 (dk cancels).  Rounding p or ds to one bf16 term
-    shows there far above the bf16 tolerance."""
+    cotangent of 1 (ds = p·scale, and dk = Σ ds·q cancels); "split_k" —
+    the same with k alternating in sign over keys and tiny q (dq = Σ
+    ds·k cancels).  Rounding p or ds to one bf16 term shows there far
+    above the bf16 tolerance."""
     rng = numpy.random.RandomState(seed)
     sign = numpy.where(numpy.arange(S) % 2, -1.0, 1.0)[None, :, None,
                                                         None]
@@ -348,17 +350,41 @@ def _split_inputs(kind, B=2, S=256, H=2, D=64, seed=5):
         q = 0.01 * rng.standard_normal((B, S, H, D)).astype(numpy.float32)
         v = do = sign
         dlse = rng.standard_normal((B, S, H)).astype(numpy.float32)
-    else:
+        return [numpy.ascontiguousarray(a) for a in (q, k, v, do, dlse)]
+    if kind == "split_q":
         q = sign * 0.001 * rng.standard_normal((B, 1, H, D)).astype(
             numpy.float32)
-        v = do = numpy.ones((B, S, H, D), numpy.float32)
-        dlse = numpy.ones((B, S, H), numpy.float32)
+    else:
+        q = 0.001 * rng.standard_normal((B, S, H, D)).astype(numpy.float32)
+        k = sign * k[:, :1]
+    v = do = numpy.ones((B, S, H, D), numpy.float32)
+    dlse = numpy.ones((B, S, H), numpy.float32)
     return [numpy.ascontiguousarray(a) for a in (q, k, v, do, dlse)]
 
 
 #: Split-sensitive cases: the outputs a one-term rounding of p or ds
 #: moves out of the bf16/f32 tolerance.
-SPLIT_FAULTED = {"split_v": ("out", "dv"), "split_q": ("dk",)}
+SPLIT_FAULTED = {"split_v": ("out", "dv"), "split_q": ("dk",),
+                 "split_k": ("dq",)}
+
+
+def test_plain_versions_match_flash_chunk_on_split_k_inputs():
+    """On the dq-sensitive inputs ("split_k", small: B=1, S=32, H=2,
+    D=16), where dq = Σ ds·k nearly cancels, the port's plain versions
+    (autograd through the forward, and flash_chunk's explicit dq/dk/dv
+    formulas) equal the Pallas kernels in interpret mode — float32
+    operands, F32_TOL — and dq stays far above the atol, so the check
+    is not met by the atol alone."""
+    q, k, v, do, dlse = _split_inputs("split_k", B=1, S=32, H=2, D=16,
+                                      seed=7)
+    want = _jax_chunk(q, k, v, do, dlse, jnp.float32, {})
+    for fn in (FA.flash_attention_reference, FA.flash_chunk):
+        got = _torch_chunk(fn, q, k, v, do, dlse, torch.float32, {})
+        for name, a, b in zip(("out", "lse", "dq", "dk", "dv"), got,
+                              want):
+            numpy.testing.assert_allclose(
+                a, b, err_msg="%s %s" % (fn.__name__, name), **F32_TOL)
+    assert numpy.abs(want[2]).max() > 100 * F32_TOL["atol"]
 
 
 @pytest.mark.cuda
@@ -409,6 +435,8 @@ def test_kernels_match_plain_versions_on_card(cuda_card, storage, od,
         bf16 = torch.bfloat16
         faults["out"] = FA.flash_attention_reference(
             q, k, v, operand_dtype=bf16, **kw)[0]
+        faults["dq"] = FA.flash_attention_dq_reference(
+            q, k, v, do, lse, delta, operand_dtype=bf16, **kw)
         faults["dk"], faults["dv"] = FA.flash_attention_dkv_reference(
             q, k, v, do, lse, delta, operand_dtype=bf16, **kw)
     for name, a, b in (("out", out, ro), ("lse", lse, rl), ("dq", dq, rdq),

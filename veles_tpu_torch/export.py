@@ -22,7 +22,10 @@ The port of ``veles_tpu/export.py`` for causal LMs.  Three groups:
   exactly ``DECODE_ROWS`` rows (:func:`_mm` — a BLAS or cuBLAS product
   picks its method by the row count, and its one-row path rounds
   otherwise), the layer norm computes each row alone, and an extend
-  runs each row by itself, on every plane.
+  runs each row by itself, on every plane.  A row's last prompt
+  position always runs as a one-row chunk (:func:`extend_chunks`), the
+  program a whole-prompt prefix-cache hit re-feeds, so a hit's first
+  logits are its first serving's bit for bit.
   On the scaled planes what a block stores also depends on how its
   positions were grouped into writes, so there a verify runs the step
   program column by column, and a freshly allocated block starts at
@@ -658,6 +661,20 @@ def lm_params_from_numpy(units, weights, device):
 #: products of exactly this many.  16 rows cost a step of 8 nothing
 #: measurable and a verify of 8 rows x 5 columns three products.
 DECODE_ROWS = 16
+
+
+def extend_chunks(n):
+    """The chunk lengths :meth:`ExportedModel.paged_extend` runs a row's
+    ``n`` new tokens in: one chunk of at most ``DECODE_MAX_Q`` rows;
+    else the first ``n − 1`` rows (a dense prefill chunk) and then the
+    last position alone.  A whole-prompt prefix-cache hit re-feeds only
+    the prompt's last token, a one-row chunk whose products and
+    attention take the decode path; ending every longer chunk with the
+    same one-row program makes the hit compute the position as the
+    prompt's first serving did, bit for bit (chunks of at most
+    ``DECODE_MAX_Q`` rows already do: each of their rows is computed
+    alone)."""
+    return [n] if n <= DECODE_MAX_Q else [n - 1, 1]
 
 
 def _ln(v, g, b, eps=1e-5):
@@ -1408,7 +1425,12 @@ class ExportedModel(object):
         Each real row (a table that is not all TRASH) runs alone, at its
         own chunk length and table span, so what it computes and stores
         is a function of the row alone, however the engine grouped the
-        rows (see :meth:`paged_verify`); pad rows return 0."""
+        rows (see :meth:`paged_verify`); pad rows return 0.  A row of
+        more than ``DECODE_MAX_Q`` tokens runs as two chunks
+        (:func:`extend_chunks`): all but its last position, which only
+        write their k/v, and then the last position alone, which
+        samples — exactly the call a whole-prompt prefix-cache hit
+        makes when it re-feeds the prompt's last token."""
         tables = numpy.ascontiguousarray(tables, dtype=numpy.int32)
         tokens = numpy.ascontiguousarray(tokens, dtype=numpy.int32)
         B, T = tables.shape
@@ -1421,17 +1443,25 @@ class ExportedModel(object):
         out = numpy.zeros(B, numpy.int32)
         for r in numpy.flatnonzero((tables[:, 0] != KVBlockPool.TRASH) &
                                    (clens > 0)):
-            n = int(clens[r])
-            span = min(T, -(-(int(prior[r]) + n) // bs))
-            out[r] = self._extend(
-                pool, tables[r:r + 1, :span], tokens[r:r + 1, :n],
-                prior[r:r + 1], clens[r:r + 1], temps[r:r + 1],
-                seeds[r:r + 1], attend)[0]
+            start = 0
+            for n in extend_chunks(int(clens[r])):
+                at = int(prior[r]) + start
+                span = min(T, -(-(at + n) // bs))
+                last = start + n == clens[r]
+                got = self._extend(
+                    pool, tables[r:r + 1, :span],
+                    tokens[r:r + 1, start:start + n],
+                    numpy.array([at]), numpy.array([n]), temps[r:r + 1],
+                    seeds[r:r + 1], attend, sample=last)
+                start += n
+            out[r] = got[0][0]
         return out
 
     def _extend(self, pool, tables, tokens, prior, chunk_lens, temps,
-                seeds, attend):
-        """:meth:`paged_extend`'s program over one batch of rows."""
+                seeds, attend, sample=True):
+        """:meth:`paged_extend`'s program over one batch of rows:
+        ``(first tokens, the logits they were sampled from)``, or None
+        when ``sample`` is False (the chunk only writes its k/v)."""
         B, T = tables.shape
         Sc = tokens.shape[1]
         n_heads, P, V = self._lm_static()
@@ -1451,6 +1481,8 @@ class ExportedModel(object):
             x = self._paged_layers(pool, params, x,
                                    self._tensor(tables, torch.int64),
                                    write, key_mask, attend)
+            if not sample:
+                return None
             idx = torch.clamp(clen_t - 1, 0, Sc - 1)
             logits = _head_logits(x[torch.arange(B, device=dev), idx],
                                   params)
@@ -1458,7 +1490,7 @@ class ExportedModel(object):
             tok0 = _sample_rows(logits, seeds_t,
                                 torch.zeros_like(seeds_t),
                                 self._temps(temps))
-            return tok0.to(torch.int32).cpu().numpy()
+            return tok0.to(torch.int32).cpu().numpy(), logits
 
     def paged_step(self, pool, tables, pos, tok, gen_idx, temps,
                    seeds, attend=decode_attention):

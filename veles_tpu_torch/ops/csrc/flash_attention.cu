@@ -1,14 +1,14 @@
 // Flash-attention forward, dq and dk/dv for Hopper (sm_90a), on the FP32
 // units.
 //
-// Replaces the TPU kernels of veles_tpu/ops/pallas_attention.py:
-//   `_fwd_kernel` (B1)  -> flash_fwd   (f32 storage with f32 operands)
-//   `_dq_kernel`  (B2)  -> flash_dq    (every storage/operand pair)
-//   `_dkv_kernel` (B3)  -> flash_dkv   (f32 storage with f32 operands)
-// The forward and dk/dv of the other pairs, whose operands are
-// bf16-exact, run on the tensor cores (flash_attention_tc.cu); an f32 ×
-// f32 product is not exact in bf16 pieces, so the f32/f32 parity mode
-// stays here.
+// Replaces the TPU kernels of veles_tpu/ops/pallas_attention.py, for f32
+// storage with f32 operands:
+//   `_fwd_kernel` (B1)  -> flash_fwd
+//   `_dq_kernel`  (B2)  -> flash_dq
+//   `_dkv_kernel` (B3)  -> flash_dkv
+// The other pairs, whose operands are bf16-exact, run on the tensor cores
+// (flash_attention_tc.cu); an f32 × f32 product is not exact in bf16
+// pieces, so the f32/f32 parity mode stays here.
 // with `flash_chunk`'s contract: q (B, Sq, H, D) against k/v (B, Sk, H, D),
 // causal on GLOBAL positions (q_off + row >= k_off + col), an optional
 // bound on LOCAL key columns (col < kv_len; kv_len < 0 = none), out and
@@ -23,11 +23,8 @@
 // finite lse; every operand of a product is rounded to the operand
 // type OD first (q, k, v, dO at load time, p and ds before their
 // products), as `_dot` casts; every sum is f32 with fused multiply-adds;
-// no fast math.  Storage T and OD are each float or bf16 (the forward
-// and dk/dv are instantiated for float/float only).  A product of two
-// bf16 values is exact in f32, so dq's bf16-operand mode is the
-// tensor-core contract (bf16 operands, f32 accumulation) computed on
-// the FP32 units — only the order of the sums differs.
+// no fast math.  The kernels are templates over the storage T and OD
+// (each float or bf16), instantiated for float/float only.
 //
 // What bounds it on the H100: operations.  At the LM training shape
 // (B=8, S=1024, H=16, D=128, causal) the forward does ~34 GFLOP on
@@ -609,10 +606,7 @@ int veles_flash_dq(int storage, int od, const void* q, const void* k,
   if (!valid(g)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (storage == 0 && od == 0) return dq_typed<float, float>(q, k, v, dout, lse, delta, dq, g, s);
-  if (storage == 0 && od == 1) return dq_typed<float, __nv_bfloat16>(q, k, v, dout, lse, delta, dq, g, s);
-  if (storage == 1 && od == 0) return dq_typed<__nv_bfloat16, float>(q, k, v, dout, lse, delta, dq, g, s);
-  if (storage == 1 && od == 1) return dq_typed<__nv_bfloat16, __nv_bfloat16>(q, k, v, dout, lse, delta, dq, g, s);
-  return (int)cudaErrorInvalidValue;
+  return (int)cudaErrorInvalidValue;  // the other pairs: flash_attention_tc.cu
 }
 
 int veles_flash_dkv(int storage, int od, const void* q, const void* k,

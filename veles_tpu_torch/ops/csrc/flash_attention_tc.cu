@@ -1,13 +1,14 @@
-// Flash-attention forward (B1) and dk/dv (B3) on Hopper's tensor cores
-// (sm_90a).
+// Flash-attention forward (B1), dq (B2) and dk/dv (B3) on Hopper's tensor
+// cores (sm_90a).
 //
 // Replaces, for every storage/operand pair whose q, k, v and dO are
 // bf16-exact (bf16 storage with f32 or bf16 operands, f32 storage with
 // bf16 operands), the TPU kernels of veles_tpu/ops/pallas_attention.py:
 //   `_fwd_kernel` (B1)  -> fwd_tc
+//   `_dq_kernel`  (B2)  -> dq_tc
 //   `_dkv_kernel` (B3)  -> dkv_tc
 // with `flash_chunk`'s contract, as flash_attention.cu's FP32 kernels
-// (which keep f32 storage with f32 operands and B2): q (B, Sq, H, D)
+// (which keep f32 storage with f32 operands): q (B, Sq, H, D)
 // against k/v (B, Sk, H, D), causal on GLOBAL positions, an optional
 // bound on LOCAL key columns, any Sq/Sk (ragged tails masked), any
 // D <= 128 (zero-padded in shared memory), B·H <= 65535; key tiles that
@@ -22,7 +23,7 @@
 // bf16 tensor cores with f32 accumulation:
 //   * q·kᵀ and dO·vᵀ multiply bf16 values (the storage, or f32 storage
 //     rounded to bf16 on load, as `_dot` casts) — exact in f32;
-//   * p·v, pᵀ·dO and dsᵀ·q: with bf16 operands p (ds) is rounded to bf16,
+//   * p·v, pᵀ·dO, ds·k and dsᵀ·q: with bf16 operands p (ds) is rounded to bf16,
 //     the TPU's `p.astype(od)`; with f32 operands p (ds) is split into
 //     three bf16 terms hi = bf16(x), mid = bf16(x − hi),
 //     lo = bf16(x − hi − mid), which cover all 24 significand bits, and
@@ -38,11 +39,12 @@
 // kernels of flash_attention.cu run every product on the FP32 units,
 // reading shared memory for every multiply-add; here:
 //   * `wgmma` m64nNk16 (bf16 -> f32) for every product: S = q·kᵀ
-//     (dk/dv: Sᵀ = k·qᵀ and dPᵀ = v·dOᵀ, keys as the M side) with both
-//     operands in shared memory; P·V, Pᵀ·dO and dSᵀ·q with P (dS) taken
-//     straight from the score accumulator's registers as the A operand
-//     (the accumulator's fragment layout is the A fragment layout), the
-//     other operand MN-major in shared memory;
+//     (dq: and dP = dO·vᵀ; dk/dv: Sᵀ = k·qᵀ and dPᵀ = v·dOᵀ, keys as the
+//     M side) with both operands in shared memory; P·V, dS·K, Pᵀ·dO and
+//     dSᵀ·q with P (dS) taken straight from the score accumulator's
+//     registers as the A operand (the accumulator's fragment layout is
+//     the A fragment layout), the other operand MN-major in shared
+//     memory;
 //   * tiles in shared memory in the 128-byte swizzled layout that `wgmma`
 //     reads without bank conflicts: 64 rows x 128 head-dim columns as
 //     two blocks of 64 columns (128 bytes a row);
@@ -58,6 +60,13 @@
 //     key tiles of 64; the online softmax (m, l) lives in registers, the
 //     row reductions are two quad shuffles; the query tiles start longest
 //     first;
+//   * dq: as the forward without the online softmax: one warpgroup per
+//     query tile, the q and dO tiles loaded once, lse and delta of the
+//     thread's rows in registers; per key tile S and dP (two products
+//     into two accumulators of one fragment layout), dS elementwise in
+//     place of S, then dq += dS·k with k read MN-major from the same
+//     shared-memory tile that S read K-major; the 64 x 128 f32 dq
+//     accumulator stays in registers;
 //   * dk/dv: one CTA per key tile of 64 keys with two warpgroups: the
 //     first accumulates dv (Sᵀ, P, Pᵀ·dO), the second dk (Sᵀ, dPᵀ, dS,
 //     dSᵀ·q); each keeps one 64 x 128 f32 accumulator in registers, so
@@ -746,6 +755,147 @@ dkv_tc(const __grid_constant__ Maps maps, const T* __restrict__ q,
   }
 }
 
+// -- B2: dq -------------------------------------------------------------------
+
+constexpr size_t DQ_SMEM = 6 * TILE_BYTES + 64 + 1024;
+
+template <typename T, typename OD, bool TMA>
+__global__ void __launch_bounds__(128)
+dq_tc(const __grid_constant__ Maps maps, const T* __restrict__ q,
+      const T* __restrict__ k, const T* __restrict__ v,
+      const T* __restrict__ dout, const float* __restrict__ lse,
+      const float* __restrict__ delta, T* __restrict__ dq, Geometry g) {
+  constexpr int NT = Terms<OD>::N;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* qs = align1024(smem_raw);
+  uint8_t* dos = qs + TILE_BYTES;
+  uint8_t* ks = dos + TILE_BYTES;     // two stages
+  uint8_t* vs = ks + 2 * TILE_BYTES;  // two stages
+  uint64_t* bars = reinterpret_cast<uint64_t*>(vs + 2 * TILE_BYTES);
+  uint64_t* qd_bar = bars;
+  uint64_t* kv_bar = bars + 1;  // [2]
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int bh = blockIdx.y;
+  const int b = bh / g.H;
+  const int h = bh - b * g.H;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;  // longest tiles first
+  const int r0 = q0 + (tid >> 5) * 16 + (lane >> 2);  // rows r0, r0 + 8
+  const int cq = (lane & 3) * 2;
+  const int D = g.D;
+  const int ksteps = (D + 15) >> 4;
+  const int nk = g.key_tiles(q0);
+
+  float acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.0f;
+  // lse and delta of this thread's two rows, in the accumulator's row
+  // layout.
+  float lse_r[2], delta_r[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = r0 + r * 8;
+    const size_t at = ((size_t)b * g.Sq + row) * g.H + h;
+    lse_r[r] = row < g.Sq ? lse[at] : 0.0f;
+    delta_r[r] = row < g.Sq ? delta[at] : 0.0f;
+  }
+
+  if (nk > 0) {
+    if (TMA) {
+      if (tid == 0) {
+        for (int i = 0; i < 3; ++i) mbar_init(bars + i);
+        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+      }
+      __syncthreads();
+      if (tid == 0) {
+        mbar_expect(qd_bar, 2 * TILE_BYTES);
+        tma_tile(qs, &maps.a, qd_bar, q0, b, h);
+        tma_tile(dos, &maps.d, qd_bar, q0, b, h);
+        mbar_expect(kv_bar, 2 * TILE_BYTES);
+        tma_tile(ks, &maps.b, kv_bar, 0, b, h);
+        tma_tile(vs, &maps.c, kv_bar, 0, b, h);
+      }
+      mbar_wait(qd_bar, 0);
+    } else {
+      thread_tile<T>(qs, q, q0, g.Sq, g.H, D, b, h, tid, 128);
+      thread_tile<T>(dos, dout, q0, g.Sq, g.H, D, b, h, tid, 128);
+      thread_tile<T>(ks, k, 0, g.Sk, g.H, D, b, h, tid, 128);
+      thread_tile<T>(vs, v, 0, g.Sk, g.H, D, b, h, tid, 128);
+      __syncthreads();
+    }
+    for (int t = 0; t < nk; ++t) {
+      const int st = t & 1;
+      const int c0 = t * BK;
+      uint8_t* kt = ks + st * TILE_BYTES;
+      uint8_t* vt = vs + st * TILE_BYTES;
+      if (TMA) mbar_wait(kv_bar + st, (t >> 1) & 1);
+      float s[32], dp[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.0f;
+      hold(s);
+      hold(dp);
+      wg_fence();
+      // S = q·kᵀ and dP = dO·vᵀ, both operands K-major.
+      mma_head_dim(s, smem_u32(qs), smem_u32(kt), ksteps);
+      mma_head_dim(dp, smem_u32(dos), smem_u32(vt), ksteps);
+      wg_commit();
+      if (t + 1 < nk) {  // the next tiles into the other stage
+        uint8_t* kn = ks + (st ^ 1) * TILE_BYTES;
+        uint8_t* vn = vs + (st ^ 1) * TILE_BYTES;
+        if (TMA) {
+          if (tid == 0) {
+            mbar_expect(kv_bar + (st ^ 1), 2 * TILE_BYTES);
+            tma_tile(kn, &maps.b, kv_bar + (st ^ 1), c0 + BK, b, h);
+            tma_tile(vn, &maps.c, kv_bar + (st ^ 1), c0 + BK, b, h);
+          }
+        } else {
+          thread_tile<T>(kn, k, c0 + BK, g.Sk, g.H, D, b, h, tid, 128);
+          thread_tile<T>(vn, v, c0 + BK, g.Sk, g.H, D, b, h, tid, 128);
+        }
+      }
+      wg_wait();
+      hold(s);
+      hold(dp);
+
+      // ds = p·(dp − delta)·scale in place of s, p re-masked to 0.
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int r = (i >> 1) & 1;
+        const int col = c0 + (i >> 2) * 8 + cq + (i & 1);
+        const bool on = g.attend(r0 + r * 8, col);
+        const float p = on ? expf(s[i] * g.scale - lse_r[r]) : 0.0f;
+        s[i] = on ? p * (dp[i] - delta_r[r]) * g.scale : 0.0f;
+      }
+      uint32_t frag[NT][4][4];
+      a_fragments<NT>(s, frag);
+      hold(acc);
+      hold(frag);
+      wg_fence();
+      // dq += dS·k, k read MN-major from the tile S read K-major.
+      mma_terms<NT>(acc, frag, smem_u32(kt));
+      wg_commit();
+      wg_wait();
+      hold(acc);
+      __syncthreads();  // both stages' readers are done before a refill
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = r0 + r * 8;
+    if (row >= g.Sq) continue;
+    T* dst = dq + (((size_t)b * g.Sq + row) * g.H + h) * D;
+#pragma unroll
+    for (int i = 0; i < 16; ++i)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int d = i * 8 + cq + e;
+        if (d < D) dst[d] = from_f<T>(acc[i * 4 + r * 2 + e]);
+      }
+  }
+}
+
 // -- host -------------------------------------------------------------------
 
 bool valid(const Geometry& g) {
@@ -858,6 +1008,31 @@ int dkv_typed(const void* q, const void* k, const void* v, const void* dout,
   }
 }
 
+template <typename T, typename OD>
+int dq_typed(const void* q, const void* k, const void* v, const void* dout,
+             const float* lse, const float* delta, void* dq, Geometry g,
+             bool tma, cudaStream_t s) {
+  Maps maps = {};
+  const dim3 grid((g.Sq + BQ - 1) / BQ, g.B * g.H);
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    if (!tma) return launch(dq_tc<T, OD, false>, grid, 128, DQ_SMEM, s, maps,
+                            (const T*)q, (const T*)k, (const T*)v,
+                            (const T*)dout, lse, delta, (T*)dq, g);
+    int err = make_map(&maps.a, q, g.B, g.Sq, g.H, g.D);
+    if (!err) err = make_map(&maps.b, k, g.B, g.Sk, g.H, g.D);
+    if (!err) err = make_map(&maps.c, v, g.B, g.Sk, g.H, g.D);
+    if (!err) err = make_map(&maps.d, dout, g.B, g.Sq, g.H, g.D);
+    if (err) return err;
+    return launch(dq_tc<T, OD, true>, grid, 128, DQ_SMEM, s, maps,
+                  (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse,
+                  delta, (T*)dq, g);
+  } else {
+    return launch(dq_tc<T, OD, false>, grid, 128, DQ_SMEM, s, maps,
+                  (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse,
+                  delta, (T*)dq, g);
+  }
+}
+
 // TMA takes bf16 rows that are a multiple of 16 bytes at 16-byte-aligned
 // addresses.
 bool tma_route(int storage, int D, std::initializer_list<const void*> ptrs) {
@@ -887,6 +1062,27 @@ int veles_flash_fwd_tc(int storage, int od, const void* q, const void* k,
     return fwd_typed<__nv_bfloat16, __nv_bfloat16>(q, k, v, out, lse, g, tma, s);
   if (storage == 0 && od == 1)
     return fwd_typed<float, __nv_bfloat16>(q, k, v, out, lse, g, false, s);
+  return (int)cudaErrorInvalidValue;  // f32/f32 runs on the FP32 units
+}
+
+int veles_flash_dq_tc(int storage, int od, const void* q, const void* k,
+                      const void* v, const void* dout, const float* lse,
+                      const float* delta, void* dq, int B, int H, int Sq,
+                      int Sk, int D, float scale, int causal, int q_off,
+                      int k_off, int kv_len, void* stream) {
+  const Geometry g{B, H, Sq, Sk, D, scale, causal, q_off, k_off, kv_len};
+  if (!valid(g)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool tma = tma_route(storage, D, {q, k, v, dout});
+  if (storage == 1 && od == 0)
+    return dq_typed<__nv_bfloat16, float>(q, k, v, dout, lse, delta, dq, g,
+                                          tma, s);
+  if (storage == 1 && od == 1)
+    return dq_typed<__nv_bfloat16, __nv_bfloat16>(q, k, v, dout, lse, delta,
+                                                  dq, g, tma, s);
+  if (storage == 0 && od == 1)
+    return dq_typed<float, __nv_bfloat16>(q, k, v, dout, lse, delta, dq, g,
+                                          false, s);
   return (int)cudaErrorInvalidValue;  // f32/f32 runs on the FP32 units
 }
 

@@ -24,14 +24,14 @@ The port of the TPU kernels ``_fwd_kernel``, ``_dq_kernel`` and
 The kernels are CUDA C++ for ``sm_90a``, built at first use by
 :mod:`.nvcc`, on two routes:
 
-* ``"tensor_core"`` (``csrc/flash_attention_tc.cu``): the forward and
-  dk/dv of every pair whose q, k, v and dO are bf16-exact — bf16
-  storage with f32 or bf16 operands, f32 storage with bf16 operands —
-  run their products as ``wgmma`` on the bf16 tensor cores (an f32
-  operand p or ds as three bf16 terms);
+* ``"tensor_core"`` (``csrc/flash_attention_tc.cu``): the three kernels
+  of every pair whose q, k, v and dO are bf16-exact — bf16 storage
+  with f32 or bf16 operands, f32 storage with bf16 operands — run
+  their products as ``wgmma`` on the bf16 tensor cores (an f32 operand
+  p or ds as three bf16 terms);
 * ``"fp32"`` (``csrc/flash_attention.cu``): f32 storage with f32
   operands (the parity mode: an f32 × f32 product is not exact in bf16
-  pieces) and the dq kernel of every pair, on the FP32 units.
+  pieces), on the FP32 units.
   On a CUDA tensor a missing ``nvcc``, a build or launch
 error, an unsupported dtype or a shape outside the contract raises:
 no path carries on without the kernel.
@@ -213,9 +213,8 @@ def _geometry(q, k, causal, q_offset, k_offset, kv_len):
 def route(kernel, storage, operand_dtype):
     """The route a CUDA launch of ``kernel`` ("flash_forward",
     "flash_dq" or "flash_dkv") takes for a storage/operand dtype pair:
-    "fp32" for the dq kernel and for float32/float32, "tensor_core"
-    otherwise."""
-    if kernel == "flash_dq" or (storage == operand_dtype == torch.float32):
+    "fp32" for float32/float32, "tensor_core" otherwise."""
+    if storage == operand_dtype == torch.float32:
         return "fp32"
     return "tensor_core"
 
@@ -224,6 +223,7 @@ def route(kernel, storage, operand_dtype):
 _ENTRY = {("flash_forward", "fp32"): "veles_flash_fwd",
           ("flash_forward", "tensor_core"): "veles_flash_fwd_tc",
           ("flash_dq", "fp32"): "veles_flash_dq",
+          ("flash_dq", "tensor_core"): "veles_flash_dq_tc",
           ("flash_dkv", "fp32"): "veles_flash_dkv",
           ("flash_dkv", "tensor_core"): "veles_flash_dkv_tc"}
 
@@ -436,9 +436,8 @@ def _library(tc=False):
                 vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
                 geometry = [ci, ci, ci, ci, ci, cf, ci, ci, ci, ci, vp]
                 suffix = "_tc" if tc else ""
-                entries = {"veles_flash_fwd": 5, "veles_flash_dkv": 8}
-                if not tc:
-                    entries["veles_flash_dq"] = 7
+                entries = {"veles_flash_fwd": 5, "veles_flash_dq": 7,
+                           "veles_flash_dkv": 8}
                 for fn, pointers in entries.items():
                     f = getattr(lib, fn + suffix)
                     f.argtypes = [ci, ci] + [vp] * pointers + geometry
