@@ -26,12 +26,17 @@ non-zero:
    ``lrn.cu`` — B6 LRN forward, B7 LRN backward);
 3. kernel check — each kernel's wrapper against its plain PyTorch
    version on the card, at the shapes its path gives it and at ragged,
-   masked and (LRN) strong-constant edge cases, within the stated
-   tolerances; planted LRN and B5 faults must be flagged; rows of a
-   16-row B4/B5 launch must equal the same rows launched alone;
+   masked and (LRN) strong-constant edge cases (B4 also at D = 70 and
+   72, B5 at D = 72),
+   within the stated tolerances; planted LRN and B5 faults must be
+   flagged; B5 on codes must equal B4 on the dequantized table, and a
+   B4/B5 row must not depend on Sq, on B or on masked keys past its
+   table, bit for bit;
 4. kernel timing — kernel, plain version, one PyTorch library call
    computing the same function where there is one, and the least time
-   the card could take;
+   the card could take (B4/B5: device time of a CUDA graph of launches
+   rotating among input copies of more than twice the L2, and the
+   host's time per call; a reading above its bound fails);
 5. training — builds the 12-block TinyLM (bench.py's --lm geometry,
    batch 8, per-block remat, bf16 activation stream, f32 attention
    operands, momentum SGD) on the card, runs one epoch of one
@@ -191,61 +196,184 @@ def phase_build():
                          sum("C7520" in x for x in log)))
 
 
+#: The H100's L2 cache: a table that fits in it is read from the L2, not
+#: from device memory, by every launch after the first on the same inputs.
+L2_BYTES = 50e6
+#: The decode kernels' main-path geometry: the serving batch, the LM's
+#: heads and head dim.
+DECODE_B, DECODE_H, DECODE_D = MAX_BATCH, HEADS, EMBED // HEADS
+
+
+def cold_ms(fn, args, n_bytes, iters=60, warmup=3):
+    """Device time of one ``fn(*args)``, L2-proof: CUDA events around the
+    replay of a CUDA graph of ``iters`` launches that rotate among copies
+    of ``args`` (each tensor cloned) holding more than twice the L2
+    together (``n_bytes`` each), so no launch finds its inputs in the L2
+    where the launches before it left them.  The graph keeps the host's
+    cost per call (the wrapper's checks, allocations and launch, tens of
+    microseconds) out of the reading: back-to-back calls from Python
+    would time the host wherever it is slower than the kernel."""
+    import torch
+    n_sets = max(2, int(2 * L2_BYTES // n_bytes) + 1)
+    sets = [args] + [tuple(a.clone() if torch.is_tensor(a) else a
+                           for a in args) for _ in range(n_sets - 1)]
+    rounds = -(-iters // n_sets)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        for i in range(warmup):
+            fn(*sets[i % n_sets])
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        for _ in range(rounds):
+            for one in sets:
+                fn(*one)
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph, sets
+    return start.elapsed_time(end) / (rounds * n_sets)
+
+
+def host_us(fn, args, calls=200):
+    """The host's time per ``fn(*args)`` call in microseconds, launches
+    queued without waiting for the card (what a caller pays per call
+    on its own thread)."""
+    import torch
+    fn(*args)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn(*args)
+    elapsed = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return elapsed / calls * 1e6
+
+
+def decode_timing(plane, Sq, L, gen, plain=True, library=True):
+    """B4 (``plane`` "f32") or B5 ("int8", "fp8") at B=8, H=16, D=128,
+    ``Sq`` query rows over an ``L``-key table, timed by :func:`cold_ms`
+    beside (B5) B4 on the same keys as f32, the plain version and one
+    PyTorch call (SDPA; for B5 dequantize + SDPA: no one call computes
+    it); and the bound: the bytes the call must move (q, k/v — B5: the
+    codes and the per-position scales, the layout it is given —, the
+    mask, the output) at 3.35 TB/s against its float32 operations
+    (4·Sq·D per key and head; B5 plus the 2·D dequantizing multiplies)
+    at 67 TFLOP/s.  ``share`` is bound / time: above 1 the timer or the
+    bound is wrong."""
+    import torch
+    import torch.nn.functional as F
+    from veles_tpu_torch.ops import decode_attention as DA
+    B, H, D = DECODE_B, DECODE_H, DECODE_D
+    if plane == "f32":
+        args = decode_inputs(B, Sq, H, D, L, gen, fully_masked_row=False)
+        n_bytes = 4 * (2 * B * Sq * H * D + 2 * B * L * H * D) + B * Sq * L
+        ops = 4 * B * H * Sq * L * D
+    else:
+        dtype_name, qmax = {c[0]: c[1:] for c in QUANT_CODES}[plane]
+        args = quant_inputs(B, Sq, H, D, L, getattr(torch, dtype_name),
+                            qmax, gen)
+        args[3][0, Sq - 1] = True   # no empty row when timing
+        n_bytes = (2 * B * L * H * D + 2 * 4 * B * L * H +
+                   2 * 4 * B * Sq * H * D + B * Sq * L)
+        ops = 4 * B * H * Sq * L * D + 2 * B * L * H * D
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / F32_FLOP_PER_S * 1e3
+    row = dict(kernel_ms=cold_ms(DA.decode_attention, args, n_bytes),
+               host_us=host_us(DA.decode_attention, args),
+               bound_ms=max(bytes_ms, ops_ms),
+               bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+               mbytes=n_bytes / 1e6)
+    row["share"] = row["bound_ms"] / row["kernel_ms"]
+
+    def sdpa(q, k, v, mask, k_scale=None, v_scale=None):
+        if k_scale is not None:
+            k, v = DA.dequantize(k, k_scale), DA.dequantize(v, v_scale)
+        return F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            attn_mask=mask[:, None])
+
+    if plane != "f32":
+        q, kc, vc, mask, ks, vs = args
+        row["b4_f32_ms"] = cold_ms(
+            DA.decode_attention, (q, DA.dequantize(kc, ks),
+                                  DA.dequantize(vc, vs), mask),
+            4 * (2 * B * Sq * H * D + 2 * B * L * H * D) + B * Sq * L)
+    if plain:
+        row["plain_ms"] = cold_ms(DA.decode_attention_reference, args,
+                                  n_bytes, iters=10, warmup=1)
+    if library:
+        row["library_ms"] = cold_ms(sdpa, args, n_bytes)
+    del args
+    return row
+
+
+def timing_line(name, plane, Sq, L, row):
+    """One kernel-timing line; fails on a share of the bound over 1."""
+    print("kernel timing %s %s B=%d Sq=%d H=%d D=%d L=%d (L2-proof, "
+          "graph replay): kernel %.4f ms (%.1f%% of its bound; the host "
+          "%.1f us per call)%s%s%s, bound %.4f ms (%s; %.2f MB)" % (
+              name, plane, DECODE_B, Sq, DECODE_H, DECODE_D, L,
+              row["kernel_ms"], 100 * row["share"], row["host_us"],
+              ", B4 on the same keys as f32 %.4f ms" % row["b4_f32_ms"]
+              if "b4_f32_ms" in row else "",
+              ", plain %.4f ms" % row["plain_ms"] if "plain_ms" in row
+              else "",
+              ", %s %.4f ms" % ("sdpa" if plane == "f32" else
+                                "dequantize + sdpa", row["library_ms"])
+              if "library_ms" in row else "",
+              row["bound_ms"], row["bound_by"], row["mbytes"]))
+    if not row["share"] <= 1.0:
+        fail("%s %s Sq=%d L=%d reads %.1f%% of its bound: the timer or "
+             "the bound is wrong" % (name, plane, Sq, L,
+                                     100 * row["share"]))
+
+
 def phase_kernels():
     """Phases 3-4 for the serving kernel (B4): check at every table
-    width the engine reaches, time at the decode step's shape."""
+    width the engine reaches, a ragged one, at D = 72 (f32 rows of 288
+    bytes: the 16-byte copy path at a head dim under 128) and at D = 70
+    (rows of 280 bytes: the scalar copy path); time at the decode step's
+    and the 16-row chunk's shapes and over a 256-key table."""
     import torch
     from veles_tpu_torch.ops import decode_attention as DA
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    B, H, D = MAX_BATCH, HEADS, EMBED // HEADS
-    widths = [KV_BLOCK * t for t in (1, 2, 4, 8, 16, 32, 64)] + [40]
+    B, H = DECODE_B, DECODE_H
+    widths = [KV_BLOCK * t for t in (1, 2, 4, 8, 16, 32, 64)] + [40, 1000]
+    cases = [(DECODE_D, Sq, L) for Sq in (1, 16) for L in widths] + \
+        [(D, Sq, L) for D in (72, 70) for Sq in (1, 16) for L in (40, 1000)]
     max_err = 0.0
-    for Sq in (1, 16):
-        for L in widths:
-            q, k, v, mask = decode_inputs(B, Sq, H, D, L, gen)
-            out = DA.decode_attention(q, k, v, mask)
-            torch.cuda.synchronize()
-            ref = DA.decode_attention_reference(q, k, v, mask)
-            if not torch.isfinite(out).all():
-                fail("kernel output not finite at Sq=%d L=%d" % (Sq, L))
-            if out[0, Sq - 1].abs().max().item() != 0.0:
-                fail("fully masked row not zero at Sq=%d L=%d" % (Sq, L))
-            err = (out - ref).abs().max().item()
-            max_err = max(max_err, err)
-            if not torch.allclose(out, ref, rtol=RTOL, atol=ATOL):
-                fail("decode_attention disagrees with its plain version "
-                     "at Sq=%d L=%d: max abs err %.3g" % (Sq, L, err))
+    for D, Sq, L in cases:
+        q, k, v, mask = decode_inputs(B, Sq, H, D, L, gen)
+        out = DA.decode_attention(q, k, v, mask)
+        torch.cuda.synchronize()
+        ref = DA.decode_attention_reference(q, k, v, mask)
+        if not torch.isfinite(out).all():
+            fail("kernel output not finite at D=%d Sq=%d L=%d" %
+                 (D, Sq, L))
+        if out[0, Sq - 1].abs().max().item() != 0.0:
+            fail("fully masked row not zero at D=%d Sq=%d L=%d" %
+                 (D, Sq, L))
+        err = (out - ref).abs().max().item()
+        max_err = max(max_err, err)
+        if not torch.allclose(out, ref, rtol=RTOL, atol=ATOL):
+            fail("decode_attention disagrees with its plain version at "
+                 "D=%d Sq=%d L=%d: max abs err %.3g" % (D, Sq, L, err))
     print("kernel check: decode_attention == decode_attention_reference "
-          "at B=%d H=%d D=%d Sq in (1, 16), L in %s, ragged masks and a "
-          "fully masked row: max abs err %.3g (rtol %g, atol %g)" %
-          (B, H, D, widths, max_err, RTOL, ATOL))
+          "at B=%d H=%d, D=%d with Sq in (1, 16), L in %s, and D in (72, "
+          "70: the scalar copy path) with L in (40, 1000); ragged masks "
+          "and a fully masked row: max abs "
+          "err %.3g (rtol %g, atol %g)" %
+          (B, H, DECODE_D, widths, max_err, RTOL, ATOL))
     timings = {}
     for Sq, L in ((1, POSITIONS), (16, POSITIONS), (1, 256)):
-        q, k, v, mask = decode_inputs(B, Sq, H, D, L, gen,
-                                      fully_masked_row=False)
-        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        amask = mask[:, None]
-        kernel_ms = cuda_ms(lambda: DA.decode_attention(q, k, v, mask))
-        plain_ms = cuda_ms(
-            lambda: DA.decode_attention_reference(q, k, v, mask))
-        library_ms = cuda_ms(
-            lambda: torch.nn.functional.scaled_dot_product_attention(
-                qt, kt, vt, attn_mask=amask))
-        n_bytes = 4 * (2 * B * Sq * H * D + 2 * B * L * H * D) + \
-            B * Sq * L
-        flops = 4 * B * H * Sq * L * D
-        bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
-        ops_ms = flops / F32_FLOP_PER_S * 1e3
-        timings[(Sq, L)] = dict(
-            kernel_ms=kernel_ms, plain_ms=plain_ms,
-            library_ms=library_ms, bound_ms=max(bytes_ms, ops_ms),
-            bound_by="bytes" if bytes_ms >= ops_ms else "operations")
-        print("kernel timing B=%d Sq=%d H=%d D=%d L=%d: kernel %.4f ms, "
-              "plain %.4f ms, sdpa %.4f ms, bound %.4f ms (%s)" %
-              ((B, Sq, H, D, L) + tuple(
-                  timings[(Sq, L)][k] for k in (
-                      "kernel_ms", "plain_ms", "library_ms", "bound_ms",
-                      "bound_by"))))
+        timings[(Sq, L)] = row = decode_timing("f32", Sq, L, gen)
+        timing_line("B4", "f32", Sq, L, row)
     return max_err, timings
 
 
@@ -297,68 +425,72 @@ def share_of_tol(got, want):
 def phase_quant_kernels():
     """Phases 3-4 for B5: int8 and fp8 codes against
     decode_attention_quant_reference at B=8, H=16, D=128, Sq in
-    QUANT_SQ, L in QUANT_L; planted faults (k's and v's scales swapped,
-    codes read with no scale, fp8 read as e5m2) must be flagged; rows of
-    one Sq=16 launch equal the same rows launched alone (Sq=1), bit for
-    bit, for B4 and B5; then timed at the decode step's and the verify
-    chunk's shapes beside B4 on the same keys as f32, the plain version,
-    dequantize + SDPA, and the bound."""
+    QUANT_SQ, L in QUANT_L, and at D=72 (code rows of 72 bytes: the
+    scalar copy path) with Sq
+    in (1, 16), L in (40, 1000); planted faults (k's and v's scales
+    swapped, codes read with no scale, fp8 read as e5m2) must be
+    flagged; B5 on the codes must equal B4 on the dequantized table, bit
+    for bit; a row's result must not depend on Sq, L past its mask or B
+    (:func:`row_invariance`); then timed at the decode step's and the
+    verify chunk's shapes (:func:`decode_timing`)."""
     import torch
     from veles_tpu_torch.ops import decode_attention as DA
     gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
-    B, H, D = MAX_BATCH, HEADS, EMBED // HEADS
+    B, H = DECODE_B, DECODE_H
+    cases = [(DECODE_D, Sq, L) for Sq in QUANT_SQ for L in QUANT_L] + \
+        [(72, Sq, L) for Sq in (1, 16) for L in (40, 1000)]
     worst, faults, b4_equal = {}, {}, {}
     for label, dtype_name, qmax in QUANT_CODES:
         code_dtype = getattr(torch, dtype_name)
-        for Sq in QUANT_SQ:
-            for L in QUANT_L:
-                q, kc, vc, mask, ks, vs = quant_inputs(
-                    B, Sq, H, D, L, code_dtype, qmax, gen)
-                out = DA.decode_attention(q, kc, vc, mask, k_scale=ks,
-                                          v_scale=vs)
-                torch.cuda.synchronize()
-                if not torch.isfinite(out).all():
-                    fail("B5 output not finite (%s, Sq=%d, L=%d)" %
-                         (label, Sq, L))
-                if out[0, Sq - 1].abs().max().item() != 0.0:
-                    fail("B5: fully masked row not zero (%s, Sq=%d, L=%d)"
-                         % (label, Sq, L))
-                ref = DA.decode_attention_quant_reference(q, kc, vc, mask,
-                                                          ks, vs)
-                share = share_of_tol(out, ref)
-                err = (out - ref).abs().max().item()
-                was = worst.get(label, (0.0, 0.0))
-                worst[label] = (max(was[0], err), max(was[1], share))
-                if not share <= 1.0:
-                    fail("B5 (%s) disagrees with its plain version at "
-                         "Sq=%d L=%d: max abs err %.3g, %.3g of the "
-                         "tolerance" % (label, Sq, L, err, share))
-                # B4 on the dequantized table: the same arithmetic.
-                b4 = DA.decode_attention(q, DA.dequantize(kc, ks),
-                                         DA.dequantize(vc, vs), mask)
-                b4_equal[(label, Sq, L)] = bool(torch.equal(out, b4))
-                planted = {
-                    "scales_swapped": DA.decode_attention_quant_reference(
-                        q, kc, vc, mask, vs, ks),
-                    "no_scale": DA.decode_attention_quant_reference(
-                        q, kc, vc, mask, torch.ones_like(ks),
-                        torch.ones_like(vs)),
-                }
-                if label == "fp8":
-                    planted["read_as_e5m2"] = \
-                        DA.decode_attention_quant_reference(
-                            q, kc.view(torch.float8_e5m2),
-                            vc.view(torch.float8_e5m2), mask, ks, vs)
-                for name, bad in planted.items():
-                    key = "%s %s" % (label, name)
-                    faults[key] = min(faults.get(key, float("inf")),
-                                      share_of_tol(out, bad))
-                del q, kc, vc, mask, ks, vs, out, ref, b4, planted
+        for D, Sq, L in cases:
+            q, kc, vc, mask, ks, vs = quant_inputs(
+                B, Sq, H, D, L, code_dtype, qmax, gen)
+            out = DA.decode_attention(q, kc, vc, mask, k_scale=ks,
+                                      v_scale=vs)
+            torch.cuda.synchronize()
+            if not torch.isfinite(out).all():
+                fail("B5 output not finite (%s, D=%d, Sq=%d, L=%d)" %
+                     (label, D, Sq, L))
+            if out[0, Sq - 1].abs().max().item() != 0.0:
+                fail("B5: fully masked row not zero (%s, D=%d, Sq=%d, "
+                     "L=%d)" % (label, D, Sq, L))
+            ref = DA.decode_attention_quant_reference(q, kc, vc, mask,
+                                                      ks, vs)
+            share = share_of_tol(out, ref)
+            err = (out - ref).abs().max().item()
+            was = worst.get(label, (0.0, 0.0))
+            worst[label] = (max(was[0], err), max(was[1], share))
+            if not share <= 1.0:
+                fail("B5 (%s) disagrees with its plain version at "
+                     "D=%d Sq=%d L=%d: max abs err %.3g, %.3g of the "
+                     "tolerance" % (label, D, Sq, L, err, share))
+            # B4 on the dequantized table: the same arithmetic.
+            b4 = DA.decode_attention(q, DA.dequantize(kc, ks),
+                                     DA.dequantize(vc, vs), mask)
+            b4_equal[(label, D, Sq, L)] = bool(torch.equal(out, b4))
+            planted = {
+                "scales_swapped": DA.decode_attention_quant_reference(
+                    q, kc, vc, mask, vs, ks),
+                "no_scale": DA.decode_attention_quant_reference(
+                    q, kc, vc, mask, torch.ones_like(ks),
+                    torch.ones_like(vs)),
+            }
+            if label == "fp8":
+                planted["read_as_e5m2"] = \
+                    DA.decode_attention_quant_reference(
+                        q, kc.view(torch.float8_e5m2),
+                        vc.view(torch.float8_e5m2), mask, ks, vs)
+            for name, bad in planted.items():
+                key = "%s %s" % (label, name)
+                faults[key] = min(faults.get(key, float("inf")),
+                                  share_of_tol(out, bad))
+            del q, kc, vc, mask, ks, vs, out, ref, b4, planted
     print("kernel check: decode_attention (B5) == "
-          "decode_attention_quant_reference at B=%d H=%d D=%d Sq in %s, L "
-          "in %s, int8 and fp8 codes with ±qmax, a zero-scale block, "
-          "ragged masks and a fully masked row (rtol %g, atol %g): %s" % (
-              B, H, D, QUANT_SQ, QUANT_L, RTOL, ATOL, ", ".join(
+          "decode_attention_quant_reference at B=%d H=%d, D=%d with Sq in "
+          "%s, L in %s, and D=72 with Sq in (1, 16), L in (40, 1000); "
+          "int8 and fp8 codes with ±qmax, a zero-scale block, ragged masks "
+          "and a fully masked row (rtol %g, atol %g): %s" % (
+              B, H, DECODE_D, QUANT_SQ, QUANT_L, RTOL, ATOL, ", ".join(
                   "%s max abs err %.3g (share %.3g)" % (k, v[0], v[1])
                   for k, v in sorted(worst.items()))))
     print("  B5 on codes == B4 on the dequantized table, bit for bit: "
@@ -370,102 +502,99 @@ def phase_quant_kernels():
         if not share > 1.0:
             fail("planted fault %s passes the B5 check (share %.3g)" %
                  (name, share))
-    sq_rows = sq_invariance(gen)
-    return worst, faults, b4_equal, sq_rows, quant_timings(gen)
+    for key, same in sorted(b4_equal.items()):
+        if not same:
+            fail("B5 on the codes differs from B4 on the dequantized "
+                 "table (%s, D=%d, Sq=%d, L=%d)" % key)
+    rows = row_invariance(gen)
+    timings = {}
+    for label, _, _ in QUANT_CODES:
+        for Sq in (1, 16):
+            timings[(label, Sq)] = row = decode_timing(label, Sq, POSITIONS,
+                                                       gen)
+            timing_line("B5", label, Sq, POSITIONS, row)
+    return worst, faults, b4_equal, rows, timings
 
 
-def sq_invariance(gen):
-    """Every row of an Sq=16 launch against the same row launched alone
-    over the same keys (Sq=1), for B4 (f32) and B5 (int8, fp8), at
-    L=POSITIONS: bit-identical, or a row's attention would depend on the
-    rows launched beside it (B4: the f32 verify chunk against plain
-    steps)."""
+#: Table widths of the L-invariance gate, each against twice itself.
+INVARIANCE_L = (256, 512, 1000)
+
+
+def row_invariance(gen):
+    """A row's result must depend only on its q row, its mask row and the
+    keys it attends, bit for bit, for B4 (f32) and B5 (int8, fp8) at
+    B=8, H=16, D=128:
+
+    * Sq — every row of an Sq=16 launch (L=POSITIONS) equals the row
+      launched alone (Sq=1): the f32 verify chunk against plain steps;
+    * L — every row of an Sq=16 launch over L keys equals the same row
+      over 2L keys whose last L (random keys) are masked, L in (256,
+      512, 1000): table widths round up to power-of-two buckets, and
+      256 against 512 crosses from one split (written directly) to two
+      (merged);
+    * B — the rows of each batch launched alone (B=1) equal the same
+      rows of the B=8 launch: the engine pads batches.
+
+    Returns the counts of equal rows per plane."""
     import torch
     from veles_tpu_torch.ops import decode_attention as DA
-    B, H, D, Sq, L = MAX_BATCH, HEADS, EMBED // HEADS, 16, POSITIONS
-    rows = {}
-    for label, dtype_name, qmax in (("f32", None, None),) + QUANT_CODES:
-        if dtype_name is None:
+    B, H, D, Sq = DECODE_B, DECODE_H, DECODE_D, 16
+
+    def inputs(label, L):
+        if label == "f32":
             q, k, v, mask = decode_inputs(B, Sq, H, D, L, gen,
                                           fully_masked_row=False)
-            kw = {}
-        else:
-            q, k, v, mask, ks, vs = quant_inputs(
-                B, Sq, H, D, L, getattr(torch, dtype_name), qmax, gen)
-            kw = dict(k_scale=ks, v_scale=vs)
-        wide = DA.decode_attention(q, k, v, mask, **kw)
-        same = 0
-        for r in range(Sq):
-            one = DA.decode_attention(q[:, r:r + 1].contiguous(), k, v,
-                                      mask[:, r:r + 1].contiguous(), **kw)
-            same += bool(torch.equal(one[:, 0], wide[:, r]))
+            return q, k, v, mask, None, None
+        dtype_name, qmax = {c[0]: c[1:] for c in QUANT_CODES}[label]
+        return quant_inputs(B, Sq, H, D, L, getattr(torch, dtype_name),
+                            qmax, gen)
+
+    def attend(q, k, v, mask, ks, vs):
+        return DA.decode_attention(q.contiguous(), k.contiguous(),
+                                   v.contiguous(), mask.contiguous(),
+                                   k_scale=None if ks is None else
+                                   ks.contiguous(),
+                                   v_scale=None if vs is None else
+                                   vs.contiguous())
+
+    counts = {}
+    for label in ("f32",) + tuple(c[0] for c in QUANT_CODES):
+        q, k, v, mask, ks, vs = inputs(label, POSITIONS)
+        wide = attend(q, k, v, mask, ks, vs)
+        sq_same = sum(bool(torch.equal(attend(
+            q[:, r:r + 1], k, v, mask[:, r:r + 1], ks, vs)[:, 0],
+            wide[:, r])) for r in range(Sq))
+        b_same = sum(bool(torch.equal(attend(
+            q[b:b + 1], k[b:b + 1], v[b:b + 1], mask[b:b + 1],
+            None if ks is None else ks[b:b + 1],
+            None if vs is None else vs[b:b + 1]), wide[b:b + 1]))
+            for b in range(B))
+        l_same = 0
+        for L in INVARIANCE_L:
+            q, k, v, mask, ks, vs = inputs(label, 2 * L)
+            mask[:, :, L:] = False
+            long = attend(q, k, v, mask, ks, vs)
+            short = attend(q, k[:, :L], v[:, :L], mask[:, :, :L],
+                           None if ks is None else ks[:, :L],
+                           None if vs is None else vs[:, :L])
+            l_same += sum(bool(torch.equal(short[:, r], long[:, r]))
+                          for r in range(Sq))
         torch.cuda.synchronize()
-        rows[label] = same
-        if same != Sq:
-            fail("%s decode kernel: only %d of %d rows of an Sq=%d launch "
-                 "equal the Sq=1 launches bit for bit" % (
-                     "B4" if label == "f32" else "B5 " + label, same, Sq,
-                     Sq))
-    print("kernel check: rows of an Sq=16 launch == Sq=1 launches over "
-          "the same keys, bit for bit, at B=%d H=%d D=%d L=%d: B4 %d/16, "
-          "B5 int8 %d/16, fp8 %d/16" % (B, H, D, L, rows["f32"],
-                                       rows["int8"], rows["fp8"]))
-    return rows
-
-
-def quant_timings(gen):
-    """B5 at the decode step's shape (Sq=1) and the 16-row verify shape,
-    L=POSITIONS, int8 and fp8: kernel; B4 on the same keys as f32; the
-    plain version; dequantize + SDPA (no one PyTorch call computes B5);
-    and the bound: the bytes B5 must move — the codes, the per-position
-    scales (the layout it is given), q, the mask and the output — at
-    3.35 TB/s against its float32 operations (4·Sq·D per key and head
-    plus the 2·D dequantizing multiplies) at 67 TFLOP/s."""
-    import torch
-    import torch.nn.functional as F
-    from veles_tpu_torch.ops import decode_attention as DA
-    B, H, D, L = MAX_BATCH, HEADS, EMBED // HEADS, POSITIONS
-    out = {}
-    for label, dtype_name, qmax in QUANT_CODES:
-        for Sq in (1, 16):
-            q, kc, vc, mask, ks, vs = quant_inputs(
-                B, Sq, H, D, L, getattr(torch, dtype_name), qmax, gen)
-            mask[0, Sq - 1] = True   # no empty row when timing
-            kf, vf = DA.dequantize(kc, ks), DA.dequantize(vc, vs)
-            qt = q.transpose(1, 2)
-            amask = mask[:, None]
-
-            def library():
-                return F.scaled_dot_product_attention(
-                    qt, DA.dequantize(kc, ks).transpose(1, 2),
-                    DA.dequantize(vc, vs).transpose(1, 2), attn_mask=amask)
-
-            n_bytes = (2 * B * L * H * D + 2 * 4 * B * L * H +
-                       2 * 4 * B * Sq * H * D + B * Sq * L)
-            ops = 4 * B * H * Sq * L * D + 2 * B * L * H * D
-            bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
-            ops_ms = ops / F32_FLOP_PER_S * 1e3
-            row = dict(
-                kernel_ms=cuda_ms(lambda: DA.decode_attention(
-                    q, kc, vc, mask, k_scale=ks, v_scale=vs)),
-                b4_f32_ms=cuda_ms(lambda: DA.decode_attention(
-                    q, kf, vf, mask)),
-                plain_ms=cuda_ms(lambda: DA.decode_attention_quant_reference(
-                    q, kc, vc, mask, ks, vs)),
-                library_ms=cuda_ms(library),
-                bound_ms=max(bytes_ms, ops_ms),
-                bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-                mbytes=n_bytes / 1e6)
-            out[(label, Sq)] = row
-            print("kernel timing B5 %s B=%d Sq=%d H=%d D=%d L=%d: kernel "
-                  "%.4f ms, B4 on the same keys as f32 %.4f ms, plain %.4f "
-                  "ms, dequantize + sdpa %.4f ms, bound %.4f ms (%s; %.2f "
-                  "MB with per-position scales)" % (
-                      label, B, Sq, H, D, L, row["kernel_ms"],
-                      row["b4_f32_ms"], row["plain_ms"], row["library_ms"],
-                      row["bound_ms"], row["bound_by"], row["mbytes"]))
-            del q, kc, vc, mask, ks, vs, kf, vf, qt, amask
-    return out
+        counts[label] = {"sq": sq_same, "l": l_same, "b": b_same}
+        name = "B4" if label == "f32" else "B5 " + label
+        l_rows = len(INVARIANCE_L) * Sq
+        if (sq_same, l_same, b_same) != (Sq, l_rows, B):
+            fail("%s: rows not invariant bit for bit — Sq %d/%d, L %d/%d, "
+                 "B %d/%d" % (name, sq_same, Sq, l_same, l_rows, b_same, B))
+    print("kernel check: rows bit-identical however they are launched, at "
+          "B=%d H=%d D=%d — Sq (each row of a 16-row launch alone), L (a "
+          "row at L vs 2L with the extra keys masked, L in %s), B "
+          "(each batch alone vs B=8): %s" % (B, H, D, INVARIANCE_L, ", ".join(
+              "%s Sq %d/16 L %d/%d B %d/8" % (
+                  "B4" if k == "f32" else "B5 " + k, c["sq"], c["l"],
+                  len(INVARIANCE_L) * 16, c["b"])
+              for k, c in counts.items())))
+    return counts
 
 
 #: Flash kernels (B1-B3) against their plain versions.  The lse is
@@ -1433,7 +1562,7 @@ def kernel_family(name):
     low = name.lower()
     if "lrn_" in low:
         return "lrn (B6/B7)"
-    if "decode_partial" in low or "decode_merge" in low:
+    if "flash_decode" in low or "merge_pass" in low:
         return "decode attention (B4/B5)"
     if "conv" in low or "fprop" in low or "dgrad" in low or \
             "wgrad" in low or "implicit" in low:
@@ -2742,7 +2871,7 @@ def main():
     resolve_device("cuda")  # TF32 off, as every port entry point sets
     phase_build()
     max_err, timings = phase_kernels()
-    quant_worst, quant_faults, quant_b4_equal, sq_rows, quant_times = \
+    quant_worst, quant_faults, quant_b4_equal, inv_rows, quant_times = \
         phase_quant_kernels()
     flash_err, split_shares, flash_times = phase_flash_kernels()
     lrn_err, lrn_worst, lrn_faults_read, lrn_times = phase_lrn_kernels()
@@ -2773,7 +2902,7 @@ def main():
         quant["row_count_reading"] = row_count_reading(served["model"])
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
-    step = timings[(1, POSITIONS)]
+    step, step16 = timings[(1, POSITIONS)], timings[(16, POSITIONS)]
     kernels = {"kernels": [{
         "name": "decode_attention",
         "route": "cuda",
@@ -2785,14 +2914,21 @@ def main():
         "max_abs_err": max_err,
         "max_err": max_err,
         "tol": {"rtol": RTOL, "atol": ATOL},
+        "timer": "CUDA events around a CUDA graph of launches rotating "
+                 "among input copies of more than twice the L2",
         "ms": step["kernel_ms"],
         "kernel_ms": step["kernel_ms"],
         "plain_ms": step["plain_ms"],
         "bound_ms": step["bound_ms"],
         "bound_by": step["bound_by"],
+        "share_of_bound": step["share"],
         "library_ms": step["library_ms"],
         "library": "torch.nn.functional.scaled_dot_product_attention",
-        "sq_invariant_rows": sq_rows["f32"],
+        "verify_sq16": {k: step16[k] for k in (
+            "kernel_ms", "plain_ms", "library_ms", "bound_ms", "share")},
+        "l256": {k: timings[(1, 256)][k] for k in (
+            "kernel_ms", "plain_ms", "library_ms", "bound_ms", "share")},
+        "row_invariance": inv_rows["f32"],
     }]}
     q8, q8v = quant_times[("int8", 1)], quant_times[("int8", 16)]
     kernels["kernels"].append({
@@ -2806,24 +2942,26 @@ def main():
         "max_abs_err": max(v[0] for v in quant_worst.values()),
         "max_err_by_code": {k: v[0] for k, v in quant_worst.items()},
         "tol": {"rtol": RTOL, "atol": ATOL},
+        "timer": "as decode_attention's",
         "ms": q8["kernel_ms"],
         "plain_ms": q8["plain_ms"],
         "bound_ms": q8["bound_ms"],
         "bound_by": q8["bound_by"],
+        "share_of_bound": q8["share"],
         "library_ms": q8["library_ms"],
         "library": "dequantize + torch.nn.functional."
                    "scaled_dot_product_attention",
         "b4_same_keys_f32_ms": q8["b4_f32_ms"],
         "verify_sq16": {k: q8v[k] for k in ("kernel_ms", "b4_f32_ms",
                                             "plain_ms", "library_ms",
-                                            "bound_ms")},
+                                            "bound_ms", "share")},
         "fp8": {"%s" % sq: {k: quant_times[("fp8", sq)][k] for k in (
             "kernel_ms", "b4_f32_ms", "plain_ms", "library_ms",
-            "bound_ms")} for sq in (1, 16)},
+            "bound_ms", "share")} for sq in (1, 16)},
         "planted_faults": quant_faults,
         "b5_equals_b4_on_dequantized": "%d/%d" % (
             sum(quant_b4_equal.values()), len(quant_b4_equal)),
-        "sq_invariant_rows": {k: sq_rows[k] for k in ("int8", "fp8")},
+        "row_invariance": {k: inv_rows[k] for k in ("int8", "fp8")},
     })
     replaces = {"flash_forward": 211, "flash_dq": 258, "flash_dkv": 293}
     for name, line in replaces.items():

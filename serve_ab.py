@@ -4,6 +4,7 @@
 Run from the root of a checkout, on a machine with one CUDA card:
 
     python3 serve_ab.py OTHER_TREE [--rows N ...]
+    python3 serve_ab.py OTHER_TREE --kernels
 
 ``OTHER_TREE`` is another checkout of the repository (for example the
 parent commit unpacked with ``git archive``).  One full-width LM
@@ -18,10 +19,23 @@ requests (prompts of 5-700 tokens, 32 new tokens each) through the
 first wave is cold — and, timed with a host clock around
 ``torch.cuda.synchronize()``, a 700-token ``paged_extend`` of one row,
 a ``paged_step`` of 8 rows and a 5-column ``paged_verify`` of 8 rows
-over 64-block tables.  The card's name and power limit come first, one
-JSON line per process after them.
+over 64-block tables; then the same step and verify on the int8 KV plane
+with int8 weights (B5's path).
+
+With ``--kernels`` no artifact is written: each process times its
+tree's decode kernels instead, B4 (f32) and B5 (int8, fp8 codes) at
+B=8, H=16, D=128 over a 1024-key table with 1 and 16 query rows, in
+turns other, this, this, other.  Every time comes from this tree's
+``chip_smoke.decode_timing`` (CUDA events around a CUDA graph of
+launches that rotate among input copies of more than twice the L2,
+beside the host's time per call) on the same inputs, made from
+``chip_smoke.SEED``, so the two trees are read alike.
+
+The card's name and power limit come first, one JSON line per process
+after them; a process that reports nothing makes the exit code 1.
 """
 
+import importlib.util
 import json
 import os
 import subprocess
@@ -32,6 +46,8 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 PROMPT_LENGTHS = (5, 12, 40, 200, 700, 48, 130)
 WAVES, MAX_NEW, MAX_BATCH = 3, 32, 8
+KERNEL_SHAPES = [(plane, Sq) for plane in ("f32", "int8", "fp8")
+                 for Sq in (1, 16)]
 
 
 def measure(tree, path, rows=None):
@@ -42,6 +58,7 @@ def measure(tree, path, rows=None):
     import torch
     from veles_tpu_torch import export as X
     from veles_tpu_torch.backends import resolve_device
+    from veles_tpu_torch.config import root
     from veles_tpu_torch.serving import ServingEngine
     if rows:
         X.DECODE_ROWS = int(rows)
@@ -96,12 +113,70 @@ def measure(tree, path, rows=None):
     out["verify5_ms"] = ms(lambda: model.paged_verify(
         pool, tables, pos, numpy.ones((8, 5), numpy.int32),
         numpy.full(8, 4, numpy.int64), ones, temps, seeds))
+    # The int8 KV plane with int8 weights (B5's path): the same step and
+    # verify over a pool whose written blocks hold int8 codes.
+    del pool
+    root.common.serving.weight_dtype = "int8"
+    pool = model.make_kv_pool(600, 16, kv_dtype="int8")
+    model.paged_extend(pool, tables[:1], tokens,
+                       numpy.zeros(1, numpy.int32),
+                       numpy.array([700], numpy.int32), temps[:1],
+                       seeds[:1])
+    out["int8_step_ms"] = ms(lambda: model.paged_step(
+        pool, tables, pos, ones, ones, temps, seeds))
+    out["int8_verify5_ms"] = ms(lambda: model.paged_verify(
+        pool, tables, pos, numpy.ones((8, 5), numpy.int32),
+        numpy.full(8, 4, numpy.int64), ones, temps, seeds))
+    root.common.serving.weight_dtype = "f32"
     print("RESULT " + json.dumps(out))
+
+
+def measure_kernels(tree):
+    """One process: ``tree``'s decode kernels at every shape of
+    ``KERNEL_SHAPES`` under this tree's timer; prints ``RESULT
+    <json>``."""
+    sys.path.insert(0, tree)
+    # This tree's chip_smoke.py, by path: the other tree has its own.
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke_timer", os.path.join(HERE, "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    import torch
+    from veles_tpu_torch.backends import resolve_device
+    resolve_device("cuda")
+    gen = torch.Generator(device="cuda").manual_seed(smoke.SEED)
+    out = {}
+    for plane, Sq in KERNEL_SHAPES:
+        row = smoke.decode_timing(plane, Sq, smoke.POSITIONS, gen,
+                                  plain=False, library=False)
+        out["%s Sq=%d" % (plane, Sq)] = {
+            k: row[k] for k in ("kernel_ms", "share", "bound_ms",
+                                "host_us")}
+    print("RESULT " + json.dumps(out))
+
+
+def run_turns(order):
+    """Runs each ``(label, command arguments)`` of ``order`` in a
+    process of its own and prints its result; returns whether every
+    process reported one."""
+    ok = True
+    for label, args in order:
+        done = subprocess.run(
+            [sys.executable, os.path.abspath(__file__)] + args,
+            capture_output=True, text=True, timeout=900)
+        line = [x for x in done.stdout.splitlines()
+                if x.startswith("RESULT ")]
+        ok &= bool(line)
+        print(json.dumps({"tree": label, "result": json.loads(
+            line[0][7:]) if line else done.stderr[-2000:]}), flush=True)
+    return ok
 
 
 def main():
     if len(sys.argv) > 1 and sys.argv[1] == "--measure":
         return measure(*sys.argv[2:])
+    if len(sys.argv) > 1 and sys.argv[1] == "--measure-kernels":
+        return measure_kernels(sys.argv[2])
     if len(sys.argv) < 2:
         sys.exit(__doc__)
     other = os.path.abspath(sys.argv[1])
@@ -110,31 +185,28 @@ def main():
     import torch
     if not torch.cuda.is_available():
         sys.exit("serve_ab.py needs a CUDA card")
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip(), flush=True)
+    if sys.argv[2:3] == ["--kernels"]:
+        runs = [("other", ["--measure-kernels", other]),
+                ("this", ["--measure-kernels", HERE])]
+        sys.exit(0 if run_turns(runs + runs[::-1]) else 1)
     from veles_tpu_torch import export as X
     workdir = os.path.join(HERE, ".chip_smoke")
     os.makedirs(workdir, exist_ok=True)
     path = os.path.join(workdir, "ab.veles.tgz")
     X.random_lm_artifact(path, 16384, 2048, 16, 12, 8192, 1024, seed=5,
                          compresslevel=0)
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True).stdout.strip(), flush=True)
-    runs = [("other", other, None), ("this", HERE, None)]
-    runs += [("this rows=%s" % r, HERE, r) for r in rows]
-    order = runs + runs[::-1]
+    runs = [("other", ["--measure", other, path]),
+            ("this", ["--measure", HERE, path])]
+    runs += [("this rows=%s" % r, ["--measure", HERE, path, r])
+             for r in rows]
     try:
-        for label, tree, r in order:
-            cmd = [sys.executable, os.path.abspath(__file__), "--measure",
-                   tree, path] + ([r] if r else [])
-            done = subprocess.run(cmd, capture_output=True, text=True,
-                                  timeout=900)
-            line = [x for x in done.stdout.splitlines()
-                    if x.startswith("RESULT ")]
-            print(json.dumps({"tree": label, "result": json.loads(
-                line[0][7:]) if line else done.stderr[-2000:]}),
-                flush=True)
+        ok = run_turns(runs + runs[::-1])
     finally:
         os.remove(path)
+    sys.exit(0 if ok else 1)
 
 
 if __name__ == "__main__":

@@ -1,5 +1,6 @@
-"""The port stands alone: ``veles_tpu_torch`` and ``chip_smoke.py``
-import ``torch`` and never ``jax`` or anything of ``veles_tpu``."""
+"""The port stands alone: ``veles_tpu_torch``, ``chip_smoke.py`` and
+``serve_ab.py`` import ``torch`` and never ``jax`` or anything of
+``veles_tpu``."""
 
 import ast
 import os
@@ -12,7 +13,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def _port_sources():
-    out = [os.path.join(ROOT, "chip_smoke.py")]
+    out = [os.path.join(ROOT, name) for name in (
+        "chip_smoke.py", "serve_ab.py")]
     for dirpath, _, files in os.walk(os.path.join(ROOT,
                                                   "veles_tpu_torch")):
         out.extend(os.path.join(dirpath, f) for f in sorted(files)

@@ -22,7 +22,14 @@ The kernel is CUDA C++ for ``sm_90a``, built at first use with
 ``nvcc`` into a shared library with a plain C interface (loaded with
 ``ctypes``) under ``build/`` beside this file.  The build, a launch
 error or a shape outside the contract raises: there is no path that
-carries on without the kernel on a CUDA tensor.
+carries on without the kernel on a CUDA tensor.  One template computes
+B4 and B5: a block per (batch·head, split of ``KEYS_PER_SPLIT`` keys)
+streams the split's k and v tiles through a ``cp.async`` ring and
+computes the scores key-parallel (four lanes per key), the split's
+softmax and p·V; past one split a second launch merges the splits in
+split order (the source's header note has the design).  Each query row
+is computed alone, so a row's result does not depend on Sq, on B, or on
+keys past its mask, bit for bit.
 
 Contract (:func:`supports_decode`): q ``(B, Sq, H, D)`` with
 ``1 <= Sq <= DECODE_MAX_Q``, k/v ``(B, L, H, D)`` with any ``L >= 1``
@@ -47,10 +54,11 @@ from . import nvcc
 #: Past this many query rows a chunk is a prefill, served by the dense
 #: path (the JAX package's ``DECODE_MAX_Q``).
 DECODE_MAX_Q = 16
-#: Largest head dim the kernel takes (one thread per element).
+#: Largest head dim the kernel takes (a 4-element chunk per lane).
 MAX_HEAD_DIM = 128
-#: Keys each block of the kernel's first pass covers.
-KEYS_PER_SPLIT = 64
+#: Keys each block of the kernel covers: splits start at fixed
+#: multiples of it from key 0, whatever the table's length.
+KEYS_PER_SPLIT = 256
 #: The masked-score fill of the TPU kernel and the dense path.
 NEG_INF = -1e30
 #: Code types of B5, by the kernel's ``code_kind`` argument.
@@ -171,7 +179,9 @@ def decode_attention(q, k, v, key_mask, k_scale=None, v_scale=None):
     take the plain version; CUDA tensors launch B4 (adding one to
     ``decode_attention.launches``) or, given ``k_scale``/``v_scale``,
     B5 (adding one to ``decode_attention.quant_launches``) on the
-    calling thread's current stream, or raise."""
+    calling thread's current stream, or raise.  Past one split of
+    ``KEYS_PER_SPLIT`` keys a second launch merges the splits; their
+    partials come from the caching allocator."""
     _check(q, k, v, key_mask, k_scale, v_scale)
     if q.device.type == "cpu":
         return decode_attention_reference(q, k, v, key_mask, k_scale,
