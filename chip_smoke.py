@@ -31,12 +31,15 @@ non-zero:
    within the stated tolerances; planted LRN and B5 faults must be
    flagged; B5 on codes must equal B4 on the dequantized table, and a
    B4/B5 row must not depend on Sq, on B or on masked keys past its
-   table, bit for bit;
+   table, bit for bit; B6/B7 run each case on both routes (register and
+   wide), which must agree bit for bit, and an input at a storage
+   offset must take the wide route;
 4. kernel timing — kernel, plain version, one PyTorch library call
    computing the same function where there is one, and the least time
-   the card could take (B4/B5: device time of a CUDA graph of launches
-   rotating among input copies of more than twice the L2, and the
-   host's time per call; a reading above its bound fails);
+   the card could take (B4/B5 and both LRN routes: device time of a CUDA
+   graph of launches rotating among input copies of more than twice the
+   L2; B4/B5 also the host's time per call; a reading above its bound
+   fails);
 5. training — builds the 12-block TinyLM (bench.py's --lm geometry,
    batch 8, per-block remat, bf16 activation stream, f32 attention
    operands, momentum SGD) on the card, runs one epoch of one
@@ -52,8 +55,9 @@ non-zero:
    three train ticks through ``Launcher.run`` with the LRN kernels, then
    each tick again from the same state (dropout masks included) with
    the plain LRN (``pallas_lrn = False``); losses, parameters and the
-   LRN launch counts are held as in phase 5, a planted B7 fault must
-   fail the gate, and one warm tick is profiled;
+   LRN launch counts are held as in phase 5, every LRN launch must take
+   the register route, a planted B7 fault must fail the gate, and one
+   warm tick is profiled;
 7. serving — writes the artifact, loads it on the card, starts the
    server with ``--warmup``, serves mixed concurrent ``/api/generate``
    requests over loopback HTTP through the paged engine, then a
@@ -1018,17 +1022,34 @@ LRN_SHAPES = (("lrn1", (ALEXNET_BATCH, 55, 55, 96)),
 #: At AlexNet's constants the window term is ~1e-4 of the denominator, so
 #: a wrong window passes any check there; these constants make it
 #: dominate: k = 1, alpha = n (coef 1), beta = 0.75, n in {3, 4, 5} (4:
-#: the asymmetric even window), C in {7, 96, 256}, over a ragged P of
-#: 3·37·41 = 4551 rows (no multiple of any tile), plus P = 1, C = 1 and
-#: C = 2 (windows wider than the row) and the C = 4096 limit.
-LRN_STRONG = [("strong_n%d_c%d" % (n, c), (3, 37, 41, c),
-               dict(n=n, alpha=float(n), beta=0.75, k=1.0))
-              for n in (3, 4, 5) for c in (7, 96, 256)] + [
-    ("strong_p1", (1, 1, 1, 96), dict(n=5, alpha=5.0, beta=0.75, k=1.0)),
-    ("strong_c1", (2, 3, 5, 1), dict(n=5, alpha=5.0, beta=0.75, k=1.0)),
-    ("strong_c2", (2, 3, 5, 2), dict(n=5, alpha=5.0, beta=0.75, k=1.0)),
-    ("strong_c4096", (2, 3, 3, 4096),
-     dict(n=5, alpha=5.0, beta=0.75, k=1.0))]
+#: the asymmetric even window), C in {7, 24, 96, 100, 256, 264} (rows
+#: that end inside a warp, on a warp's edge and — bf16 at 7, 100 and
+#: 264 — inside a 16-byte vector), over a ragged P of 3·37·41 = 4551
+#: rows (no multiple of any tile); the widest windows the register route
+#: takes (n = 9 in f32, 17 in bf16; f32 at 17 takes the wide route); P =
+#: 1, C = 1 and C = 2 (windows wider than the row), C = 1000 and the C =
+#: 4096 limit.  Then the inputs that keep the register route's in-range
+#: sequences from some vectors: k = 1e-35 with every fourth row zero (d =
+#: k there, under 2^-100), and beta = 0.5 (powf); and x, dy at a storage
+#: offset of one element (2 or 4 bytes off 16: the wide route).  Each
+#: case: (name, shape, constants, storage offset in elements, zero rows).
+def _strong(n, k=1.0, beta=0.75):
+    return dict(n=n, alpha=float(n), beta=beta, k=k)
+
+
+LRN_STRONG = [("strong_n%d_c%d" % (n, c), (3, 37, 41, c), _strong(n), 0,
+               False)
+              for n in (3, 4, 5) for c in (7, 24, 96, 100, 256, 264)] + [
+    ("strong_n%d_c%d" % (n, c), (3, 37, 41, c), _strong(n), 0, False)
+    for n in (9, 17) for c in (96, 100)] + [
+    ("strong_p1", (1, 1, 1, 96), _strong(5), 0, False),
+    ("strong_c1", (2, 3, 5, 1), _strong(5), 0, False),
+    ("strong_c2", (2, 3, 5, 2), _strong(5), 0, False),
+    ("strong_c1000", (3, 37, 41, 1000), _strong(5), 0, False),
+    ("strong_c4096", (2, 3, 3, 4096), _strong(5), 0, False),
+    ("strong_tiny_k", (3, 37, 41, 96), _strong(5, k=1e-35), 0, True),
+    ("strong_beta_half", (3, 37, 41, 100), _strong(4, beta=0.5), 0, False),
+    ("strong_offset", (3, 37, 41, 96), _strong(5), 1, False)]
 
 
 def lrn_tolerance(dtype, want, scale=None):
@@ -1098,78 +1119,147 @@ def lrn_shares(x, dy, n, alpha, beta, k, y, dx):
              (dxf - want_dx).abs().max().item()), faults)
 
 
+def bits(t):
+    """A float32 or bfloat16 tensor's bits as integers (NaNs compare)."""
+    import torch
+    return t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+
+
+def lrn_case_inputs(shape, dtype, offset, zero_rows, gen):
+    """x and dy of one LRN case, ``offset`` elements into their storage,
+    every fourth row of x zero when ``zero_rows``."""
+    import torch
+    numel = 1
+    for dim in shape:
+        numel *= dim
+    out = []
+    for _ in range(2):
+        buf = torch.randn(numel + offset, generator=gen,
+                          device="cuda").to(dtype)
+        out.append(buf[offset:].view(shape))
+    if zero_rows:
+        out[0].view(-1, shape[-1])[::4] = 0
+    return out
+
+
 def phase_lrn_kernels():
     """Phases 3-4 for the AlexNet kernels (B6 forward, B7 backward):
     each against its plain version at both main-path shapes in bfloat16
-    and float32, at the strong constants, even n, a ragged P, P = 1 and
-    the channel limit; the planted faults must be flagged at the strong
-    constants.  Then timed at the main-path shapes."""
+    and float32, at the strong constants, even n, a ragged P, P = 1, the
+    channel limit and the cases of LRN_STRONG, on the route the wrapper
+    picks and on the wide route; where the register route runs, its y
+    and dx must equal the wide route's bit for bit; at a storage offset
+    the wrapper must take the wide route and refuse a forced register
+    route; the planted faults must be flagged at the strong constants.
+    Then timed at the main-path shapes."""
     import torch
     from veles_tpu_torch.ops import lrn as L
     gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
     rows, worst, main_err = [], {}, {}
-    fault_rows = []
-    cases = [(name, shape, ALEXNET_LRN) for name, shape in LRN_SHAPES] + \
-        LRN_STRONG
-    for name, shape, kw in cases:
+    fault_rows, unequal = [], []
+    equal = 0
+    cases = [(name, shape, ALEXNET_LRN, 0, False)
+             for name, shape in LRN_SHAPES] + LRN_STRONG
+    for name, shape, kw, offset, zero_rows in cases:
         for dtype in (torch.bfloat16, torch.float32):
-            x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
-            dy = torch.randn(shape, generator=gen, device="cuda").to(dtype)
-            y = L.lrn_forward(x, **kw)
-            dx = L.lrn_backward(x, dy, **kw)
-            torch.cuda.synchronize()
-            fwd, bwd, errs, faults = lrn_shares(x, dy, y=y, dx=dx, **kw)
             label = "bf16" if dtype == torch.bfloat16 else "f32"
-            rows.append((name, label, fwd, bwd, errs))
-            for key, val in (("forward", fwd), ("backward", bwd)):
-                was = worst.get((label, key), (0.0, None))
-                if val > was[0]:
-                    worst[(label, key)] = (val, name)
-            if name.startswith("lrn") and dtype == torch.bfloat16:
-                main_err["lrn_forward"] = max(
-                    main_err.get("lrn_forward", 0.0), errs[0])
-                main_err["lrn_backward"] = max(
-                    main_err.get("lrn_backward", 0.0), errs[1])
-            if name == "lrn1" or name.startswith("strong_n5_c96") or \
-                    name.startswith("strong_n4_c96"):
-                fault_rows.append((name, label, faults))
-            del x, dy, y, dx
-    print("kernel check: lrn_forward/lrn_backward == lrn_reference / "
-          "autograd through it; tolerance f32 fwd rtol %g, bwd %g x the "
-          "terms' magnitude; bf16 fwd 2^-7 x |y| (one ulp), bwd 2^-7 x "
-          "(terms' magnitude + |dx|); largest share of the tolerance:" %
-          (LRN_F32_RTOL, LRN_F32_RTOL))
+            x, dy = lrn_case_inputs(shape, dtype, offset, zero_rows, gen)
+            route = L.lrn_route(shape[-1], kw["n"], dtype,
+                                [x.data_ptr(), dy.data_ptr()])
+            if offset and route != "wide":
+                fail("lrn at a storage offset of %d elements takes the %s "
+                     "route" % (offset, route))
+            if offset:
+                try:
+                    L.lrn_forward(x, route="register", **kw)
+                except ValueError:
+                    pass
+                else:
+                    fail("a forced register route at a storage offset "
+                         "was not refused")
+            outs = {}
+            for way in ("wide", None):
+                before = (dict(L.lrn_forward.launches_by_route),
+                          dict(L.lrn_backward.launches_by_route))
+                outs[way or route] = (L.lrn_forward(x, route=way, **kw),
+                                      L.lrn_backward(x, dy, route=way, **kw))
+                want = way or route
+                for wrapper, was in zip((L.lrn_forward, L.lrn_backward),
+                                        before):
+                    if wrapper.launches_by_route[want] != was[want] + 1:
+                        fail("lrn %s launched %s, not the %s route" % (
+                            name, wrapper.launches_by_route, want))
+            torch.cuda.synchronize()
+            if route == "register":
+                same = all(torch.equal(bits(a), bits(b)) for a, b in
+                           zip(outs["register"], outs["wide"]))
+                equal += same
+                if not same:
+                    unequal.append("%s %s" % (name, label))
+            for way, (y, dx) in outs.items():
+                fwd, bwd, errs, faults = lrn_shares(x, dy, y=y, dx=dx, **kw)
+                rows.append((name, label, way, fwd, bwd, errs))
+                for key, val in (("forward", fwd), ("backward", bwd)):
+                    was = worst.get((label, key), (0.0, None))
+                    if val > was[0]:
+                        worst[(label, key)] = (val, "%s (%s)" % (name, way))
+                if way != route:
+                    continue
+                if name.startswith("lrn") and dtype == torch.bfloat16:
+                    main_err["lrn_forward"] = max(
+                        main_err.get("lrn_forward", 0.0), errs[0])
+                    main_err["lrn_backward"] = max(
+                        main_err.get("lrn_backward", 0.0), errs[1])
+                if name == "lrn1" or name.startswith("strong_n5_c96") or \
+                        name.startswith("strong_n4_c96"):
+                    fault_rows.append((name, label, faults))
+            del x, dy, outs
+    n_register = equal + len(unequal)
+    print("kernel check: lrn_forward/lrn_backward on both routes == "
+          "lrn_reference / autograd through it; tolerance f32 fwd rtol %g,"
+          " bwd %g x the terms' magnitude; bf16 fwd 2^-7 x |y| (one ulp), "
+          "bwd 2^-7 x (terms' magnitude + |dx|); largest share of the "
+          "tolerance:" % (LRN_F32_RTOL, LRN_F32_RTOL))
     for (label, key), (val, name) in sorted(worst.items()):
         print("  %s %-8s %.3g (%s)" % (label, key, val, name))
-    for name, label, fwd, bwd, errs in rows:
+    for name, label, way, fwd, bwd, errs in rows:
         if name.startswith("lrn"):
-            print("  %s %s: fwd share %.3g (max abs err %.3g), bwd share "
-                  "%.3g (max abs err %.3g)" % (name, label, fwd, errs[0],
-                                                bwd, errs[1]))
+            print("  %s %s %s: fwd share %.3g (max abs err %.3g), bwd share "
+                  "%.3g (max abs err %.3g)" % (name, label, way, fwd,
+                                                errs[0], bwd, errs[1]))
+    print("kernel check: register == wide, y and dx bit for bit: %d/%d "
+          "cases" % (equal, n_register))
     print("planted faults (share of the same tolerance; > 1 = flagged):")
     for name, label, faults in fault_rows:
         print("  %s %s: %s" % (name, label, ", ".join(
             "%s %.3g" % kv for kv in sorted(faults.items()))))
-    for name, label, fwd, bwd, errs in rows:
+    for name, label, way, fwd, bwd, errs in rows:
         if not (fwd <= 1.0 and bwd <= 1.0):
-            fail("lrn kernels disagree with their plain versions (%s, %s):"
-                 " forward %.3g, backward %.3g of the tolerance" % (
-                     name, label, fwd, bwd))
+            fail("lrn kernels disagree with their plain versions (%s, %s, "
+                 "%s route): forward %.3g, backward %.3g of the tolerance" %
+                 (name, label, way, fwd, bwd))
+    if unequal:
+        fail("the lrn register route differs from the wide route: %s" %
+             unequal)
     for name, label, faults in fault_rows:
         if name.startswith("strong") and not min(faults.values()) > 1.0:
             fail("a planted LRN fault passes the check at the strong "
                  "constants (%s, %s): %s" % (name, label, faults))
-    return main_err, worst, fault_rows, lrn_timings()
+    return (main_err, worst, fault_rows, "%d/%d" % (equal, n_register),
+            lrn_timings())
 
 
 def lrn_timings():
-    """B6 and B7 at the two main-path shapes (bfloat16): kernel, plain
-    version (the backward's plain version is autograd through
-    lrn_reference, its forward included), F.local_response_norm forward
-    and forward+backward, and the bound: bytes moved (x read and y
-    written; x and dy read and dx written) at 3.35 TB/s against the
-    float32 operations ((n + 5) per element forward, (2n + 12)
-    backward) at 67 TFLOP/s."""
+    """B6 and B7 at the two main-path shapes (bfloat16) on both routes
+    by :func:`cold_ms` (the device time of a CUDA graph of launches
+    rotating among input copies of more than twice the L2); the plain
+    version (the backward's is autograd through lrn_reference, its
+    forward included) and F.local_response_norm forward and
+    forward+backward by back-to-back calls (:func:`cuda_ms`); and the
+    bound: bytes moved (x read and y written; x and dy read and dx
+    written) at 3.35 TB/s against the float32 operations ((n + 5) per
+    element forward, (2n + 12) backward) at 67 TFLOP/s.  A share of the
+    bound over 1 fails."""
     import torch
     import torch.nn.functional as F
     from veles_tpu_torch.ops import lrn as L
@@ -1194,21 +1284,30 @@ def lrn_timings():
                                       kw["beta"], kw["k"])
             torch.autograd.grad(y, leaf, dyc)
 
-        elem = x.numel()
+        def forward(a, route=None):
+            return L.lrn_forward(a, route=route, **kw)
+
+        def backward(a, g, route=None):
+            return L.lrn_backward(a, g, route=route, **kw)
+
+        elem, size = x.numel(), x.element_size()
         t = {
             "lrn_forward": dict(
-                kernel_ms=cuda_ms(lambda: L.lrn_forward(x, **kw)),
+                kernel_ms=cold_ms(forward, (x,), 2 * size * elem),
+                wide_ms=cold_ms(forward, (x, "wide"), 2 * size * elem),
                 plain_ms=cuda_ms(lambda: L.lrn_reference(x, **kw),
                                  iters=10, warmup=2),
                 library_ms=cuda_ms(library_fwd, iters=10, warmup=2),
-                bytes=2 * 2 * elem, ops=(kw["n"] + 5) * elem),
+                bytes=2 * size * elem, ops=(kw["n"] + 5) * elem),
             "lrn_backward": dict(
-                kernel_ms=cuda_ms(lambda: L.lrn_backward(x, dy, **kw)),
+                kernel_ms=cold_ms(backward, (x, dy), 3 * size * elem),
+                wide_ms=cold_ms(backward, (x, dy, "wide"),
+                                3 * size * elem),
                 plain_ms=cuda_ms(
                     lambda: L.lrn_backward_reference(x, dy, **kw),
                     iters=10, warmup=2),
                 library_ms=cuda_ms(library_fwd_bwd, iters=10, warmup=2),
-                bytes=3 * 2 * elem, ops=(2 * kw["n"] + 12) * elem),
+                bytes=3 * size * elem, ops=(2 * kw["n"] + 12) * elem),
         }
         for kernel, row in t.items():
             bytes_ms = row["bytes"] / HBM_BYTES_PER_S * 1e3
@@ -1216,14 +1315,24 @@ def lrn_timings():
             row["bound_ms"] = max(bytes_ms, ops_ms)
             row["bound_by"] = "bytes" if bytes_ms >= ops_ms else \
                 "operations"
-            print("kernel timing %s %s %s bf16: kernel %.4f ms, plain "
-                  "%.4f ms, F.local_response_norm %s %.4f ms, bound %.4f "
-                  "ms (%s; %.1f MB, %.2f GFLOP)" % (
+            row["share"] = row["bound_ms"] / row["kernel_ms"]
+            row["wide_share"] = row["bound_ms"] / row["wide_ms"]
+            print("kernel timing %s %s %s bf16 (L2-proof, graph replay): "
+                  "register route %.4f ms (%.1f%% of its bound), wide "
+                  "route %.4f ms (%.1f%%); back-to-back: plain %.4f ms, "
+                  "F.local_response_norm %s %.4f ms; bound %.4f ms (%s; "
+                  "%.1f MB, %.2f GFLOP)" % (
                       kernel, name, shape, row["kernel_ms"],
-                      row["plain_ms"], "forward" if kernel ==
-                      "lrn_forward" else "forward+backward",
-                      row["library_ms"], row["bound_ms"], row["bound_by"],
-                      row["bytes"] / 1e6, row["ops"] / 1e9))
+                      100 * row["share"], row["wide_ms"],
+                      100 * row["wide_share"], row["plain_ms"],
+                      "forward" if kernel == "lrn_forward" else
+                      "forward+backward", row["library_ms"],
+                      row["bound_ms"], row["bound_by"], row["bytes"] / 1e6,
+                      row["ops"] / 1e9))
+            if max(row["share"], row["wide_share"]) > 1.0:
+                fail("%s %s reads over its bound: %.4f / %.4f ms against "
+                     "%.4f" % (kernel, name, row["kernel_ms"],
+                               row["wide_ms"], row["bound_ms"]))
             out[(kernel, name)] = row
         del x, dy, leaf, dyc
     return out
@@ -1686,11 +1795,13 @@ def phase_alexnet(smi):
     compiler.execute = timed_execute
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    L.lrn_forward.launches = L.lrn_backward.launches = 0
+    L.reset_launches()
     launcher.run()
     torch.cuda.synchronize()
     launches = {"lrn_forward": L.lrn_forward.launches,
                 "lrn_backward": L.lrn_backward.launches}
+    by_route = {"lrn_forward": dict(L.lrn_forward.launches_by_route),
+                "lrn_backward": dict(L.lrn_backward.launches_by_route)}
     peak = torch.cuda.max_memory_allocated()
     compiler.execute = execute
     results = wf.gather_results()
@@ -1707,6 +1818,9 @@ def phase_alexnet(smi):
     if launches != expected:
         fail("LRN kernels launched %s times, the ticks imply %s" %
              (launches, expected))
+    print("alexnet: LRN launches by route %s" % by_route)
+    if any(routes["wide"] for routes in by_route.values()):
+        fail("an AlexNet LRN launch took the wide route: %s" % by_route)
     device = next(iter(compiler._param_vecs.values())).devmem.device
 
     def restore(tick):
@@ -1759,8 +1873,8 @@ def phase_alexnet(smi):
 
     def planted_launch(fn, name, *args):
         launch(fn, name, *args)
-        if fn == "veles_lrn_bwd":
-            args[3].mul_(ALEXNET_PLANTED_SCALE)
+        if fn == "veles_lrn_bwd":   # (route, dtype, x, dy, dx, ...)
+            args[4].mul_(ALEXNET_PLANTED_SCALE)
 
     restore(ticks[first])
     L._launch = planted_launch
@@ -1868,7 +1982,7 @@ def phase_alexnet(smi):
               ["%.4f" % x for x in plain_train_s], plain_s[0],
               peak / 1e9))
     del ticks, afters
-    return launches, numbers
+    return launches, by_route, numbers
 
 
 def post(url, body, timeout=600, token=None):
@@ -2874,13 +2988,14 @@ def main():
     quant_worst, quant_faults, quant_b4_equal, inv_rows, quant_times = \
         phase_quant_kernels()
     flash_err, split_shares, flash_times = phase_flash_kernels()
-    lrn_err, lrn_worst, lrn_faults_read, lrn_times = phase_lrn_kernels()
+    lrn_err, lrn_worst, lrn_faults_read, lrn_equal, lrn_times = \
+        phase_lrn_kernels()
     gc.collect()
     torch.cuda.empty_cache()
     flash_launches, training = phase_training(smi)
     gc.collect()
     torch.cuda.empty_cache()
-    lrn_launches, alexnet = phase_alexnet(smi)
+    lrn_launches, lrn_routes, alexnet = phase_alexnet(smi)
     gc.collect()
     torch.cuda.empty_cache()
     workdir = os.path.join(HERE, ".chip_smoke")
@@ -3014,6 +3129,7 @@ def main():
                      " and ".join("%s %s" % (n, sh) for n, sh in
                                   LRN_SHAPES),
             "launches": lrn_launches[name],
+            "launches_by_route": lrn_routes[name],
             "max_abs_err": lrn_err[name],
             "tol": "f32 fwd rtol %g, bwd %g x the terms' magnitude; bf16 "
                    "fwd 2^-7 x |y|, bwd 2^-7 x (terms' magnitude + |dx|)"
@@ -3022,11 +3138,20 @@ def main():
                 "%s %s" % k: v[0] for k, v in lrn_worst.items()},
             "planted_faults": {"%s %s" % (n, lab): f for n, lab, f in
                                lrn_faults_read},
+            "register_equals_wide": lrn_equal,
+            "timer": "kernels: CUDA events around a CUDA graph of launches "
+                     "rotating among input copies of more than twice the "
+                     "L2; plain and library: back-to-back calls",
             "ms": sum(r["kernel_ms"] for r in rows),
             "per_shape_ms": [r["kernel_ms"] for r in rows],
+            "wide_route_ms": sum(r["wide_ms"] for r in rows),
+            "wide_route_per_shape_ms": [r["wide_ms"] for r in rows],
             "plain_ms": sum(r["plain_ms"] for r in rows),
             "bound_ms": sum(r["bound_ms"] for r in rows),
             "bound_by": rows[0]["bound_by"],
+            "share_of_bound": sum(r["bound_ms"] for r in rows) /
+            sum(r["kernel_ms"] for r in rows),
+            "per_shape_share_of_bound": [r["share"] for r in rows],
             # No one PyTorch call computes the backward alone: its
             # yardstick is the library's forward+backward, kept apart.
             "library_ms": sum(r["library_ms"] for r in rows)

@@ -5,6 +5,7 @@ Run from the root of a checkout, on a machine with one CUDA card:
 
     python3 serve_ab.py OTHER_TREE [--rows N ...]
     python3 serve_ab.py OTHER_TREE --kernels
+    python3 serve_ab.py OTHER_TREE --lrn
 
 ``OTHER_TREE`` is another checkout of the repository (for example the
 parent commit unpacked with ``git archive``).  One full-width LM
@@ -31,6 +32,15 @@ launches that rotate among input copies of more than twice the L2,
 beside the host's time per call) on the same inputs, made from
 ``chip_smoke.SEED``, so the two trees are read alike.
 
+With ``--lrn`` each process runs its tree's LRN kernels (B6, B7) on the
+route its wrapper picks, in turns other, this, this, other: at
+``chip_smoke.LRN_SHAPES`` with AlexNet's constants (bfloat16, timed by
+this tree's ``chip_smoke.cold_ms``) and at ``LRN_AB_CASES`` (strong
+constants, float32 and bfloat16), on inputs made from
+``chip_smoke.SEED``; it reports a sha256 of every y and dx, and the
+last line says in how many cases the two trees' outputs are the same
+bytes.
+
 The card's name and power limit come first, one JSON line per process
 after them; a process that reports nothing makes the exit code 1.
 """
@@ -48,6 +58,9 @@ PROMPT_LENGTHS = (5, 12, 40, 200, 700, 48, 130)
 WAVES, MAX_NEW, MAX_BATCH = 3, 32, 8
 KERNEL_SHAPES = [(plane, Sq) for plane in ("f32", "int8", "fp8")
                  for Sq in (1, 16)]
+#: ``--lrn``'s cases beside the main-path shapes: (n, C) at the strong
+#: constants (k = 1, alpha = n, beta = 0.75) over 3·37·41 rows.
+LRN_AB_CASES = [(n, c) for n in (3, 4, 5) for c in (7, 96, 100, 256)]
 
 
 def measure(tree, path, rows=None):
@@ -155,11 +168,53 @@ def measure_kernels(tree):
     print("RESULT " + json.dumps(out))
 
 
+def measure_lrn(tree):
+    """One process: ``tree``'s LRN kernels on ``--lrn``'s cases; prints
+    ``RESULT <json>`` with the sha256 of each output and the main-path
+    times."""
+    import hashlib
+    sys.path.insert(0, tree)
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke_timer", os.path.join(HERE, "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    import torch
+    from veles_tpu_torch.backends import resolve_device
+    from veles_tpu_torch.ops import lrn as L
+    resolve_device("cuda")
+    gen = torch.Generator(device="cuda").manual_seed(smoke.SEED)
+    cases = [(name, shape, torch.bfloat16, smoke.ALEXNET_LRN)
+             for name, shape in smoke.LRN_SHAPES] + [
+        ("n%d_c%d_%s" % (n, c, str(dtype)[6:]), (3, 37, 41, c), dtype,
+         dict(n=n, alpha=float(n), beta=0.75, k=1.0))
+        for n, c in LRN_AB_CASES for dtype in (torch.float32,
+                                               torch.bfloat16)]
+    out = {"sha256": {}, "ms": {}}
+    for name, shape, dtype, kw in cases:
+        x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+        dy = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+        for kernel, got in (("y", L.lrn_forward(x, **kw)),
+                            ("dx", L.lrn_backward(x, dy, **kw))):
+            out["sha256"]["%s %s" % (name, kernel)] = hashlib.sha256(
+                got.contiguous().view(torch.uint8).cpu().numpy()
+                .tobytes()).hexdigest()
+        if name in dict(smoke.LRN_SHAPES):
+            size = x.numel() * x.element_size()
+            out["ms"][name] = {
+                "lrn_forward": smoke.cold_ms(
+                    lambda a: L.lrn_forward(a, **kw), (x,), 2 * size),
+                "lrn_backward": smoke.cold_ms(
+                    lambda a, g: L.lrn_backward(a, g, **kw), (x, dy),
+                    3 * size)}
+        del x, dy
+    print("RESULT " + json.dumps(out))
+
+
 def run_turns(order):
     """Runs each ``(label, command arguments)`` of ``order`` in a
     process of its own and prints its result; returns whether every
-    process reported one."""
-    ok = True
+    process reported one, and the results."""
+    ok, results = True, []
     for label, args in order:
         done = subprocess.run(
             [sys.executable, os.path.abspath(__file__)] + args,
@@ -167,9 +222,11 @@ def run_turns(order):
         line = [x for x in done.stdout.splitlines()
                 if x.startswith("RESULT ")]
         ok &= bool(line)
-        print(json.dumps({"tree": label, "result": json.loads(
-            line[0][7:]) if line else done.stderr[-2000:]}), flush=True)
-    return ok
+        result = json.loads(line[0][7:]) if line else None
+        results.append((label, result))
+        print(json.dumps({"tree": label, "result": result if line
+                          else done.stderr[-2000:]}), flush=True)
+    return ok, results
 
 
 def main():
@@ -177,6 +234,8 @@ def main():
         return measure(*sys.argv[2:])
     if len(sys.argv) > 1 and sys.argv[1] == "--measure-kernels":
         return measure_kernels(sys.argv[2])
+    if len(sys.argv) > 1 and sys.argv[1] == "--measure-lrn":
+        return measure_lrn(sys.argv[2])
     if len(sys.argv) < 2:
         sys.exit(__doc__)
     other = os.path.abspath(sys.argv[1])
@@ -191,7 +250,19 @@ def main():
     if sys.argv[2:3] == ["--kernels"]:
         runs = [("other", ["--measure-kernels", other]),
                 ("this", ["--measure-kernels", HERE])]
-        sys.exit(0 if run_turns(runs + runs[::-1]) else 1)
+        sys.exit(0 if run_turns(runs + runs[::-1])[0] else 1)
+    if sys.argv[2:3] == ["--lrn"]:
+        runs = [("other", ["--measure-lrn", other]),
+                ("this", ["--measure-lrn", HERE])]
+        ok, results = run_turns(runs + runs[::-1])
+        if not ok:
+            sys.exit(1)
+        hashes = {label: r["sha256"] for label, r in results}
+        same = sum(hashes["other"][k] == v
+                   for k, v in hashes["this"].items())
+        print("lrn: the two trees' y and dx are the same bytes in %d/%d "
+              "outputs" % (same, len(hashes["this"])))
+        sys.exit(0)
     from veles_tpu_torch import export as X
     workdir = os.path.join(HERE, ".chip_smoke")
     os.makedirs(workdir, exist_ok=True)
@@ -203,7 +274,7 @@ def main():
     runs += [("this rows=%s" % r, ["--measure", HERE, path, r])
              for r in rows]
     try:
-        ok = run_turns(runs + runs[::-1])
+        ok = run_turns(runs + runs[::-1])[0]
     finally:
         os.remove(path)
     sys.exit(0 if ok else 1)

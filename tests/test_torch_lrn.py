@@ -7,6 +7,12 @@ term or a swapped transpose passes any check there: every comparison
 here also runs at constants where the window dominates (k = 1, α = n,
 β = 0.75, n ∈ {3, 4, 5}, 4 being the asymmetric even window).
 
+The kernels take one of two routes (``lrn_route``: "register" while the
+window's halo fits one 16-byte vector a side on 16-byte aligned data,
+"wide" otherwise): the route choice and the wrappers' route plumbing
+are tested here on the CPU, and the register route's bit-equality with
+the wide route on the card (``cuda``-marked).
+
 Tolerances, by comparison:
 
 * port plain vs ``lrn_reference`` (the formulation the JAX AlexNet tick
@@ -86,12 +92,14 @@ def test_band_matrix_matches_jax_and_even_window_is_asymmetric():
 
 
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
-@pytest.mark.parametrize("c", [7, 96])
+@pytest.mark.parametrize("c", [7, 24, 96, 264])
 @pytest.mark.parametrize("consts", sorted(CONSTANTS))
 def test_plain_matches_jax(consts, c, dtype):
     """Forward and gradient of the plain version against the JAX
     package's ``lrn_reference`` (jax.vjp vs torch.autograd) and against
-    the Pallas kernel in interpret mode."""
+    the Pallas kernel in interpret mode, at channel counts the card's
+    route gate runs (rows that end inside a warp's tile, on its edge and
+    inside a 16-byte bfloat16 vector)."""
     n, alpha, beta, k = CONSTANTS[consts]
     x, dy = _inputs(c, seed=c + n)
     xt, xj = _pair(x, dtype)
@@ -191,6 +199,47 @@ def test_refusals():
         L.lrn_backward(torch.zeros((2, 8)), torch.zeros((2, 9)), *ALEXNET)
 
 
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_route_register_while_the_halo_fits_a_vector(dtype):
+    """The register route takes every window whose halo (n // 2 below,
+    n - 1 - n // 2 above, clipped to C - 1) fits one 16-byte vector a
+    side — n <= 17 in bfloat16, n <= 9 in float32 — on 16-byte aligned
+    data; a wider window takes the wide route, unless the row is too
+    short to need it."""
+    tdt = DTYPES[dtype][0]
+    widest = 17 if dtype == "bf16" else 9
+    ptrs = [0, 16, 4096]
+    for c in (1, 7, 96, 264, L.MAX_CHANNELS):
+        for n in range(1, widest + 1):
+            assert L.lrn_route(c, n, tdt, ptrs) == "register", (c, n)
+    for n in (widest + 1, widest + 2, 64):
+        assert L.lrn_route(96, n, tdt, ptrs) == "wide", n
+    # n // 2 and n - 1 - n // 2 clip to C - 1: a row of 2 has a halo of 1.
+    assert L.lrn_route(2, 64, tdt, ptrs) == "register"
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_route_wide_off_16_bytes(dtype):
+    """An address that is not a multiple of 16 bytes — one element (2 or
+    4 bytes) or 8 bytes off — takes the wide route, whichever tensor it
+    is."""
+    tdt = DTYPES[dtype][0]
+    size = 4 if dtype == "f32" else 2
+    for off in (size, 8, 16 - size):
+        for at in range(3):
+            ptrs = [4096, 4096, 4096]
+            ptrs[at] += off
+            assert L.lrn_route(96, 5, tdt, ptrs) == "wide", (off, at)
+
+
+def test_route_refuses_outside_the_contract():
+    for dtype, c, n in ((torch.float16, 96, 5), (torch.float32, 0, 5),
+                        (torch.float32, L.MAX_CHANNELS + 1, 5),
+                        (torch.bfloat16, 96, 0)):
+        with pytest.raises(ValueError):
+            L.lrn_route(c, n, dtype, [0])
+
+
 class _CardTensor(torch.Tensor):
     """A CPU tensor that reports a CUDA device: what the dispatch sees of
     a tensor on the card, without one."""
@@ -245,6 +294,38 @@ def test_card_tensor_without_a_kernel_library_raises(lrn_knob, monkeypatch,
         _unit_on(x, knob, lrn_knob)
 
 
+def test_card_tensor_launches_on_its_route(monkeypatch):
+    """On a CUDA tensor each wrapper launches its kernel once, with the
+    route code :func:`lrn_route` picks, counted in ``launches`` and
+    ``launches_by_route``: aligned data the register route, data one
+    element off 16 bytes the wide route; ``route="wide"`` forces the wide
+    route, and a forced register route outside its contract, or an
+    unknown route, raises before any launch."""
+    calls = []
+    monkeypatch.setattr(L, "_launch",
+                        lambda fn, name, route, *args: calls.append(
+                            (fn, route)))
+    L.reset_launches()
+    shape = (2, 3, 5, 96)
+    x = torch.zeros(shape).as_subclass(_CardTensor)
+    L.lrn_forward(x, *ALEXNET)
+    L.lrn_backward(x, x, *ALEXNET)
+    L.lrn_forward(x, *ALEXNET, route="wide")
+    off = torch.zeros(2 * 3 * 5 * 96 + 1)[1:].view(shape).as_subclass(
+        _CardTensor)
+    L.lrn_backward(off, off, *ALEXNET)
+    with pytest.raises(ValueError, match="register route refused"):
+        L.lrn_forward(off, *ALEXNET, route="register")
+    with pytest.raises(ValueError, match="none of"):
+        L.lrn_forward(x, *ALEXNET, route="shared")
+    assert calls == [("veles_lrn_fwd", 1), ("veles_lrn_bwd", 1),
+                     ("veles_lrn_fwd", 0), ("veles_lrn_bwd", 0)]
+    assert L.lrn_forward.launches_by_route == {"register": 1, "wide": 1}
+    assert L.lrn_backward.launches_by_route == {"register": 1, "wide": 1}
+    assert (L.lrn_forward.launches, L.lrn_backward.launches) == (2, 2)
+    L.reset_launches()
+
+
 def test_knob_false_takes_the_plain_version_on_the_card(lrn_knob,
                                                         monkeypatch):
     """``pallas_lrn = False`` takes the plain banded version whatever the
@@ -296,6 +377,75 @@ def test_kernels_match_plain_on_the_card(cuda_card, consts, dtype):
     want_y = L.lrn_reference(x, n, alpha, beta, k).float()
     want_dx = L.lrn_backward_reference(x, dy, n, alpha, beta, k).float()
     _, scale = L.lrn_backward_formula(x, dy, n, alpha, beta, k)
+    rtol = 1e-5 if dtype == "f32" else 2.0 ** -7
+    assert ((y - want_y).abs() <= rtol * want_y.abs()).all()
+    tol = 1e-5 * scale if dtype == "f32" else \
+        2.0 ** -7 * (scale + want_dx.abs())
+    assert ((dx - want_dx).abs() <= tol).all()
+
+
+#: Channel counts of the register route's bit-equality gate: rows shorter
+#: than a vector, rows ending inside a vector (7, 100, 264, 1000 in
+#: bfloat16), inside a warp's tile and on its edge, and the limit.
+GATE_C = (1, 2, 7, 24, 96, 100, 256, 264, 1000, 4096)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("n", [1, 3, 4, 5, "widest"])
+def test_register_route_equals_wide_route_on_the_card(cuda_card, dtype, n):
+    """The register route's y and dx equal the wide route's bit for bit
+    at every channel count of GATE_C over a ragged row count, at the
+    strong constants (n = 4 the even window; "widest" 17 in bfloat16, 9
+    in float32)."""
+    tdt = DTYPES[dtype][0]
+    n = (17 if dtype == "bf16" else 9) if n == "widest" else n
+    gen = torch.Generator(device=cuda_card).manual_seed(n)
+    for c in GATE_C:
+        rows = 37 * 41 if c < 1000 else 123
+        x = torch.randn((rows, c), generator=gen, device=cuda_card).to(tdt)
+        dy = torch.randn(x.shape, generator=gen, device=cuda_card).to(tdt)
+        consts = (n, float(n), 0.75, 1.0)
+        assert L.lrn_route(c, n, tdt, [x.data_ptr(), dy.data_ptr()]) == \
+            "register"
+        before = (L.lrn_forward.launches_by_route["register"],
+                  L.lrn_backward.launches_by_route["register"])
+        y = L.lrn_forward(x, *consts)
+        dx = L.lrn_backward(x, dy, *consts)
+        assert (L.lrn_forward.launches_by_route["register"],
+                L.lrn_backward.launches_by_route["register"]) == (
+                    before[0] + 1, before[1] + 1)
+        assert torch.equal(y, L.lrn_forward(x, *consts, route="wide")), c
+        assert torch.equal(
+            dx, L.lrn_backward(x, dy, *consts, route="wide")), c
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_unaligned_storage_takes_the_wide_route_on_the_card(cuda_card,
+                                                            dtype):
+    """x and dy one element into their storage launch the wide route
+    (``launches_by_route``), agree with the plain version within the
+    card's tolerances, and a forced register route raises."""
+    tdt = DTYPES[dtype][0]
+    gen = torch.Generator(device=cuda_card).manual_seed(11)
+    shape = (3, 37, 41, 96)
+    numel = 3 * 37 * 41 * 96
+    x, dy = (torch.randn(numel + 1, generator=gen, device=cuda_card).to(
+        tdt)[1:].view(shape) for _ in range(2))
+    consts = CONSTANTS["strong_n5"]
+    before = (L.lrn_forward.launches_by_route["wide"],
+              L.lrn_backward.launches_by_route["wide"])
+    y = L.lrn_forward(x, *consts).float()
+    dx = L.lrn_backward(x, dy, *consts).float()
+    assert (L.lrn_forward.launches_by_route["wide"],
+            L.lrn_backward.launches_by_route["wide"]) == (
+                before[0] + 1, before[1] + 1)
+    with pytest.raises(ValueError, match="register route refused"):
+        L.lrn_forward(x, *consts, route="register")
+    want_y = L.lrn_reference(x, *consts).float()
+    want_dx = L.lrn_backward_reference(x, dy, *consts).float()
+    _, scale = L.lrn_backward_formula(x, dy, *consts)
     rtol = 1e-5 if dtype == "f32" else 2.0 ** -7
     assert ((y - want_y).abs() <= rtol * want_y.abs()).all()
     tol = 1e-5 * scale if dtype == "f32" else \

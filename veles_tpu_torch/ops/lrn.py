@@ -16,9 +16,17 @@ over the last (channel) axis.  What lives here:
   :func:`lrn_backward_formula` (the explicit float32 dx formula the
   backward kernel computes, with the scale of its rounding error);
 * the wrappers :func:`lrn_forward` and :func:`lrn_backward` — the
-  plain version for CPU tensors, the hand-written CUDA kernel
+  plain version for CPU tensors, a hand-written CUDA kernel
   (``csrc/lrn.cu``) for CUDA tensors — each with a ``launches`` count,
-  one more per kernel launch;
+  one more per kernel launch, and ``launches_by_route``, the same count
+  by route;
+* :func:`lrn_route`, the kernels' two routes: "register" (16-byte
+  vectors, the window's halo from the neighbouring lanes by warp
+  shuffles) for every call whose halo fits one vector on each side
+  (``n // 2`` and ``n - 1 - n // 2``, clipped to ``C - 1``, at most 8
+  in bfloat16 and 4 in float32: n <= 17 and n <= 9) with 16-byte
+  aligned data, "wide" (tiles of whole rows through shared memory) for
+  every other call; the two agree bit for bit;
 * :func:`lrn`, the dispatch: a CPU tensor takes :func:`lrn_reference`;
   a CUDA tensor goes through a ``torch.autograd.Function`` whose
   forward launches B6 and whose backward launches B7.
@@ -43,6 +51,12 @@ from . import nvcc
 #: Largest channel count the kernels take (one row must fit a tile).
 MAX_CHANNELS = 4096
 _CODES = {torch.float32: 0, torch.bfloat16: 1}
+#: Elements in a 16-byte vector: the register route's unit and the
+#: widest halo it takes on each side.
+VECTOR = {torch.float32: 4, torch.bfloat16: 8}
+#: Kernel routes (:func:`lrn_route`) and their codes in ``csrc/lrn.cu``.
+ROUTES = ("register", "wide")
+_ROUTE_CODES = {"wide": 0, "register": 1}
 
 SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc",
                       "lrn.cu")
@@ -105,14 +119,33 @@ def lrn_backward_formula(x, dy, n, alpha, beta, k):
 # -- the kernels --------------------------------------------------------------
 
 
-def _check(x, n, *rest):
-    if x.dtype not in _CODES:
-        raise ValueError("lrn takes float32 or bfloat16, got %s" % x.dtype)
-    c = x.shape[-1] if x.dim() else 0
+def _check_contract(c, n, dtype, shape):
+    if dtype not in _CODES:
+        raise ValueError("lrn takes float32 or bfloat16, got %s" % dtype)
     if not 1 <= c <= MAX_CHANNELS or int(n) < 1:
         raise ValueError("lrn contract: 1 <= C <= %d channels on the last "
                          "axis and n >= 1, got shape %s, n=%r" %
-                         (MAX_CHANNELS, tuple(x.shape), n))
+                         (MAX_CHANNELS, shape, n))
+
+
+def lrn_route(c, n, dtype, data_ptrs):
+    """The route of a CUDA launch over ``c`` channels with window ``n``
+    on tensors of ``dtype`` at the addresses ``data_ptrs``: "register"
+    when the window's halo — ``n // 2`` channels below and ``n - 1 - n //
+    2`` above, each clipped to ``c - 1`` — fits one 16-byte vector on each
+    side (``VECTOR[dtype]`` elements) and every address is a multiple of
+    16 bytes; "wide" otherwise.  Raises outside the contract."""
+    _check_contract(c, n, dtype, (c,))
+    n = int(n)
+    lo, hi = min(n // 2, c - 1), min(n - 1 - n // 2, c - 1)
+    if max(lo, hi) <= VECTOR[dtype] and all(p % 16 == 0 for p in data_ptrs):
+        return "register"
+    return "wide"
+
+
+def _check(x, n, *rest):
+    _check_contract(x.shape[-1] if x.dim() else 0, n, x.dtype,
+                    tuple(x.shape))
     for t in rest:
         if t.shape != x.shape or t.dtype != x.dtype or \
                 t.device != x.device:
@@ -125,8 +158,10 @@ def _check(x, n, *rest):
 
 
 def _launch(fn, name, *args):
+    """Calls the C entry point ``fn`` with ``args`` (tensors as their
+    addresses) on the current stream of the first tensor's device."""
     lib = _library()
-    device = args[1].device
+    device = next(a for a in args if isinstance(a, torch.Tensor)).device
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = getattr(lib, fn)(*[
@@ -144,38 +179,74 @@ def _geometry(x, n, alpha, beta, k):
             float(beta))
 
 
-def lrn_forward(x, n, alpha, beta, k):
+def _chosen(route, x, n, tensors):
+    """The route of a launch: :func:`lrn_route`'s, or ``route`` where the
+    caller forces one ("wide" always fits; "register" raises outside its
+    contract)."""
+    fits = lrn_route(x.shape[-1], n, x.dtype,
+                     [t.data_ptr() for t in tensors])
+    if route is None:
+        return fits
+    if route not in ROUTES:
+        raise ValueError("lrn route %r is none of %s" % (route, ROUTES))
+    if route == "register" and fits != "register":
+        raise ValueError(
+            "lrn register route refused: it takes a window halo of at "
+            "most %d channels a side and 16-byte aligned data, got n=%r "
+            "over C=%d at addresses %s" % (
+                VECTOR[x.dtype], n, x.shape[-1],
+                [t.data_ptr() % 16 for t in tensors]))
+    return route
+
+
+def _count(wrapper, way):
+    wrapper.launches += 1
+    wrapper.launches_by_route[way] += 1
+
+
+def lrn_forward(x, n, alpha, beta, k, route=None):
     """y.  CPU tensors take :func:`lrn_reference`; CUDA tensors launch
-    the forward kernel (adding one to ``lrn_forward.launches``) on the
+    the forward kernel on the route :func:`lrn_route` picks (``route``
+    forces one, for the A/B of the two), adding one to
+    ``lrn_forward.launches`` and to its ``launches_by_route``, on the
     current stream, or raise."""
     _check(x, n)
     if x.device.type == "cpu":
         return lrn_reference(x, n, alpha, beta, k)
     x = x.contiguous()
     y = torch.empty_like(x)
-    _launch("veles_lrn_fwd", "lrn forward", _CODES[x.dtype], x, y,
-            *_geometry(x, n, alpha, beta, k))
-    lrn_forward.launches += 1
+    way = _chosen(route, x, n, (x, y))
+    _launch("veles_lrn_fwd", "lrn forward", _ROUTE_CODES[way],
+            _CODES[x.dtype], x, y, *_geometry(x, n, alpha, beta, k))
+    _count(lrn_forward, way)
     return y
 
 
-def lrn_backward(x, dy, n, alpha, beta, k):
+def lrn_backward(x, dy, n, alpha, beta, k, route=None):
     """dx from the forward's input and the output cotangent.  CPU
     tensors take :func:`lrn_backward_reference`; CUDA tensors launch the
-    backward kernel (``lrn_backward.launches``) or raise."""
+    backward kernel on its route as :func:`lrn_forward` does
+    (``lrn_backward.launches``, ``.launches_by_route``) or raise."""
     _check(x, n, dy)
     if x.device.type == "cpu":
         return lrn_backward_reference(x, dy, n, alpha, beta, k)
     x, dy = x.contiguous(), dy.contiguous()
     dx = torch.empty_like(x)
-    _launch("veles_lrn_bwd", "lrn backward", _CODES[x.dtype], x, dy, dx,
-            *_geometry(x, n, alpha, beta, k))
-    lrn_backward.launches += 1
+    way = _chosen(route, x, n, (x, dy, dx))
+    _launch("veles_lrn_bwd", "lrn backward", _ROUTE_CODES[way],
+            _CODES[x.dtype], x, dy, dx, *_geometry(x, n, alpha, beta, k))
+    _count(lrn_backward, way)
     return dx
 
 
-lrn_forward.launches = 0
-lrn_backward.launches = 0
+def reset_launches():
+    """Zeroes both wrappers' launch counts."""
+    for wrapper in (lrn_forward, lrn_backward):
+        wrapper.launches = 0
+        wrapper.launches_by_route = dict.fromkeys(ROUTES, 0)
+
+
+reset_launches()
 
 
 class _LRN(torch.autograd.Function):
@@ -225,8 +296,9 @@ def _library():
                 lib = ctypes.CDLL(build())
                 vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
                 geometry = [ctypes.c_longlong, ci, ci, cf, cf, cf, vp]
-                lib.veles_lrn_fwd.argtypes = [ci, vp, vp] + geometry
-                lib.veles_lrn_bwd.argtypes = [ci, vp, vp, vp] + geometry
+                lib.veles_lrn_fwd.argtypes = [ci, ci, vp, vp] + geometry
+                lib.veles_lrn_bwd.argtypes = [ci, ci, vp, vp, vp] + \
+                    geometry
                 for fn in ("veles_lrn_fwd", "veles_lrn_bwd",
                            "veles_lrn_max_c"):
                     getattr(lib, fn).restype = ci

@@ -8,8 +8,10 @@
 The knob ``root.common.engine.pallas_lrn`` keeps its JAX name and
 chooses the path, with another default: unset or True, a CUDA tensor
 launches the hand-written forward and backward kernels
-(``ops/lrn.py``, B6/B7) and a CPU tensor takes the plain banded
-version; False takes the plain banded version
+(``ops/lrn.py``, B6/B7, on the register route of 16-byte vectors and
+warp shuffles for AlexNet's n = 5, the wide route of shared-memory rows
+for windows or storage offsets it does not take) and a CPU tensor takes
+the plain banded version; False takes the plain banded version
 (``ops.lrn.lrn_reference``) on any device — the only way to it on the
 card.  (In the JAX package the kernel is opt-in, because it lost end to
 end on the TPU for TPU-specific reasons; on the card it is measured,
