@@ -58,6 +58,18 @@ non-zero:
    LRN launch counts are held as in phase 5, every LRN launch must take
    the register route, a planted B7 fault must fail the gate, and one
    warm tick is profiled;
+6b. snapshots — MNIST FC through the command line on seeded synthetic
+   IDX files: a run resumed from ``-s <pointer>`` must equal a straight
+   run bit for bit (TF32 off), its pickle must load in a process that
+   has not touched CUDA, ``--guardian-policy rollback`` with a planted
+   ``step.nan`` must roll back once and converge, the same in two runs,
+   and the ``--snapshot-artifact`` artifact is served (``/api`` labels
+   == the local argmax, ``/api/generate`` 400); then phase 6's AlexNet
+   is snapshotted (codec ""), resumed into a fresh launcher whose train
+   tick must pass phase 6's gate against the live one's, and exported:
+   the artifact's forward on the card (its two ``norm`` units launch
+   B6 on the register route) must match ``forward_numpy`` at rtol 1e-3,
+   and a planted B6 fault must fail that gate;
 7. serving — writes the artifact, loads it on the card, starts the
    server with ``--warmup``, serves mixed concurrent ``/api/generate``
    requests over loopback HTTP through the paged engine, then a
@@ -84,8 +96,8 @@ non-zero:
    int8, and fp8 through the model API) a whole-prompt prefix-cache hit
    must compute its first logits, token and last-position k/v as the
    prompt's first serving did, bit for bit;
-10. exit — drains the servers, prints the training, AlexNet and serving
-   numbers and the kernels as JSON lines, the command's time, the
+10. exit — drains the servers, prints the training, AlexNet, snapshot
+   and serving numbers and the kernels as JSON lines, the command's time, the
    card's name and power limit, and ``{"ok": true, "device": {...}}``
    last.
 """
@@ -1729,6 +1741,23 @@ def profile_tick(run, label="alexnet profile of one warm train tick"):
     return out
 
 
+def alexnet_compare(compiler, after, before):
+    """Per parameter of ``compiler``'s live state against ``after`` (a
+    reference tick's result from the state ``before``): (gap, the
+    tick's change, the bound ALEXNET_CHANGE_TOL x change + ALEXNET_FLOOR
+    x sqrt(elements), elements)."""
+    import math
+    rows = {}
+    for name, vec in compiler._param_vecs.items():
+        now = vec.devmem
+        gap = (after[name].to(now.device) - now).norm().item()
+        change = (now - before[name].to(now.device)).norm().item()
+        rows[name] = (gap, change, ALEXNET_CHANGE_TOL * change +
+                      ALEXNET_FLOOR * math.sqrt(now.numel()),
+                      now.numel())
+    return rows
+
+
 def phase_alexnet(smi):
     """The AlexNet phase: the full-width ungrouped AlexNet through
     ``StandardWorkflow`` (``AlexNetWorkflow``, ``ImagenetLoader``'s
@@ -1833,15 +1862,7 @@ def phase_alexnet(smi):
         gen.set_state(rng_state)
 
     def compare(after, before):
-        rows = {}
-        for name, vec in compiler._param_vecs.items():
-            now = vec.devmem
-            gap = (after[name].to(device) - now).norm().item()
-            change = (now - before[name].to(device)).norm().item()
-            rows[name] = (gap, change, ALEXNET_CHANGE_TOL * change +
-                          ALEXNET_FLOOR * math.sqrt(now.numel()),
-                          now.numel())
-        return rows
+        return alexnet_compare(compiler, after, before)
 
     def timed(training):
         torch.cuda.synchronize()
@@ -1982,7 +2003,7 @@ def phase_alexnet(smi):
               ["%.4f" % x for x in plain_train_s], plain_s[0],
               peak / 1e9))
     del ticks, afters
-    return launches, by_route, numbers
+    return launches, by_route, numbers, wf
 
 
 def post(url, body, timeout=600, token=None):
@@ -1998,6 +2019,468 @@ def post(url, body, timeout=600, token=None):
 def get(url):
     with urllib.request.urlopen(url, timeout=60) as resp:
         return json.loads(resp.read())
+
+
+#: MNIST FC on the card: the sample's (100, 10) tanh/softmax stack over
+#: seeded synthetic 784-feature data written as IDX files (the card's
+#: Python has no scikit-learn for the sample's digits fallback), read by
+#: the sample's own IDX path; epochs of the straight run and of the run
+#: that snapshots before the resume.
+MNIST_TRAIN, MNIST_VALID, MNIST_EPOCHS, MNIST_K = 3000, 600, 3, 2
+#: The planted poisoned tick of the rollback runs: the 50th tick, in
+#: epoch 1 (36 ticks an epoch), so epoch 0 left a finite generation.
+MNIST_CHAOS = "step.nan@50,seed:42"
+#: The artifact forward of the full-width AlexNet against forward_numpy:
+#: the JAX artifact gate's rtol (tests/test_export.py); its atol 1e-4 is
+#: sized for 10-class outputs near 0.1 and would pass anything among
+#: AlexNet's 1000 probabilities near 1e-3, so the gate is relative.  A
+#: barely trained AlexNet's probabilities are all within 1e-3 of
+#: uniform, so a fault anywhere moves them by less than that rtol (a
+#: planted B6 fault: 0.52 of it).  A second gate holds the centered
+#: log-probabilities — the logits up to a constant a row — to
+#: ARTIFACT_LOGIT_RTOL of the row's largest, where the fault shows: on
+#: an H100 the correct forward reads 0.43 of 1e-3 of it and the planted
+#: fault 712, so 1e-2 leaves both sides a margin of ten and more.
+ARTIFACT_RTOL, ARTIFACT_ATOL, ARTIFACT_BATCH = 1e-3, 1e-7, 64
+ARTIFACT_LOGIT_RTOL = 1e-2
+
+
+def artifact_shares(got, want):
+    """(largest share of the probability tolerance, largest share of the
+    centered-logit tolerance) of ``got`` against ``want``."""
+    import numpy
+    prob = float(numpy.max(numpy.abs(got - want) / (
+        ARTIFACT_ATOL + ARTIFACT_RTOL * numpy.abs(want))))
+
+    def centered(p):
+        lp = numpy.log(numpy.asarray(p, dtype=numpy.float64))
+        return lp - lp.mean(axis=-1, keepdims=True)
+
+    zg, zw = centered(got), centered(want)
+    scale = ARTIFACT_LOGIT_RTOL * numpy.abs(zw).max(axis=-1, keepdims=True)
+    return prob, float(numpy.max(numpy.abs(zg - zw) / scale))
+
+
+def write_mnist_idx(directory, seed=SEED):
+    """Seeded class-structured 28x28 uint8 images and labels as the four
+    MNIST IDX files (raw, uncompressed) under ``directory/mnist``: a
+    smooth 4x4 prototype a class under heavy noise (about 5 % validation
+    error after a few epochs, so the metrics compared are not all
+    zero)."""
+    import numpy
+    import struct
+    rng = numpy.random.RandomState(seed)
+    up = (numpy.arange(28) * 4) // 28
+    protos = rng.rand(10, 4, 4)[:, up][:, :, up]
+    d = os.path.join(directory, "mnist")
+    os.makedirs(d, exist_ok=True)
+    for prefix, n in (("train", MNIST_TRAIN), ("t10k", MNIST_VALID)):
+        labels = rng.randint(0, 10, n).astype(numpy.uint8)
+        images = numpy.clip(128.0 + (protos[labels] - 0.5) * 200.0 +
+                            rng.normal(0.0, 300.0, (n, 28, 28)), 0, 255)
+        with open(os.path.join(d, prefix + "-images-idx3-ubyte"),
+                  "wb") as fout:
+            fout.write(struct.pack(">IIII", 0x803, n, 28, 28))
+            fout.write(images.astype(numpy.uint8).tobytes())
+        with open(os.path.join(d, prefix + "-labels-idx1-ubyte"),
+                  "wb") as fout:
+            fout.write(struct.pack(">II", 0x801, n))
+            fout.write(labels.tobytes())
+
+
+def workflow_state(wf):
+    """unit/attr -> host array of every trainable and step state (the
+    optimizer slots, the evaluator's accumulators)."""
+    import numpy
+    out = {}
+    for unit in wf.units:
+        for which in ("trainables", "tstate"):
+            vecs = getattr(unit, which, None)
+            if not isinstance(vecs, dict):
+                continue
+            for attr, vec in vecs.items():
+                vec.map_read()
+                out["%s/%s" % (unit.name, attr)] = numpy.array(vec.mem)
+    return out
+
+
+def decision_numbers(wf):
+    d = wf.decision
+    return dict(d.get_metric_values(), epoch_n_err=list(d.epoch_n_err),
+                epoch_loss=list(d.epoch_loss),
+                epoch_grad_norm=list(d.epoch_grad_norm))
+
+
+def run_cli(argv, generator=None):
+    """``python -m veles_tpu_torch argv`` in this process (the card by
+    default); ``generator`` (generator 0, pickled at a snapshot) takes
+    the place of the seeding, as a resume puts it back.  Returns the
+    Main."""
+    import pickle
+    from veles_tpu_torch import prng
+    from veles_tpu_torch.__main__ import Main
+    main = Main(argv)
+    if generator is not None:
+        main.seed_random = lambda: prng._generators.__setitem__(
+            0, pickle.loads(generator))
+    if main.run() != Main.EXIT_SUCCESS:
+        fail("the command line failed: %s" % " ".join(argv))
+    return main
+
+
+def clean_cli_config():
+    """Drops what the command line's snapshot, guardian and dataset
+    flags left in the configuration tree, and the chaos plan."""
+    from veles_tpu_torch import resilience
+    from veles_tpu_torch.config import root
+    for key in ("dirs", "snapshotter", "guardian", "snapshot_disabled"):
+        root.common.__dict__.pop(key, None)
+    resilience.reset()
+
+
+def phase_snapshots(workdir, smi, alexnet_wf):
+    """Checkpoint, resume, rollback and deploy on the card.  MNIST FC
+    through the command line: a straight run; a run with
+    ``--snapshot-dir --snapshot-artifact`` resumed by ``-s <pointer>``
+    (generator 0 put back to its state at the snapshot), bit-equal to
+    the straight run; a workflow pickled on the card loaded in a process
+    that has not touched CUDA; two ``--guardian-policy rollback`` runs
+    with a planted ``step.nan`` (one rollback each, finite weights,
+    converged, the same events); the exported artifact served over HTTP
+    (labels == the local forward's argmax, /api/generate 400).  Then the
+    full-width AlexNet of phase_alexnet: one ``SnapshotterToFile``
+    generation (codec ""), resumed into a fresh launcher, whose next
+    train tick equals the live workflow's by phase_alexnet's compare;
+    ``export_workflow`` → ``ExportedModel(device="cuda")``, whose
+    forward matches ``forward_numpy`` at ARTIFACT_RTOL with B6 launched
+    twice on the register route, and fails it with a planted B6
+    fault.  Returns (B6 and B7 launches of the main path — the live
+    train tick, its repeat, the resumed tick and one artifact forward —,
+    numbers)."""
+    import pickle
+    import numpy
+    import torch
+    import urllib.error
+    from veles_tpu_torch import prng, resilience
+    from veles_tpu_torch.config import root
+    from veles_tpu_torch.export import ExportedModel, export_workflow
+    from veles_tpu_torch.launcher import Launcher
+    from veles_tpu_torch.ops import lrn as L
+    from veles_tpu_torch.restful import ModelServer
+    from veles_tpu_torch.snapshotter import (SnapshotterToFile,
+                                             iter_generations)
+    numbers = {}
+    started = time.monotonic()
+    engine = root.common.engine
+    alexnet_level = engine.precision_level   # the MNIST runs set 1
+    mnist_py = os.path.join(HERE, "veles_tpu_torch", "znicz", "samples",
+                            "mnist.py")
+    datasets = os.path.join(workdir, "datasets")
+    write_mnist_idx(datasets)
+    saved = {}
+    export = SnapshotterToFile.export
+
+    def recording_export(self):
+        export(self)
+        saved[self.destination] = pickle.dumps(prng.get(0))
+
+    SnapshotterToFile.export = recording_export
+    common = [mnist_py, "-r", "5", "--snapshot-compression", "",
+              "root.common.dirs.datasets=%r" % datasets,
+              "root.common.engine.precision_level=1",
+              "root.common.snapshotter.time_interval=0",
+              "root.common.snapshotter.interval=5"]
+    try:
+        t0 = time.monotonic()
+        straight = run_cli(common + [
+            "--snapshot-dir", os.path.join(workdir, "straight"),
+            "root.mnist.max_epochs=%d" % MNIST_EPOCHS]).workflow
+        clean_cli_config()
+        snaps = os.path.join(workdir, "mnist")
+        part = run_cli(common + [
+            "--snapshot-dir", snaps, "--snapshot-artifact",
+            "root.mnist.max_epochs=%d" % MNIST_K]).workflow
+        clean_cli_config()
+        link = os.path.join(snaps, "mnist_current.lnk")
+        blob = SnapshotterToFile.resolve(link)
+        resumed = run_cli(common + [
+            "-s", link, "--max-epochs", str(MNIST_EPOCHS)],
+            generator=saved[blob]).workflow
+        clean_cli_config()
+        mnist_s = time.monotonic() - t0
+    finally:
+        SnapshotterToFile.export = export
+    want, got = workflow_state(straight), workflow_state(resumed)
+    differ = sorted(k for k in want if want[k].tobytes() !=
+                    got.get(k, numpy.zeros(0)).tobytes())
+    if sorted(want) != sorted(got) or differ or \
+            decision_numbers(straight) != decision_numbers(resumed):
+        fail("mnist resume on the card differs from the straight run: "
+             "%s; decision %s vs %s" % (differ, decision_numbers(resumed),
+                                         decision_numbers(straight)))
+    if resumed.decision.epoch_number != MNIST_EPOCHS or \
+            part.decision.epoch_number != MNIST_K:
+        fail("mnist epochs: part %d, resumed %d" % (
+            part.decision.epoch_number, resumed.decision.epoch_number))
+    generations = iter_generations(snaps, "mnist")
+    print("snapshots: mnist %d + %d epochs (snapshot %s, one of %d "
+          "generations kept) == %d straight, bit for bit in %d tensors "
+          "(trainables, optimizer slots, accumulators) and the decision "
+          "(%s), TF32 off; the three command lines %.1f s on %s" % (
+              MNIST_K, MNIST_EPOCHS - MNIST_K, os.path.basename(blob),
+              len(generations), MNIST_EPOCHS, len(want),
+              decision_numbers(straight), mnist_s, smi))
+    numbers["mnist_resume"] = {"tensors_bit_equal": len(want),
+                               "decision": decision_numbers(straight),
+                               "seconds": mnist_s}
+    # A workflow pickled on the card loads where CUDA was never touched.
+    probe = ("import sys; sys.path.insert(0, %r); import torch; "
+             "from veles_tpu_torch.snapshotter import SnapshotterToFile; "
+             "wf = SnapshotterToFile.import_(%r); "
+             "print(type(wf).__name__, torch.cuda.is_initialized())" %
+             (HERE, blob))
+    out = subprocess.run([sys.executable, "-c", probe], capture_output=True,
+                         text=True, timeout=300)
+    if out.returncode or out.stdout.split() != ["MnistWorkflow", "False"]:
+        fail("the card's snapshot did not load without CUDA: %s %s" %
+             (out.stdout, out.stderr[-2000:]))
+    print("snapshots: the card's mnist snapshot loads in a process that "
+          "has not touched CUDA (%s)" % out.stdout.strip())
+
+    # Rollback: a planted NaN tick, twice from one seed.
+    runs = []
+    for i in range(2):
+        resilience.install(MNIST_CHAOS)
+        wf = run_cli(common + [
+            "--snapshot-dir", os.path.join(workdir, "rollback%d" % i),
+            "--guardian-policy", "rollback",
+            "root.mnist.max_epochs=4"]).workflow
+        fired = list(resilience.get_injector().fired)
+        clean_cli_config()
+        finite = all(bool(numpy.isfinite(a).all()) for a in
+                     workflow_state(wf).values())
+        runs.append(dict(
+            rollbacks=wf.guardian.rollbacks, finite=finite,
+            min_validation_err=wf.decision.min_validation_err,
+            events=[(e["epoch"], e["class"], e["kind"], e["action"])
+                    for e in wf.guardian.events], fired=fired))
+    for run in runs:
+        if run["rollbacks"] != 1 or not run["finite"] or \
+                not run["min_validation_err"] < 0.15:
+            fail("mnist rollback on the card: %s" % run)
+    if runs[0] != runs[1]:
+        fail("two rollback runs from one seed differ: %s vs %s" %
+             tuple(runs))
+    print("snapshots: rollback under %s: rollbacks 1, weights finite, "
+          "min validation error %.4f, events %s — the same in two runs" % (
+              MNIST_CHAOS, runs[0]["min_validation_err"], runs[0]["events"]))
+    numbers["mnist_rollback"] = runs[0]
+
+    # Deploy: the artifact beside the snapshot, served on the card.
+    artifact = blob + ".veles.tgz"
+    server = ModelServer(artifact, host="127.0.0.1", port=0, max_batch=8,
+                         warmup=True, device="cuda")
+    server.start()
+    try:
+        base = "http://127.0.0.1:%d" % server.port
+        x = numpy.random.RandomState(3).rand(24, 784).astype(
+            numpy.float32)
+        answer = post(base + "/api", {"input": x.tolist()})
+        local = server.model.forward(x)
+        if answer["labels"] != numpy.argmax(local, -1).tolist():
+            fail("/api labels %s != the local forward's argmax" %
+                 answer["labels"])
+        try:
+            post(base + "/api/generate", {"tokens": [[1, 2]],
+                                          "max_new_tokens": 2})
+            fail("/api/generate on a classifier did not answer 400")
+        except urllib.error.HTTPError as e:
+            if e.code != 400:
+                fail("/api/generate on a classifier answered %d" % e.code)
+        stats = get(base + "/stats")
+    finally:
+        server.stop(drain=True)
+    print("snapshots: served %s on the card: /api labels of 24 samples == "
+          "the local forward's argmax; /api/generate 400; warm-up "
+          "entry points %s" % (os.path.basename(artifact),
+                               stats["counters"].get("warmup.compiles")))
+    del straight, part, resumed, wf, server
+    gc.collect()
+
+    # The full-width AlexNet of phase_alexnet: snapshot and resume, in
+    # phase_alexnet's configuration.
+    engine.precision_level = alexnet_level
+    wf = alexnet_wf
+    compiler = wf.compiler
+    L.reset_launches()
+    snap = SnapshotterToFile(wf, directory=os.path.join(workdir, "alexnet"),
+                             prefix="imagenet", compression="",
+                             time_interval=0.0)
+    snap.initialize()
+    snap.suffix = "resume"
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    snap.export()
+    write_s = time.monotonic() - t0
+    blob_mb = os.path.getsize(snap.destination) / 1e6
+    before = {n: v.devmem.to("cpu") for n, v in
+              list(compiler._param_vecs.items()) +
+              list(compiler._state_vecs.items())}
+    batch = [v.mem.copy() for v in compiler.batch_vectors]
+    gen = compiler._generator()
+    rng_state = gen.get_state()
+    compiler.execute(training=True)
+    torch.cuda.synchronize()
+    after = {n: v.devmem.to("cpu") for n, v in compiler._param_vecs.items()}
+    # The live tick again from the same state: its own repeatability.
+    live_state = {n: v.devmem for n, v in
+                  list(compiler._param_vecs.items()) +
+                  list(compiler._state_vecs.items())}
+    for n, v in list(compiler._param_vecs.items()) + \
+            list(compiler._state_vecs.items()):
+        v.devmem = before[n].to(live_state[n].device)
+    for vec, arr in zip(compiler.batch_vectors, batch):
+        vec.mem = arr
+    gen.set_state(rng_state)
+    compiler.execute(training=True)
+    torch.cuda.synchronize()
+    live_repeat_equal = all(torch.equal(
+        compiler._param_vecs[n].devmem.cpu(), after[n]) for n in after)
+    for n, v in list(compiler._param_vecs.items()) + \
+            list(compiler._state_vecs.items()):
+        v.devmem = live_state[n]
+    del live_state
+    t0 = time.monotonic()
+    wf2 = SnapshotterToFile.import_(snap.destination)
+    import_s = time.monotonic() - t0
+    t0 = time.monotonic()
+    launcher = Launcher()
+    launcher.add_ref(wf2)
+    launcher.initialize(device="cuda", snapshot=True)
+    torch.cuda.synchronize()
+    init_s = time.monotonic() - t0
+    compiler2 = wf2.compiler
+    compiler2._ensure_compiled()
+    if sorted(compiler2._param_vecs) != sorted(compiler._param_vecs):
+        fail("the resumed alexnet has other parameters")
+    start = {n: v.devmem.to("cpu") for n, v in
+             list(compiler2._param_vecs.items()) +
+             list(compiler2._state_vecs.items())}
+    restored_equal = all(torch.equal(start[n], before[n]) for n in before)
+    for vec, arr in zip(compiler2.batch_vectors, batch):
+        vec.mem = arr
+    compiler2._generator().set_state(rng_state)
+    compiler2.execute(training=True)
+    torch.cuda.synchronize()
+    rows = alexnet_compare(compiler2, after, before)
+    worst = max(r[0] / r[2] for r in rows.values())
+    differ = sorted(n for n in after if not torch.equal(
+        compiler2._param_vecs[n].devmem.cpu(), after[n]))
+    bit_equal = not differ
+    if not restored_equal or not worst <= 1.0:
+        fail("the resumed alexnet's train tick differs from the live "
+             "one's: state restored %s, largest gap %.3g of the bound" %
+             (restored_equal, worst))
+    print("snapshots: alexnet generation on %s: %.1f MB (codec \"\"), "
+          "write %.2f s, import_ %.2f s, resume initialize %.2f s; the "
+          "resumed train tick == the live one's (largest gap %.3g of "
+          "phase_alexnet's bound; bit-equal %s; differing: %s; the live "
+          "tick repeated from the same state bit-equal %s)" % (
+              smi, blob_mb, write_s, import_s, init_s, worst, bit_equal,
+              differ, live_repeat_equal))
+    numbers["alexnet_snapshot"] = {
+        "blob_mb": blob_mb, "write_s": write_s, "import_s": import_s,
+        "resume_initialize_s": init_s, "tick_gap_over_bound": worst,
+        "tick_bit_equal": bit_equal, "tick_differing": differ,
+        "live_tick_repeat_bit_equal": live_repeat_equal}
+    del wf2, launcher, compiler2, before, after, start
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # The artifact: export, load on the card, forward with B6.
+    path = os.path.join(workdir, "alexnet.veles.tgz")
+    t0 = time.monotonic()
+    export_workflow(wf, path, compresslevel=0)
+    art_write_s = time.monotonic() - t0
+    art_mb = os.path.getsize(path) / 1e6
+    model = ExportedModel(path, device="cuda")
+    loader = wf.loader
+    loader.original_data.map_read()
+    x = numpy.array(loader.original_data.mem[:ARTIFACT_BATCH],
+                    dtype=numpy.float32)
+    fwd_before = L.lrn_forward.launches
+    got = model.forward(x)
+    torch.cuda.synchronize()
+    per_forward = L.lrn_forward.launches - fwd_before
+    routes = dict(L.lrn_forward.launches_by_route)
+    launches = {"lrn_forward": L.lrn_forward.launches,
+                "lrn_backward": L.lrn_backward.launches}
+    t0 = time.monotonic()
+    want = model.forward_numpy(x)
+    numpy_s = time.monotonic() - t0
+    share, logit_share = artifact_shares(got, want)
+    if per_forward != 2 or routes["wide"]:
+        fail("the artifact forward launched B6 %d times (routes %s); "
+             "its two norm units imply 2 on the register route" %
+             (per_forward, routes))
+    if launches != {"lrn_forward": 8, "lrn_backward": 6}:
+        fail("LRN launches around the alexnet snapshot %s; the live tick, "
+             "its repeat, the resumed tick and the artifact forward imply "
+             "8 forward, 6 backward" % launches)
+    if not (share <= 1.0 and logit_share <= 1.0):
+        fail("the alexnet artifact forward differs from forward_numpy: "
+             "%.3g of rtol %g in the probabilities, %.3g in the centered "
+             "logits" % (share, ARTIFACT_RTOL, logit_share))
+    launch = L._launch
+
+    def planted_launch(fn, name, *args):
+        launch(fn, name, *args)
+        if fn == "veles_lrn_fwd":   # (route, dtype, x, y, ...)
+            args[3].mul_(ALEXNET_PLANTED_SCALE)
+
+    L._launch = planted_launch
+    try:
+        planted = model.forward(x)
+    finally:
+        L._launch = launch
+    planted_share, planted_logit_share = artifact_shares(planted, want)
+    if not max(planted_share, planted_logit_share) > 1.0:
+        fail("the artifact gate does not see a planted B6 fault (every y "
+             "x %g): %.3g of the probability tolerance, %.3g of the "
+             "centered-logit one" % (ALEXNET_PLANTED_SCALE, planted_share,
+                                     planted_logit_share))
+    times = []
+    for _ in range(12):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        model.forward(x)
+        torch.cuda.synchronize()
+        times.append(time.monotonic() - t0)
+    p50 = float(numpy.median(times[2:])) * 1e3
+    print("snapshots: alexnet artifact on %s: %.1f MB (gzip level 0), "
+          "write %.2f s; forward of %d images on the card == "
+          "forward_numpy (%.1f s) within rtol %g, atol %g (largest share "
+          "of the tolerance %.3g; of the centered logits' rtol %g %.3g); "
+          "B6 %d launches a forward on the register route; the planted "
+          "B6 fault (y x %g) %.3g / %.3g of them, caught; forward p50 "
+          "%.2f ms at batch %d" % (
+              smi, art_mb, art_write_s, ARTIFACT_BATCH, numpy_s,
+              ARTIFACT_RTOL, ARTIFACT_ATOL, share, ARTIFACT_LOGIT_RTOL,
+              logit_share,
+              per_forward, ALEXNET_PLANTED_SCALE, planted_share,
+              planted_logit_share, p50, ARTIFACT_BATCH))
+    numbers["alexnet_artifact"] = {
+        "mb": art_mb, "write_s": art_write_s, "forward_p50_ms": p50,
+        "batch": ARTIFACT_BATCH, "largest_share_of_tol": share,
+        "largest_share_of_logit_tol": logit_share,
+        "planted_share_of_tol": planted_share,
+        "planted_share_of_logit_tol": planted_logit_share,
+        "b6_launches_per_forward": per_forward, "smi": smi}
+    numbers["launches"] = launches
+    numbers["phase_s"] = time.monotonic() - started
+    print("snapshots: the phase took %.1f s" % numbers["phase_s"])
+    del model, wf, snap
+    return launches, numbers
 
 
 def short_extend_chunks(tables, clens):
@@ -2995,12 +3478,17 @@ def main():
     flash_launches, training = phase_training(smi)
     gc.collect()
     torch.cuda.empty_cache()
-    lrn_launches, lrn_routes, alexnet = phase_alexnet(smi)
+    lrn_launches, lrn_routes, alexnet, alexnet_wf = phase_alexnet(smi)
     gc.collect()
     torch.cuda.empty_cache()
     workdir = os.path.join(HERE, ".chip_smoke")
     os.makedirs(workdir, exist_ok=True)
     try:
+        snapshot_launches, snapshots = phase_snapshots(workdir, smi,
+                                                       alexnet_wf)
+        del alexnet_wf
+        gc.collect()
+        torch.cuda.empty_cache()
         launches, numbers, served = phase_serving(workdir, smi)
         reload_path = os.path.join(workdir, "lm-reload.veles.tgz")
         t0 = time.monotonic()
@@ -3128,7 +3616,11 @@ def main():
                      "times are the two calls' sum (one train tick)" %
                      " and ".join("%s %s" % (n, sh) for n, sh in
                                   LRN_SHAPES),
-            "launches": lrn_launches[name],
+            "launches": lrn_launches[name] + snapshot_launches[name],
+            "launches_by_path": {
+                "alexnet_run": lrn_launches[name],
+                "alexnet_snapshot_ticks_and_artifact_forward":
+                    snapshot_launches[name]},
             "launches_by_route": lrn_routes[name],
             "max_abs_err": lrn_err[name],
             "tol": "f32 fwd rtol %g, bwd %g x the terms' magnitude; bf16 "
@@ -3163,6 +3655,7 @@ def main():
         })
     print(json.dumps({"training": training}))
     print(json.dumps({"alexnet": alexnet}))
+    print(json.dumps({"snapshots": snapshots}))
     print(json.dumps({"serving": numbers}))
     print(json.dumps({"quant_serving": quant}))
     print(json.dumps(kernels))

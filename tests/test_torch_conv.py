@@ -482,9 +482,6 @@ def test_what_is_not_ported_raises():
         tz.Deconv(None, get_weights_from=None)
     with pytest.raises(NotImplementedError, match="not yet ported"):
         tz.StochasticPooling(None, kx=2)
-    from veles_tpu_torch.guardian import HealthGuardian
-    with pytest.raises(NotImplementedError, match="snapshotter"):
-        HealthGuardian(None, policy="rollback")
     from veles_tpu_torch.znicz.samples.imagenet import \
         StreamedImagenetLoader
     with pytest.raises(NotImplementedError, match="not yet ported"):

@@ -282,8 +282,12 @@ def test_refusals(tmp_path, port_model):
     manifest["units"].insert(1, {"name": "fc", "type": "all2all",
                                  "config": {}, "params": {}})
     path = X.write_artifact(str(tmp_path / "fc.tgz"), manifest, weights)
-    with pytest.raises(Bug, match="'all2all'.*not yet ported"):
-        X.ExportedModel(path, device="cpu")
+    # Not a causal LM any more: it loads as a plain chain, without the
+    # decode programs (the JAX package's generate() refusal).
+    mixed = X.ExportedModel(path, device="cpu")
+    assert not mixed.is_lm and mixed.max_position is None
+    with pytest.raises(Bug, match="lm_head chain"):
+        mixed.generate(numpy.zeros((1, 2), numpy.int32), 1)
     moe, moe_weights = _lm_weights(BLOCKS=1)
     moe["units"][1]["type"] = "moe_transformer_block"
     moe_path = X.write_artifact(str(tmp_path / "moe.tgz"), moe, moe_weights)

@@ -36,7 +36,9 @@ def test_import_leaves_jax_and_veles_tpu_out():
             "veles_tpu_torch.znicz.samples.mnist, "
             "veles_tpu_torch.serving.speculation, "
             "veles_tpu_torch.serving.reload, "
-            "veles_tpu_torch.ops.decode_attention\n"
+            "veles_tpu_torch.ops.decode_attention, "
+            "veles_tpu_torch.snapshotter, veles_tpu_torch.normalization, "
+            "veles_tpu_torch.resilience, veles_tpu_torch.launcher\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib', 'veles_tpu.')) or "
             "m == 'veles_tpu')\n"

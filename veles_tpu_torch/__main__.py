@@ -5,16 +5,23 @@ Usage::
 
     python -m veles_tpu_torch path/to/workflow.py [root.x.y=v ...] \
         [--random-seed N] [--result-file F] [--max-epochs N] \
-        [--device cuda|cpu] [-v debug|info|warning|error]
+        [--device cuda|cpu] [-v debug|info|warning|error] \
+        [-s SNAPSHOT | --auto-resume] [--snapshot-dir DIR] \
+        [--snapshot-compression ""|gz|bz2|xz] [--snapshot-keep K] \
+        [--no-snapshots] [--snapshot-artifact] \
+        [--guardian-policy off|skip|lr_backoff|rollback]
 
-It applies the ``root.x.y=v`` overrides, seeds generator 0, imports
-the workflow module and calls its ``run(load, main)`` hook: ``load``
-builds the workflow under a local :class:`~veles_tpu_torch.launcher.
-Launcher`, ``main`` initializes it on the device (the CUDA card unless
-``--device cpu``), runs it and writes the results JSON.  The JAX CLI's
-other modes — snapshots, config files, master/worker, multi-process,
-genetics, ensembles, populations, profiling — are not yet ported: their
-flags raise.
+It applies the ``root.x.y=v`` overrides and the snapshot and guardian
+flags, seeds generator 0, imports the workflow module and calls its
+``run(load, main)`` hook: ``load`` builds the workflow under a local
+:class:`~veles_tpu_torch.launcher.Launcher` — or resumes it from a
+snapshot (``-s`` a blob, a ``*_current.lnk`` pointer or a
+``sqlite://`` database; ``--auto-resume`` the newest verified
+generation in the snapshot directory) — and ``main`` initializes it
+on the device (the CUDA card unless ``--device cpu``), runs it and
+writes the results JSON.  The JAX CLI's other modes — config files,
+master/worker, multi-process, genetics, ensembles, populations,
+profiling — are not yet ported: their flags raise.
 """
 
 import argparse
@@ -24,7 +31,7 @@ import logging
 import os
 import sys
 
-from . import prng
+from . import guardian, prng, snapshotter
 from .config import root
 from .error import Bug
 from .json_encoders import dump_json
@@ -34,7 +41,7 @@ from .logger import Logger
 #: Flags of the JAX CLI that the port refuses, with the ROADMAP queue
 #: that brings each.
 NOT_PORTED = {
-    "-s": "A1", "--snapshot": "A1", "-c": "A8", "--config-list": "A8",
+    "-c": "A8", "--config-list": "A8",
     "--chaos": "A7", "-l": "A7", "--listen-address": "A7",
     "--blacklist-cooldown": "A7", "-m": "A7", "--master-address": "A7",
     "--nodes": "A7", "--jax-coordinator": "A6",
@@ -72,6 +79,8 @@ def make_parser():
     parser.add_argument(
         "-v", "--verbosity", default="info",
         choices=("debug", "info", "warning", "error"), help="log level")
+    snapshotter.init_parser(parser)
+    guardian.init_parser(parser)
     return parser
 
 
@@ -124,6 +133,7 @@ class Main(Logger):
         self.launcher = None
         self.workflow = None
         self.module = None
+        self._snapshot_loaded = False
 
     def parse(self):
         for arg in self.argv:
@@ -146,25 +156,61 @@ class Main(Logger):
             seed = spec  # file:count:dtype
         prng.get(0).seed(seed)
 
+    def apply_subsystem_flags(self):
+        """Feeds the snapshot and guardian flags into the configuration
+        tree, where the workflow builders read them back."""
+        args = self.args
+        if args.snapshot_dir is not None:
+            root.common.dirs.snapshots = args.snapshot_dir
+        if args.snapshot_compression is not None:
+            root.common.snapshotter.compression = \
+                args.snapshot_compression
+        if args.snapshot_keep is not None:
+            root.common.snapshotter.keep = args.snapshot_keep
+        if args.no_snapshots:
+            root.common.snapshot_disabled = True
+        if args.snapshot_artifact:
+            root.common.snapshotter.artifact = True
+        if args.guardian_policy is not None:
+            root.common.guardian.policy = args.guardian_policy
+
     def load(self, WorkflowClass, **kwargs):
-        """The ``load`` closure of the module's ``run`` hook."""
+        """The ``load`` closure of the module's ``run`` hook: builds the
+        launcher, then resumes a snapshot or constructs the
+        workflow."""
         kwargs.setdefault("result_file", self.args.result_file or None)
         self.launcher = Launcher()
-        self.workflow = WorkflowClass(self.launcher, **kwargs)
+        if self.args.snapshot:
+            spec = self.args.snapshot
+            if spec.startswith(("odbc://", "sqlite://", "db://")):
+                self.workflow = snapshotter.SnapshotterToDB.import_(spec)
+            else:
+                self.workflow = snapshotter.SnapshotterToFile.import_(spec)
+            self._snapshot_loaded = True
+            self.launcher.add_ref(self.workflow)
+            self.info("resumed snapshot %s (%s)", spec,
+                      type(self.workflow).__name__)
+        elif self.args.auto_resume and self.launcher.resume_latest(
+                expect_class=WorkflowClass) is not None:
+            self.workflow = self.launcher.workflow
+            self._snapshot_loaded = True
+        else:
+            self.workflow = WorkflowClass(self.launcher, **kwargs)
         if self.args.max_epochs:
             decision = getattr(self.workflow, "decision", None)
             if decision is None:
                 raise Bug("--max-epochs given but the workflow has no "
                           "decision unit")
             decision.max_epochs = int(self.args.max_epochs)
-        return self.workflow, False
+        return self.workflow, self._snapshot_loaded
 
     def main(self, **kwargs):
         """The ``main`` closure: initialize → run → results."""
         if self.workflow is None:
             raise Bug("main() called before load()")
         kwargs.setdefault("device", self.args.device)
-        self.launcher.initialize(**kwargs)
+        self.launcher.initialize(snapshot=self._snapshot_loaded,
+                                 **kwargs)
         self.launcher.run()
         self.write_results()
 
@@ -193,6 +239,7 @@ class Main(Logger):
         self.parse()
         self.seed_random()
         apply_overrides(self.args.config)
+        self.apply_subsystem_flags()
         self.module = import_workflow_module(self.args.workflow)
         run_hook = getattr(self.module, "run", None)
         if run_hook is None:

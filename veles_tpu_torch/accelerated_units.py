@@ -34,6 +34,7 @@ accumulators at epoch boundaries (and ``step_metrics`` when asked).
 import numpy
 import torch
 
+from . import resilience
 from .config import root, get as config_get
 from .memory import Vector, torch_device
 from .units import Unit
@@ -423,6 +424,11 @@ class StepCompiler(object):
 
     # -- execution ---------------------------------------------------------
 
+    def invalidate(self):
+        """Drops the analysed step: the next tick re-analyses the graph
+        (and re-reads ``health_device_skip``)."""
+        self._compiled = None
+
     def _ensure_compiled(self):
         if not self._compiled or self.fingerprint() != self._fingerprint:
             self.compile()
@@ -494,6 +500,13 @@ class AcceleratedWorkflow(Workflow):
         self._tick_id_ = 0
         self._step_done_tick_ = -1
 
+    def __getstate__(self):
+        """The last tick's metrics are device tensors of this process:
+        a snapshot leaves them out."""
+        state = super(AcceleratedWorkflow, self).__getstate__()
+        state["step_metrics"] = {}
+        return state
+
     @property
     def compiler(self):
         if self._compiler_ is None:
@@ -522,13 +535,50 @@ class AcceleratedWorkflow(Workflow):
         if self._step_done_tick_ == self._tick_id_:
             return
         self._step_done_tick_ = self._tick_id_
+        try:
+            # step.nan chaos point (the process-wide plan): the poison
+            # rides the real minibatch through the real step.
+            resilience.effective(None).check("step.nan")
+        except resilience.InjectedStepNaN:
+            self._poison_minibatch()
         self.step_metrics = self.compiler.execute(training=self.training)
+
+    def _poison_minibatch(self):
+        """Feeds NaN into the current tick's minibatch mask (the loader
+        rewrites it at its next serve, so exactly one tick is
+        poisoned): the loss and every gradient go NaN inside the step —
+        the bad-record case the health sentinel exists to catch."""
+        loader = getattr(self, "loader", None)
+        mask = getattr(loader, "minibatch_mask", None)
+        if mask is None or not mask:
+            self.warning("step.nan fired but the workflow has no "
+                         "loader mask to poison — ignored")
+            return
+        mask.map_write()
+        mask.mem[...] = numpy.nan
+        self.warning("chaos: poisoned minibatch (epoch %s, class %s)",
+                     getattr(loader, "epoch_number", "?"),
+                     getattr(loader, "minibatch_class", "?"))
 
     def execute_block(self, blocks, training=None):
         """Dispatches a stacked block of ticks."""
         if self._step_done_tick_ == self._tick_id_:
             return
         self._step_done_tick_ = self._tick_id_
+        try:
+            resilience.effective(None).check("step.nan")
+        except resilience.InjectedStepNaN:
+            # The stacked arrays were already copied out of the loader
+            # vectors: poison the block's first tick in place.
+            loader = getattr(self, "loader", None)
+            mask = getattr(loader, "minibatch_mask", None)
+            mask_id = str(id(mask)) if mask is not None else None
+            if mask_id in blocks:
+                blocks[mask_id][0, ...] = numpy.nan
+                self.warning("chaos: poisoned first tick of block")
+            else:
+                self.warning("step.nan fired but the block carries "
+                             "no loader mask to poison — ignored")
         if training is None:
             training = self.training
         self.compiler.execute_block(blocks, training)

@@ -1,16 +1,21 @@
 """Exported-model artifacts and the LM serving programs, in PyTorch.
 
-The port of ``veles_tpu/export.py`` for causal LMs.  Three groups:
+The port of ``veles_tpu/export.py``.  Three groups:
 
-* **Artifact side** — :class:`ExportedModel` reads the JAX package's
-  artifact (a tar.gz of ``manifest.json``, ``weights.npz`` and
-  ``model.bin``, with the same format/version checks), and
-  :func:`write_artifact` writes the same three members the JAX
-  package's ``export_workflow`` packs, so either package loads what
-  the other wrote.  :class:`KVBlockPool` is the JAX package's host-side
-  block accounting, copied whole: refcounts, the prefix sha1 chain,
-  copy-on-write, TRASH block 0.
-* **Device side** — the LM chain's ``forward``, ``generate``,
+* **Artifact side** — :func:`export_workflow` writes a trained
+  workflow's forward chain as the JAX package's writer does (the same
+  manifest keys, ``weights.npz`` keys and ``model.bin`` bytes; tar.gz
+  members through :func:`write_artifact`), and :class:`ExportedModel`
+  reads either package's artifact (same format/version checks) and runs
+  every ``EXPORTABLE`` unit type but the MoE block: ``forward`` on the
+  model's device (NHWC convolutions, ceil-mode pooling, the veles
+  activations; ``norm`` through the LRN forward kernel B6 on a CUDA
+  tensor), and ``forward_numpy``, the JAX package's numpy mirror of the
+  native runtime, line for line.  :class:`KVBlockPool` is the JAX
+  package's host-side block accounting, copied whole: refcounts, the
+  prefix sha1 chain, copy-on-write, TRASH block 0.
+* **Device side** — for causal LMs: the LM chain's ``forward``,
+  ``generate``,
   ``generate_bucketed`` (the engine's whole-request path) and the
   paged programs ``paged_extend`` / ``paged_step`` / ``paged_verify``
   (speculative decoding's K+1-row chunks) over per-layer
@@ -45,8 +50,10 @@ The port of ``veles_tpu/export.py`` for causal LMs.  Three groups:
   artifact's weights in place.
 
 Not ported yet, and refused with :class:`~veles_tpu_torch.error.Bug`:
-unit types other than the causal LM chain (embedding → transformer
-blocks → lm_head) and KV export/adopt across pools.
+``moe_transformer_block`` (ROADMAP A6) and KV export/adopt across
+pools.  The decode programs and the paged surface need the causal-LM
+chain (embedding → transformer blocks → lm_head); any other chain
+refuses them as the JAX package's ``generate`` does.
 
 Sampling: the JAX package draws from threefry keys
 (``PRNGKey(seed)``, ``fold_in(gen_idx)``), whose bits torch cannot
@@ -77,14 +84,52 @@ from .json_encoders import dumps_json
 from .ops.decode_attention import (DECODE_MAX_Q, MAX_HEAD_DIM,
                                    decode_attention,
                                    decode_attention_reference)
+from .ops import lrn as ops_lrn
 from .serving.buckets import CompileCache, bucket_of
 
 FORMAT_NAME = "veles-tpu-model"
 FORMAT_VERSION = 1
 MAGIC = b"VTPM"
 
-#: Unit types the port executes: the causal LM chain.
-PORTED_UNITS = ("embedding", "transformer_block", "lm_head", "dropout")
+#: Unit types the artifact format understands, with their exportable
+#: numeric config keys.
+EXPORTABLE = {
+    "all2all": (), "all2all_tanh": (), "all2all_relu": (),
+    "all2all_str": (), "all2all_sigmoid": (), "softmax": (),
+    "conv": ("kx", "ky", "n_kernels"),
+    "conv_tanh": ("kx", "ky", "n_kernels"),
+    "conv_relu": ("kx", "ky", "n_kernels"),
+    "conv_str": ("kx", "ky", "n_kernels"),
+    "conv_sigmoid": ("kx", "ky", "n_kernels"),
+    "max_pooling": ("kx", "ky"),
+    "maxabs_pooling": ("kx", "ky"),
+    "avg_pooling": ("kx", "ky"),
+    "norm": ("alpha", "beta", "k", "n"),
+    "dropout": (),
+    "mean_disp": (),
+    "activation_tanh": (), "activation_relu": (),
+    "activation_str": (), "activation_sigmoid": (),
+    # Long tail (reference unit_factory.cc registers every forward
+    # type): RBM inference = sigmoid dense over the CD-trained
+    # weights; tied-weight deconv decoders; Kohonen BMU distances.
+    "rbm": (),
+    "all2all_deconv": (), "all2all_deconv_sigmoid": (),
+    "all2all_deconv_tanh": (),
+    "kohonen": (),
+    # Transformer family (no reference counterpart — the TPU build's
+    # long-context extension, deployable like everything else).
+    "embedding": ("vocab_size", "embed_dim"),
+    "transformer_block": ("n_heads",),
+    "moe_transformer_block": ("n_heads", "n_experts",
+                              "capacity_factor"),
+    "lm_head": (),
+}
+
+TANH_A, TANH_B = 1.7159, 0.6666
+
+#: The one ``EXPORTABLE`` type the port does not execute yet: the routed
+#: expert FFN comes with the MoE operator (ROADMAP A6).
+NOT_PORTED_UNITS = {"moe_transformer_block": "A6"}
 
 #: Storage dtypes of the paged KV pool.  "f32" is the exact path;
 #: "bf16" a scale-free cast; "int8" and "fp8" carry per-(block, head)
@@ -277,6 +322,180 @@ def random_lm_artifact(path, vocab, embed, n_heads, n_blocks, hidden,
                 "output": {"sample_shape": [int(vocab)]},
                 "units": units}
     return write_artifact(path, manifest, weights,
+                          compresslevel=compresslevel)
+
+
+# -- exporting a trained workflow ------------------------------------------
+
+def _unit_entry(unit):
+    """manifest entry + {param_name: array} for one forward unit."""
+    mapping = getattr(type(unit), "MAPPING", None)
+    from .mean_disp_normalizer import MeanDispNormalizer
+    if isinstance(unit, MeanDispNormalizer):
+        mapping = "mean_disp"
+    if mapping not in EXPORTABLE:
+        raise Bug("unit %s (type %s, MAPPING %r) is not exportable" %
+                  (unit.name, type(unit).__name__, mapping))
+    config = {}
+    for key in EXPORTABLE[mapping]:
+        config[key] = getattr(unit, key)
+    # Geometry carried uniformly when present.
+    for key in ("padding", "sliding"):
+        if hasattr(unit, key):
+            config[key] = getattr(unit, key)
+    if hasattr(unit, "output_sample_shape") and \
+            unit.output_sample_shape is not None:
+        config["output_sample_shape"] = list(unit.output_sample_shape)
+    params = {}
+    if mapping == "mean_disp":
+        for pname in ("mean", "rdisp"):
+            vec = getattr(unit, pname)
+            vec.map_read()
+            params[pname] = numpy.asarray(
+                vec.mem, dtype=numpy.float32)
+    elif mapping == "rbm":
+        # Inference forward is h = sigmoid(v·W + c): the visible bias
+        # only matters for the training-time Gibbs chain, so the
+        # artifact carries weights + hidden bias and rides the dense
+        # execution path (reference libVeles executes every unit as a
+        # forward-only chain, unit.h:41).
+        unit.weights.map_read()
+        params["weights"] = numpy.asarray(unit.weights.mem,
+                                          dtype=numpy.float32)
+        if unit.include_bias and unit.bias:
+            unit.bias.map_read()
+            params["bias"] = numpy.asarray(unit.bias.mem,
+                                           dtype=numpy.float32)
+    elif mapping.startswith("all2all_deconv"):
+        # Tied weights live on the paired encoder; the standalone
+        # artifact materializes them transposed so the decoder is an
+        # ordinary dense unit (y = x·Wᵀ + b  →  x·(Wᵀ) with W stored
+        # pre-transposed) for every runtime.
+        enc_w = unit.encoder.weights
+        enc_w.map_read()
+        w = numpy.asarray(enc_w.mem, dtype=numpy.float32)
+        params["weights"] = numpy.ascontiguousarray(w.T)
+        if unit.include_bias and unit.vbias:
+            unit.vbias.map_read()
+            params["bias"] = numpy.asarray(unit.vbias.mem,
+                                           dtype=numpy.float32)
+        config["output_sample_shape"] = [int(w.shape[0])]
+    elif mapping == "kohonen":
+        unit.weights.map_read()
+        params["weights"] = numpy.asarray(unit.weights.mem,
+                                          dtype=numpy.float32)
+        config["output_sample_shape"] = [int(unit.n_neurons)]
+    elif mapping == "embedding":
+        for pname, vec in unit.trainables.items():
+            vec.map_read()
+            params[pname] = numpy.asarray(vec.mem,
+                                          dtype=numpy.float32)
+    elif mapping in ("transformer_block", "moe_transformer_block"):
+        config["causal"] = int(unit.causal)
+        for pname, vec in unit.trainables.items():
+            vec.map_read()
+            params[pname] = numpy.asarray(vec.mem,
+                                          dtype=numpy.float32)
+    elif mapping == "lm_head":
+        # Tied heads materialize the embedding weights transposed so
+        # the artifact is standalone (same treatment as deconv).
+        if unit.tie_to is not None:
+            src = unit.tie_to.weights
+            src.map_read()
+            w = numpy.ascontiguousarray(
+                numpy.asarray(src.mem, dtype=numpy.float32).T)
+        else:
+            unit.weights.map_read()
+            w = numpy.asarray(unit.weights.mem, dtype=numpy.float32)
+        params["weights"] = w
+        if unit.include_bias and unit.bias:
+            unit.bias.map_read()
+            params["bias"] = numpy.asarray(unit.bias.mem,
+                                           dtype=numpy.float32)
+        config["output_sample_shape"] = [int(w.shape[1])]
+    else:
+        for pname, vec in getattr(unit, "trainables", {}).items():
+            if not vec:
+                continue
+            vec.map_read()
+            params[pname] = numpy.asarray(
+                vec.mem, dtype=numpy.float32)
+    return {"name": unit.name, "type": mapping,
+            "config": config}, params
+
+
+def forward_chain(workflow):
+    """The exportable forward units, in execution order.  Uses the
+    ``forwards`` convention (every sample workflow defines it), with
+    any normalizer between loader and first layer included."""
+    chain = []
+    forwards = getattr(workflow, "forwards", None)
+    if not forwards:
+        raise Bug("workflow %s has no .forwards chain to export"
+                  % workflow.name)
+    first = forwards[0]
+    norm = getattr(workflow, "normalizer", None)
+    if norm is not None and getattr(first, "input", None) is \
+            getattr(norm, "output", None):
+        chain.append(norm)
+    chain.extend(forwards)
+    return chain
+
+
+def _expand_unit(unit):
+    """One forward unit → its (entry, params) pairs.  In the JAX package
+    a pipelined transformer stack (parameters stacked on a leading
+    n_blocks dim) unstacks here into n_blocks ``transformer_block``
+    entries; the port has no such stack until ROADMAP A6 brings it, so
+    every unit is one entry."""
+    return [_unit_entry(unit)]
+
+
+def export_workflow(workflow, path, compresslevel=9):
+    """Writes the inference artifact of a trained workflow: the
+    manifest keys, the ``weights.npz`` keys and the ``model.bin``
+    bytes the JAX package's ``export_workflow`` writes for the same
+    chain.  ``compresslevel`` is the tar.gz's (9, the JAX package's;
+    lower levels write large models faster, the members unchanged)."""
+    chain = forward_chain(workflow)
+    units = []
+    weight_arrays = {}
+    for unit in chain:
+        for entry, params in _expand_unit(unit):
+            entry["params"] = {}
+            for pname, arr in params.items():
+                key = "%s__%s" % (entry["name"], pname)
+                if key in weight_arrays:
+                    raise Bug("duplicate weight key %r — unit names "
+                              "in the chain must be unique" % key)
+                weight_arrays[key] = arr
+                entry["params"][pname] = key
+            units.append(entry)
+    for entry in units:
+        shape = entry["config"].get("output_sample_shape")
+        if shape is not None and len(shape) > 1:
+            # model.bin flattens dense outputs to n_out; a spatial
+            # dense output feeding a conv/pool would lose geometry in
+            # the native runtime — refuse rather than mis-execute.
+            raise Bug("unit %s has multi-dim dense output shape %s — "
+                      "not representable in the native artifact" %
+                      (entry["name"], shape))
+    in_vec = chain[0].input
+    out_vec = chain[-1].output
+    manifest = {
+        "format": FORMAT_NAME,
+        "version": FORMAT_VERSION,
+        "workflow": type(workflow).__name__,
+        "checksum": workflow.checksum,
+        "created": time.strftime("%Y-%m-%dT%H:%M:%SZ", time.gmtime()),
+        "input": {"sample_shape": list(in_vec.shape[1:]),
+                  # Token models declare int32; the wire format for
+                  # forward() inputs stays float (values are cast).
+                  "dtype": str(in_vec.dtype)},
+        "output": {"sample_shape": list(out_vec.shape[1:])},
+        "units": units,
+    }
+    return write_artifact(path, manifest, weight_arrays,
                           compresslevel=compresslevel)
 
 
@@ -623,6 +842,16 @@ def lm_chain(units):
     return entries[0], entries[1:-1], entries[-1]
 
 
+def _is_lm_chain(units):
+    """True when ``units`` form the causal-LM chain :func:`lm_chain`
+    accepts."""
+    try:
+        lm_chain(units)
+    except Bug:
+        return False
+    return True
+
+
 def lm_params_from_numpy(units, weights, device):
     """The port's LM parameter dict from the JAX package's parameters
     (``{key: numpy array}`` as ``veles_tpu.export.ExportedModel
@@ -763,6 +992,98 @@ def _head_logits(x_last, params):
     return y + params["head_b"] if params["head_b"] is not None else y
 
 
+# -- the non-LM chain's operations -----------------------------------------
+
+def _np_softmax(v):
+    e = numpy.exp(v - v.max(axis=-1, keepdims=True))
+    return e / e.sum(axis=-1, keepdims=True)
+
+
+#: Activation per dense-family unit type (shared by the numpy mirror and
+#: the device chain).
+_DENSE_ACT = {
+    "all2all": "linear", "all2all_tanh": "tanh",
+    "all2all_relu": "softplus", "all2all_str": "str",
+    "all2all_sigmoid": "sigmoid", "softmax": "softmax",
+    "rbm": "sigmoid",
+    "all2all_deconv": "linear",
+    "all2all_deconv_sigmoid": "sigmoid",
+    "all2all_deconv_tanh": "tanh",
+}
+
+#: Activation per convolution type.
+_CONV_ACT = {"conv": "linear", "conv_tanh": "tanh",
+             "conv_relu": "softplus", "conv_str": "str",
+             "conv_sigmoid": "sigmoid"}
+
+_ACTS = {
+    "linear": lambda v: v,
+    "tanh": lambda v: TANH_A * numpy.tanh(TANH_B * v),
+    "softplus": lambda v: numpy.log1p(numpy.exp(-numpy.abs(v))) +
+    numpy.maximum(v, 0.0),
+    "str": lambda v: numpy.maximum(v, 0.0),
+    "sigmoid": lambda v: 1.0 / (1.0 + numpy.exp(-v)),
+    "softmax": _np_softmax,
+}
+
+_TORCH_ACTS = {
+    "linear": lambda v: v,
+    "tanh": lambda v: TANH_A * torch.tanh(TANH_B * v),
+    "softplus": lambda v: torch.log1p(torch.exp(-torch.abs(v))) +
+    torch.clamp_min(v, 0.0),
+    "str": lambda v: torch.clamp_min(v, 0.0),
+    "sigmoid": torch.sigmoid,
+    "softmax": lambda v: torch.softmax(v, dim=-1),
+}
+
+
+def _torch_act(name, v):
+    return _TORCH_ACTS[name](v)
+
+
+def _torch_conv(x, w, b, cfg):
+    """NHWC ``x`` convolved with the HWIO kernel ``w`` at the artifact's
+    sliding and (asymmetric) padding, plus ``b``."""
+    (pt, pb), (pl, pr) = cfg["padding"]
+    sh, sw = cfg["sliding"]
+    xc = torch.nn.functional.pad(x.permute(0, 3, 1, 2),
+                                 (pl, pr, pt, pb))
+    y = torch.nn.functional.conv2d(xc, w.permute(3, 2, 0, 1), b,
+                                   stride=(sh, sw))
+    return y.permute(0, 2, 3, 1)
+
+
+def _torch_pool(t, cfg, x):
+    """Ceil-mode pooling of NHWC ``x`` with tail padding, as the JAX
+    package's ``_jax_pool``: max over ``-inf`` padding, maxabs as the
+    element of the larger magnitude between the window's max and min
+    (the min on a tie of magnitudes goes to the max), avg over the
+    window's in-bounds population."""
+    ky, kx = int(cfg["ky"]), int(cfg["kx"])
+    sh, sw = cfg["sliding"]
+    (pt, pb), (pl, pr) = cfg["padding"]
+    H, W = x.shape[1], x.shape[2]
+    out_h = -(-(H + pt + pb - ky) // sh) + 1
+    out_w = -(-(W + pl + pr - kx) // sw) + 1
+    need_h = (out_h - 1) * sh + ky - (H + pt)
+    need_w = (out_w - 1) * sw + kx - (W + pl)
+    pad = (0, 0, pl, max(pr, need_w), pt, max(pb, need_h))
+
+    def windows(v, fill):
+        vp = torch.nn.functional.pad(v, pad, value=fill)
+        return vp.unfold(1, ky, sh).unfold(2, kx, sw)[:, :out_h, :out_w]
+
+    if t == "avg_pooling":
+        ssum = windows(x, 0.0).sum(dim=(-2, -1))
+        cnt = windows(torch.ones_like(x), 0.0).sum(dim=(-2, -1))
+        return ssum / cnt
+    hi = windows(x, -numpy.inf).amax(dim=(-2, -1))
+    if t == "maxabs_pooling":
+        lo = windows(x, numpy.inf).amin(dim=(-2, -1))
+        return torch.where(-lo > hi, lo, hi)
+    return hi
+
+
 _MASK32 = 0xFFFFFFFF
 
 
@@ -845,11 +1166,14 @@ class ExportedModel(object):
                                         FORMAT_VERSION))
         self.units = self.manifest["units"]
         for entry in self.units:
-            if entry["type"] not in PORTED_UNITS:
-                raise Bug("unit type %r (unit %s) is not yet ported — "
-                          "the torch port serves causal LMs" %
-                          (entry["type"], entry["name"]))
-        lm_chain(self.units)
+            t = entry["type"]
+            if t not in EXPORTABLE:
+                raise Bug("unknown unit type %r (unit %s) in artifact" %
+                          (t, entry["name"]))
+            if t in NOT_PORTED_UNITS:
+                raise Bug("unit type %r (unit %s) is not yet ported "
+                          "(ROADMAP %s)" % (t, entry["name"],
+                                            NOT_PORTED_UNITS[t]))
         self.weights = dict(numpy.load(io.BytesIO(
             blobs.pop("weights.npz"))))
         self.input_shape = tuple(
@@ -860,17 +1184,25 @@ class ExportedModel(object):
         #: Monotonically increasing weight generation: 1 at load,
         #: bumped by every :meth:`swap_weights`.
         self.weight_version = 1
-        _, H, D = self._paged_geometry()
-        if D > MAX_HEAD_DIM:
-            raise Bug("head dim %d exceeds the decode kernel's maximum "
-                      "(%d)" % (D, MAX_HEAD_DIM))
+        #: Whether the chain is a causal LM (embedding →
+        #: transformer_block* → lm_head): only those have the decode
+        #: programs, the paged surface and a positional table.
+        self.is_lm = _is_lm_chain(self.units)
+        if self.is_lm:
+            _, H, D = self._paged_geometry()
+            if D > MAX_HEAD_DIM:
+                raise Bug("head dim %d exceeds the decode kernel's "
+                          "maximum (%d)" % (D, MAX_HEAD_DIM))
         self._device = None
+        self._chain_weights = None
         self._lm_params_cache = None
 
     @property
     def max_position(self):
         """The LM positional-table size (prompt+generated tokens must
-        fit)."""
+        fit), or None when the artifact is not a causal LM."""
+        if not self.is_lm:
+            return None
         emb, _, _ = lm_chain(self.units)
         return int(self.weights[emb["params"]["pos"]].shape[0])
 
@@ -972,6 +1304,7 @@ class ExportedModel(object):
                 (missing or "-", extra or "-", reshaped or "-"))
         self.weights = new
         self._device = None
+        self._chain_weights = None
         self._lm_params_cache = None
         self.weight_version += 1
         return self.weight_version
@@ -999,8 +1332,16 @@ class ExportedModel(object):
     # ---- forward ------------------------------------------------------
 
     def forward(self, x):
-        """The LM chain over token ids ``x`` (B, S): returns the (B, S,
-        V) logits as numpy, every block under the causal mask."""
+        """The artifact's forward chain on the model's device, as numpy.
+        A causal LM takes token ids ``x`` (B, S) and returns the (B, S,
+        V) logits, every block under the causal mask; any other chain
+        takes samples of the manifest's input shape (or flat) and runs
+        :meth:`_chain`."""
+        if not self.is_lm:
+            x = self._shape_input(numpy.asarray(x, dtype=numpy.float32))
+            with torch.inference_mode():
+                y = self._chain(self._tensor(x, torch.float32))
+            return y.cpu().numpy()
         tokens = self._tensor(numpy.asarray(x, dtype=numpy.float32),
                               torch.float32)
         if tokens.ndim == 1:
@@ -1039,6 +1380,319 @@ class ExportedModel(object):
         self.compile_cache.get_or_build(
             ("fwd",) + tuple(x.shape), lambda: True)
         return self.forward(x)[:n]
+
+    # ---- the chain on the device ---------------------------------------
+
+    def _flat_weights(self):
+        """Every weight as a float32 tensor on the model's device — one
+        upload per weight generation."""
+        if self._chain_weights is None:
+            self._chain_weights = {
+                k: torch.from_numpy(numpy.ascontiguousarray(
+                    v, dtype=numpy.float32)).to(self.torch_device)
+                for k, v in self.weights.items()}
+        return self._chain_weights
+
+    def _chain(self, x):
+        """The forward chain over the float32 tensor ``x`` (shaped by
+        :meth:`_shape_input`), as the JAX package's traced chain runs
+        it: NHWC convolutions with the artifact's sliding and padding,
+        ceil-mode pooling with tail padding, the veles activations
+        (``conv_relu`` / ``all2all_relu`` are softplus).  ``norm`` is
+        :func:`~veles_tpu_torch.ops.lrn.lrn_forward`: a CUDA tensor
+        launches the forward LRN kernel (B6) or raises, a CPU tensor
+        takes the plain banded version."""
+        weights = self._flat_weights()
+
+        def par(entry, name):
+            return weights[entry["params"][name]]
+
+        for entry in self.units:
+            t = entry["type"]
+            cfg = entry["config"]
+            if t == "mean_disp":
+                x = (x - par(entry, "mean")) * par(entry, "rdisp")
+            elif t == "dropout":
+                pass
+            elif t.startswith("activation_"):
+                x = _torch_act(t.split("activation_")[1], x)
+            elif t.startswith("all2all") or t in ("softmax", "rbm"):
+                y = x.reshape(x.shape[0], -1) @ par(entry, "weights")
+                if "bias" in entry["params"]:
+                    y = y + par(entry, "bias")
+                x = _torch_act(_DENSE_ACT[t], y)
+                shape = cfg.get("output_sample_shape")
+                if shape:
+                    x = x.reshape((x.shape[0],) + tuple(shape))
+            elif t == "kohonen":
+                # float64, as the numpy mirror: the expanded distance
+                # cancels near zero where the map converged.
+                w = par(entry, "weights").double()
+                xf = x.reshape(x.shape[0], -1).double()
+                x = ((xf * xf).sum(1, keepdim=True) - 2.0 * (xf @ w.T) +
+                     (w * w).sum(1)).float()
+            elif t.startswith("conv"):
+                x = _torch_conv(x, par(entry, "weights"),
+                                par(entry, "bias")
+                                if "bias" in entry["params"] else None,
+                                cfg)
+                x = _torch_act(_CONV_ACT[t], x)
+            elif t.endswith("pooling"):
+                x = _torch_pool(t, cfg, x)
+            elif t == "norm":
+                x = ops_lrn.lrn_forward(
+                    x.contiguous(), int(cfg["n"]), float(cfg["alpha"]),
+                    float(cfg["beta"]), float(cfg["k"]))
+            elif t == "embedding":
+                w = par(entry, "weights")
+                tokens = torch.clamp(x.to(torch.int64), 0,
+                                     w.shape[0] - 1)
+                x = w[tokens] + par(entry, "pos")[:tokens.shape[1]]
+            elif t == "transformer_block":
+                p = {n: par(entry, n) for n in entry["params"]}
+                B, S = x.shape[0], x.shape[1]
+                mask = torch.ones((S, S), dtype=torch.bool,
+                                  device=x.device)
+                if cfg.get("causal", 1):
+                    mask = torch.tril(mask)
+                mask = mask.expand(B, S, S)
+                x = _block(p, x, int(cfg["n_heads"]),
+                           lambda q, k, v, m=mask:
+                           decode_attention_reference(q, k, v, m))
+            elif t == "lm_head":
+                x = x @ par(entry, "weights")
+                if "bias" in entry["params"]:
+                    x = x + par(entry, "bias")
+            else:
+                raise Bug("unknown unit type %r" % t)
+        return x
+
+    # ---- numpy reference path (the native runtime's mirror) -----------
+    # The JAX package's numpy code, line for line: the same artifact
+    # gives the same bytes in both packages.
+
+    def _shape_input(self, x):
+        """Reshapes flat samples to the manifest geometry; a 2-D
+        input over a 1-D sample shape of DIFFERENT length passes
+        through — token models accept any sequence length (the pos
+        table is sliced to fit), e.g. the generation parity tests
+        feed growing prefixes."""
+        if tuple(x.shape[1:]) == self.input_shape:
+            return x
+        n = 1
+        for d in self.input_shape:
+            n *= d
+        if x.size == x.shape[0] * n:
+            return x.reshape((x.shape[0],) + self.input_shape)
+        if x.ndim == 2 and len(self.input_shape) == 1 and \
+                self.units and self.units[0]["type"] == "embedding":
+            # Token models only: any sequence length is legitimate
+            # (the pos table is sliced to fit).  Dense artifacts keep
+            # the strict-width check — the numpy path mirrors the
+            # native runtime, which rejects wrong-size samples.
+            return x
+        raise Bug("input shape %s does not fit samples of %s" %
+                  (x.shape, self.input_shape))
+
+    def forward_numpy(self, x):
+        x = numpy.asarray(x, dtype=numpy.float32)
+        x = self._shape_input(x)
+        for entry in self.units:
+            x = self._run_numpy(entry, x)
+        return x
+
+    def _param(self, entry, name):
+        return self.weights[entry["params"][name]]
+
+    def _run_numpy(self, entry, x):
+        t = entry["type"]
+        cfg = entry["config"]
+        if t == "mean_disp":
+            return (x - self._param(entry, "mean")) * \
+                self._param(entry, "rdisp")
+        if t == "dropout":
+            return x
+        if t.startswith("activation_"):
+            return _ACTS[t.split("activation_")[1]](x)
+        if t.startswith("all2all") or t in ("softmax", "rbm"):
+            w = self._param(entry, "weights")
+            y = x.reshape(x.shape[0], -1) @ w
+            if "bias" in entry["params"]:
+                y = y + self._param(entry, "bias")
+            y = _ACTS[_DENSE_ACT[t]](y)
+            shape = cfg.get("output_sample_shape")
+            if shape:
+                y = y.reshape((x.shape[0],) + tuple(shape))
+            return y
+        if t == "kohonen":
+            return self._kohonen_numpy(entry, x)
+        if t == "embedding":
+            w = self._param(entry, "weights")
+            # Clamp OOV ids like the native runtime and jax indexing
+            # do — the mirror must not raise/wrap where they clamp.
+            tokens = numpy.clip(x.astype(numpy.int32), 0,
+                                w.shape[0] - 1)
+            return (w[tokens] +
+                    self._param(entry, "pos")[:tokens.shape[1]]
+                    ).astype(numpy.float32)
+        if t == "transformer_block":
+            return self._transformer_numpy(entry, x)
+        if t == "lm_head":
+            w = self._param(entry, "weights")
+            y = x @ w
+            if "bias" in entry["params"]:
+                y = y + self._param(entry, "bias")
+            return y.astype(numpy.float32)
+        if t.startswith("conv"):
+            return self._conv_numpy(entry, x)
+        if t.endswith("pooling"):
+            return self._pool_numpy(entry, x)
+        if t == "norm":
+            return self._lrn_numpy(cfg, x)
+        raise Bug("unknown unit type %r in artifact" % t)
+
+    def _transformer_numpy(self, entry, x):
+        """Pre-LN block, numpy mirror of the JAX package's
+        ``transformer_block_apply``."""
+        cfg = entry["config"]
+        H = int(cfg["n_heads"])
+        causal = bool(cfg.get("causal", 1))
+        p = {n: self._param(entry, n) for n in entry["params"]}
+
+        def ln(v, g, b, eps=1e-5):
+            mu = v.mean(axis=-1, keepdims=True)
+            var = ((v - mu) ** 2).mean(axis=-1, keepdims=True)
+            return (v - mu) / numpy.sqrt(var + eps) * g + b
+
+        B, S, E = x.shape
+        D = E // H
+        h = ln(x, p["ln1_g"], p["ln1_b"])
+        if "wqkv" in p:
+            # Fused-QKV artifact: one (E, 3E) head-major projection
+            # (znicz/attention.fuse_qkv_arrays layout).
+            qkv = (h @ p["wqkv"] + p["bqkv"]).reshape(B, S, H, 3, D)
+            q, k, v = qkv[..., 0, :], qkv[..., 1, :], qkv[..., 2, :]
+        else:
+            q = (h @ p["wq"] + p["bq"]).reshape(B, S, H, D)
+            k = (h @ p["wk"] + p["bk"]).reshape(B, S, H, D)
+            v = (h @ p["wv"] + p["bv"]).reshape(B, S, H, D)
+        scores = numpy.einsum("bqhd,bkhd->bhqk", q, k) / \
+            numpy.sqrt(D)
+        if causal:
+            mask = numpy.tril(numpy.ones((S, S), bool))
+            scores = numpy.where(mask, scores, -1e30)
+        scores -= scores.max(axis=-1, keepdims=True)
+        pattn = numpy.exp(scores)
+        pattn /= pattn.sum(axis=-1, keepdims=True)
+        attn = numpy.einsum("bhqk,bkhd->bqhd", pattn, v) \
+            .reshape(B, S, E)
+        x = x + attn @ p["wo"] + p["bo"]
+        h = ln(x, p["ln2_g"], p["ln2_b"])
+        h = numpy.maximum(h @ p["w1"] + p["b1"], 0.0)
+        return (x + h @ p["w2"] + p["b2"]).astype(numpy.float32)
+
+    def _kohonen_numpy(self, entry, x):
+        # Squared distance to each SOM neuron (KohonenForward emits
+        # the full distance map; BMU = argmin over the last axis).
+        # float64 accumulation: the expanded form cancels near zero
+        # exactly where the SOM converged, and the native runtime
+        # accumulates exact squared differences in double.
+        w = self._param(entry, "weights") \
+            .astype(numpy.float64)  # (n_neurons, n_in)
+        xf = x.reshape(x.shape[0], -1).astype(numpy.float64)
+        return ((xf * xf).sum(1, keepdims=True) - 2.0 * (xf @ w.T) +
+                (w * w).sum(1)).astype(numpy.float32)
+
+    def _conv_numpy(self, entry, x):
+        cfg = entry["config"]
+        w = self._param(entry, "weights")  # HWIO
+        ky, kx = w.shape[0], w.shape[1]
+        (pt, pb), (pl, pr) = cfg["padding"]
+        sh, sw = cfg["sliding"]
+        xp = numpy.pad(x, ((0, 0), (pt, pb), (pl, pr), (0, 0)))
+        n, H, W, C = xp.shape
+        out_h = (H - ky) // sh + 1
+        out_w = (W - kx) // sw + 1
+        # im2col: patches (n, out_h, out_w, ky*kx*C)
+        cols = numpy.empty((n, out_h, out_w, ky * kx * C),
+                           dtype=numpy.float32)
+        for iy in range(ky):
+            for ix in range(kx):
+                patch = xp[:, iy:iy + sh * out_h:sh,
+                           ix:ix + sw * out_w:sw, :]
+                cols[..., (iy * kx + ix) * C:(iy * kx + ix + 1) * C] \
+                    = patch
+        y = cols @ w.reshape(-1, w.shape[-1])
+        if "bias" in entry["params"]:
+            y = y + self._param(entry, "bias")
+        act = {"conv": "linear", "conv_tanh": "tanh",
+               "conv_relu": "softplus", "conv_str": "str",
+               "conv_sigmoid": "sigmoid"}[entry["type"]]
+        return _ACTS[act](y)
+
+    def _pool_numpy(self, entry, x):
+        cfg = entry["config"]
+        t = entry["type"]
+        ky, kx = int(cfg["ky"]), int(cfg["kx"])
+        sh, sw = cfg["sliding"]
+        (pt, pb), (pl, pr) = cfg["padding"]
+        n, H, W, C = x.shape
+        # Ceil-mode output + tail padding (matches Pooling
+        # _window_padding).
+        out_h = -(-(H + pt + pb - ky) // sh) + 1
+        out_w = -(-(W + pl + pr - kx) // sw) + 1
+        need_h = (out_h - 1) * sh + ky - (H + pt)
+        need_w = (out_w - 1) * sw + kx - (W + pl)
+        pb2, pr2 = max(pb, need_h), max(pr, need_w)
+        if t == "avg_pooling":
+            fill = 0.0
+        else:
+            fill = numpy.nan  # excluded via nan-aware reductions
+        xp = numpy.full((n, H + pt + pb2, W + pl + pr2, C), fill,
+                        dtype=numpy.float32)
+        xp[:, pt:pt + H, pl:pl + W, :] = x
+        y = numpy.empty((n, out_h, out_w, C), dtype=numpy.float32)
+        if t == "avg_pooling":
+            # Sum over zero-padded windows, divided by the true
+            # (unpadded) window population.
+            ones = numpy.zeros_like(xp)
+            ones[:, pt:pt + H, pl:pl + W, :] = 1.0
+        for oy in range(out_h):
+            for ox in range(out_w):
+                win = xp[:, oy * sh:oy * sh + ky,
+                         ox * sw:ox * sw + kx, :]
+                flat = win.reshape(n, -1, C)
+                if t == "avg_pooling":
+                    cnt = ones[:, oy * sh:oy * sh + ky,
+                               ox * sw:ox * sw + kx, :] \
+                        .reshape(n, -1, C).sum(axis=1)
+                    y[:, oy, ox] = flat.sum(axis=1) / \
+                        numpy.maximum(cnt, 1.0)
+                elif t == "maxabs_pooling":
+                    # nan→-inf (not nanargmax: an all-padding window
+                    # must yield NaN, matching the native runtime,
+                    # rather than raise on the all-NaN slice).
+                    absf = numpy.where(numpy.isnan(flat),
+                                       -numpy.inf, numpy.abs(flat))
+                    idx = absf.argmax(axis=1)
+                    y[:, oy, ox] = numpy.take_along_axis(
+                        flat, idx[:, None, :], axis=1)[:, 0]
+                else:
+                    y[:, oy, ox] = numpy.nanmax(flat, axis=1)
+        return y
+
+    @staticmethod
+    def _lrn_numpy(cfg, x):
+        alpha, beta, k, n = (cfg["alpha"], cfg["beta"], cfg["k"],
+                             int(cfg["n"]))
+        c = x.shape[-1]
+        half = n // 2
+        sq = x * x
+        ssum = numpy.zeros_like(x)
+        for j in range(c):
+            lo, hi = max(0, j - half), min(c, j + (n - 1 - half) + 1)
+            ssum[..., j] = sq[..., lo:hi].sum(axis=-1)
+        return x / (k + (alpha / n) * ssum) ** beta
 
     # ---- dense-cache generation ---------------------------------------
 
@@ -1080,6 +1734,7 @@ class ExportedModel(object):
         chip check pass ``decode_attention_reference`` to run the same
         program with plain attention; nothing in serving reaches this
         argument."""
+        lm_chain(self.units)   # a Bug naming the chain when not an LM
         prompt = numpy.atleast_2d(
             numpy.asarray(prompt, dtype=numpy.int32))
         if prompt.shape[1] < 1:

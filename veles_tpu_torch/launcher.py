@@ -2,8 +2,11 @@
 ``launcher``, local mode).
 
 ``initialize`` resolves the device — the CUDA card unless the caller
-asks for the CPU — and initializes the workflow on it; ``run`` drives
-the workflow's graph to completion on this thread; ``stop`` ends it.
+asks for the CPU — and initializes the workflow on it
+(``snapshot=True`` after a resume: the units keep their unpickled
+state and put their Vectors on the device); ``run`` drives the
+workflow's graph to completion on this thread; ``stop`` ends it;
+``resume_latest`` adopts the newest verified snapshot of a directory.
 Master/worker modes, web-status heartbeats and remote worker spawn
 wait for ROADMAP A7/A8: asking for them raises.
 """
@@ -11,7 +14,9 @@ wait for ROADMAP A7/A8: asking for them raises.
 import threading
 import time
 
+from . import resilience
 from .backends import resolve_device
+from .config import root, get as config_get
 from .logger import Logger
 
 
@@ -48,10 +53,45 @@ class Launcher(Logger):
         if self.workflow is workflow:
             self.workflow = None
 
+    def resume_latest(self, directory=None, prefix=None,
+                      expect_class=None):
+        """Crash-resume: loads the newest snapshot named by a
+        ``*_current.lnk`` pointer in ``directory`` (default
+        ``root.common.dirs.snapshots``), walking back over corrupt,
+        unhealthy or unloadable generations, adopts it as this
+        launcher's workflow and returns it — or None when there is
+        nothing to resume.  ``expect_class`` guards shared directories:
+        only a snapshot holding an instance of that class is adopted;
+        others are skipped with a warning."""
+        directory = directory or config_get(
+            root.common.dirs.snapshots, "snapshots")
+        from .snapshotter import SnapshotterToFile
+        for path in resilience.iter_snapshots(directory, prefix):
+            try:
+                workflow = SnapshotterToFile.import_(path)
+            except Exception as e:
+                self.warning("crash-resume: cannot load %s (%s) — "
+                             "trying the next snapshot", path, e)
+                continue
+            if expect_class is not None and \
+                    not isinstance(workflow, expect_class):
+                self.warning(
+                    "crash-resume: skipping %s — it holds a %s, not "
+                    "the %s this invocation trains", path,
+                    type(workflow).__name__, expect_class.__name__)
+                continue
+            self.add_ref(workflow)
+            resilience.stats.incr("master.resume")
+            self.info("crash-resume: adopted snapshot %s (%s)", path,
+                      type(workflow).__name__)
+            return workflow
+        return None
+
     def initialize(self, device="cuda", **kwargs):
         """Resolves ``device`` ("cuda" — the default — or "cpu", a
         ``torch.device`` or a ``backends.Device``; a missing card
-        raises) and initializes the workflow on it."""
+        raises) and initializes the workflow on it; ``kwargs``
+        (``snapshot=True`` on a resume) reach every unit."""
         self.device = resolve_device(device)
         self.workflow.initialize(device=self.device, **kwargs)
         return self

@@ -187,6 +187,14 @@ class MetricsRegistry(object):
         with self._lock:
             return list(self._metrics.values())
 
+    def reset(self, kind=None):
+        """Drops series — all of them, or only those of one ``kind``
+        ("counter"/"gauge"/"histogram")."""
+        with self._lock:
+            for key in [k for k, m in self._metrics.items()
+                        if kind is None or m.kind == kind]:
+                del self._metrics[key]
+
     def counters_snapshot(self):
         """name → value over the counter series only (the flat-dict
         shape the ``stats.snapshot()`` contract promises)."""

@@ -1,8 +1,9 @@
-"""The resilience layer's serving half: deadlines, deterministic
-fault injection, and resilience-event accounting.
+"""The resilience layer's local half: deadlines, deterministic fault
+injection, retries, resilience-event accounting and the crash-resume
+walk.
 
 Ported from the JAX package's resilience module, keeping what the
-serving engine uses:
+serving engine and the snapshot path use:
 
 * :class:`Deadline` — a wall-clock budget;
 * :class:`FaultInjector` — a seeded, *schedulable* chaos engine with
@@ -13,10 +14,16 @@ serving engine uses:
 * :data:`stats` — a thread-safe counter registry over the process
   metrics registry.
 
+* :class:`RetryPolicy` — exponential backoff with seeded jitter;
+* :func:`iter_snapshots` / :func:`latest_snapshot` — the crash-resume
+  walk over snapshot pointers and their families' generations.
+
 The serving engine consults ``serve.device_fault`` before every device
 call, and the hot-reload verifier ``serve.reload_corrupt`` after it
-reads an artifact.  The control-plane points of the JAX package
-(network, worker, snapshot) come with the distributed slice.
+reads an artifact.  The snapshotter consults ``snapshot.write`` and
+``snapshot.corrupt`` on every export, and the training step
+``step.nan`` on every tick.  The control-plane points of the JAX
+package (network, worker, master) come with the distributed slice.
 
 Chaos-plan grammar (comma-separated entries)::
 
@@ -48,6 +55,24 @@ class InjectedFault(ResilienceError):
         self.fault = fault
         self.counter = counter
         self.count = count
+
+
+class SnapshotWriteFault(InjectedFault, OSError):
+    """A failed checkpoint write (disk full, NFS hiccup)."""
+
+
+class InjectedStepNaN(InjectedFault):
+    """A poisoned training tick: the step executor
+    (``AcceleratedWorkflow.execute_step``) catches this and feeds NaN
+    into the minibatch mask, so the NaN flows through the real step —
+    loss, gradients and the health sentinel all see it the way a bad
+    record would produce it."""
+
+
+class InjectedSnapshotCorruption(InjectedFault):
+    """Bit-rot on a just-written snapshot: the snapshotter catches this
+    and flips one byte of the blob after the manifest was computed, so
+    checksum verification must reject it on resume."""
 
 
 class InjectedDeviceFault(InjectedFault):
@@ -92,6 +117,11 @@ class ResilienceStats(object):
         shape; gauges/histograms sharing the registry stay out)."""
         return self.registry.counters_snapshot()
 
+    def reset(self):
+        """Drops the counters only: gauges and histograms sharing the
+        registry belong to their own subsystems."""
+        self.registry.reset(kind="counter")
+
 
 def _global_registry():
     from .observability.metrics import registry
@@ -101,6 +131,11 @@ def _global_registry():
 #: The process-wide resilience event registry, shimmed onto the
 #: process metrics registry (observability.metrics.registry).
 stats = ResilienceStats(registry=_global_registry())
+
+#: prng registry key of the retry-jitter stream — distinct from the
+#: model and loader generators (0, 1, …), so retry jitter never
+#: perturbs training randomness.
+PRNG_KEY = 201
 
 
 # -- deadline --------------------------------------------------------------
@@ -126,10 +161,92 @@ class Deadline(object):
         return max(0.0, min(delay, self.remaining()))
 
 
+def _process_phase():
+    """A stable pseudo-random value in [0, 1) per process (machine id +
+    pid): constant within a process, distinct across processes, so
+    retries of many processes do not redial in lock-step."""
+    if _phase[0] is None:
+        import os
+        import uuid
+        _phase[0] = ((uuid.getnode() * 1000003 + os.getpid())
+                     % 997) / 997.0
+    return _phase[0]
+
+
+_phase = [None]
+
+
+# -- retry policy ----------------------------------------------------------
+
+class RetryPolicy(object):
+    """Exponential backoff with seeded jitter.
+
+    ``delay(attempt)`` = min(base·factor^attempt, max) scaled by a
+    uniform draw in [1-jitter, 1+jitter] from the :mod:`prng` resilience
+    stream (deterministic given seed and draw order) and by the stable
+    per-process phase.  ``rng`` is a private jitter source
+    (``random.Random``-like); None uses the shared resilience stream.
+    """
+
+    def __init__(self, max_attempts=5, base_delay=0.2, factor=2.0,
+                 max_delay=30.0, jitter=0.25, deadline=None,
+                 rng=None):
+        self.max_attempts = int(max_attempts)
+        self.base_delay = float(base_delay)
+        self.factor = float(factor)
+        self.max_delay = float(max_delay)
+        self.jitter = float(jitter)
+        self.deadline = deadline
+        self.rng = rng
+
+    def delay(self, attempt):
+        try:
+            grown = self.base_delay * self.factor ** attempt
+        except OverflowError:
+            grown = self.max_delay
+        d = min(grown, self.max_delay)
+        if self.jitter:
+            if self.rng is not None:
+                rng = self.rng
+            else:
+                from . import prng
+                rng = prng.get(PRNG_KEY)
+            d *= 1.0 + rng.uniform(-self.jitter, self.jitter)
+            d *= 1.0 + self.jitter * (_process_phase() - 0.5)
+        if self.deadline is not None:
+            d = self.deadline.clamp(d)
+        return max(0.0, d)
+
+    def call(self, fn, retry_on=(OSError,), on_retry=None,
+             sleep=time.sleep, stat=None):
+        """Calls ``fn()`` with retries.  ``on_retry(attempt, exc)``
+        observes each failure; ``stat`` names a counter incremented
+        per retry.  The last exception propagates when attempts (or
+        the deadline) are exhausted."""
+        attempt = 0
+        while True:
+            try:
+                return fn()
+            except retry_on as e:
+                expired = (self.deadline is not None and
+                           self.deadline.expired)
+                if attempt >= self.max_attempts or expired:
+                    raise
+                if stat:
+                    stats.incr(stat)
+                if on_retry is not None:
+                    on_retry(attempt, e)
+                sleep(self.delay(attempt))
+                attempt += 1
+
+
 # -- fault injection -------------------------------------------------------
 
 #: fault name -> (injection point, exception class)
 FAULTS = {
+    "snapshot.fail": ("snapshot.write", SnapshotWriteFault),
+    "snapshot.corrupt": ("snapshot.corrupt", InjectedSnapshotCorruption),
+    "step.nan": ("step.nan", InjectedStepNaN),
     "serve.device_fault": ("serve.device_fault", InjectedDeviceFault),
     "serve.reload_corrupt": ("serve.reload_corrupt",
                              InjectedReloadCorruption),
@@ -245,11 +362,87 @@ class FaultInjector(object):
         return "FaultInjector(%r, seed=%d)" % (self.plan, self.seed)
 
 
-#: Null injector: ``check`` is a cheap early return.
+#: The process-wide injector — the null one unless a plan was
+#: installed; its ``check`` is then a cheap early return.
 _default = FaultInjector()
+_install_lock = threading.Lock()
+
+
+def get_injector():
+    """The process-wide injector."""
+    return _default
 
 
 def effective(injector):
     """The injector a component should consult: its explicit one, or
-    the null injector."""
+    the process-wide one."""
     return injector if injector is not None else _default
+
+
+def install(plan_or_injector, seed=0):
+    """Installs the process-wide injector (from a plan string or an
+    instance) and returns it."""
+    global _default
+    with _install_lock:
+        if isinstance(plan_or_injector, FaultInjector):
+            _default = plan_or_injector
+        else:
+            _default = FaultInjector(plan_or_injector or "", seed=seed)
+        return _default
+
+
+def reset():
+    """Restores the null injector and clears the counters."""
+    global _default
+    with _install_lock:
+        _default = FaultInjector()
+    stats.reset()
+
+
+# -- crash-resume helpers --------------------------------------------------
+
+def iter_snapshots(directory, prefix=None):
+    """Yields snapshot paths named by ``*_current.lnk`` pointers in
+    ``directory``, newest pointer first, then — per pointer family —
+    the family's older generations (newest first).  ``prefix`` narrows
+    the search to one family.  A dangling pointer falls through to the
+    family's surviving generations; the caller verifies each candidate
+    and walks on."""
+    import glob
+    import os
+    if not directory or not os.path.isdir(directory):
+        return
+    pattern = ("%s_current.lnk" % prefix) if prefix \
+        else "*_current.lnk"
+    links = glob.glob(os.path.join(directory, pattern))
+
+    def _mtime(path):
+        try:
+            return os.path.getmtime(path)
+        except OSError:
+            return 0.0  # pruned between glob and sort: sorts last
+
+    links.sort(key=_mtime, reverse=True)
+    from .snapshotter import SnapshotterToFile, iter_generations
+    for link in links:
+        seen = set()
+        try:
+            target = SnapshotterToFile.resolve(link)
+        except FileNotFoundError:
+            target = None  # dangling/empty: the walk takes over
+        if target is not None and os.path.isfile(target):
+            seen.add(os.path.abspath(target))
+            yield target
+        family = os.path.basename(link)[:-len("_current.lnk")]
+        for path in iter_generations(os.path.dirname(link), family):
+            if os.path.abspath(path) in seen:
+                continue
+            seen.add(os.path.abspath(path))
+            yield path
+
+
+def latest_snapshot(directory, prefix=None):
+    """The newest resumable snapshot path, or None."""
+    for path in iter_snapshots(directory, prefix):
+        return path
+    return None

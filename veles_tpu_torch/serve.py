@@ -1,6 +1,10 @@
 """``python -m veles_tpu_torch.serve model.veles.tgz [--device cuda]``
-— serve an exported LM artifact over HTTP through the port's serving
-engine: paged KV-cache decode-step continuous batching
+— serve an exported artifact over HTTP through the port's serving
+engine.  A classifier (dense, conv, pooling, norm units) answers
+``POST /api`` with ``output`` and ``labels`` in shape-bucketed batches
+(``--warmup`` walks the batch buckets); a causal LM also answers
+``POST /api/generate`` (a classifier answers it 400) with paged
+KV-cache decode-step continuous batching
 (``--kv-blocks`` / ``--kv-block-size`` / ``--no-paged-decode``) over an
 f32, bf16, int8 or fp8 KV plane (``--kv-dtype``), weight-only int8
 decode matmuls (``--weight-dtype int8``), speculative decoding
@@ -31,7 +35,7 @@ NOT_PORTED = ("fabric_replicas", "fabric_disagg", "tenant")
 def main(argv=None):
     parser = argparse.ArgumentParser(
         prog="veles_tpu_torch.serve",
-        description="Serve an exported LM artifact over HTTP "
+        description="Serve an exported artifact over HTTP "
                     "(POST /api, POST /api/generate, GET /health, "
                     "GET /stats, GET /metrics Prometheus "
                     "exposition)")

@@ -1,10 +1,9 @@
 """Hot-deployment plumbing: artifact verification and the reload
 watcher that closes the train→serve loop.
 
-The port of the JAX package's ``veles_tpu/serving/reload.py``, which is
-stdlib-only: the port keeps its own copy, with the two snapshot-format
-helpers it reads (the sidecar manifest and the ``_current.lnk``
-pointer) copied beside it.
+The port of the JAX package's ``veles_tpu/serving/reload.py``: the
+sidecar manifest and the ``_current.lnk`` pointer are the port's
+snapshotter's (:mod:`veles_tpu_torch.snapshotter`).
 
 A training run that snapshots with ``--snapshot-artifact`` also
 exports every snapshot generation as a serving artifact
@@ -24,62 +23,24 @@ verified in-memory bytes — what was hashed is exactly what serves
 
 import hashlib
 import io
-import json
 import os
 import threading
 
 from .. import resilience
 from ..logger import Logger
+from ..snapshotter import (SnapshotterToFile, read_manifest,
+                           sha256_file, write_manifest_sidecar)
 
 #: Suffix of the serving artifact the snapshotter writes next to
 #: each snapshot blob.
 ARTIFACT_SUFFIX = ".veles.tgz"
-#: Suffix of a blob's sidecar manifest.
-MANIFEST_SUFFIX = ".manifest.json"
-
-
-def read_manifest(path):
-    """The parsed sidecar manifest of ``path`` (``<path>.manifest.json``),
-    or None when it has no readable one."""
-    try:
-        with open(path + MANIFEST_SUFFIX) as fin:
-            manifest = json.load(fin)
-    except (OSError, ValueError):
-        return None
-    return manifest if isinstance(manifest, dict) else None
 
 
 def write_manifest(path):
     """Writes the sha256/size sidecar manifest of the file at ``path``
     (the format :func:`read_verified` checks) and returns it."""
-    with open(path, "rb") as fin:
-        blob = fin.read()
-    manifest = {"sha256": hashlib.sha256(blob).hexdigest(),
-                "size": len(blob)}
-    with open(path + MANIFEST_SUFFIX, "w") as fout:
-        json.dump(manifest, fout)
-    return manifest
-
-
-def resolve_pointer(path):
-    """The snapshot a ``*_current.lnk`` pointer names (a path that is no
-    pointer passes through).  Raises OSError when the pointer cannot
-    be read, is empty, or names a file that does not exist; a pointer
-    naming a bare file name is resolved beside the pointer."""
-    if not path.endswith(".lnk"):
-        return path
-    with open(path) as fin:
-        target = fin.read().strip()
-    if not target:
-        raise OSError("snapshot pointer %s is empty" % path)
-    if not os.path.isfile(target):
-        sibling = os.path.join(os.path.dirname(path),
-                               os.path.basename(target))
-        if os.path.isfile(sibling):
-            return sibling
-        raise OSError("snapshot pointer %s names %s, which does not "
-                      "exist" % (path, target))
-    return target
+    return write_manifest_sidecar(path, {
+        "sha256": sha256_file(path), "size": os.path.getsize(path)})
 
 
 class ArtifactRejected(Exception):
@@ -143,7 +104,7 @@ def resolve_artifact(watch_path):
     ``.veles.tgz`` sibling written by ``--snapshot-artifact``), or a
     non-artifact snapshot path with such a sibling."""
     try:
-        target = resolve_pointer(watch_path)
+        target = SnapshotterToFile.resolve(watch_path)
     except OSError:
         return None
     if target.endswith(ARTIFACT_SUFFIX):

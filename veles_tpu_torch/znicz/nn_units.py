@@ -185,6 +185,9 @@ class GradientDescentBase(TracedUnit, metaclass=GDUnitRegistry):
                 "optimizer %r (its slot prefixes: %s)"
                 % (self.name, stale, self.optimizer,
                    ", ".join(opt.SLOT_PREFIXES) or "none"))
+        for v in self._velocities.values():
+            # Slots a snapshot carried come back as host arrays.
+            v.initialize(self.device)
         for attr, vec in self.target.trainables.items():
             for slot, shape, dtype in opt.slots(attr, vec, self):
                 if slot not in self._velocities:

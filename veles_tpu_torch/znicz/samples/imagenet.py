@@ -198,6 +198,9 @@ def alexnet_layers(n_classes=1000, lr=0.01, moment=0.9, decay=5e-4):
 class AlexNetWorkflow(StandardWorkflow):
     """The AlexNet training workflow with in-step byte normalization."""
 
+    #: Snapshot name stem (``imagenet_current.lnk``).
+    snapshot_prefix = "imagenet"
+
     def __init__(self, workflow, layers=None, minibatch_size=256,
                  learning_rate=0.01, gradient_moment=0.9,
                  weights_decay=5e-4, max_epochs=None,

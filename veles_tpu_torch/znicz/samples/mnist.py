@@ -1,7 +1,11 @@
 """MNIST784 fully-connected workflow (the JAX package's
 ``znicz/samples/mnist.py``; parity config #1 of BASELINE.json):
 Repeater → FullBatchLoader → All2AllTanh(100) → All2AllSoftmax(10) →
-EvaluatorSoftmax → DecisionGD → GD chain → loop, every tick one step.
+EvaluatorSoftmax → DecisionGD → [snapshotter] → [guardian] → GD chain →
+loop, every tick one step.  The snapshotter is linked when a snapshot
+directory is configured (``--snapshot-dir``), the health guardian when
+a policy is (``--guardian-policy``); without either the graph is the
+JAX sample's.
 
 Dataset: real MNIST IDX files under ``root.common.dirs.datasets/mnist``
 when present; otherwise scikit-learn's bundled 8×8 digits upsampled to
@@ -19,8 +23,10 @@ import numpy
 
 from ...accelerated_units import AcceleratedWorkflow
 from ...config import root, get as config_get
+from ...guardian import HealthGuardian
 from ...loader.fullbatch import FullBatchLoader
 from ...plumbing import Repeater
+from ...snapshotter import link_snapshotter
 from ..all2all import All2AllTanh, All2AllSoftmax
 from ..evaluator import EvaluatorSoftmax
 from ..decision import DecisionGD
@@ -107,11 +113,15 @@ class MnistLoader(FullBatchLoader):
 class MnistWorkflow(AcceleratedWorkflow):
     """The MNIST784 training workflow."""
 
+    #: Snapshot name stem (``mnist_current.lnk``).
+    snapshot_prefix = "mnist"
+
     def __init__(self, workflow, layers=(100, 10), minibatch_size=100,
                  learning_rate=0.03, gradient_moment=0.9,
                  weights_decay=0.0005, max_epochs=None,
                  fail_iterations=25, loader_cls=MnistLoader,
-                 loader_config=None, **kwargs):
+                 loader_config=None, snapshotter_config=None,
+                 guardian_config=None, **kwargs):
         super(MnistWorkflow, self).__init__(workflow, **kwargs)
 
         self.repeater = Repeater(self)
@@ -151,9 +161,24 @@ class MnistWorkflow(AcceleratedWorkflow):
             self.loader, "minibatch_class", "last_minibatch",
             "epoch_ended", "epoch_number")
 
+        self.snapshotter = link_snapshotter(
+            self, self.decision, **dict(snapshotter_config or {}))
+        prev_gd = self.snapshotter or self.decision
+        self.guardian = None
+        if guardian_config is not None or config_get(
+                root.common.guardian.policy, None) is not None:
+            self.guardian = HealthGuardian(
+                self, decision=self.decision,
+                snapshotter=self.snapshotter,
+                **dict(guardian_config or {}))
+            self.guardian.link_from(prev_gd)
+            self.guardian.link_attrs(
+                self.loader, "minibatch_class", "last_minibatch",
+                "epoch_number")
+            prev_gd = self.guardian
+
         # GD chain, output layer first.
         self.gds = []
-        prev_gd = self.decision
         for layer in reversed(self.forwards):
             gd_cls = GDSoftmax if isinstance(layer, All2AllSoftmax) \
                 else GDTanh

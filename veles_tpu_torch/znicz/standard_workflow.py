@@ -4,11 +4,12 @@ declarative ``layers`` list — each entry a dict with the layer's
 registry ``type`` string, forward kwargs under ``"->"`` and trainer
 kwargs under ``"<-"`` — plus a loader (by registry name or class), an
 evaluator chosen by ``loss_function`` ("softmax", "mse" or "lm"), a
-DecisionGD and the health guardian.  The assembled graph::
+DecisionGD, the snapshotter (when a snapshot directory is configured)
+and the health guardian.  The assembled graph::
 
     start → repeater → loader → forwards… → evaluator → decision
-          → guardian → gd chain (output-first) → repeater
-          (until decision.complete)
+          → [snapshotter] → guardian → gd chain (output-first)
+          → repeater (until decision.complete)
 
 and every tick runs as one step (``accelerated_units.StepCompiler``).
 """
@@ -18,6 +19,7 @@ from ..config import root, get as config_get
 from ..guardian import HealthGuardian
 from ..loader.base import UserLoaderRegistry
 from ..plumbing import Repeater
+from ..snapshotter import link_snapshotter
 from .decision import DecisionGD
 from .evaluator import EvaluatorSoftmax, EvaluatorMSE
 from .nn_units import ForwardUnitRegistry, gd_for
@@ -29,7 +31,8 @@ class StandardWorkflow(AcceleratedWorkflow):
     def __init__(self, workflow, layers=None, loader_name=None,
                  loader_cls=None, loader_config=None,
                  decision_config=None, guardian_config=None,
-                 loss_function="softmax", **kwargs):
+                 snapshotter_config=None, loss_function="softmax",
+                 **kwargs):
         super(StandardWorkflow, self).__init__(workflow, **kwargs)
         self.layer_configs = list(layers or [])
         self.loss_function = loss_function
@@ -48,12 +51,14 @@ class StandardWorkflow(AcceleratedWorkflow):
         self.evaluator = self.link_evaluator()
         self.decision = self.link_decision(
             **dict(decision_config or {}))
+        self.snapshotter = link_snapshotter(
+            self, self.decision, **dict(snapshotter_config or {}))
         self.guardian = self.link_guardian(
             **dict(guardian_config or {}))
         self.gds = self.link_gds()
 
         last_gd = self.gds[-1] if self.gds else \
-            (self.guardian or self.decision)
+            (self.guardian or self.snapshotter or self.decision)
         self.repeater.link_from(last_gd)
         self.repeater.gate_block = self.decision.complete
         self.end_point.link_from(last_gd)
@@ -114,16 +119,18 @@ class StandardWorkflow(AcceleratedWorkflow):
         return decision
 
     def link_guardian(self, **guardian_config):
-        """The health guardian between the decision and the GD chain;
-        None when the policy is "off" (``guardian_config={"policy":
-        "off"}`` or ``root.common.guardian.policy``)."""
+        """The health guardian between the decision (or the
+        snapshotter, its rollback source) and the GD chain; None when
+        the policy is "off" (``guardian_config={"policy": "off"}`` or
+        ``root.common.guardian.policy``)."""
         policy = guardian_config.get("policy", config_get(
             root.common.guardian.policy, "skip"))
         if policy == "off":
             return None
         guardian = HealthGuardian(self, decision=self.decision,
+                                  snapshotter=self.snapshotter,
                                   **guardian_config)
-        guardian.link_from(self.decision)
+        guardian.link_from(self.snapshotter or self.decision)
         guardian.link_attrs(
             self.loader, "minibatch_class", "last_minibatch",
             "epoch_number")
@@ -132,7 +139,7 @@ class StandardWorkflow(AcceleratedWorkflow):
     def link_gds(self):
         """One trainer per trainable layer, output-first."""
         gds = []
-        prev = self.guardian or self.decision
+        prev = self.guardian or self.snapshotter or self.decision
         for i in reversed(range(len(self.layer_configs))):
             layer = self.forwards[i]
             if not type(layer).HAS_PARAMS:
