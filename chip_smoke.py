@@ -5,12 +5,13 @@ Run from the root of a checkout, on a machine with one CUDA card:
 
     python3 chip_smoke.py
 
-It drives the port's four paths once each, at full width — training
+It drives the port's paths once each, at full width — training
 the TinyLM workflow through the fused tick and serving an exported LM,
 both at the LM bench geometry (embed 2048, 16 heads of dim 128, MLP
 8192, 12 blocks, vocab 16384, positional table / sequence 1024),
 training the full-width ungrouped AlexNet through ``StandardWorkflow``
-(227 px, 1000 classes, batch 512), and serving the same LM from int8
+(227 px, 1000 classes, batch 512) from device memory and streamed from
+disk, checkpointing and resuming it, and serving the same LM from int8
 KV planes with int8 weights, speculative decoding and a hot reload —
 with random weights from a seed, in phases; any failure exits
 non-zero:
@@ -70,6 +71,27 @@ non-zero:
    the artifact's forward on the card (its two ``norm`` units launch
    B6 on the register route) must match ``forward_numpy`` at rtol 1e-3,
    and a planted B6 fault must fail that gate;
+6c. streamed — writes the AlexNet dataset to disk (``.npy``: 227 px
+   uint8, 1000 classes, 512 validation + 4096 train images, seeded
+   ``fill_synthetic``), then trains one epoch at batch 512 (one
+   validation and eight train ticks, bfloat16, the LRN kernels) with the
+   resident ``ImagenetLoader`` and with ``StreamedImagenetLoader`` from
+   memmaps, prefetch on and off: every parameter and optimizer slot, the
+   decision's numbers and the LRN launches (B6 18, B7 16, all on the
+   register route) must equal the resident run's bit for bit, and a
+   planted one-row index shift in ``fill_rows`` must fail that gate;
+   the same run through ``python -m veles_tpu_torch <workflow.py>
+   <config.py>`` with the numpy.random guard live must reach the same
+   validation error and epochs; a snapshot taken mid-epoch with a block
+   staged must resume into a fresh launcher that serves the requeued
+   block again and whose train tick equals the live one's bit for bit
+   (the f32 tick is also run twice live and once resumed, and a resumed
+   difference where the live ticks agree fails); CIFAR's gate
+   (``CifarWorkflow``, seed 4242, 5 epochs: validation error < 0.25) and
+   the same run with stochastic pooling (finite weights); readings: warm
+   train tick p50 resident / streamed / prefetch off, the host's fill
+   and the copy per block, the idle share of a profiled streamed tick,
+   the dataset write and the mean/disp analysis cold and cached;
 7. serving — writes the artifact, loads it on the card, starts the
    server with ``--warmup``, serves mixed concurrent ``/api/generate``
    requests over loopback HTTP through the paged engine, then a
@@ -96,8 +118,8 @@ non-zero:
    int8, and fp8 through the model API) a whole-prompt prefix-cache hit
    must compute its first logits, token and last-position k/v as the
    prompt's first serving did, bit for bit;
-10. exit — drains the servers, prints the training, AlexNet, snapshot
-   and serving numbers and the kernels as JSON lines, the command's time, the
+10. exit — drains the servers, prints the training, AlexNet, snapshot,
+   streamed and serving numbers and the kernels as JSON lines, the command's time, the
    card's name and power limit, and ``{"ok": true, "device": {...}}``
    last.
 """
@@ -109,6 +131,7 @@ import os
 import shutil
 import subprocess
 import sys
+import threading
 import time
 import urllib.request
 
@@ -2483,6 +2506,579 @@ def phase_snapshots(workdir, smi, alexnet_wf):
     return launches, numbers
 
 
+#: Phase 6c, the streamed AlexNet: the dataset on disk (227 px uint8,
+#: 1000 classes, STREAM_VALID validation + STREAM_TRAIN train images,
+#: ~0.71 GB), one epoch at ALEXNET_BATCH — one validation and
+#: STREAM_TRAIN / ALEXNET_BATCH train ticks.  The streamed run must equal
+#: the resident run on the same files bit for bit: the minibatches are
+#: the same bytes, and the step differs only in where the gather runs.
+STREAM_VALID, STREAM_TRAIN = ALEXNET_BATCH, ALEXNET_BATCH * 8
+STREAM_IMAGE, STREAM_SEED = 227, 4243
+#: The snapshot gate's live ticks before the generation: the validation
+#: tick and two train ticks, with the third train block staged.
+STREAM_SNAPSHOT_TICKS = 3
+#: The CIFAR gate of the JAX package (tests/test_cifar.py): seed, epochs
+#: and the validation error to beat on the synthetic fallback.
+CIFAR_SEED, CIFAR_EPOCHS, CIFAR_MAX_ERR = 4242, 5, 0.25
+
+STREAM_WORKFLOW = '''"""The full-width AlexNet streamed from disk."""
+import numpy
+
+from veles_tpu_torch.config import root
+from veles_tpu_torch.znicz.samples.imagenet import (AlexNetWorkflow,
+                                                     StreamedImagenetLoader)
+
+
+def run(load, main):
+    if type(numpy.random).__name__ != "_PoisonedRandom":
+        raise RuntimeError("the numpy.random guard is not live")
+    load(AlexNetWorkflow, loader_cls=StreamedImagenetLoader,
+         minibatch_size=root.stream6c.minibatch_size,
+         max_epochs=root.stream6c.max_epochs)
+    main()
+'''
+
+STREAM_CONFIG = '''root.common.dirs.datasets = %r
+root.stream6c.minibatch_size = %d
+root.stream6c.max_epochs = 1
+'''
+
+
+def stream_gate(ref, got):
+    """Names of the tensors and decision numbers of ``got`` that are not
+    bit-equal to ``ref``'s (each a (workflow_state, decision_numbers,
+    launches) triple)."""
+    import numpy
+    differ = sorted(n for n in ref[0] if n not in got[0] or not
+                    numpy.array_equal(ref[0][n], got[0][n]))
+    differ += ["decision.%s" % k for k in ref[1]
+               if repr(ref[1][k]) != repr(got[1][k])]
+    if ref[2] != got[2]:
+        differ.append("launches %s vs %s" % (ref[2], got[2]))
+    return differ
+
+
+def phase_streamed(workdir, smi):
+    """Phase 6c: the full-width AlexNet trains from a dataset on disk
+    through ``StreamedImagenetLoader`` and the command line with a
+    config file, against the resident loader on the same files; a
+    streamed snapshot resumes bit-equal; CIFAR's gate on the card.
+    Returns (B6 and B7 launches of the streamed run, numbers)."""
+    import numpy
+    import torch
+    from veles_tpu_torch import prng
+    from veles_tpu_torch.config import root
+    from veles_tpu_torch.launcher import Launcher
+    from veles_tpu_torch.ops import lrn as L
+    from veles_tpu_torch.snapshotter import SnapshotterToFile
+    from veles_tpu_torch.znicz.samples.cifar import (CifarWorkflow,
+                                                     cifar_layers)
+    from veles_tpu_torch.znicz.samples.imagenet import (
+        AlexNetWorkflow, ImagenetLoader, StreamedImagenetLoader)
+    started = time.monotonic()
+    numbers = {}
+    engine = root.common.engine
+    engine.precision_level = 0
+    engine.pallas_lrn = True
+    datasets = os.path.join(workdir, "datasets")
+    imagenet_dir = os.path.join(datasets, "imagenet")
+    root.common.dirs.datasets = datasets
+
+    # The dataset, written from RandomState(0) through fill_synthetic.
+    t0 = time.monotonic()
+    writer = StreamedImagenetLoader(
+        None, cache_dir=imagenet_dir, sim_train=STREAM_TRAIN,
+        sim_valid=STREAM_VALID, sim_image_size=STREAM_IMAGE,
+        sim_classes=1000)
+    paths = writer._write_synthetic()
+    write_s = time.monotonic() - t0
+    disk_bytes = sum(os.path.getsize(p) for p in paths)
+    t0 = time.monotonic()
+    writer._cached_mean_disp(paths[2], numpy.load(paths[2], mmap_mode="r"))
+    analysis_cold_s = time.monotonic() - t0
+    t0 = time.monotonic()
+    writer._cached_mean_disp(paths[2], numpy.load(paths[2], mmap_mode="r"))
+    analysis_cached_s = time.monotonic() - t0
+    print("streamed: dataset %s: %.1f MB on disk written in %.1f s; "
+          "mean/disp analysis %.2f s cold, %.3f s cached" % (
+              imagenet_dir, disk_bytes / 1e6, write_s, analysis_cold_s,
+              analysis_cached_s))
+    numbers["dataset"] = {"bytes": disk_bytes, "write_s": write_s,
+                          "analysis_cold_s": analysis_cold_s,
+                          "analysis_cached_s": analysis_cached_s}
+    del writer
+
+    def tick_timer(compiler, name):
+        """Wraps ``compiler.<name>``: a CUDA event on the step's stream
+        at the start of every tick and the host's time to enqueue the
+        tick; nothing synchronizes.  Returns (events, classes,
+        dispatch seconds, restore)."""
+        events, classes, dispatch = [], [], []
+        original = getattr(compiler, name)
+
+        def timed(*args, **kwargs):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            events.append(ev)
+            training = kwargs.get("training", args[-1] if args else True)
+            classes.append(bool(training))
+            t = time.monotonic()
+            out = original(*args, **kwargs)
+            dispatch.append(time.monotonic() - t)
+            return out
+
+        setattr(compiler, name, timed)
+        return events, classes, dispatch, \
+            lambda: setattr(compiler, name, original)
+
+    def warm_train_ms(events, classes, end):
+        """Train tick intervals (tick start to the next tick's start; the
+        last to ``end``), the first train tick (cold) left out."""
+        marks = events + [end]
+        out = [marks[i].elapsed_time(marks[i + 1])
+               for i in range(len(events)) if classes[i]]
+        return out[1:]
+
+    def train(loader_cls, label, prefetch=True):
+        prng.reset()
+        prng.get(0).seed(STREAM_SEED)
+        launcher = Launcher()
+        loader_config = {} if loader_cls is ImagenetLoader else \
+            {"prefetch": prefetch}
+        wf = AlexNetWorkflow(launcher, minibatch_size=ALEXNET_BATCH,
+                             max_epochs=1, loader_cls=loader_cls,
+                             loader_config=loader_config)
+        t0 = time.monotonic()
+        launcher.initialize(device="cuda")
+        init_s = time.monotonic() - t0
+        compiler = wf.compiler
+        compiler._ensure_compiled()
+        produce = []
+        undo = []
+        if loader_cls is not ImagenetLoader:
+            loader = wf.loader
+            loader._copy_stream_ = torch.cuda.Stream(
+                torch.device("cuda", 0))
+            fill, upload = loader._fill_block, loader._upload
+
+            def timed_fill(*a):
+                t = time.monotonic()
+                out = fill(*a)
+                produce.append({"fill_s": time.monotonic() - t})
+                return out
+
+            def timed_upload(host):
+                start = torch.cuda.Event(enable_timing=True)
+                start.record(loader._copy_stream_)
+                t = time.monotonic()
+                blocks, ready = upload(host)
+                produce[-1]["upload_host_s"] = time.monotonic() - t
+                end = torch.cuda.Event(enable_timing=True)
+                end.record(loader._copy_stream_)
+                produce[-1]["events"] = (start, end)
+                return blocks, ready
+
+            loader._fill_block, loader._upload = timed_fill, timed_upload
+            undo.append(lambda: (delattr(loader, "_fill_block"),
+                                 delattr(loader, "_upload")))
+        name = "execute" if loader_cls is ImagenetLoader else \
+            "execute_block"
+        events, classes, dispatch, untime = tick_timer(compiler, name)
+        torch.cuda.synchronize()
+        L.reset_launches()
+        t0 = time.monotonic()
+        launcher.run()
+        end = torch.cuda.Event(enable_timing=True)
+        end.record()
+        torch.cuda.synchronize()
+        run_s = time.monotonic() - t0
+        launches = {"lrn_forward": L.lrn_forward.launches,
+                    "lrn_backward": L.lrn_backward.launches}
+        routes = {"lrn_forward": dict(L.lrn_forward.launches_by_route),
+                  "lrn_backward": dict(L.lrn_backward.launches_by_route)}
+        untime()
+        for fn in undo:
+            fn()
+        warm = warm_train_ms(events, classes, end)
+        for p in produce:
+            if "events" in p:
+                start, ready = p.pop("events")
+                p["upload_device_ms"] = start.elapsed_time(ready)
+        result = (workflow_state(wf), decision_numbers(wf), launches)
+        row = {"init_s": init_s, "run_s": run_s, "ticks": len(events),
+               "classes": classes, "warm_train_tick_ms": warm,
+               "warm_train_tick_p50_ms": float(numpy.median(warm)),
+               "dispatch_ms": [1e3 * s for s in dispatch],
+               "launches": launches, "launches_by_route": routes,
+               "produce": produce}
+        print("streamed: %s: initialize %.1f s, run %.1f s, %d ticks, warm "
+              "train ticks p50 %.2f ms %s, the host's enqueue of each "
+              "tick ms %s; LRN launches %s %s" % (
+                  label, init_s, run_s, len(events),
+                  row["warm_train_tick_p50_ms"],
+                  ["%.2f" % x for x in warm],
+                  ["%.1f" % x for x in row["dispatch_ms"]], launches,
+                  routes))
+        if produce:
+            fills = [p["fill_s"] * 1e3 for p in produce]
+            ups = [p["upload_device_ms"] for p in produce]
+            print("streamed: %s: _produce_block host fill ms %s (p50 "
+                  "%.2f), upload host enqueue ms p50 %.3f, upload on the "
+                  "copy stream ms %s (p50 %.2f)" % (
+                      label, ["%.1f" % x for x in fills],
+                      float(numpy.median(fills)), 1e3 * float(numpy.median(
+                          [p["upload_host_s"] for p in produce])),
+                      ["%.2f" % x for x in ups], float(numpy.median(ups))))
+        del wf, launcher, compiler
+        gc.collect()
+        torch.cuda.empty_cache()
+        return result, row
+
+    ticks = 1 + STREAM_TRAIN // ALEXNET_BATCH
+    expect = {"lrn_forward": 2 * ticks, "lrn_backward": 2 * (ticks - 1)}
+    resident, numbers["resident"] = train(ImagenetLoader, "resident")
+    streamed, numbers["streamed"] = train(StreamedImagenetLoader,
+                                          "streamed, prefetch on")
+    sync, numbers["streamed_no_prefetch"] = train(
+        StreamedImagenetLoader, "streamed, prefetch off", prefetch=False)
+    for label, row in (("resident", numbers["resident"]),
+                       ("streamed", numbers["streamed"]),
+                       ("streamed, prefetch off",
+                        numbers["streamed_no_prefetch"])):
+        if row["classes"] != [False] + [True] * (ticks - 1):
+            fail("streamed phase: the %s run ran ticks %s, expected one "
+                 "validation tick then %d train ticks" % (
+                     label, row["classes"], ticks - 1))
+        if row["launches"] != expect:
+            fail("streamed phase: the %s run launched the LRN kernels %s "
+                 "times, the ticks imply %s" % (label, row["launches"],
+                                                expect))
+        if any(r["wide"] for r in row["launches_by_route"].values()):
+            fail("streamed phase: a %s LRN launch took the wide route: %s"
+                 % (label, row["launches_by_route"]))
+    for label, got in (("streamed", streamed), ("prefetch off", sync)):
+        differ = stream_gate(resident, got)
+        if differ:
+            fail("streamed phase: the %s run differs from the resident run "
+                 "on the same files: %s" % (label, differ[:8]))
+    print("streamed check: the streamed run (prefetch on and off) equals "
+          "the resident run bit for bit in %d tensors, the decision %s and "
+          "the LRN launches %s" % (len(resident[0]), resident[1],
+                                   resident[2]))
+
+    # The planted fault: one row of the first train block one index off.
+    class Shifted(StreamedImagenetLoader):
+        hide_from_registry = True
+        planted = []
+        lock = threading.Lock()
+
+        def fill_rows(self, indices, out_data, out_labels):
+            indices = numpy.array(indices)
+            with self.lock:   # the pool fills a block's rows at once
+                if not self.planted and indices[0] >= STREAM_VALID:
+                    last = self.total_samples - 1
+                    indices[0] += 1 if indices[0] < last else -1
+                    self.planted.append(int(indices[0]))
+            super(Shifted, self).fill_rows(indices, out_data, out_labels)
+
+    planted, _ = train(Shifted, "planted row shift")
+    planted_differ = stream_gate(resident, planted)
+    print("streamed: the planted row shift differs in %d of %d tensors "
+          "(%s...)" % (len(planted_differ), len(resident[0]),
+                       planted_differ[:4]))
+    if not Shifted.planted or not planted_differ:
+        fail("the streamed gate does not see one row shifted by one index")
+    del planted
+
+    # The command line: a workflow module and a config file.
+    wf_py = os.path.join(workdir, "alexnet_stream.py")
+    cfg_py = os.path.join(workdir, "stream_config.py")
+    result_json = os.path.join(workdir, "stream_result.json")
+    with open(wf_py, "w") as fout:
+        fout.write(STREAM_WORKFLOW)
+    with open(cfg_py, "w") as fout:
+        fout.write(STREAM_CONFIG % (datasets, ALEXNET_BATCH))
+    prng.reset()
+    t0 = time.monotonic()
+    run_cli([wf_py, cfg_py, "--device", "cuda", "--random-seed",
+             str(STREAM_SEED), "--result-file", result_json])
+    cli_s = time.monotonic() - t0
+    with open(result_json) as fin:
+        cli = json.load(fin)["results"]
+    mine = streamed[1]
+    print("streamed: the command line (%s %s) %.1f s: min_validation_err "
+          "%r, epochs %r; in-process %r, %r" % (
+              os.path.basename(wf_py), os.path.basename(cfg_py), cli_s,
+              cli["min_validation_err"], cli["epochs"],
+              mine["min_validation_err"], mine["epochs"]))
+    if cli["min_validation_err"] != mine["min_validation_err"] or \
+            cli["epochs"] != mine["epochs"]:
+        fail("the command line's streamed run differs from the in-process "
+             "one: %s vs %s" % (cli, mine))
+    numbers["cli_s"] = cli_s
+    root.__dict__.pop("stream6c", None)
+    root.common.dirs.datasets = datasets
+    del streamed, sync, resident
+    gc.collect()
+
+    # Snapshot mid-epoch with a block staged, and resume.
+    prng.reset()
+    prng.get(0).seed(STREAM_SEED)
+    launcher = Launcher()
+    wf = AlexNetWorkflow(launcher, minibatch_size=ALEXNET_BATCH,
+                         max_epochs=1, loader_cls=StreamedImagenetLoader)
+    launcher.initialize(device="cuda")
+    compiler = wf.compiler
+    loader = wf.loader
+    for i in range(STREAM_SNAPSHOT_TICKS):
+        if i == STREAM_SNAPSHOT_TICKS - 1:
+            numbers["profile"] = profile_tick(
+                loader.run, "streamed: profile of one warm train tick "
+                "(loader.run: dispatch, then fill and upload the next "
+                "block)")
+        else:
+            loader.run()
+    staged = loader._staged_
+    if staged is None:
+        fail("no block staged before the streamed snapshot")
+    staged_idx = [idx.copy() for idx, _ in staged["in_flight"]]
+    gen = compiler._generator()
+    rng_state = gen.get_state()
+    snap = SnapshotterToFile(wf, directory=os.path.join(workdir,
+                                                        "stream_snap"),
+                             prefix="imagenet", compression="",
+                             time_interval=0.0)
+    snap.initialize()
+    snap.suffix = "staged"
+    t0 = time.monotonic()
+    snap.export()
+    export_s = time.monotonic() - t0
+    blob_mb = os.path.getsize(snap.destination) / 1e6
+    vecs = list(compiler._param_vecs.items()) + \
+        list(compiler._state_vecs.items())
+    before = {n: v.devmem.clone() for n, v in vecs}
+    blocks = loader._take(staged)
+    loader._staged_ = None
+
+    def restore(compiler_, state):
+        # At precision_level 1 the step also carries the evaluator's
+        # Kahan carry, which no parameter reads.
+        for n, v in list(compiler_._param_vecs.items()) + \
+                list(compiler_._state_vecs.items()):
+            if n in state:
+                v.devmem = state[n].clone()
+
+    def tick(compiler_, gen_, blocks_, state, level, deterministic=False):
+        """One train tick from ``state`` (generator 0 at the snapshot's
+        state) at ``level``; cuDNN's deterministic algorithms on
+        request.  Returns the parameters after it."""
+        restore(compiler_, state)
+        gen_.set_state(rng_state)
+        engine.precision_level = level
+        torch.backends.cudnn.deterministic = deterministic
+        try:
+            compiler_.execute_block(blocks_, True)
+            torch.cuda.synchronize()
+        finally:
+            engine.precision_level = 0
+            torch.backends.cudnn.deterministic = False
+        return {n: v.devmem.clone() for n, v in
+                compiler_._param_vecs.items()}
+
+    def equal(a, b):
+        return sorted(n for n in a if not torch.equal(a[n], b[n]))
+
+    def f32_ticks(compiler_, gen_, blocks_, state):
+        """The f32 tick twice with cuDNN's default algorithms, then
+        once with its deterministic ones."""
+        return [tick(compiler_, gen_, blocks_, state, 1),
+                tick(compiler_, gen_, blocks_, state, 1),
+                tick(compiler_, gen_, blocks_, state, 1, True)]
+
+    def conv1_wgrad_probe(compiler_, loader_, blocks_):
+        """conv1's float32 weight gradient on this block's normalized
+        images and a seeded cotangent, four times with cuDNN's default
+        algorithms and twice with its deterministic ones: (distinct
+        results, distinct deterministic results, the default's largest
+        |gap|, the weight-gradient kernels' names)."""
+        from torch.profiler import ProfilerActivity, profile
+        from veles_tpu_torch.znicz.conv import conv2d_nhwc
+        conv1 = next(u for u in compiler_.forward_units
+                     if type(u).__name__ == "ConvStrictRelu")
+        x = ((blocks_[str(id(loader_.minibatch_data))][0].float() -
+              loader_.mean.devmem) * loader_.rdisp.devmem)
+        w = conv1.weights.devmem.float()
+        cot = torch.randn(
+            (x.shape[0],) + conv1.output_spatial(*x.shape[1:3]) +
+            (w.shape[-1],), device=x.device,
+            generator=torch.Generator(device=x.device).manual_seed(1))
+        outs = {False: [], True: []}
+        names = set()
+        for deterministic, times in ((False, 4), (True, 2)):
+            torch.backends.cudnn.deterministic = deterministic
+            try:
+                for _ in range(times):
+                    leaf = w.clone().requires_grad_(True)
+                    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                        y = conv2d_nhwc(x, leaf, conv1.sliding,
+                                        conv1.padding)
+                        g = torch.autograd.grad(y, leaf, cot)[0]
+                        torch.cuda.synchronize()
+                    names.update(ev.key.split("(")[0][:60] for ev in
+                                 prof.key_averages() if "wgrad" in
+                                 ev.key.lower())
+                    outs[deterministic].append(g)
+            finally:
+                torch.backends.cudnn.deterministic = False
+
+        def distinct(gs):
+            return len({gr.cpu().numpy().tobytes() for gr in gs})
+
+        gap = max(float((gr - outs[False][0]).abs().max())
+                  for gr in outs[False])
+        return (distinct(outs[False]), distinct(outs[True]), gap,
+                sorted(names))
+
+    L.reset_launches()
+    live = tick(compiler, gen, blocks, before, 0)
+    live_f32 = f32_ticks(compiler, gen, blocks, before)
+    probe = conv1_wgrad_probe(compiler, loader, blocks)
+    snapshot_launches = {"lrn_forward": L.lrn_forward.launches,
+                         "lrn_backward": L.lrn_backward.launches}
+    del wf, launcher, compiler, loader, blocks, staged
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.monotonic()
+    wf2 = SnapshotterToFile.import_(snap.destination)
+    import_s = time.monotonic() - t0
+    launcher2 = Launcher()
+    launcher2.add_ref(wf2)
+    t0 = time.monotonic()
+    launcher2.initialize(device="cuda", snapshot=True)
+    resume_init_s = time.monotonic() - t0
+    compiler2, loader2 = wf2.compiler, wf2.loader
+    compiler2._ensure_compiled()
+    start = {n: v.devmem.clone() for n, v in
+             list(compiler2._param_vecs.items()) +
+             list(compiler2._state_vecs.items())}
+    restored = equal(before, start) if sorted(start) == sorted(before) \
+        else ["the parameter set"]
+    requeued = [idx.copy() for idx, _ in loader2.failed_minibatches]
+    gen2 = compiler2._generator()
+    entry = loader2._produce_block(1)
+    served = [idx.copy() for idx, _ in entry["in_flight"]]
+    blocks2 = loader2._take(entry)
+    L.reset_launches()
+    resumed = tick(compiler2, gen2, blocks2, start, 0)
+    resumed_f32 = f32_ticks(compiler2, gen2, blocks2, start)
+    for k, v in snapshot_launches.items():
+        snapshot_launches[k] = v + {"lrn_forward": L.lrn_forward.launches,
+                                    "lrn_backward":
+                                        L.lrn_backward.launches}[k]
+    same_block = len(served) == len(staged_idx) and all(
+        numpy.array_equal(a, b) for a, b in zip(served, staged_idx))
+    requeued_ok = len(requeued) == len(staged_idx) and all(
+        numpy.array_equal(a, b) for a, b in zip(requeued, staged_idx))
+    bf16_differ = equal(live, resumed)
+    f32 = {"live_repeat_differs": equal(live_f32[0], live_f32[1]),
+           "resumed_differs": equal(live_f32[0], resumed_f32[0]),
+           "resumed_repeat_differs": equal(resumed_f32[0], resumed_f32[1]),
+           "deterministic_resumed_differs": equal(live_f32[2],
+                                                  resumed_f32[2]),
+           "conv1_wgrad_distinct_of_4": probe[0],
+           "conv1_wgrad_deterministic_distinct_of_2": probe[1],
+           "conv1_wgrad_max_gap": probe[2],
+           "wgrad_kernels": probe[3]}
+    print("streamed: snapshot with a block staged on %s: %.1f MB, export "
+          "%.2f s, import_ %.2f s, resume initialize %.2f s; state restored "
+          "bit-equal %s; the staged block requeued %s and served again %s; "
+          "the resumed bf16 train tick differs from the live one in %s" % (
+              smi, blob_mb, export_s, import_s, resume_init_s,
+              not restored, requeued_ok, same_block, bf16_differ))
+    print("streamed: f32 ticks from the snapshot's state (cuDNN default "
+          "algorithms): live vs live %s, live vs resumed %s, resumed vs "
+          "resumed %s; with cuDNN's deterministic algorithms live vs "
+          "resumed %s; conv1's f32 weight gradient on fixed inputs: %d "
+          "distinct of 4 (largest |gap| %.3g), deterministic %d of 2; "
+          "kernels %s" % (
+              f32["live_repeat_differs"], f32["resumed_differs"],
+              f32["resumed_repeat_differs"],
+              f32["deterministic_resumed_differs"], probe[0], probe[2],
+              probe[1], probe[3]))
+    if restored or not requeued_ok or not same_block or bf16_differ:
+        fail("the streamed snapshot does not resume bit-equal: restored "
+             "differs %s, requeued %s, served again %s, tick differs %s" %
+             (restored, requeued_ok, same_block, bf16_differ))
+    if f32["deterministic_resumed_differs"] or probe[1] != 1:
+        fail("with cuDNN's deterministic algorithms the resumed f32 tick "
+             "differs from the live one (%s; the probe's deterministic "
+             "results %d): the snapshot leaves state behind" % (
+                 f32["deterministic_resumed_differs"], probe[1]))
+    numbers["snapshot"] = {
+        "blob_mb": blob_mb, "export_s": export_s, "import_s": import_s,
+        "resume_initialize_s": resume_init_s, "requeued": requeued_ok,
+        "served_again": same_block, "bf16_tick_bit_equal": True,
+        "f32": f32, "launches": snapshot_launches}
+    del wf2, launcher2, compiler2, loader2, blocks2, before, start
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # CIFAR: the JAX package's gate, then stochastic pooling.
+    def cifar(pool):
+        layers = cifar_layers(0.02, 0.9, 0.0)
+        for cfg in layers:
+            if "weights_stddev" in cfg.get("->", {}):
+                cfg["->"]["weights_stddev"] = 0.05
+        if pool != "max_pooling":
+            # Stochastic pooling takes non-overlapping windows only;
+            # 2x2 stride 2 keeps the 3x3 stride-2 pool's 16x16 output.
+            layers[1] = {"type": pool, "->": {"kx": 2, "ky": 2,
+                                              "sliding": (2, 2)}}
+        prng.reset()
+        prng.get(0).seed(CIFAR_SEED)
+        launcher = Launcher()
+        wf = CifarWorkflow(launcher, max_epochs=CIFAR_EPOCHS,
+                           minibatch_size=100, layers=layers)
+        t0 = time.monotonic()
+        launcher.initialize(device="cuda")
+        launcher.run()
+        torch.cuda.synchronize()
+        seconds = time.monotonic() - t0
+        state = workflow_state(wf)
+        finite = all(numpy.isfinite(v).all() for v in state.values())
+        res = wf.gather_results()
+        print("streamed: cifar (%s) on %s: min_validation_err %.4f after "
+              "%d epochs, %.1f s, finite weights %s" % (
+                  pool, smi, res["min_validation_err"], res["epochs"],
+                  seconds, finite))
+        return {"min_validation_err": res["min_validation_err"],
+                "epochs": res["epochs"], "seconds": seconds,
+                "finite": finite}
+
+    numbers["cifar"] = cifar("max_pooling")
+    if not (numbers["cifar"]["min_validation_err"] < CIFAR_MAX_ERR and
+            numbers["cifar"]["epochs"] == CIFAR_EPOCHS and
+            numbers["cifar"]["finite"]):
+        fail("CIFAR misses the gate: %s (min_validation_err < %g after %d "
+             "epochs)" % (numbers["cifar"], CIFAR_MAX_ERR, CIFAR_EPOCHS))
+    numbers["cifar_stochastic"] = cifar("stochastic_pooling")
+    if not numbers["cifar_stochastic"]["finite"] or \
+            numbers["cifar_stochastic"]["epochs"] != CIFAR_EPOCHS:
+        fail("CIFAR with stochastic pooling: %s" %
+             numbers["cifar_stochastic"])
+    clean_cli_config()
+    numbers["phase_s"] = time.monotonic() - started
+    res, st = numbers["resident"], numbers["streamed"]
+    print("streamed readings on %s (smoke, not a benchmark): warm train "
+          "tick p50 resident %.2f ms, streamed %.2f ms (prefetch on), %.2f "
+          "ms (off); the phase %.1f s" % (
+              smi, res["warm_train_tick_p50_ms"],
+              st["warm_train_tick_p50_ms"],
+              numbers["streamed_no_prefetch"]["warm_train_tick_p50_ms"],
+              numbers["phase_s"]))
+    return numbers["streamed"]["launches"], numbers
+
+
 def short_extend_chunks(tables, clens):
     """The chunks of a ``paged_extend`` call that attend through a
     decode kernel: each real row (a table that is not all TRASH) runs
@@ -3489,6 +4085,9 @@ def main():
         del alexnet_wf
         gc.collect()
         torch.cuda.empty_cache()
+        stream_launches, streamed = phase_streamed(workdir, smi)
+        gc.collect()
+        torch.cuda.empty_cache()
         launches, numbers, served = phase_serving(workdir, smi)
         reload_path = os.path.join(workdir, "lm-reload.veles.tgz")
         t0 = time.monotonic()
@@ -3616,11 +4215,13 @@ def main():
                      "times are the two calls' sum (one train tick)" %
                      " and ".join("%s %s" % (n, sh) for n, sh in
                                   LRN_SHAPES),
-            "launches": lrn_launches[name] + snapshot_launches[name],
+            "launches": lrn_launches[name] + snapshot_launches[name] +
+            stream_launches[name],
             "launches_by_path": {
                 "alexnet_run": lrn_launches[name],
                 "alexnet_snapshot_ticks_and_artifact_forward":
-                    snapshot_launches[name]},
+                    snapshot_launches[name],
+                "alexnet_streamed": stream_launches[name]},
             "launches_by_route": lrn_routes[name],
             "max_abs_err": lrn_err[name],
             "tol": "f32 fwd rtol %g, bwd %g x the terms' magnitude; bf16 "
@@ -3656,6 +4257,7 @@ def main():
     print(json.dumps({"training": training}))
     print(json.dumps({"alexnet": alexnet}))
     print(json.dumps({"snapshots": snapshots}))
+    print(json.dumps({"streamed": streamed}))
     print(json.dumps({"serving": numbers}))
     print(json.dumps({"quant_serving": quant}))
     print(json.dumps(kernels))

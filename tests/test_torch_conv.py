@@ -475,14 +475,228 @@ def test_evaluator_mse_and_mean_disp(precision):
         numpy.testing.assert_allclose(res[1], res[0], rtol=1e-6, atol=1e-6)
 
 
-def test_what_is_not_ported_raises():
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tz.Conv(None, n_kernels=2, kx=4, sliding=(4, 4), space_to_depth=4)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tz.Deconv(None, get_weights_from=None)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tz.StochasticPooling(None, kx=2)
-    from veles_tpu_torch.znicz.samples.imagenet import \
-        StreamedImagenetLoader
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        StreamedImagenetLoader(None)
+S2D_CASES = {
+    # AlexNet conv1's geometry, cut to 35 px: 11x11 at stride 4.
+    "conv1": (dict(n_kernels=6, kx=11, ky=11, sliding=(4, 4),
+                   space_to_depth=4), 35),
+    "padded": (dict(n_kernels=4, kx=4, ky=4, padding=2, sliding=(2, 2),
+                    space_to_depth=2), 16),
+}
+
+
+@pytest.mark.parametrize("level", [1, 0])
+@pytest.mark.parametrize("case", sorted(S2D_CASES))
+def test_space_to_depth_is_the_strided_conv(precision, case, level):
+    """``space_to_depth=f`` computes the strided conv it equals: the
+    port's output is its plain conv's bit for bit, and the JAX package's
+    folded stride-1 conv within the stated tolerance (forward and
+    gradients)."""
+    precision(level)
+    kw, size = S2D_CASES[case]
+    junit, tunit = _units("ConvStrictRelu", **kw)
+    rng = numpy.random.RandomState(size)
+    x = rng.randn(2, size, size, 3).astype(numpy.float32)
+    params = {"weights": (rng.randn(kw["ky"], kw["kx"], 3,
+                                    kw["n_kernels"]) * 0.2).astype(
+                                        numpy.float32),
+              "bias": (rng.randn(kw["n_kernels"]) * 0.1).astype(
+                  numpy.float32)}
+    y, _ = _check_unit(junit, tunit, x, params, level)
+    plain_kw = {k: v for k, v in kw.items() if k != "space_to_depth"}
+    _, plain = _units("ConvStrictRelu", **plain_kw)
+    tparams = {n: _torch(v) for n, v in params.items()}
+    tx = _torch(x).to(torch.bfloat16 if level == 0 else torch.float32)
+    folded = _apply(tunit, {"input": tx}, tparams)["output"]
+    assert torch.equal(folded, _apply(plain, {"input": tx},
+                                      tparams)["output"])
+    assert y.shape[1:3] == tunit.output_spatial(size, size)
+
+
+def test_space_to_depth_refusals_match_jax():
+    """The stride mismatch and a fold that does not tile its input raise
+    the JAX package's ValueErrors, word for word."""
+    msgs = []
+    for mod in (jz, tz):
+        with pytest.raises(ValueError) as err:
+            mod.Conv(None, n_kernels=2, kx=4, sliding=(4, 2),
+                     space_to_depth=4)
+        msgs.append(str(err.value))
+    assert msgs[0] == msgs[1]
+    assert "must equal both strides" in msgs[1]
+    junit, tunit = _units("Conv", n_kernels=2, kx=4, sliding=(2, 2),
+                          space_to_depth=2)
+    x = numpy.zeros((1, 11, 11, 3), dtype=numpy.float32)
+    w = {"weights": numpy.zeros((4, 4, 3, 2), numpy.float32),
+         "bias": numpy.zeros(2, numpy.float32)}
+    msgs = []
+    for unit, conv in ((junit, _jax), (tunit, _torch)):
+        with pytest.raises(ValueError) as err:
+            _apply(unit, {"input": conv(x)},
+                   {n: conv(v) for n, v in w.items()})
+        msgs.append(str(err.value))
+    assert msgs[0] == msgs[1]
+    assert "does not tile input 11x11 with kernel 4x4" in msgs[1]
+
+
+DECONV_CASES = {
+    # tests/test_conv.py's geometry: stride 2, pad 1 over 8x8.
+    "s2-pad1": (dict(n_kernels=4, kx=3, ky=3, padding=1, sliding=(2, 2)),
+                (8, 8)),
+    # Trailing rows and columns no window reaches get zeros.
+    "s3-tail": (dict(n_kernels=3, kx=5, ky=5, sliding=(3, 3)), (12, 13)),
+    "asym-pad": (dict(n_kernels=2, kx=3, ky=2, padding=(0, 1, 2, 1),
+                      sliding=(2, 1)), (9, 10)),
+}
+
+
+def _deconv(mod, vec_cls, kw, x, w):
+    conv = mod.Conv(None, **kw)
+    conv.input = vec_cls(x)
+    conv.initialize(device=None) if mod is tz else conv.initialize()
+    deconv = mod.Deconv(None, get_weights_from=conv)
+    deconv.input = conv.output
+    deconv.initialize(device=None) if mod is tz else deconv.initialize()
+    return conv, deconv
+
+
+def _run_deconv(conv, deconv, y, w):
+    out = {}
+    ctx = types.SimpleNamespace(training=False, metrics={})
+    lookup = {id(deconv.input): y, id(conv.weights): w}
+    deconv.tforward(lambda vec: lookup[id(vec)],
+                    lambda vec, val: out.__setitem__("y", val), {}, ctx)
+    return out["y"]
+
+
+@pytest.mark.parametrize("case", sorted(DECONV_CASES))
+def test_deconv_against_jax(precision, case):
+    """The tied transposed conv: the conv input's geometry, values and
+    the gradients (cotangent and tied weights) within f32 1e-5 of the
+    JAX package's ``jax.vjp`` form, and equal to the port's own conv
+    input gradient."""
+    precision(1)
+    kw, (h, wd) = DECONV_CASES[case]
+    rng = numpy.random.RandomState(h * wd)
+    x = rng.randn(2, h, wd, 3).astype(numpy.float32)
+    w = (rng.randn(kw["ky"], kw["kx"], 3, kw["n_kernels"]) * 0.3).astype(
+        numpy.float32)
+    jconv, jdec = _deconv(jz, JVector, kw, x, w)
+    tconv, tdec = _deconv(tz, TVector, kw, x, w)
+    assert tdec.output.shape == jdec.output.shape == (2, h, wd, 3)
+    oh, ow = tconv.output_spatial(h, wd)
+    y = rng.randn(2, oh, ow, kw["n_kernels"]).astype(numpy.float32)
+    jy, vjp = jax.vjp(lambda a, b: _run_deconv(jconv, jdec, a, b),
+                      _jax(y), _jax(w))
+    cot = rng.randn(*jy.shape).astype(numpy.float32)
+    jgrads = vjp(jnp.asarray(cot))
+    ty_in = _torch(y).requires_grad_(True)
+    tw = _torch(w).requires_grad_(True)
+    ty = _run_deconv(tconv, tdec, ty_in, tw)
+    assert tuple(ty.shape) == (2, h, wd, 3)
+    _close(_np(ty), _np(jy), 1, "Deconv forward")
+    tgrads = torch.autograd.grad(ty, (ty_in, tw), _torch(cot))
+    for name, g, want in zip(("dy", "dw"), tgrads, jgrads):
+        _close(_np(g), _np(want), 1, "Deconv %s" % name)
+    tx = _torch(x).requires_grad_(True)
+    fwd = tz.conv.conv2d_nhwc(tx, _torch(w), tconv.sliding, tconv.padding)
+    dx = torch.autograd.grad(fwd, tx, _torch(y))[0]
+    numpy.testing.assert_allclose(_np(ty), _np(dx), rtol=1e-6, atol=1e-6)
+
+
+STOCHASTIC_CASES = {
+    "2x2-tail": ("StochasticPooling", dict(kx=2, ky=2), (7, 8)),
+    "3x2-abs": ("StochasticAbsPooling", dict(kx=3, ky=2), (9, 5)),
+}
+
+
+def _stochastic_input(shape, seed):
+    rng = numpy.random.RandomState(seed)
+    x = rng.randn(*shape).astype(numpy.float32)
+    x[0, :2, :2] = 0.0     # an all-zero window: uniform picks
+    return x
+
+
+@pytest.mark.parametrize("level", [1, 0])
+@pytest.mark.parametrize("case", sorted(STOCHASTIC_CASES))
+def test_stochastic_pooling_inference(precision, case, level):
+    """Inference: the probability-weighted mean (uniform on an all-zero
+    window, zeros padding the ragged tail), float32, within f32 1e-5 of
+    the JAX package's, forward and input gradient.  Where a window's
+    channel holds no positive value the JAX package's gradient is NaN
+    (its w / max(tot, 1e-30) differentiates to 0 / 0 through the tiny
+    clamp); the port's is finite there and is held to JAX's elsewhere."""
+    precision(level)
+    name, kw, (h, wd) = STOCHASTIC_CASES[case]
+    junit, tunit = _units(name, **kw)
+    x = _stochastic_input((2, h, wd, 3), h)
+    jx = _jax(x).astype(jnp.bfloat16 if level == 0 else jnp.float32)
+    tx = _torch(x).to(torch.bfloat16 if level == 0 else torch.float32)
+    jy, vjp = jax.vjp(lambda v: _apply(junit, {"input": v}, {})["output"],
+                      jx)
+    ty = _apply(tunit, {"input": tx.requires_grad_(True)}, {})["output"]
+    assert ty.dtype == torch.float32 and jy.dtype == jnp.float32
+    _close(_np(ty), _np(jy), 1, "%s forward" % name)
+    assert tuple(ty.shape[1:3]) == tunit.output_spatial(h, wd)
+    cot = numpy.random.RandomState(4).randn(*jy.shape).astype(
+        numpy.float32)
+    jg = _np(vjp(jnp.asarray(cot))[0])
+    tg = _np(torch.autograd.grad(ty, tx, _torch(cot))[0])
+    assert numpy.isfinite(tg).all()
+    nan = numpy.isnan(jg)
+    assert not nan.all()
+    _close(tg[~nan], jg[~nan], 1, "%s dx" % name)
+
+
+@pytest.mark.parametrize("case", sorted(STOCHASTIC_CASES))
+def test_stochastic_pooling_training_bridge(precision, monkeypatch, case):
+    """Training: handed the same Gumbel noise (``jax.random.gumbel`` and
+    the port's ``draw_gumbel``), both packages pick the same elements:
+    the output and the input gradient are equal bit for bit."""
+    precision(1)
+    name, kw, (h, wd) = STOCHASTIC_CASES[case]
+    junit, tunit = _units(name, **kw)
+    x = _stochastic_input((2, h, wd, 3), h + 1)
+    oh, ow = tunit.output_spatial(h, wd)
+    noise = numpy.random.RandomState(5).gumbel(
+        size=(2, oh, ow, kw["kx"] * kw["ky"], 3)).astype(numpy.float32)
+    monkeypatch.setattr(jax.random, "gumbel",
+                        lambda key, shape: jnp.asarray(noise))
+    monkeypatch.setattr(tunit, "draw_gumbel",
+                        lambda ctx, shape, device: _torch(noise))
+
+    def jf(v):
+        return _apply(junit, {"input": v}, {}, training=True)["output"]
+
+    jy, vjp = jax.vjp(jf, _jax(x))
+    cot = numpy.random.RandomState(6).randn(*jy.shape).astype(
+        numpy.float32)
+    jg = vjp(jnp.asarray(cot))[0]
+    tx = _torch(x).requires_grad_(True)
+    ty = _apply(tunit, {"input": tx}, {}, training=True)["output"]
+    tg = torch.autograd.grad(ty, tx, _torch(cot))[0]
+    assert numpy.array_equal(_np(ty), _np(jy))
+    assert numpy.array_equal(_np(tg), _np(jg))
+
+
+def test_stochastic_pooling_picks_in_proportion():
+    """Over seeds, training picks each element of a window with a
+    frequency proportional to its activation (here 0.1, 0.2, 0.3, 0.4),
+    and uniformly in an all-zero window; the noise comes from the step's
+    generator."""
+    _, tunit = _units("StochasticPooling", kx=2, ky=2)
+    win = numpy.array([[1.0, 2.0], [3.0, 4.0]], dtype=numpy.float32)
+    x = numpy.zeros((50, 40, 40, 2), dtype=numpy.float32)
+    x[..., 0] = numpy.tile(win, (50, 20, 20))
+    for seed in (1, 2, 3):
+        gen = torch.Generator().manual_seed(seed)
+        ctx = types.SimpleNamespace(training=True, metrics={},
+                                    next_key=lambda: gen)
+        out = {}
+        tunit.input = TVector()
+        tunit.tforward(lambda vec: _torch(x),
+                       lambda vec, val: out.__setitem__("y", val), {}, ctx)
+        y = out["y"].numpy()
+        picks = y[..., 0].ravel()
+        freq = [float((picks == v).mean()) for v in (1.0, 2.0, 3.0, 4.0)]
+        numpy.testing.assert_allclose(freq, [0.1, 0.2, 0.3, 0.4], atol=0.01)
+        assert not y[..., 1].any()   # all-zero windows pick a zero

@@ -38,7 +38,12 @@ def test_import_leaves_jax_and_veles_tpu_out():
             "veles_tpu_torch.serving.reload, "
             "veles_tpu_torch.ops.decode_attention, "
             "veles_tpu_torch.snapshotter, veles_tpu_torch.normalization, "
-            "veles_tpu_torch.resilience, veles_tpu_torch.launcher\n"
+            "veles_tpu_torch.resilience, veles_tpu_torch.launcher, "
+            "veles_tpu_torch.loader.stream, veles_tpu_torch.loader.image, "
+            "veles_tpu_torch.znicz.samples.cifar, veles_tpu_torch.dummy, "
+            "veles_tpu_torch.avatar, veles_tpu_torch.input_joiner, "
+            "veles_tpu_torch.harness, veles_tpu_torch.downloader, "
+            "veles_tpu_torch.config, veles_tpu_torch.prng\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib', 'veles_tpu.')) or "
             "m == 'veles_tpu')\n"

@@ -3,7 +3,8 @@ veles_tpu``.
 
 Usage::
 
-    python -m veles_tpu_torch path/to/workflow.py [root.x.y=v ...] \
+    python -m veles_tpu_torch path/to/workflow.py [config.py ...] \
+        [root.x.y=v ...] [-c FILE ...] \
         [--random-seed N] [--result-file F] [--max-epochs N] \
         [--device cuda|cpu] [-v debug|info|warning|error] \
         [-s SNAPSHOT | --auto-resume] [--snapshot-dir DIR] \
@@ -11,17 +12,21 @@ Usage::
         [--no-snapshots] [--snapshot-artifact] \
         [--guardian-policy off|skip|lr_backoff|rollback]
 
-It applies the ``root.x.y=v`` overrides and the snapshot and guardian
-flags, seeds generator 0, imports the workflow module and calls its
-``run(load, main)`` hook: ``load`` builds the workflow under a local
+It seeds generator 0, applies the config files and ``root.x.y=v``
+overrides in argv order (the positional ones, then ``-c``'s), then the
+snapshot and guardian flags (explicit flags win over config files),
+imports the workflow module and calls its ``run(load, main)`` hook
+with the numpy.random guard installed (``prng.poison_numpy_random``;
+``root.common.engine.poison_numpy_random = False`` turns it off):
+``load`` builds the workflow under a local
 :class:`~veles_tpu_torch.launcher.Launcher` — or resumes it from a
 snapshot (``-s`` a blob, a ``*_current.lnk`` pointer or a
 ``sqlite://`` database; ``--auto-resume`` the newest verified
 generation in the snapshot directory) — and ``main`` initializes it
 on the device (the CUDA card unless ``--device cpu``), runs it and
-writes the results JSON.  The JAX CLI's other modes — config files,
-master/worker, multi-process, genetics, ensembles, populations,
-profiling — are not yet ported: their flags raise.
+writes the results JSON.  The JAX CLI's other modes — master/worker,
+multi-process, genetics, ensembles, populations, profiling — are not
+yet ported: their flags raise.
 """
 
 import argparse
@@ -32,7 +37,7 @@ import os
 import sys
 
 from . import guardian, prng, snapshotter
-from .config import root
+from .config import Tune, root
 from .error import Bug
 from .json_encoders import dump_json
 from .launcher import Launcher
@@ -41,7 +46,6 @@ from .logger import Logger
 #: Flags of the JAX CLI that the port refuses, with the ROADMAP queue
 #: that brings each.
 NOT_PORTED = {
-    "-c": "A8", "--config-list": "A8",
     "--chaos": "A7", "-l": "A7", "--listen-address": "A7",
     "--blacklist-cooldown": "A7", "-m": "A7", "--master-address": "A7",
     "--nodes": "A7", "--jax-coordinator": "A6",
@@ -63,7 +67,11 @@ def make_parser():
         "defining run(load, main)) or a dotted module name")
     parser.add_argument(
         "config", nargs="*", default=[],
-        help="root.path=value override assignments")
+        help="config file(s) executed with `root` in scope, and/or "
+             "root.path=value override assignments")
+    parser.add_argument(
+        "-c", "--config-list", nargs="*", default=[], metavar="FILE",
+        help="additional config files (explicit form)")
     parser.add_argument(
         "-r", "--random-seed", default="", metavar="SPEC",
         help="seed of generator 0: an integer, or file:count:dtype")
@@ -110,14 +118,23 @@ def import_workflow_module(spec):
     return module
 
 
-def apply_overrides(sources):
-    """Executes ``root.x=y`` assignments with ``root`` in scope."""
+def apply_config_sources(sources, logger=None):
+    """Applies config files and ``root.x=y`` override assignments in
+    order, each executed with ``root`` and ``Tune`` in scope; a source
+    that is neither raises :class:`~veles_tpu_torch.error.Bug`."""
     for src in sources:
-        if "=" not in src or not src.lstrip().startswith("root."):
-            raise NotImplementedError(
-                "config source %r: config files are not yet ported "
-                "(ROADMAP A8); pass root.x=y overrides" % src)
-        exec(compile(src, "<override>", "exec"), {"root": root})
+        if "=" in src and src.lstrip().startswith("root."):
+            code, origin = src, "<override>"
+        elif os.path.isfile(src):
+            with open(src) as fin:
+                code = fin.read()
+            origin = src
+        else:
+            raise Bug("config source %r is neither a root.x=y override "
+                      "nor an existing file" % src)
+        if logger is not None:
+            logger.debug("applying config source %s", origin)
+        exec(compile(code, origin, "exec"), {"root": root, "Tune": Tune})
 
 
 class Main(Logger):
@@ -238,13 +255,21 @@ class Main(Logger):
                        "%(message)s", datefmt="%H:%M:%S")
         self.parse()
         self.seed_random()
-        apply_overrides(self.args.config)
+        apply_config_sources(
+            list(self.args.config) + list(self.args.config_list),
+            logger=self)
+        # Explicit flags win over config-file assignments.
         self.apply_subsystem_flags()
         self.module = import_workflow_module(self.args.workflow)
         run_hook = getattr(self.module, "run", None)
         if run_hook is None:
             raise Bug("workflow module %s has no run(load, main) hook"
                       % self.module.__name__)
+        guard = bool(root.common.engine.get("poison_numpy_random", True))
+        if guard:
+            prng.guard_path(os.path.dirname(os.path.abspath(
+                self.module.__file__)))
+            prng.poison_numpy_random()
         try:
             run_hook(self.load, self.main)
         except KeyboardInterrupt:
@@ -252,6 +277,9 @@ class Main(Logger):
             if self.launcher is not None:
                 self.launcher.stop()
             return self.EXIT_FAILURE
+        finally:
+            if guard:
+                prng.unpoison_numpy_random()
         return self.EXIT_SUCCESS
 
 

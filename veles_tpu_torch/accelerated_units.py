@@ -467,17 +467,31 @@ class StepCompiler(object):
 
     def execute_block(self, blocks, training):
         """Runs K stacked ticks; ``blocks`` maps batch vector id →
-        (K, ...) array.  One upload per block; every tick's metrics
-        stay on the device (the evaluator's epoch accumulator)."""
+        (K, ...) block: a numpy array (the full-batch loader's index
+        blocks), uploaded once per block, or a tensor already on the
+        step's device (a streamed loader's staged block), taken as it
+        is — a tensor on another device raises rather than taking a
+        second trip through the host.  Every tick's metrics stay on the
+        device (the evaluator's epoch accumulator)."""
         self._ensure_compiled()
         device = self._device()
-        blocks = {k: torch.as_tensor(numpy.ascontiguousarray(v))
-                  .to(device) for k, v in blocks.items()}
+        blocks = {k: self._block_tensor(k, v, device)
+                  for k, v in blocks.items()}
         ticks = next(iter(blocks.values())).shape[0] if blocks else 1
         for t in range(ticks):
             self._tick({k: v[t] for k, v in blocks.items()}, training,
                        block=True)
         return {}
+
+    @staticmethod
+    def _block_tensor(key, value, device):
+        if isinstance(value, torch.Tensor):
+            if value.device != device:
+                raise ValueError(
+                    "block %s is on %s but the step runs on %s" %
+                    (key, value.device, device))
+            return value
+        return torch.as_tensor(numpy.ascontiguousarray(value)).to(device)
 
 
 class AcceleratedWorkflow(Workflow):
@@ -568,8 +582,9 @@ class AcceleratedWorkflow(Workflow):
         try:
             resilience.effective(None).check("step.nan")
         except resilience.InjectedStepNaN:
-            # The stacked arrays were already copied out of the loader
-            # vectors: poison the block's first tick in place.
+            # The stacked blocks (numpy arrays or device tensors) were
+            # already copied out of the loader vectors: poison the
+            # block's first tick in place.
             loader = getattr(self, "loader", None)
             mask = getattr(loader, "minibatch_mask", None)
             mask_id = str(id(mask)) if mask is not None else None

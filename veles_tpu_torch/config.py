@@ -8,12 +8,35 @@ training tick from it — ``remat``, ``attention_kernel``,
 ``optimizer`` under ``root.common.engine`` — and the serving planes
 (``weight_dtype``, ``kv_dtype`` under ``root.common.serving``), with
 the same names and defaults as the JAX package.  Unlike the JAX
-package it executes no site or user configuration file: the CLI
-applies ``root.x=y`` overrides, and programs set leaves directly.
+package it executes no site or user configuration file; the command
+line applies config files and ``root.x=y`` overrides in argv order
+(``__main__.apply_config_sources``), with ``root`` and :class:`Tune` in
+scope.
 """
 
 PROTECTED_KEYS = {"update", "keys", "items", "path_str", "as_dict",
                   "reset"}
+
+
+class Tune(object):
+    """Marks a config leaf as optimizable by the genetics subsystem:
+    ``root.lr = Tune(0.01, 0.0001, 0.1)`` declares a gene with the
+    given default and [min, max] range.  An untuned run reads the
+    default."""
+
+    def __init__(self, default, minv, maxv):
+        self.default = default
+        self.min = minv
+        self.max = maxv
+
+    def __repr__(self):
+        return "Tune(%s, %s, %s)" % (self.default, self.min, self.max)
+
+    def __float__(self):
+        return float(self.default)
+
+    def __int__(self):
+        return int(self.default)
 
 
 class Config(object):
@@ -91,10 +114,12 @@ class Config(object):
 
 
 def get(value, default=None):
-    """``default`` if ``value`` is an unset Config node, else
-    ``value``."""
+    """``default`` if ``value`` is an unset Config node, a
+    :class:`Tune`'s default, else ``value``."""
     if isinstance(value, Config):
         return default
+    if isinstance(value, Tune):
+        return value.default
     return value
 
 

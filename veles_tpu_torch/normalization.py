@@ -11,8 +11,8 @@ Stateful host-side normalizers with the contract
 Loaders construct them by registry string (``normalizer_factory``).
 They run on the host, in numpy, so the same data gives the JAX
 package's bytes; the device-side normalizer of byte pipelines is
-``veles_tpu_torch.mean_disp_normalizer``.  The JAX package's consumer
-is the image loader (ROADMAP A4), not yet ported.
+``veles_tpu_torch.mean_disp_normalizer``.  Their consumers are the image
+loaders (``loader/image.py``).
 """
 
 import numpy

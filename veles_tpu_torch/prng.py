@@ -15,13 +15,24 @@ Every generator owns two halves:
 
 Both halves are captured by ``__getstate__``, so a pickled generator
 resumes with identical randomness.
+
+While a run of the command line is live, :func:`poison_numpy_random`
+makes the module-level sampling functions of ``numpy.random`` raise for
+the port's code and the workflow's (the JAX package's guard).
 """
+
+import contextlib
+import logging
+import os
+import sys
 
 import numpy
 import torch
 
 from .logger import Logger
 
+#: The real numpy.random module — the port's own draws survive
+#: poisoning.
 _np_random = numpy.random
 
 
@@ -47,8 +58,7 @@ class RandomGenerator(Logger):
         """Seeds from an int, array, bytes, or ``file:count:dtype``
         spec."""
         if seed is None:
-            import os as _os
-            seed = numpy.frombuffer(_os.urandom(16), dtype=numpy.uint32)
+            seed = numpy.frombuffer(os.urandom(16), dtype=numpy.uint32)
         if isinstance(seed, str):
             seed = self._seed_from_spec(seed)
         if isinstance(seed, (bytes, bytearray)):
@@ -164,3 +174,133 @@ def get(key=0):
 
 def reset():
     _generators.clear()
+
+
+# -- numpy.random poisoning (reproducibility guard) ---------------------
+#
+# A stray ``numpy.random.rand()`` draws from hidden global state and
+# silently breaks a run's reproducibility, so while a run is live the
+# module-level sampling functions of ``numpy.random`` raise for the
+# port's own code and the workflow's.  The seeded-generator classes
+# (RandomState, Generator, default_rng and friends) stay reachable: an
+# explicitly seeded generator is reproducible by construction.
+
+#: Extra path prefixes whose callers the guard treats as user code
+#: (raise, not warn) — the command line registers the workflow file's
+#: directory.
+_guarded_paths = set()
+
+#: Call sites already warned about (callers outside the port and the
+#: workflow paths warn once instead of raising).
+_warned_sites = set()
+
+#: The package name a caller's file path must contain to count as the
+#: port's own code.
+PACKAGE = __name__.split(".")[0]
+
+
+def guard_path(path):
+    """Registers a directory whose code the guard treats as user
+    workflow code: stray draws from there raise."""
+    _guarded_paths.add(os.path.abspath(path))
+
+
+#: Attributes that stay reachable while poisoned.
+_POISON_ALLOWED = frozenset((
+    "RandomState", "Generator", "default_rng", "BitGenerator",
+    "SeedSequence", "MT19937", "PCG64", "PCG64DXSM", "Philox",
+    "SFC64",
+    # scipy reads numpy.random.mtrand._rand at import time to wire its
+    # own default_rng plumbing; banning the submodule attribute would
+    # make ``import scipy.stats`` fail.
+    "mtrand",
+))
+
+
+class _PoisonedRandom(object):
+    """Stand-in installed over ``numpy.random`` while a run is live."""
+
+    def __init__(self, real):
+        object.__setattr__(self, "_real", real)
+
+    def __getattr__(self, item):
+        real = object.__getattribute__(self, "_real")
+        if item in _POISON_ALLOWED or item.startswith("__"):
+            return getattr(real, item)
+        # Calls from the port itself, from registered workflow paths
+        # and from under the launch directory raise; installed
+        # libraries (torch, scipy) draw from numpy.random legitimately
+        # and pass; anything else warns once per call site.  A tripwire
+        # for direct stray use, not a sandbox.
+        frame = sys._getframe(1)
+        caller = frame.f_code.co_filename
+        message = (
+            "%s.prng forbids direct numpy.random.%s during a run — it "
+            "draws from hidden global state and breaks "
+            "reproducibility. Use prng.get().%s / unit.rand().%s, an "
+            "explicitly seeded numpy.random.RandomState, or wrap "
+            "third-party code in prng.unpoisoned()." %
+            (PACKAGE, item, item, item))
+        # Installed-library exemption first: a virtualenv inside the
+        # project directory must not turn library draws into crashes.
+        if ("site-packages" in caller or "dist-packages" in caller) \
+                and PACKAGE not in caller:
+            return getattr(real, item)
+        if PACKAGE in caller or \
+                (_launch_cwd[0] is not None and
+                 caller.startswith(_launch_cwd[0])) or any(
+                caller.startswith(p) for p in _guarded_paths):
+            raise AttributeError(message)
+        site = (caller, frame.f_lineno)
+        if site not in _warned_sites:
+            _warned_sites.add(site)
+            logging.getLogger("prng").warning(
+                "%s (called from %s:%d — warning only: the caller is "
+                "outside the port and the workflow paths)", message,
+                caller, frame.f_lineno)
+        return getattr(real, item)
+
+
+#: The "user code" directory prefix, captured once at poison time: a
+#: per-call ``os.getcwd()`` would change the guard on chdir, and a
+#: root-ish cwd ('/') would make the whole filesystem user code.
+_launch_cwd = [None]
+
+
+def _capture_launch_cwd():
+    cwd = os.getcwd().rstrip(os.sep)
+    # A filesystem root or another very short prefix matches
+    # everything: the cwd rule is off then.  The stored prefix ends
+    # with a separator, so a sibling directory that shares the cwd as
+    # a string prefix never matches.
+    _launch_cwd[0] = cwd + os.sep if len(cwd) > 3 else None
+
+
+def poison_numpy_random():
+    """Installs the guard (idempotent) over both access routes:
+    ``numpy.random.rand(...)`` and ``from numpy.random import rand``
+    (the ``sys.modules`` entry).  A name imported before poisoning
+    cannot be revoked."""
+    _capture_launch_cwd()
+    if not isinstance(numpy.random, _PoisonedRandom):
+        poisoned = _PoisonedRandom(_np_random)
+        numpy.random = poisoned
+        sys.modules["numpy.random"] = poisoned
+
+
+def unpoison_numpy_random():
+    numpy.random = _np_random
+    sys.modules["numpy.random"] = _np_random
+
+
+@contextlib.contextmanager
+def unpoisoned():
+    """Temporarily restores the real module for third-party code that
+    legitimately touches numpy.random internals."""
+    was = isinstance(numpy.random, _PoisonedRandom)
+    unpoison_numpy_random()
+    try:
+        yield
+    finally:
+        if was:
+            poison_numpy_random()

@@ -20,8 +20,20 @@ Geometry ergonomics follow the znicz units: ``padding`` is an int, an
 (x, y) pair.  Weight init: normal with stddev ``weights_stddev``
 (default 1/sqrt(kx·ky·channels)).
 
-Not yet ported (ROADMAP A4): ``space_to_depth`` (an MXU layout lever of
-the TPU) and the tied transposed convolution ``Deconv``; both raise.
+``space_to_depth=f`` is accepted with the JAX package's checks (f must
+equal both strides; the fold must tile the input) and computes the
+strided convolution it equals.  In the JAX package the fold is an MXU
+layout lever of the TPU — conv1 becomes a stride-1 conv over C·f²
+channels, so few input channels stop wasting the 128-lane contraction.
+cuDNN picks its own layout for a strided conv over three channels, so
+the rearrangement is not carried over: its math is the strided conv's.
+
+``Deconv`` is the transposed convolution with weights tied to a forward
+conv (``get_weights_from``): ``F.conv_transpose2d`` with no padding,
+cropped by the conv's (top, left) padding to the conv input's
+geometry, with zeros for the trailing rows and columns no window
+reached — the conv's input gradient, as the JAX package computes it by
+``jax.vjp``.
 """
 
 import numpy
@@ -94,9 +106,13 @@ class Conv(ForwardBase):
         self.ky = kwargs.get("ky", self.kx)
         self.padding = _norm_padding(kwargs.get("padding"))
         self.sliding = _norm_sliding(kwargs.get("sliding"))
-        if kwargs.get("space_to_depth"):
-            raise NotImplementedError(
-                "Conv(space_to_depth=...) is not yet ported (ROADMAP A4)")
+        self.space_to_depth = int(kwargs.get("space_to_depth", 0))
+        if self.space_to_depth:
+            sh, sw = self.sliding
+            if not (self.space_to_depth == sh == sw):
+                raise ValueError(
+                    "space_to_depth (%d) must equal both strides %r"
+                    % (self.space_to_depth, self.sliding))
 
     def output_spatial(self, in_h, in_w):
         (pt, pb), (pl, pr) = self.padding
@@ -130,11 +146,28 @@ class Conv(ForwardBase):
     def activation(self, v):
         return v
 
+    def check_space_to_depth(self, in_h, in_w):
+        """The JAX package's fold must tile the (padded) input: the
+        folded stride-1 conv would otherwise emit a ragged-tail window
+        the strided conv does not have."""
+        f = self.space_to_depth
+        (pt, pb), (pl, pr) = self.padding
+        h, wd = in_h + pt + pb, in_w + pl + pr
+        h2, w2 = -(-h // f), -(-wd // f)
+        ky2, kx2 = -(-self.ky // f), -(-self.kx // f)
+        if (h2 - ky2 + 1, w2 - kx2 + 1) != \
+                ((h - self.ky) // f + 1, (wd - self.kx) // f + 1):
+            raise ValueError(
+                "space_to_depth=%d does not tile input %dx%d with "
+                "kernel %dx%d" % (f, h, wd, self.ky, self.kx))
+
     def tforward(self, read, write, params, ctx, state=None):
         cdt = self.compute_dtype
-        y = conv2d_nhwc(read(self.input).to(cdt),
-                        params["weights"].to(cdt), self.sliding,
-                        self.padding)
+        x = read(self.input)
+        if self.space_to_depth:
+            self.check_space_to_depth(x.shape[1], x.shape[2])
+        y = conv2d_nhwc(x.to(cdt), params["weights"].to(cdt),
+                        self.sliding, self.padding)
         if self.include_bias:
             y = y + params["bias"].to(cdt)
         write(self.output, self.activation(y))
@@ -174,12 +207,54 @@ class ConvSigmoid(Conv):
         return nn_units.act_sigmoid(v)
 
 
+def conv2d_input_nhwc(y, w, in_hw, sliding, padding):
+    """The transposed convolution: the input gradient of
+    :func:`conv2d_nhwc` for the output cotangent ``y`` (NHWC) and HWIO
+    weights ``w``, at the conv input's spatial size ``in_hw``."""
+    (pt, _), (pl, _) = padding
+    full = nhwc(F.conv_transpose2d(nchw(y), w.permute(3, 2, 0, 1),
+                                   stride=sliding))
+    h, wd = in_hw
+    out = full[:, pt:pt + h, pl:pl + wd]
+    short_h, short_w = h - out.shape[1], wd - out.shape[2]
+    if short_h or short_w:
+        out = F.pad(out, (0, 0, 0, short_w, 0, short_h))
+    return out
+
+
 class Deconv(ForwardBase):
     """Transposed convolution with weights tied to a forward Conv
-    (znicz ``Deconv``): not yet ported."""
+    (znicz ``Deconv`` — the decoder half of conv autoencoder
+    pretraining; ``get_weights_from`` names the conv whose filters are
+    reused, trained through that conv and never through this unit)."""
 
     MAPPING = "deconv"
     HAS_PARAMS = False
 
     def __init__(self, workflow, **kwargs):
-        raise NotImplementedError("Deconv is not yet ported (ROADMAP A4)")
+        super(Deconv, self).__init__(workflow, **kwargs)
+        self.conv = kwargs["get_weights_from"]
+        self.include_bias = False
+
+    @property
+    def trainables(self):
+        return {}  # the tied weights belong to (and train via) conv
+
+    def initialize(self, device=None, **kwargs):
+        if not self.conv.is_initialized:
+            raise AttributeError(
+                "%s: tied conv %s not initialized yet" %
+                (self.name, self.conv.name))
+        super(Deconv, self).initialize(device=device, **kwargs)
+        batch = self.input.shape[0]
+        out_shape = self.conv.input.shape[1:]
+        self.output.mem = numpy.zeros((batch,) + tuple(out_shape),
+                                      dtype=numpy.float32)
+        self.output.initialize(self.device)
+
+    def tforward(self, read, write, params, ctx, state=None):
+        cdt = self.compute_dtype
+        conv = self.conv
+        write(self.output, conv2d_input_nhwc(
+            read(self.input).to(cdt), read(conv.weights).to(cdt),
+            tuple(conv.input.shape[1:3]), conv.sliding, conv.padding))

@@ -12,13 +12,20 @@ in each window.
 
 Max pooling routes a tied window's gradient to ONE element, as the JAX
 package's reduce-window max does; ``tests/test_torch_conv.py`` pins
-which one.  ``StochasticPooling`` is not yet ported (ROADMAP A4).
+which one.
+
+Stochastic pooling (non-overlapping windows) picks one element of each
+window with probability ∝ its activation in training — the Gumbel-max
+trick, with the noise drawn from the step's seeded ``torch.Generator``
+as dropout draws its mask, so not threefry's numbers — and outputs
+the probability-weighted mean in inference.
 """
 
 import numpy
 import torch
 import torch.nn.functional as F
 
+from ..accelerated_units import select_by_training
 from .nn_units import ForwardBase
 from .conv import _norm_padding, _norm_sliding, nchw, nhwc
 
@@ -122,15 +129,70 @@ class AvgPooling(Pooling):
 
 
 class StochasticPooling(Pooling):
-    """Stochastic pooling (znicz ``StochasticPooling``): not yet
-    ported."""
+    """Stochastic pooling (znicz ``StochasticPooling``): training picks
+    one window element with probability ∝ its (non-negative)
+    activation; inference outputs the probability-weighted mean.  Only
+    non-overlapping windows (sliding == kernel) and no padding, as in
+    the JAX package; the ragged tail is padded with zeros, and an
+    all-zero window picks uniformly.  The output is float32."""
 
     MAPPING = "stochastic_pooling"
+    ABS = False
 
     def __init__(self, workflow, **kwargs):
-        raise NotImplementedError(
-            "%s is not yet ported (ROADMAP A4)" % type(self).__name__)
+        super(StochasticPooling, self).__init__(workflow, **kwargs)
+        if self.sliding != (self.ky, self.kx):
+            raise ValueError(
+                "%s supports only sliding == kernel" % self)
+        if self.padding != ((0, 0), (0, 0)):
+            raise ValueError("%s does not support padding" % self)
+
+    def _patches(self, x):
+        """(B, OH, OW, ky·kx, C) windows of an NHWC tensor, the ragged
+        tail padded with zeros."""
+        b, h, w, c = x.shape
+        oh = -(-h // self.ky)
+        ow = -(-w // self.kx)
+        x = F.pad(x, (0, 0, 0, ow * self.kx - w, 0, oh * self.ky - h))
+        x = x.reshape(b, oh, self.ky, ow, self.kx, c)
+        x = x.permute(0, 1, 3, 2, 4, 5)
+        return x.reshape(b, oh, ow, self.ky * self.kx, c)
+
+    def draw_gumbel(self, ctx, shape, device):
+        """Standard Gumbel noise of ``shape`` from the step's generator:
+        −log(−log(u)), u uniform in [tiny, 1) (the draw of
+        ``jax.random.gumbel``)."""
+        u = torch.rand(shape, generator=ctx.next_key(), device=device)
+        tiny = torch.finfo(torch.float32).tiny
+        return -torch.log(-torch.log(torch.clamp_min(u, tiny)))
+
+    def tforward(self, read, write, params, ctx, state=None):
+        x = read(self.input).float()
+        # The derivatives at 0 are jnp.abs's (+1, where torch.abs has
+        # 0) and jnp.maximum's (a tie splits the gradient).
+        p = self._patches(torch.where(x >= 0, x, -x) if self.ABS else x)
+        v = self._patches(x)
+        w = torch.maximum(p, torch.zeros_like(p))
+        tot = w.sum(dim=3, keepdim=True)
+        k = w.shape[3]
+        probs = torch.where(tot > 0, w / torch.clamp_min(tot, 1e-30),
+                            torch.full_like(w, 1.0 / k))
+
+        def train_branch():
+            g = self.draw_gumbel(ctx, probs.shape, probs.device)
+            pick = torch.argmax(torch.log(probs + 1e-30) + g, dim=3)
+            return torch.gather(v, 3, pick[:, :, :, None, :])[:, :, :, 0]
+
+        def eval_branch():
+            return (probs * v).sum(dim=3)
+
+        write(self.output, select_by_training(ctx, train_branch,
+                                              eval_branch))
 
 
 class StochasticAbsPooling(StochasticPooling):
+    """Stochastic pooling over |x| that outputs the picked element's
+    signed value."""
+
     MAPPING = "stochastic_abs_pooling"
+    ABS = True

@@ -22,17 +22,19 @@ Dataset: preprocessed numpy archives under
 ``root.common.dirs.datasets/imagenet`` (``{train,valid}_data.npy``
 uint8 NHWC + ``{train,valid}_labels.npy`` int32) when present;
 otherwise a synthetic class-structured uint8 set sized by the loader's
-kwargs.  The streamed (disk-memmapped) loader is not yet ported
-(ROADMAP A4): ``StreamedImagenetLoader`` raises.
+kwargs.  ``StreamedImagenetLoader`` (``loader_cls``) streams the same
+files from disk instead, for a dataset larger than device memory.
 """
 
 import os
+import zipfile
 
 import numpy
 
 from ...config import root, get as config_get
 from ...loader.base import VALID
 from ...loader.fullbatch import FullBatchLoader
+from ...loader.stream import StreamLoader
 from ...mean_disp_normalizer import MeanDispNormalizer
 from ..standard_workflow import StandardWorkflow
 
@@ -138,17 +140,143 @@ class ImagenetLoader(FullBatchLoader):
         self.rdisp.mem = rdisp
 
 
-class StreamedImagenetLoader(FullBatchLoader):
-    """The streamed (disk-memmapped, double-buffered) ImageNet loader
-    of the JAX package: not yet ported (it needs ``loader/stream.py``,
-    ROADMAP A4)."""
+class StreamedImagenetLoader(StreamLoader):
+    """Streamed ImageNet loader: the dataset lives on disk as ``.npy``
+    files, memmapped; each block of minibatches is read by the host
+    pool into page-locked staging and uploaded while the previous block
+    trains (``loader/stream.py``).
+
+    Sources, in order: ``{valid,train}_{data,labels}.npy`` under
+    ``root.common.dirs.datasets/imagenet`` (the contract of
+    :class:`ImagenetLoader`); otherwise a synthetic uint8 dataset is
+    written to disk once under ``cache_dir`` (default: a directory in
+    the system's temporary directory) and memmapped from there, so the
+    fallback streams from real files too.  The same files give
+    :class:`ImagenetLoader` the same index space, minibatches and
+    normalizer constants."""
 
     MAPPING = "imagenet_stream_loader"
 
     def __init__(self, workflow, **kwargs):
-        raise NotImplementedError(
-            "StreamedImagenetLoader is not yet ported (ROADMAP A4: "
-            "loader/stream.py)")
+        super(StreamedImagenetLoader, self).__init__(workflow,
+                                                     **kwargs)
+        from ...memory import Vector
+        self.mean = Vector()
+        self.rdisp = Vector()
+        self.sim_image_size = kwargs.get("sim_image_size", 227)
+        self.sim_classes = kwargs.get("sim_classes", 1000)
+        self.sim_train = kwargs.get("sim_train", 2048)
+        self.sim_valid = kwargs.get("sim_valid", 256)
+        self.cache_dir = kwargs.get("cache_dir")
+
+    def init_unpickled(self):
+        super(StreamedImagenetLoader, self).init_unpickled()
+        self._sources_ = None  # [(memmap data, memmap labels), ...]
+
+    def load_data(self):
+        d = os.path.join(config_get(root.common.dirs.datasets, "."),
+                         "imagenet")
+        names = ("valid_data.npy", "valid_labels.npy",
+                 "train_data.npy", "train_labels.npy")
+        paths = [os.path.join(d, n) for n in names]
+        if not all(map(os.path.isfile, paths)):
+            paths = self._write_synthetic()
+        valid = numpy.load(paths[0], mmap_mode="r")
+        valid_l = numpy.load(paths[1], mmap_mode="r")
+        train = numpy.load(paths[2], mmap_mode="r")
+        train_l = numpy.load(paths[3], mmap_mode="r")
+        self._sources_ = [(valid, valid_l), (train, train_l)]
+        self.class_lengths = [0, len(valid), len(train)]
+        self.sample_shape = tuple(train.shape[1:])
+        self.sample_dtype = train.dtype
+        mean, rdisp = self._cached_mean_disp(paths[2], train)
+        self.mean.mem = mean
+        self.rdisp.mem = rdisp
+        self.info("streaming imagenet from disk: %d train + %d "
+                  "validation (%s, %s)", len(train), len(valid),
+                  "x".join(map(str, self.sample_shape)),
+                  self.sample_dtype)
+
+    def _cached_mean_disp(self, train_path, train):
+        """mean/rdisp are a function of the (immutable) train file:
+        they are cached beside it, keyed by its size and mtime, so a
+        restart or a resume costs O(sample_shape), not a pass over the
+        disk.  The cache is written to a temporary name and renamed."""
+        cache = train_path + ".meandisp.npz"
+        st = os.stat(train_path)
+        key = numpy.array([st.st_size, int(st.st_mtime)],
+                          dtype=numpy.int64)
+        if os.path.isfile(cache):
+            try:
+                with numpy.load(cache) as z:
+                    if numpy.array_equal(z["key"], key):
+                        return z["mean"], z["rdisp"]
+            except (OSError, ValueError, KeyError, EOFError,
+                    zipfile.BadZipFile) as e:
+                self.warning("corrupt normalization cache %s (%s) — "
+                             "recomputing", cache, e)
+        mean, rdisp = analyze_mean_disp(train)
+        try:
+            numpy.savez(cache + ".tmp.npz", key=key, mean=mean,
+                        rdisp=rdisp)
+            os.replace(cache + ".tmp.npz", cache)
+        except OSError:
+            self.warning("mean/disp cache not writable at %s", cache)
+        return mean, rdisp
+
+    def _write_synthetic(self):
+        """Writes the synthetic dataset to disk once, chunked through
+        a memmap (host memory stays O(image)); byte for byte the JAX
+        package's files."""
+        import tempfile
+        cache = self.cache_dir or os.path.join(
+            tempfile.gettempdir(), "veles_tpu_imagenet_%dx%d_%d" % (
+                self.sim_train, self.sim_image_size,
+                self.sim_classes))
+        os.makedirs(cache, exist_ok=True)
+        s = self.sim_image_size
+        sizes = {"valid": self.sim_valid, "train": self.sim_train}
+        out = []
+        rng = numpy.random.RandomState(0)
+        for part in ("valid", "train"):
+            dpath = os.path.join(cache, "%s_data.npy" % part)
+            lpath = os.path.join(cache, "%s_labels.npy" % part)
+            n = sizes[part]
+            if not (os.path.isfile(dpath) and os.path.isfile(lpath)):
+                labels = (numpy.arange(n) % self.sim_classes).astype(
+                    numpy.int32)
+                rng.shuffle(labels)
+                mm = numpy.lib.format.open_memmap(
+                    dpath + ".tmp", mode="w+", dtype=numpy.uint8,
+                    shape=(n, s, s, 3))
+                fill_synthetic(mm, labels, rng, s)
+                mm.flush()
+                del mm
+                numpy.save(lpath, labels)
+                os.replace(dpath + ".tmp", dpath)
+                self.info("wrote synthetic %s set -> %s", part, dpath)
+            out.extend([dpath, lpath])
+        # valid_data, valid_labels, train_data, train_labels.
+        return out
+
+    def dataset_labels(self):
+        return [None, numpy.asarray(self._sources_[0][1]),
+                numpy.asarray(self._sources_[1][1])]
+
+    def fill_rows(self, indices, out_data, out_labels):
+        """Vectorized memmap reads (the "decode" of the npy source)."""
+        n_valid = self.class_lengths[VALID]
+        indices = numpy.asarray(indices)
+        is_train = indices >= n_valid
+        for src_id, sel in ((0, ~is_train), (1, is_train)):
+            if not sel.any():
+                continue
+            data, labels = self._sources_[src_id]
+            local = indices[sel] - (n_valid if src_id else 0)
+            # memmap fancy indexing: one read per row, no wholesale
+            # load.
+            out_data[sel] = data[local]
+            out_labels[sel] = labels[local]
 
 
 def alexnet_layers(n_classes=1000, lr=0.01, moment=0.9, decay=5e-4):
