@@ -11,13 +11,15 @@ both at the LM bench geometry (embed 2048, 16 heads of dim 128, MLP
 8192, 12 blocks, vocab 16384, positional table / sequence 1024),
 training the full-width ungrouped AlexNet through ``StandardWorkflow``
 (227 px, 1000 classes, batch 512) from device memory and streamed from
-disk, checkpointing and resuming it, and serving the same LM from int8
-KV planes with int8 weights, speculative decoding and a hot reload —
-with random weights from a seed, in phases; any failure exits
-non-zero:
+disk, checkpointing and resuming it, training a TinyLM and serving it
+from inside its workflow, pretraining a Kohonen map and an RBM, and
+serving the same LM from int8 KV planes with int8 weights, speculative
+decoding and a hot reload — with random weights from a seed, in phases;
+any failure exits non-zero:
 
 1. device — the card's name, count, and ``nvidia-smi`` name and power
-   limit; no CUDA fails;
+   limit; no CUDA fails, nor a CUDA device on which the port left
+   ``torch.backends.cudnn.deterministic`` off;
 2. build — ``nvcc`` builds every kernel of the four paths from the
    sources in the checkout, one process per source, all at once
    (``veles_tpu_torch/ops/csrc/decode_attention.cu`` — B4, B5 —,
@@ -85,8 +87,9 @@ non-zero:
    validation error and epochs; a snapshot taken mid-epoch with a block
    staged must resume into a fresh launcher that serves the requeued
    block again and whose train tick equals the live one's bit for bit
-   (the f32 tick is also run twice live and once resumed, and a resumed
-   difference where the live ticks agree fails); CIFAR's gate
+   (the f32 tick too: twice live and twice resumed under the cuDNN
+   setting the port made, all bit-equal; its time with and without
+   cuDNN's deterministic algorithms is read in turns); CIFAR's gate
    (``CifarWorkflow``, seed 4242, 5 epochs: validation error < 0.25) and
    the same run with stochastic pooling (finite weights); readings: warm
    train tick p50 resident / streamed / prefetch off, the host's fill
@@ -102,6 +105,26 @@ non-zero:
    and the kernel's launch count equal to what the run implies; the
    same wave with ``--spec`` (verify chunks through B4) answers the
    same tokens;
+7r. in-workflow serving — ``--serve-max-batch 8 --serve-warmup
+   --serve-kv-block-size 16 --serve-deadline 60`` through the port's
+   command-line parser into ``root.common.serving``; the TinyLM at the
+   bench width, cut to INWF_BLOCKS blocks, trains one validation and
+   INWF_TICKS train ticks through ``Launcher.run`` (B1-B3, their
+   launches held to what the ticks imply) with a ``RESTfulAPI`` unit
+   linked after its decision, which exports the workflow (gzip level 9)
+   and starts the server on the card; phase 7's prompts and the
+   repeated one go out as one concurrent wave: every answer
+   token-identical to ``generate(..., attend=decode_attention_
+   reference)`` over ``ExportedModel(artifact, device="cuda")``, B4's
+   launches as the run implies, and a planted B4 fault (one head of one
+   launch's output) must fail the token gate; readings: the export's
+   bytes and seconds, the last tick to ``/health``, the wave and its
+   TTFT;
+7p. pretraining — the Kohonen sample through ``python -m
+   veles_tpu_torch ... root.kohonen.max_epochs=12 --random-seed 5`` on
+   the card (quantization error < 0.1, a finite 8x8 U-matrix) and
+   ``MnistRBMWorkflow`` on the seeded synthetic IDX files (its
+   validation reconstruction error falls every epoch of 3);
 9. quantized serving — a second artifact (another seed) is written;
    the first is served with ``--kv-dtype int8 --weight-dtype int8
    --spec --warmup`` (and once without ``--spec``) to the mixed wave
@@ -119,7 +142,8 @@ non-zero:
    must compute its first logits, token and last-position k/v as the
    prompt's first serving did, bit for bit;
 10. exit — drains the servers, prints the training, AlexNet, snapshot,
-   streamed and serving numbers and the kernels as JSON lines, the command's time, the
+   streamed, serving, in-workflow serving and pretraining numbers and
+   the kernels (B1-B4's launches from phase 7r too) as JSON lines, the command's time, the
    card's name and power limit, and ``{"ok": true, "device": {...}}``
    last.
 """
@@ -1402,6 +1426,24 @@ TRAIN_LOSS_RTOL, TRAIN_CHANGE_TOL, TRAIN_FLOOR = 1e-3, 0.1, 1e-7
 PLANTED_SCALE = 0.5
 
 
+def synthetic_corpus(n_valid, n_train):
+    """bench.py's LM corpus as a loader class: random tokens, next-token
+    labels, ``n_valid`` validation and ``n_train`` train sequences."""
+    import numpy
+    from veles_tpu_torch.znicz.samples.tinylm import FirstTokenLoader
+
+    class SyntheticCorpus(FirstTokenLoader):
+        def load_data(self):
+            rng = numpy.random.RandomState(0)
+            self.original_data.mem = rng.randint(
+                0, VOCAB, (n_valid + n_train, POSITIONS)).astype(
+                numpy.int32)
+            self.original_labels.mem = numpy.roll(
+                self.original_data.mem, -1, axis=1)
+            self.class_lengths = [0, n_valid, n_train]
+    return SyntheticCorpus
+
+
 def phase_training(smi):
     """Phase 5: the fused training tick at the full bench width, with
     the kernels (through ``Launcher.run``), then each tick again from
@@ -1414,21 +1456,9 @@ def phase_training(smi):
     from veles_tpu_torch.config import root
     from veles_tpu_torch.launcher import Launcher
     from veles_tpu_torch.ops import flash_attention as FA
-    from veles_tpu_torch.znicz.samples.tinylm import (FirstTokenLoader,
-                                                      TinyLMWorkflow)
-    n_valid, n_train = TRAIN_BATCH, TRAIN_BATCH * TRAIN_TICKS
-
-    class SyntheticCorpus(FirstTokenLoader):
-        """bench.py's LM corpus: random tokens, next-token labels."""
-
-        def load_data(self):
-            rng = numpy.random.RandomState(0)
-            self.original_data.mem = rng.randint(
-                0, VOCAB, (n_valid + n_train, POSITIONS)).astype(
-                numpy.int32)
-            self.original_labels.mem = numpy.roll(
-                self.original_data.mem, -1, axis=1)
-            self.class_lengths = [0, n_valid, n_train]
+    from veles_tpu_torch.znicz.samples.tinylm import TinyLMWorkflow
+    SyntheticCorpus = synthetic_corpus(TRAIN_BATCH,
+                                       TRAIN_BATCH * TRAIN_TICKS)
 
     engine = root.common.engine
     engine.remat = True
@@ -2868,20 +2898,25 @@ def phase_streamed(workdir, smi):
             if n in state:
                 v.devmem = state[n].clone()
 
-    def tick(compiler_, gen_, blocks_, state, level, deterministic=False):
+    port_deterministic = torch.backends.cudnn.deterministic
+
+    def tick(compiler_, gen_, blocks_, state, level, timed=None):
         """One train tick from ``state`` (generator 0 at the snapshot's
-        state) at ``level``; cuDNN's deterministic algorithms on
-        request.  Returns the parameters after it."""
+        state) at ``level``, under the cuDNN setting the port made
+        (``backends.CUDADevice``); ``timed`` appends its seconds.
+        Returns the parameters after it."""
         restore(compiler_, state)
         gen_.set_state(rng_state)
         engine.precision_level = level
-        torch.backends.cudnn.deterministic = deterministic
         try:
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
             compiler_.execute_block(blocks_, True)
             torch.cuda.synchronize()
+            if timed is not None:
+                timed.append(time.monotonic() - t0)
         finally:
             engine.precision_level = 0
-            torch.backends.cudnn.deterministic = False
         return {n: v.devmem.clone() for n, v in
                 compiler_._param_vecs.items()}
 
@@ -2889,18 +2924,31 @@ def phase_streamed(workdir, smi):
         return sorted(n for n in a if not torch.equal(a[n], b[n]))
 
     def f32_ticks(compiler_, gen_, blocks_, state):
-        """The f32 tick twice with cuDNN's default algorithms, then
-        once with its deterministic ones."""
+        """The f32 tick twice, as the port runs it."""
         return [tick(compiler_, gen_, blocks_, state, 1),
-                tick(compiler_, gen_, blocks_, state, 1),
-                tick(compiler_, gen_, blocks_, state, 1, True)]
+                tick(compiler_, gen_, blocks_, state, 1)]
+
+    def f32_cost(compiler_, gen_, blocks_, state, reps=5):
+        """The f32 tick's seconds with cuDNN's deterministic algorithms
+        (the port's setting) and with its defaults (the flag off for the
+        reading only, then put back), in turns: (with, without)."""
+        with_, without = [], []
+        for _ in range(reps):
+            tick(compiler_, gen_, blocks_, state, 1, with_)
+            torch.backends.cudnn.deterministic = False
+            try:
+                tick(compiler_, gen_, blocks_, state, 1, without)
+            finally:
+                torch.backends.cudnn.deterministic = port_deterministic
+        return with_, without
 
     def conv1_wgrad_probe(compiler_, loader_, blocks_):
         """conv1's float32 weight gradient on this block's normalized
         images and a seeded cotangent, four times with cuDNN's default
-        algorithms and twice with its deterministic ones: (distinct
-        results, distinct deterministic results, the default's largest
-        |gap|, the weight-gradient kernels' names)."""
+        algorithms (the flag off for the probe only) and twice as the
+        port runs it: (distinct default results, distinct results as
+        the port runs it, the default's largest |gap|, the
+        weight-gradient kernels' names)."""
         from torch.profiler import ProfilerActivity, profile
         from veles_tpu_torch.znicz.conv import conv2d_nhwc
         conv1 = next(u for u in compiler_.forward_units
@@ -2914,7 +2962,8 @@ def phase_streamed(workdir, smi):
             generator=torch.Generator(device=x.device).manual_seed(1))
         outs = {False: [], True: []}
         names = set()
-        for deterministic, times in ((False, 4), (True, 2)):
+        for deterministic, times in ((False, 4),
+                                     (port_deterministic, 2)):
             torch.backends.cudnn.deterministic = deterministic
             try:
                 for _ in range(times):
@@ -2929,7 +2978,7 @@ def phase_streamed(workdir, smi):
                                  ev.key.lower())
                     outs[deterministic].append(g)
             finally:
-                torch.backends.cudnn.deterministic = False
+                torch.backends.cudnn.deterministic = port_deterministic
 
         def distinct(gs):
             return len({gr.cpu().numpy().tobytes() for gr in gs})
@@ -2942,6 +2991,7 @@ def phase_streamed(workdir, smi):
     L.reset_launches()
     live = tick(compiler, gen, blocks, before, 0)
     live_f32 = f32_ticks(compiler, gen, blocks, before)
+    f32_with, f32_without = f32_cost(compiler, gen, blocks, before)
     probe = conv1_wgrad_probe(compiler, loader, blocks)
     snapshot_launches = {"lrn_forward": L.lrn_forward.launches,
                          "lrn_backward": L.lrn_backward.launches}
@@ -2980,14 +3030,19 @@ def phase_streamed(workdir, smi):
     requeued_ok = len(requeued) == len(staged_idx) and all(
         numpy.array_equal(a, b) for a, b in zip(requeued, staged_idx))
     bf16_differ = equal(live, resumed)
-    f32 = {"live_repeat_differs": equal(live_f32[0], live_f32[1]),
+    f32 = {"cudnn_deterministic_as_the_port_set_it": port_deterministic,
+           "live_repeat_differs": equal(live_f32[0], live_f32[1]),
            "resumed_differs": equal(live_f32[0], resumed_f32[0]),
            "resumed_repeat_differs": equal(resumed_f32[0], resumed_f32[1]),
-           "deterministic_resumed_differs": equal(live_f32[2],
-                                                  resumed_f32[2]),
-           "conv1_wgrad_distinct_of_4": probe[0],
+           "tick_ms_deterministic": [x * 1e3 for x in f32_with],
+           "tick_ms_default_algorithms": [x * 1e3 for x in f32_without],
+           "tick_p50_ms_deterministic": float(
+               numpy.median(f32_with)) * 1e3,
+           "tick_p50_ms_default_algorithms": float(
+               numpy.median(f32_without)) * 1e3,
+           "conv1_wgrad_default_distinct_of_4": probe[0],
            "conv1_wgrad_deterministic_distinct_of_2": probe[1],
-           "conv1_wgrad_max_gap": probe[2],
+           "conv1_wgrad_default_max_gap": probe[2],
            "wgrad_kernels": probe[3]}
     print("streamed: snapshot with a block staged on %s: %.1f MB, export "
           "%.2f s, import_ %.2f s, resume initialize %.2f s; state restored "
@@ -2995,25 +3050,33 @@ def phase_streamed(workdir, smi):
           "the resumed bf16 train tick differs from the live one in %s" % (
               smi, blob_mb, export_s, import_s, resume_init_s,
               not restored, requeued_ok, same_block, bf16_differ))
-    print("streamed: f32 ticks from the snapshot's state (cuDNN default "
-          "algorithms): live vs live %s, live vs resumed %s, resumed vs "
-          "resumed %s; with cuDNN's deterministic algorithms live vs "
+    print("streamed: f32 ticks from the snapshot's state as the port runs "
+          "them (cudnn.deterministic %s, set by backends.CUDADevice): "
+          "live vs live differ in %s, live vs resumed %s, resumed vs "
           "resumed %s; conv1's f32 weight gradient on fixed inputs: %d "
-          "distinct of 4 (largest |gap| %.3g), deterministic %d of 2; "
-          "kernels %s" % (
-              f32["live_repeat_differs"], f32["resumed_differs"],
-              f32["resumed_repeat_differs"],
-              f32["deterministic_resumed_differs"], probe[0], probe[2],
-              probe[1], probe[3]))
+          "distinct of 4 with cuDNN's default algorithms (largest |gap| "
+          "%.3g), %d of 2 as the port runs it; kernels %s" % (
+              port_deterministic, f32["live_repeat_differs"],
+              f32["resumed_differs"], f32["resumed_repeat_differs"],
+              probe[0], probe[2], probe[1], probe[3]))
+    print("streamed: the cost of cuDNN's deterministic algorithms on %s: "
+          "f32 AlexNet train tick (batch %d) p50 %.2f ms with them, %.2f "
+          "ms with the defaults (%d ticks each, in turns)" % (
+              smi, ALEXNET_BATCH, f32["tick_p50_ms_deterministic"],
+              f32["tick_p50_ms_default_algorithms"], len(f32_with)))
     if restored or not requeued_ok or not same_block or bf16_differ:
         fail("the streamed snapshot does not resume bit-equal: restored "
              "differs %s, requeued %s, served again %s, tick differs %s" %
              (restored, requeued_ok, same_block, bf16_differ))
-    if f32["deterministic_resumed_differs"] or probe[1] != 1:
-        fail("with cuDNN's deterministic algorithms the resumed f32 tick "
-             "differs from the live one (%s; the probe's deterministic "
-             "results %d): the snapshot leaves state behind" % (
-                 f32["deterministic_resumed_differs"], probe[1]))
+    if not port_deterministic:
+        fail("the port left torch.backends.cudnn.deterministic off")
+    if f32["live_repeat_differs"] or f32["resumed_differs"] or \
+            f32["resumed_repeat_differs"] or probe[1] != 1:
+        fail("f32 ticks from one state are not bit-equal as the port runs "
+             "them: live vs live %s, live vs resumed %s, resumed vs "
+             "resumed %s (the probe's results %d)" % (
+                 f32["live_repeat_differs"], f32["resumed_differs"],
+                 f32["resumed_repeat_differs"], probe[1]))
     numbers["snapshot"] = {
         "blob_mb": blob_mb, "export_s": export_s, "import_s": import_s,
         "resume_initialize_s": resume_init_s, "requeued": requeued_ok,
@@ -3271,21 +3334,11 @@ def phase_serving(workdir, smi):
              "copy-on-write: %s" % pool)
     firsts.gate("f32 serving", prompts[REPEAT_INDEX])
     all_prompts = prompts + [prompts[REPEAT_INDEX]]
-    for i, (prompt, got) in enumerate(zip(all_prompts, answers)):
-        full, logits = model.generate(
-            numpy.asarray([prompt]), MAX_NEW,
-            attend=DA.decode_attention_reference, return_logits=True)
-        if not numpy.isfinite(logits).all():
-            fail("oracle logits not finite for request %d" % i)
-        want = full[0, len(prompt):].tolist()
-        if got != want:
-            j = next(j for j in range(MAX_NEW) if got[j] != want[j])
-            top2 = numpy.sort(logits[0, j])[-2:]
-            fail("request %d (prompt %d tokens) diverges from the plain-"
-                 "attention oracle at generated position %d: served %d, "
-                 "oracle %d, oracle top-2 logit margin %.3g" % (
-                     i, len(prompt), j, got[j], want[j],
-                     top2[1] - top2[0]))
+    mismatches = token_mismatches(model, all_prompts, answers)
+    if mismatches:
+        fail("answers diverge from the plain-attention oracle (request, "
+             "prompt tokens, generated position, served, oracle, the "
+             "oracle's top-2 logit margin there): %s" % mismatches)
     print("serving check: %d answers token-identical to generate(attend="
           "decode_attention_reference) on the card" % len(answers))
     served = dict(model=model, prompts=all_prompts, answers=answers)
@@ -3311,6 +3364,315 @@ def phase_serving(workdir, smi):
               numbers["ttft_largest_ms"], numbers["itl_p50_ms"],
               peak / 1e9))
     return launches, numbers, served
+
+
+#: Phase 7r: the TinyLM at the bench width (embed 2048, 16 heads of
+#: 128, MLP 8192, vocab 16384, 1024 positions), trained for one
+#: validation and INWF_TICKS train ticks and served from the same
+#: process by the RESTfulAPI unit.  Its depth is cut to INWF_BLOCKS of
+#: the bench's 12: the unit exports at gzip level 9, as the JAX
+#: package's does, and a 12-block artifact holds its ~2.6 GB of float32
+#: weights twice (weights.npz and model.bin), which one host thread
+#: compresses at a few tens of MB/s — minutes the run's time limit does
+#: not have.  The width is the bench's.
+INWF_BLOCKS, INWF_TICKS = 2, 2
+#: ``export_workflow``'s default, which the unit writes with.
+INWF_GZIP_LEVEL = 9
+#: The flags a user serving from inside the workflow gives.
+INWF_FLAGS = ("--serve-max-batch", "8", "--serve-warmup",
+              "--serve-kv-block-size", "16", "--serve-deadline", "60")
+INWF_SERVING = {"max_batch": 8, "warmup": True, "kv_block_size": 16,
+                "deadline": 60.0}
+#: The planted B4 fault: one head of the first launch's output shifted
+#: by this much.
+INWF_PLANTED = 100.0
+
+
+def token_mismatches(model, prompts, answers):
+    """The answers that differ from ``model.generate(...,
+    attend=decode_attention_reference)`` (the plain attention, on the
+    card): a list of (request, prompt length, first differing position,
+    served token, oracle token, the oracle's top-2 logit margin there)."""
+    import numpy
+    from veles_tpu_torch.ops import decode_attention as DA
+    out = []
+    for i, (prompt, got) in enumerate(zip(prompts, answers)):
+        full, logits = model.generate(
+            numpy.asarray([prompt]), MAX_NEW,
+            attend=DA.decode_attention_reference, return_logits=True)
+        if not numpy.isfinite(logits).all():
+            fail("oracle logits not finite for request %d" % i)
+        want = full[0, len(prompt):].tolist()
+        if got != want:
+            j = next(j for j in range(MAX_NEW) if got[j] != want[j])
+            top2 = numpy.sort(logits[0, j])[-2:]
+            out.append((i, len(prompt), j, got[j], want[j],
+                        float(top2[1] - top2[0])))
+    return out
+
+
+def phase_inworkflow(workdir, smi):
+    """Phase 7r: a user's path — train the TinyLM, then serve it from
+    inside its workflow.  The ``--serve-*`` flags go through the port's
+    command-line parser into ``root.common.serving``; a ``RESTfulAPI``
+    unit linked after the decision (gated until training completes)
+    exports the workflow and starts the server on the card within
+    ``Launcher.run``; the training ticks launch B1-B3, every decode step
+    and short extend chunk of the server B4.  Returns (the flash
+    kernels' launches, B4's launches, numbers)."""
+    import numpy
+    import torch
+    from veles_tpu_torch import prng
+    from veles_tpu_torch.__main__ import Main
+    from veles_tpu_torch.config import root
+    from veles_tpu_torch.export import ExportedModel
+    from veles_tpu_torch.launcher import Launcher
+    from veles_tpu_torch.ops import decode_attention as DA
+    from veles_tpu_torch.ops import flash_attention as FA
+    from veles_tpu_torch.restful import RESTfulAPI
+    from veles_tpu_torch.znicz.samples.tinylm import TinyLMWorkflow
+    started = time.monotonic()
+    main = Main(["inworkflow.py", "-v", "warning"] + list(INWF_FLAGS))
+    main.parse()
+    main.apply_subsystem_flags()
+    serving = {k: root.common.serving.get(k) for k in INWF_SERVING}
+    if serving != INWF_SERVING:
+        fail("%s left root.common.serving %s, expected %s" % (
+            " ".join(INWF_FLAGS), serving, INWF_SERVING))
+    engine = root.common.engine
+    engine.remat = True
+    engine.precision_level = 0
+    engine.attention_dtype = "f32"
+    engine.attention_kernel = "auto"
+    prng.reset()
+    prng.get(0).seed(43)
+    launcher = Launcher()
+    wf = TinyLMWorkflow(
+        launcher, vocab_size=VOCAB, seq_len=POSITIONS, embed_dim=EMBED,
+        n_heads=HEADS, n_blocks=INWF_BLOCKS, minibatch_size=TRAIN_BATCH,
+        ticks_per_dispatch=1, max_epochs=1,
+        loader_cls=synthetic_corpus(TRAIN_BATCH, TRAIN_BATCH * INWF_TICKS),
+        loader_config={"validate_labels": False})
+    path = os.path.join(workdir, "inworkflow.veles.tgz")
+    api = RESTfulAPI(wf, host="127.0.0.1", port=0, artifact_path=path)
+    api.link_from(wf.decision)
+    api.gate_block = ~wf.decision.complete
+    launcher.initialize(device="cuda")
+    compiler = wf.compiler
+    execute = compiler.execute
+    ticks = []   # (training, loss, end of the tick)
+
+    def timed_execute(training=True):
+        metrics = execute(training=training)
+        loss = float(metrics["loss"])
+        ticks.append((training, loss, time.monotonic()))
+        return metrics
+
+    compiler.execute = timed_execute
+    torch.cuda.synchronize()
+    FA.reset_launches()
+    launcher.run()
+    flash = {"flash_forward": FA.flash_forward.launches,
+             "flash_dq": FA.flash_dq.launches,
+             "flash_dkv": FA.flash_dkv.launches}
+    base = "http://127.0.0.1:%d" % api.port
+    if api.server is None or get(base + "/health")["status"] != "ok":
+        fail("the RESTfulAPI unit did not start its server")
+    health_s = time.monotonic() - ticks[-1][2]
+    compiler.execute = execute
+    classes = [t[0] for t in ticks]
+    expected = {"flash_forward": INWF_BLOCKS * (1 + 2 * INWF_TICKS),
+                "flash_dq": INWF_BLOCKS * INWF_TICKS,
+                "flash_dkv": INWF_BLOCKS * INWF_TICKS}
+    print("in-workflow: TinyLM %d blocks at the bench width, ticks %s, "
+          "losses %s; flash launches %s (expected %s); the unit served "
+          "on %s: export %.1f s (%.2f GB, gzip level %d), server start "
+          "%.1f s (load + warmup); the last tick to /health %.1f s" % (
+              INWF_BLOCKS, classes, ["%.4f" % t[1] for t in ticks], flash,
+              expected, api.device, api.export_seconds,
+              os.path.getsize(path) / 1e9, INWF_GZIP_LEVEL,
+              api.start_seconds, health_s))
+    if classes != [False] + [True] * INWF_TICKS or flash != expected:
+        fail("in-workflow training ran ticks %s and launched %s; the "
+             "epoch implies %s" % (classes, flash, expected))
+    if api.device != "cuda" or not all(
+            numpy.isfinite(t[1]) for t in ticks):
+        fail("in-workflow: served on %s, losses %s" % (
+            api.device, [t[1] for t in ticks]))
+    export_bytes = os.path.getsize(path)
+
+    rng = numpy.random.RandomState(SEED % (1 << 31))
+    prompts = [rng.randint(0, VOCAB, n).tolist() for n in PROMPT_LENGTHS]
+    prompts.append(prompts[REPEAT_INDEX])
+
+    def wave(batch):
+        with concurrent.futures.ThreadPoolExecutor(len(batch)) as ex:
+            futs = [ex.submit(post, base + "/api/generate",
+                              {"tokens": [p], "max_new_tokens": MAX_NEW})
+                    for p in batch]
+            return [f.result()["generated"][0] for f in futs]
+
+    log = CallLog(api.server.model)
+    try:
+        torch.cuda.synchronize()
+        DA.decode_attention.launches = DA.decode_attention.quant_launches = 0
+        log.calls = {}
+        t0 = time.monotonic()
+        answers = wave(prompts)
+        wave_s = time.monotonic() - t0
+        torch.cuda.synchronize()
+        kernel = {"b4": DA.decode_attention.launches,
+                  "b5": DA.decode_attention.quant_launches}
+        calls = dict(log.calls)
+        check_launches("in-workflow serving", kernel, log, True, False,
+                       blocks=INWF_BLOCKS)
+        stats = get(base + "/stats")
+        # The planted fault: the first B4 launch of one more request
+        # (a 5-token prompt: shorter than a block, so no prefix hit — its
+        # prefill runs through the kernel) has one head's output spoiled.
+        launch, spoiled = DA._launch, []
+
+        def planted_launch(fn, *args):
+            launch(fn, *args)
+            if fn == "veles_decode_attention" and not spoiled:
+                args[6][:, :, 0].add_(INWF_PLANTED)   # out (B, Sq, H, D)
+                spoiled.append(fn)
+
+        DA._launch = planted_launch
+        try:
+            planted = wave(prompts[:1])
+        finally:
+            DA._launch = launch
+    finally:
+        log.restore()
+    api.stop()
+    t0 = time.monotonic()
+    oracle = ExportedModel(path, device="cuda")
+    load_s = time.monotonic() - t0
+    os.remove(path)
+    mismatches = token_mismatches(oracle, prompts, answers)
+    planted_mismatches = token_mismatches(oracle, prompts[:1], planted)
+    print("in-workflow serving: %d answers against generate(attend="
+          "decode_attention_reference) over ExportedModel(artifact, "
+          "device='cuda') (loaded in %.1f s): %d differ %s; the planted B4 "
+          "fault (head 0 of launch 1 + %g, %d launch spoiled): %d of 1 "
+          "differ %s" % (len(answers), load_s, len(mismatches), mismatches,
+                         INWF_PLANTED, len(spoiled),
+                         len(planted_mismatches), planted_mismatches))
+    if mismatches:
+        fail("in-workflow serving: answers differ from the plain-attention "
+             "oracle: %s" % mismatches)
+    if len(spoiled) != 1 or not planted_mismatches:
+        fail("in-workflow serving: the token gate does not see a planted "
+             "B4 fault (%d launches spoiled)" % len(spoiled))
+    ttft = stats["latency"].get("ttft.generate", {})
+    numbers = {
+        "blocks": INWF_BLOCKS, "flags": list(INWF_FLAGS),
+        "losses": [t[1] for t in ticks],
+        "flash_launches": flash, "b4_launches": kernel["b4"],
+        "decode_calls": calls,
+        "export_bytes": export_bytes, "export_s": api.export_seconds,
+        "gzip_level": INWF_GZIP_LEVEL,
+        "server_start_s": api.start_seconds,
+        "last_tick_to_health_s": health_s,
+        "wave_seconds": wave_s,
+        "wave_tok_per_s": MAX_NEW * len(prompts) / wave_s,
+        "ttft_p50_ms": ttft.get("p50_ms"),
+        "ttft_largest_ms": ttft.get("p99_ms"),
+        "planted_mismatches": len(planted_mismatches),
+        "phase_s": time.monotonic() - started,
+    }
+    print("in-workflow readings on %s (smoke, not a benchmark): export "
+          "%.2f GB at gzip level %d in %.1f s; the last tick to /health "
+          "%.1f s; a wave of %d concurrent requests in %.3f s (%.1f tok/s), "
+          "TTFT p50 %s ms; the phase %.1f s" % (
+              smi, export_bytes / 1e9, INWF_GZIP_LEVEL,
+              api.export_seconds, health_s, len(prompts), wave_s,
+              numbers["wave_tok_per_s"], numbers["ttft_p50_ms"],
+              numbers["phase_s"]))
+    root.common.__dict__.pop("serving", None)
+    del oracle, api, wf, launcher, compiler
+    return flash, kernel["b4"], numbers
+
+
+#: Phase 7p: the Kohonen sample through the command line (the JAX
+#: gate's 12 epochs and seed) and MNIST RBM pretraining on the seeded
+#: synthetic IDX files, RBM_EPOCHS epochs.
+RBM_EPOCHS = 3
+
+
+def phase_pretraining(workdir, smi):
+    """Phase 7p: ``python -m veles_tpu_torch
+    veles_tpu_torch/znicz/samples/kohonen.py root.kohonen.max_epochs=12
+    --random-seed 5`` on the card must organize its map (quantization
+    error < 0.1, a finite 8x8 U-matrix); ``MnistRBMWorkflow`` on
+    ``write_mnist_idx``'s files must lower its validation reconstruction
+    error every epoch.  Returns numbers."""
+    import numpy
+    from veles_tpu_torch import prng
+    from veles_tpu_torch.config import root
+    from veles_tpu_torch.launcher import Launcher
+    from veles_tpu_torch.loader.base import VALID
+    from veles_tpu_torch.znicz.samples.mnist_rbm import MnistRBMWorkflow
+    prng.reset()
+    t0 = time.monotonic()
+    main = run_cli([os.path.join(HERE, "veles_tpu_torch", "znicz",
+                                 "samples", "kohonen.py"),
+                    "root.kohonen.max_epochs=12", "--random-seed", "5",
+                    "-v", "warning"])
+    som_s = time.monotonic() - t0
+    som = main.workflow
+    qe, umatrix = som.quantization_error(), som.umatrix()
+    on_card = som.som.weights.devmem.device.type
+    root.__dict__.pop("kohonen", None)
+    print("pretraining: kohonen through the command line on %s: %d "
+          "epochs in %.1f s, quantization error %.4f, U-matrix %s (range "
+          "%.3g-%.3g)" % (on_card, som.decision.epoch_number, som_s, qe,
+                          umatrix.shape, umatrix.min(), umatrix.max()))
+    if not (som.decision.epoch_number == 12 and qe < 0.1 and
+            umatrix.shape == (8, 8) and numpy.isfinite(umatrix).all() and
+            on_card == "cuda"):
+        fail("the Kohonen sample misses its gate: %d epochs on %s, "
+             "quantization error %.4f, U-matrix %s" % (
+                 som.decision.epoch_number, on_card, qe, umatrix))
+
+    datasets = os.path.join(workdir, "datasets")
+    write_mnist_idx(datasets)
+    root.common.dirs.datasets = datasets
+    prng.reset()
+    prng.get(0).seed(9)
+    launcher = Launcher()
+    wf = MnistRBMWorkflow(launcher, max_epochs=RBM_EPOCHS)
+    history = []
+    on_last = wf.decision.on_last_minibatch
+
+    def record(cls):
+        on_last(cls)
+        if cls == VALID:
+            history.append(wf.decision.epoch_loss[VALID] / 784.0)
+
+    wf.decision.on_last_minibatch = record
+    t0 = time.monotonic()
+    launcher.initialize(device="cuda")
+    launcher.run()
+    rbm_s = time.monotonic() - t0
+    clean_cli_config()
+    print("pretraining: MNIST RBM (%d hidden, CD-%d) on %s: validation "
+          "reconstruction error per pixel by epoch %s, %.1f s" % (
+              wf.rbm.n_hidden, wf.rbm.cd_k,
+              wf.rbm.weights.devmem.device.type,
+              ["%.5f" % x for x in history], rbm_s))
+    if len(history) != RBM_EPOCHS or not all(
+            b < a for a, b in zip(history, history[1:])) or \
+            not numpy.isfinite(history).all():
+        fail("MNIST RBM's reconstruction error does not fall every "
+             "epoch: %s" % history)
+    return {"kohonen": {"epochs": som.decision.epoch_number,
+                        "quantization_error": qe, "seconds": som_s,
+                        "umatrix_range": [float(umatrix.min()),
+                                          float(umatrix.max())]},
+            "mnist_rbm": {"validation_error_per_pixel": history,
+                          "seconds": rbm_s}}
 
 
 #: The quantized serving path: --kv-dtype int8 --weight-dtype int8 --spec
@@ -3619,16 +3981,17 @@ def divergence(got, want):
     return first, sum(a == b for a, b in zip(got, want)) / len(want)
 
 
-def check_launches(name, numbers, log, b4, b5):
+def check_launches(name, numbers, log, b4, b5, blocks=BLOCKS):
     """The decode kernels launched what the run implies: one launch per
-    block for each call ``log`` counted, on the kernel the pool's plane
-    calls for (``b4``/``b5``: whether that kernel serves this run)."""
-    implied = BLOCKS * log.kernel_calls()
+    block (of ``blocks``) for each call ``log`` counted, on the kernel
+    the pool's plane calls for (``b4``/``b5``: whether that kernel serves
+    this run)."""
+    implied = blocks * log.kernel_calls()
     want = (implied if b4 else 0, implied if b5 else 0)
     got = (numbers["b4"], numbers["b5"])
     print("%s: device calls through a decode kernel %s, launches B4 %d, "
           "B5 %d (implied %s = %d layers x calls)" % (
-              name, dict(log.calls), got[0], got[1], want, BLOCKS))
+              name, dict(log.calls), got[0], got[1], want, blocks))
     if got != want or implied == 0:
         fail("%s: decode kernels launched B4 %d, B5 %d times; the run "
              "implies %s" % (name, got[0], got[1], want))
@@ -4061,7 +4424,10 @@ def main():
         kind, count, torch.__version__, torch.version.cuda, smi))
     from veles_tpu_torch.backends import resolve_device
     from veles_tpu_torch.ops import flash_attention as FA
-    resolve_device("cuda")  # TF32 off, as every port entry point sets
+    # TF32 off and cuDNN deterministic, as every port entry point sets.
+    resolve_device("cuda")
+    if not torch.backends.cudnn.deterministic:
+        fail("backends.CUDADevice left cudnn.deterministic off")
     phase_build()
     max_err, timings = phase_kernels()
     quant_worst, quant_faults, quant_b4_equal, inv_rows, quant_times = \
@@ -4089,6 +4455,14 @@ def main():
         gc.collect()
         torch.cuda.empty_cache()
         launches, numbers, served = phase_serving(workdir, smi)
+        gc.collect()
+        torch.cuda.empty_cache()
+        inwf_flash, inwf_b4, inworkflow = phase_inworkflow(workdir, smi)
+        gc.collect()
+        torch.cuda.empty_cache()
+        pretraining = phase_pretraining(workdir, smi)
+        gc.collect()
+        torch.cuda.empty_cache()
         reload_path = os.path.join(workdir, "lm-reload.veles.tgz")
         t0 = time.monotonic()
         from veles_tpu_torch import export as X
@@ -4112,7 +4486,9 @@ def main():
         "replaces": "veles_tpu/ops/pallas_attention.py:616",
         "shape": "B=%d Sq=1 H=%d D=%d L=%d f32" % (
             MAX_BATCH, HEADS, EMBED // HEADS, POSITIONS),
-        "launches": launches,
+        "launches": launches + inwf_b4,
+        "launches_by_path": {"serving": launches,
+                             "in_workflow_serving": inwf_b4},
         "max_abs_err": max_err,
         "max_err": max_err,
         "tol": {"rtol": RTOL, "atol": ATOL},
@@ -4180,7 +4556,9 @@ def main():
                      "operands" % (TRAIN_BATCH, POSITIONS, HEADS,
                                    EMBED // HEADS),
             "units": way,
-            "launches": flash_launches[name],
+            "launches": flash_launches[name] + inwf_flash[name],
+            "launches_by_path": {"training": flash_launches[name],
+                                 "in_workflow_training": inwf_flash[name]},
             "launches_by_route": training["flash_routes"][name],
             "max_abs_err": flash_err[name],
             "tol": BF16_TOL_TEXT,
@@ -4259,6 +4637,8 @@ def main():
     print(json.dumps({"snapshots": snapshots}))
     print(json.dumps({"streamed": streamed}))
     print(json.dumps({"serving": numbers}))
+    print(json.dumps({"in_workflow_serving": inworkflow}))
+    print(json.dumps({"pretraining": pretraining}))
     print(json.dumps({"quant_serving": quant}))
     print(json.dumps(kernels))
     print("chip_smoke: command time %.1f s" % (time.monotonic() - started))

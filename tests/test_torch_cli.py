@@ -1,0 +1,187 @@
+"""The port's command line against the JAX package's
+(``veles_tpu.cmdline.init_argparser``): every option of the JAX parser
+is parsed by ``veles_tpu_torch.__main__.make_parser`` or refused by
+name, with its ROADMAP queue (or, for ``--attn-decode-kernel``, the
+reason it has no counterpart); the flags the port parses leave the same
+keys with the same values in both packages' ``root`` trees, config
+sources first and explicit flags after them."""
+
+import contextlib
+
+import pytest
+
+from veles_tpu import __main__ as jmain
+from veles_tpu.cmdline import init_argparser
+from veles_tpu.config import root as jroot
+
+from veles_tpu_torch import __main__ as tmain
+from veles_tpu_torch import restful as trestful
+from veles_tpu_torch.config import root as troot
+
+SUBTREES = ("serving", "guardian", "loader", "engine")
+
+
+def _jax_options():
+    parser = init_argparser(prog="veles_tpu")
+    return sorted({s for a in parser._actions for s in a.option_strings})
+
+
+def _port_options():
+    parser = tmain.make_parser()
+    return {s for a in parser._actions for s in a.option_strings}
+
+
+JAX_OPTIONS = _jax_options()
+REFUSED = sorted(set(JAX_OPTIONS) - _port_options())
+
+
+def test_every_jax_option_is_parsed_or_refused_by_name():
+    port = _port_options()
+    refused = set(tmain.NOT_PORTED) | set(tmain.NO_COUNTERPART)
+    missing = [o for o in JAX_OPTIONS if o not in port and
+               o not in refused]
+    assert missing == []
+    # A flag is one or the other, never both.
+    assert sorted(port & refused) == []
+    assert set(tmain.NOT_PORTED.values()) <= {"A6", "A7", "A8"}
+
+
+@pytest.mark.parametrize("flag", REFUSED)
+def test_refused_flag_names_its_queue(flag):
+    with pytest.raises(NotImplementedError) as err:
+        tmain.Main(["wf.py", flag, "1"]).parse()
+    if flag in tmain.NOT_PORTED:
+        assert "ROADMAP %s" % tmain.NOT_PORTED[flag] in str(err.value)
+    else:
+        assert tmain.NO_COUNTERPART[flag] in str(err.value)
+
+
+def test_attn_decode_kernel_refused_with_its_reason():
+    with pytest.raises(NotImplementedError) as err:
+        tmain.Main(["wf.py", "--attn-decode-kernel=auto"]).parse()
+    text = str(err.value)
+    assert "no counterpart" in text and "B4/B5" in text
+    assert "--attn-decode-kernel" not in tmain.NOT_PORTED
+
+
+@contextlib.contextmanager
+def _kept_trees():
+    """Restores both packages' ``root.common`` subtrees the case
+    touches."""
+    saved = [(node, dict(node.__dict__)) for r in (jroot, troot)
+             for node in (getattr(r.common, name) for name in SUBTREES)]
+    try:
+        yield
+    finally:
+        for node, state in saved:
+            node.__dict__.clear()
+            node.__dict__.update(state)
+
+
+def _leaves(r):
+    return {name: getattr(r.common, name).as_dict() for name in SUBTREES}
+
+
+def _diff(before, after):
+    out = {}
+    for name in SUBTREES:
+        for key, value in after[name].items():
+            if before[name].get(key, object()) != value:
+                out["%s.%s" % (name, key)] = value
+    return out
+
+
+def _apply(module, root_, argv, sources=()):
+    """The keys ``argv`` (after the config ``sources``) sets in
+    ``root_``'s subtrees, through ``module``'s Main."""
+    main = module.Main(["wf.py"] + list(sources) + list(argv))
+    main.parse()
+    before = _leaves(root_)
+    module.apply_config_sources(list(main.args.config))
+    main.apply_subsystem_flags()
+    return _diff(before, _leaves(root_))
+
+
+R1_CASES = [
+    (["--optimizer", "adam"], {"engine.optimizer": "adam"}),
+    (["--guardian-spike", "3.5"], {"guardian.spike_factor": 3.5}),
+    (["--guardian-window", "7"], {"guardian.window": 7}),
+    (["--train-ratio", "0.5"], {"loader.train_ratio": 0.5}),
+    (["--shuffle-limit", "3"], {"loader.shuffle_limit": 3}),
+    (["--attn-fused-qkv", "on"], {"engine.fused_qkv": True}),
+    (["--attn-fused-qkv=off"], {"engine.fused_qkv": False}),
+    (["--attn-dtype", "bf16"], {"engine.attention_dtype": "bf16"}),
+    (["--attn-kernel", "xla"], {"engine.attention_kernel": "xla"}),
+]
+
+SERVE_CASES = [
+    (["--serve-max-batch", "4"], {"serving.max_batch": 4}),
+    (["--serve-queue-depth", "9"], {"serving.queue_depth": 9}),
+    (["--serve-rate-limit", "2.5"], {"serving.rate_limit": 2.5}),
+    (["--serve-deadline", "60"], {"serving.deadline": 60.0}),
+    (["--serve-token", "s3"], {"serving.token": "s3"}),
+    (["--serve-warmup"], {"serving.warmup": True}),
+    (["--serve-kv-blocks", "33"], {"serving.kv_blocks": 33}),
+    (["--serve-kv-block-size", "8"], {"serving.kv_block_size": 8}),
+    (["--serve-kv-dtype", "int8"], {"serving.kv_dtype": "int8"}),
+    (["--serve-weight-dtype", "int8"], {"serving.weight_dtype": "int8"}),
+    (["--serve-no-paged"], {"serving.paged": False}),
+    (["--serve-spec"], {"serving.spec": True}),
+    (["--serve-spec-draft", "d.veles.tgz"],
+     {"serving.spec_draft": "d.veles.tgz"}),
+    (["--serve-spec-max-k", "3"], {"serving.spec_max_k": 3}),
+    (["--serve-spec-draft-blocks", "12"],
+     {"serving.spec_draft_blocks": 12}),
+    (["--serve-drain-timeout", "5"], {"serving.drain_timeout": 5.0}),
+    (["--serve-reload-watch", "m_current.lnk"],
+     {"serving.reload_watch": "m_current.lnk"}),
+    (["--serve-reload-poll", "0.5"], {"serving.reload_poll": 0.5}),
+]
+
+
+@pytest.mark.parametrize("argv,want", R1_CASES + SERVE_CASES,
+                         ids=lambda v: " ".join(v)
+                         if isinstance(v, list) else "")
+def test_flag_sets_the_same_keys_in_both_trees(argv, want):
+    with _kept_trees():
+        got_jax = _apply(jmain, jroot, argv)
+    with _kept_trees():
+        got_port = _apply(tmain, troot, argv)
+    assert got_jax == want
+    assert got_port == want
+
+
+def test_every_port_serve_flag_is_covered():
+    covered = {a[0].split("=")[0] for a, _ in SERVE_CASES}
+    port = {o for o in _port_options() if o.startswith("--serve-")}
+    assert covered == port and len(port) == 18
+
+
+def test_all_flags_at_once_and_the_serving_defaults():
+    argv = [a for case, _ in R1_CASES[:-3] + SERVE_CASES for a in case]
+    with _kept_trees():
+        got_jax = _apply(jmain, jroot, argv)
+        jax_defaults = __import__(
+            "veles_tpu.restful", fromlist=["x"]).serving_config_defaults()
+    with _kept_trees():
+        got_port = _apply(tmain, troot, argv)
+        port_defaults = trestful.serving_config_defaults()
+    assert got_jax == got_port
+    assert len(got_port) == len(R1_CASES) - 3 + len(SERVE_CASES)
+    assert jax_defaults == port_defaults
+    assert port_defaults["max_batch"] == 4
+
+
+def test_explicit_flags_win_over_config_sources():
+    sources = ["root.common.serving.max_batch=3",
+               "root.common.serving.deadline=9.0",
+               "root.common.guardian.window=2"]
+    argv = ["--serve-max-batch", "5", "--guardian-window", "6"]
+    with _kept_trees():
+        got_jax = _apply(jmain, jroot, argv, sources)
+    with _kept_trees():
+        got_port = _apply(tmain, troot, argv, sources)
+    want = {"serving.max_batch": 5, "serving.deadline": 9.0,
+            "guardian.window": 6}
+    assert got_jax == want
+    assert got_port == want

@@ -43,7 +43,14 @@ def test_import_leaves_jax_and_veles_tpu_out():
             "veles_tpu_torch.znicz.samples.cifar, veles_tpu_torch.dummy, "
             "veles_tpu_torch.avatar, veles_tpu_torch.input_joiner, "
             "veles_tpu_torch.harness, veles_tpu_torch.downloader, "
-            "veles_tpu_torch.config, veles_tpu_torch.prng\n"
+            "veles_tpu_torch.config, veles_tpu_torch.prng, "
+            "veles_tpu_torch.loader, veles_tpu_torch.loader.interactive, "
+            "veles_tpu_torch.loader.pickles, veles_tpu_torch.loader.hdf5, "
+            "veles_tpu_torch.loader.saver, veles_tpu_torch.loader.audio, "
+            "veles_tpu_torch.loader.hdfs_loader, "
+            "veles_tpu_torch.znicz.rbm, veles_tpu_torch.znicz.kohonen, "
+            "veles_tpu_torch.znicz.samples.mnist_rbm, "
+            "veles_tpu_torch.znicz.samples.kohonen\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib', 'veles_tpu.')) or "
             "m == 'veles_tpu')\n"
@@ -54,6 +61,20 @@ def test_import_leaves_jax_and_veles_tpu_out():
                          timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == ""
+
+
+def test_hdf5_loader_imports_h5py_only_when_it_reads():
+    """The card's machine has no h5py: importing the loader package must
+    not need it."""
+    code = ("import sys, veles_tpu_torch.loader, "
+            "veles_tpu_torch.loader.hdf5\n"
+            "print('h5py' in sys.modules)\n")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "False"
 
 
 @pytest.mark.parametrize("path", _port_sources(),

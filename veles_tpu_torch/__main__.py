@@ -10,11 +10,16 @@ Usage::
         [-s SNAPSHOT | --auto-resume] [--snapshot-dir DIR] \
         [--snapshot-compression ""|gz|bz2|xz] [--snapshot-keep K] \
         [--no-snapshots] [--snapshot-artifact] \
-        [--guardian-policy off|skip|lr_backoff|rollback]
+        [--guardian-policy off|skip|lr_backoff|rollback] \
+        [--guardian-spike K] [--guardian-window N] \
+        [--train-ratio R] [--shuffle-limit N] [--optimizer NAME] \
+        [--attn-fused-qkv on|off] [--attn-dtype f32|bf16] \
+        [--attn-kernel xla|pallas|auto] [--serve-* ...]
 
 It seeds generator 0, applies the config files and ``root.x.y=v``
 overrides in argv order (the positional ones, then ``-c``'s), then the
-snapshot and guardian flags (explicit flags win over config files),
+loader, snapshot, guardian, serving, attention and optimizer flags
+(explicit flags win over config files),
 imports the workflow module and calls its ``run(load, main)`` hook
 with the numpy.random guard installed (``prng.poison_numpy_random``;
 ``root.common.engine.poison_numpy_random = False`` turns it off):
@@ -24,9 +29,12 @@ snapshot (``-s`` a blob, a ``*_current.lnk`` pointer or a
 ``sqlite://`` database; ``--auto-resume`` the newest verified
 generation in the snapshot directory) — and ``main`` initializes it
 on the device (the CUDA card unless ``--device cpu``), runs it and
-writes the results JSON.  The JAX CLI's other modes — master/worker,
-multi-process, genetics, ensembles, populations, profiling — are not
-yet ported: their flags raise.
+writes the results JSON.  The ``--serve-*`` flags configure an in-workflow
+:class:`~veles_tpu_torch.restful.RESTfulAPI` unit through
+``root.common.serving``.  The JAX CLI's other modes — master/worker,
+multi-process, genetics, ensembles, populations, profiling, tracing,
+the serving fabric — are not yet ported: their flags raise, naming
+their ROADMAP queue (:data:`NOT_PORTED`).
 """
 
 import argparse
@@ -36,7 +44,10 @@ import logging
 import os
 import sys
 
-from . import guardian, prng, snapshotter
+from . import guardian, prng, restful, snapshotter
+from .loader import base as loader_base
+from .ops import attention
+from .znicz import optimizers
 from .config import Tune, root
 from .error import Bug
 from .json_encoders import dump_json
@@ -55,6 +66,31 @@ NOT_PORTED = {
     "--ensemble-train": "A7", "--ensemble-test": "A7",
     "--profile": "A8", "--frontend": "A8", "--population": "A7",
     "--pbt": "A7",
+    # The serving fabric.
+    "--serve-fabric-replicas": "A8", "--serve-fabric-disagg": "A8",
+    "--serve-tenant": "A8",
+    # Parallelism.
+    "--pp-schedule": "A6", "--pp-chunks": "A6", "--moe-topk": "A6",
+    "--moe-router-z": "A6", "--sp-ring-kernel": "A6", "--zero": "A6",
+    # The data plane, the fleet and the meta-workflows.
+    "--net-codec": "A7", "--net-dtype": "A7", "--net-legacy": "A7",
+    "--net-require": "A7", "--net-zero": "A7", "--job-ticks": "A7",
+    "--async-slave": "A7", "--reconnect-attempts": "A7",
+    "--reconnect-delay": "A7", "--preempt-grace": "A7",
+    "--slave-death-probability": "A7", "--pbt-interval": "A7",
+    "--pbt-perturb": "A7", "--pbt-quantile": "A7",
+    "--population-vmap": "A7", "--ensemble-population": "A7",
+    # Observability and power.
+    "--trace-out": "A8", "--trace-ring": "A8", "--xprof": "A8",
+    "--xprof-steps": "A8", "--measure-power": "A8",
+}
+
+#: Flags of the JAX CLI that have no counterpart in the port, with the
+#: reason.
+NO_COUNTERPART = {
+    "--attn-decode-kernel":
+        "a CUDA tensor takes the decode kernels B4/B5 or raises, and "
+        "there is no XLA decode to select",
 }
 
 
@@ -89,6 +125,10 @@ def make_parser():
         choices=("debug", "info", "warning", "error"), help="log level")
     snapshotter.init_parser(parser)
     guardian.init_parser(parser)
+    loader_base.init_parser(parser)
+    optimizers.init_parser(parser)
+    attention.init_parser(parser)
+    restful.init_parser(parser)
     return parser
 
 
@@ -159,6 +199,10 @@ class Main(Logger):
                 raise NotImplementedError(
                     "%s of the veles_tpu command line is not yet ported "
                     "(ROADMAP %s)" % (flag, NOT_PORTED[flag]))
+            if flag in NO_COUNTERPART:
+                raise NotImplementedError(
+                    "%s of the veles_tpu command line has no counterpart "
+                    "in the port: %s" % (flag, NO_COUNTERPART[flag]))
         self.args = make_parser().parse_intermixed_args(self.argv)
         logging.getLogger().setLevel(self.args.verbosity.upper())
         return self.args
@@ -174,9 +218,14 @@ class Main(Logger):
         prng.get(0).seed(seed)
 
     def apply_subsystem_flags(self):
-        """Feeds the snapshot and guardian flags into the configuration
-        tree, where the workflow builders read them back."""
+        """Feeds the loader, snapshot, guardian, serving, attention and
+        optimizer flags into the configuration tree, at the keys the
+        JAX command line sets, where the units read them back."""
         args = self.args
+        if args.train_ratio is not None:
+            root.common.loader.train_ratio = args.train_ratio
+        if args.shuffle_limit is not None:
+            root.common.loader.shuffle_limit = args.shuffle_limit
         if args.snapshot_dir is not None:
             root.common.dirs.snapshots = args.snapshot_dir
         if args.snapshot_compression is not None:
@@ -190,6 +239,34 @@ class Main(Logger):
             root.common.snapshotter.artifact = True
         if args.guardian_policy is not None:
             root.common.guardian.policy = args.guardian_policy
+        if args.guardian_spike is not None:
+            root.common.guardian.spike_factor = args.guardian_spike
+        if args.guardian_window is not None:
+            root.common.guardian.window = args.guardian_window
+        serving = root.common.serving
+        for key in ("max_batch", "queue_depth", "rate_limit", "deadline",
+                    "token", "kv_blocks", "kv_block_size", "kv_dtype",
+                    "weight_dtype", "spec_draft", "spec_max_k",
+                    "spec_draft_blocks", "drain_timeout", "reload_watch",
+                    "reload_poll"):
+            value = getattr(args, "serve_" + key)
+            if value is not None:
+                setattr(serving, key, value)
+        if args.serve_warmup:
+            serving.warmup = True
+        if args.serve_no_paged:
+            serving.paged = False
+        if args.serve_spec:
+            serving.spec = True
+        engine = root.common.engine
+        if args.attn_fused_qkv is not None:
+            engine.fused_qkv = args.attn_fused_qkv == "on"
+        if args.attn_dtype is not None:
+            engine.attention_dtype = args.attn_dtype
+        if args.attn_kernel is not None:
+            engine.attention_kernel = args.attn_kernel
+        if args.optimizer is not None:
+            engine.optimizer = args.optimizer
 
     def load(self, WorkflowClass, **kwargs):
         """The ``load`` closure of the module's ``run`` hook: builds the

@@ -188,6 +188,8 @@ class StepCompiler(object):
         self.gd_map = {}          # forward unit -> gd unit
         self.batch_vectors = []   # Vectors fed from the host each tick
         self.const_vectors = []   # large device-resident constants
+        self.persist_vectors = []  # unit outputs kept after the tick
+        self._outputs = {}
         self._compiled = None
         self._fingerprint = None
 
@@ -205,6 +207,7 @@ class StepCompiler(object):
                        u.target is not None}
         self.batch_vectors = []
         self.const_vectors = []
+        self.persist_vectors = []
         for u in wf.units:
             get_bv = getattr(u, "step_batch_vectors", None)
             if get_bv is not None:
@@ -212,6 +215,9 @@ class StepCompiler(object):
             get_cv = getattr(u, "step_const_vectors", None)
             if get_cv is not None:
                 self.const_vectors.extend(get_cv())
+            get_pv = getattr(u, "step_persist_vectors", None)
+            if get_pv is not None:
+                self.persist_vectors.extend(get_pv())
 
     def param_name(self, unit, attr):
         return "%s/%s" % (unit.name, attr)
@@ -294,6 +300,10 @@ class StepCompiler(object):
                              state=ustate or None) or {}
             for a, val in upd.items():
                 new_states[pname(u, a)] = val
+        # Outputs a unit asks to keep (the RBM's reconstruction, the
+        # SOM's winners) land in their Vectors after the tick.
+        self._outputs = {id(v): bag[id(v)] for v in self.persist_vectors
+                         if id(v) in bag}
         metrics = dict(ctx.metrics)
         loss = ctx.loss
         if loss is not None:
@@ -456,6 +466,10 @@ class StepCompiler(object):
                 params, states, batch, consts, self._generator())
         for n, v in self._state_vecs.items():
             v.devmem = new_states[n]
+        for v in self.persist_vectors:
+            if id(v) in self._outputs:
+                v.devmem = self._outputs[id(v)].detach()
+        self._outputs = {}
         return metrics
 
     def execute(self, training=True):

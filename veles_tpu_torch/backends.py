@@ -9,6 +9,11 @@ mesh.  The port has one card and no mesh yet, so a device here is a
   ``torch.backends.cudnn.allow_tf32`` are set to False when the CUDA
   device is made, because serving promises f32 math (TF32 keeps about
   three decimal digits);
+* cuDNN takes its deterministic algorithms —
+  ``torch.backends.cudnn.deterministic`` is set to True with TF32 off,
+  because the default float32 weight gradient of a convolution sums
+  with atomics and a tick from a fixed state would not repeat bit for
+  bit, which a snapshot's resume promises;
 * asking for ``cuda`` on a machine without a card raises
   :class:`~veles_tpu_torch.error.DeviceNotFoundError`.  Nothing carries
   on on the CPU by itself: the CPU runs only when the caller asks for
@@ -40,7 +45,7 @@ class CPUDevice(Device):
 
 
 class CUDADevice(Device):
-    """Card 0 through CUDA, with TF32 off."""
+    """Card 0 through CUDA, with TF32 off and cuDNN deterministic."""
 
     name = "cuda"
 
@@ -53,6 +58,7 @@ class CUDADevice(Device):
                                      torch.version.cuda))
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cudnn.deterministic = True
         super(CUDADevice, self).__init__()
         self.torch_device = torch.device("cuda", 0)
 

@@ -46,6 +46,15 @@ def init_parser(parser):
              "the poison updates in the step (default), back off the "
              "learning rate, roll back to the last good snapshot, or "
              "off (sets root.common.guardian.policy)")
+    parser.add_argument(
+        "--guardian-spike", type=float, default=None, metavar="K",
+        help="flag a train epoch whose loss exceeds K x the rolling "
+             "median as a spike (default 4.0; sets "
+             "root.common.guardian.spike_factor)")
+    parser.add_argument(
+        "--guardian-window", type=int, default=None, metavar="N",
+        help="rolling-median window in epochs for spike detection "
+             "(default 5; sets root.common.guardian.window)")
 
 
 def restore_vectors(dst_workflow, src_workflow):

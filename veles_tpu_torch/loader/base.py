@@ -30,6 +30,17 @@ TEST, VALID, TRAIN = 0, 1, 2
 CLASS_NAME = ("test", "validation", "train")
 
 
+def init_parser(parser):
+    """The loader flags of the command line."""
+    parser.add_argument(
+        "--train-ratio", type=float, default=None, metavar="R",
+        help="train on a random R-fraction of the train set "
+             "(sets root.common.loader.train_ratio)")
+    parser.add_argument(
+        "--shuffle-limit", type=int, default=None, metavar="N",
+        help="stop reshuffling train indices after epoch N")
+
+
 class UserLoaderRegistry(MappedUnitRegistry):
     """String → loader class factory (reference: base.py:83-93)."""
     registry = {}

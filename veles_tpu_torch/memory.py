@@ -227,3 +227,31 @@ class Vector(Pickleable):
         self.map_read()
         return super(Vector, self).__getstate__()
 
+
+def map_read_all(vectors):
+    """``map_read`` of several Vectors with one device → host transfer
+    per device: the device copies that are newer than their host copies
+    are packed into one byte tensor, copied to the host once and split.
+    (bfloat16 tensors, which numpy cannot hold, take ``map_read``'s own
+    path.)"""
+    stale = {}
+    for vec in vectors:
+        t = vec._devmem_
+        if t is not None and vec._host_stale_ and \
+                t.dtype != torch.bfloat16:
+            stale.setdefault(t.device, []).append(vec)
+    for vecs in stale.values():
+        tensors = [v._devmem_.detach().contiguous() for v in vecs]
+        host = torch.cat([t.reshape(-1).view(torch.uint8)
+                          for t in tensors]).cpu().numpy()
+        offset = 0
+        for vec, t in zip(vecs, tensors):
+            n = t.numel() * t.element_size()
+            dtype = torch.empty(0, dtype=t.dtype).numpy().dtype
+            with vec._lock_:
+                vec._mem = host[offset:offset + n].view(dtype).reshape(
+                    tuple(t.shape)).copy()
+                vec._host_stale_ = False
+            offset += n
+    for vec in vectors:
+        vec.map_read()

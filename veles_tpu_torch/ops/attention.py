@@ -32,6 +32,26 @@ KERNEL_MODES = ("xla", "pallas", "auto")
 DEFAULT_KERNEL_MODE = "auto"
 
 
+def init_parser(parser):
+    """The attention flags of the command line (handed to
+    ``root.common.engine`` by ``__main__``).  The JAX package's
+    ``--attn-decode-kernel`` has no counterpart: a CUDA tensor takes the
+    decode kernels or raises, so the command line refuses it."""
+    parser.add_argument(
+        "--attn-fused-qkv", default=None, choices=("on", "off"),
+        help="compute q/k/v with one (E, 3E) projection per transformer "
+             "block instead of three (E, E) ones")
+    parser.add_argument(
+        "--attn-dtype", default=None, choices=("f32", "bf16"),
+        help="dtype of the score/probability tensors and the output "
+             "accumulator of the training attention")
+    parser.add_argument(
+        "--attn-kernel", default=None, choices=KERNEL_MODES,
+        help="training attention: 'auto' and 'pallas' take the flash "
+             "kernels on CUDA tensors (or raise), 'xla' the plain "
+             "attention on any device")
+
+
 def attention_compute_dtype(precision=None):
     """The score/accumulator dtype: the explicit ``precision`` wins,
     else ``root.common.engine.attention_dtype`` ("f32" default).

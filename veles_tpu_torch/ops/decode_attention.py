@@ -174,6 +174,23 @@ def _check(q, k, v, key_mask, k_scale=None, v_scale=None):
                          sorted(map(str, devices)))
 
 
+def _launch(fn, *args):
+    """Calls the C entry point ``fn`` with ``args`` (tensors as their
+    addresses) on the current stream of the first tensor's device, or
+    raises."""
+    lib = _library()
+    device = args[0].device
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = getattr(lib, fn)(*[
+            a.data_ptr() if isinstance(a, torch.Tensor) else a
+            for a in args] + [stream])
+    if err:
+        raise RuntimeError(
+            "decode_attention kernel launch failed: %s (CUDA error "
+            "%d)" % (lib.veles_cuda_error_string(err).decode(), err))
+
+
 def decode_attention(q, k, v, key_mask, k_scale=None, v_scale=None):
     """Flash-decode: returns ``(B, Sq, H, D)`` float32.  CPU tensors
     take the plain version; CUDA tensors launch B4 (adding one to
@@ -189,7 +206,6 @@ def decode_attention(q, k, v, key_mask, k_scale=None, v_scale=None):
     if q.device.type != "cuda":
         raise ValueError("decode_attention runs on cpu or cuda "
                          "tensors, not %s" % q.device)
-    lib = _library()
     B, Sq, H, D = q.shape
     L = k.shape[1]
     nsplit = -(-L // KEYS_PER_SPLIT)
@@ -203,26 +219,14 @@ def decode_attention(q, k, v, key_mask, k_scale=None, v_scale=None):
                            device=q.device)
     out = torch.empty((B, Sq, H, D), dtype=torch.float32,
                       device=q.device)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        if k_scale is None:
-            err = lib.veles_decode_attention(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                mask.data_ptr(), o_part.data_ptr(), lse_part.data_ptr(),
-                out.data_ptr(), B, Sq, L, H, D, 1.0 / (D ** 0.5), stream)
-        else:
-            k_scale = k_scale.contiguous()
-            v_scale = v_scale.contiguous()
-            err = lib.veles_decode_attention_quant(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                k_scale.data_ptr(), v_scale.data_ptr(), mask.data_ptr(),
-                o_part.data_ptr(), lse_part.data_ptr(), out.data_ptr(),
-                B, Sq, L, H, D, 1.0 / (D ** 0.5), CODE_KINDS[k.dtype],
-                stream)
-    if err:
-        raise RuntimeError(
-            "decode_attention kernel launch failed: %s (CUDA error "
-            "%d)" % (lib.veles_cuda_error_string(err).decode(), err))
+    scale = 1.0 / (D ** 0.5)
+    if k_scale is None:
+        _launch("veles_decode_attention", q, k, v, mask, o_part,
+                lse_part, out, B, Sq, L, H, D, scale)
+    else:
+        _launch("veles_decode_attention_quant", q, k, v,
+                k_scale.contiguous(), v_scale.contiguous(), mask, o_part,
+                lse_part, out, B, Sq, L, H, D, scale, CODE_KINDS[k.dtype])
     if k_scale is None:
         decode_attention.launches += 1
     else:

@@ -19,21 +19,141 @@ reload of a named or the watched artifact; only with a ``token``),
 .ArtifactWatcher` hot-swaps every new manifest-verified artifact the
 target names.
 
+Two forms, as in the JAX package:
+
+* :class:`ModelServer` — standalone: ``ModelServer(artifact).serve()``
+  or ``python -m veles_tpu_torch.serve model.veles.tgz``;
+* :class:`RESTfulAPI` — a unit linked after a workflow's decision: when
+  training completes it exports the workflow (``export_workflow``) and
+  serves the artifact from the same process, on the workflow's device.
+  Its knobs arrive as kwargs, with defaults from the ``--serve-*`` flags
+  of the command line (:func:`init_parser`, ``root.common.serving``).
+
 Not yet ported: the serving fabric (replicas, disaggregated prefill,
-tenants) and the in-workflow ``RESTfulAPI`` unit.
+tenants; ROADMAP A8) — its flags are refused by the command line and
+its kwargs by :class:`RESTfulAPI`.
 """
 
 import base64
+import time
 
 import numpy
 
+from .config import root
 from .error import Bug
-from .export import ExportedModel
+from .export import KV_DTYPES, ExportedModel, export_workflow
 from .http_common import JsonHttpServer, JsonRequestHandler
 from .resilience import Deadline
 from .serving import AdmissionError, RateLimiter, ServingEngine
 from .serving.reload import (ArtifactRejected, ArtifactWatcher,
                              read_verified, resolve_artifact)
+from .units import Unit
+
+
+def init_parser(parser):
+    """The serving flags of the in-workflow :class:`RESTfulAPI` unit,
+    handed to ``root.common.serving`` by ``__main__``.  The fabric's
+    ``--serve-fabric-replicas``, ``--serve-fabric-disagg`` and
+    ``--serve-tenant`` wait for ROADMAP A8: the command line refuses
+    them by name."""
+    parser.add_argument(
+        "--serve-max-batch", type=int, default=None, metavar="N",
+        help="serving: max rows coalesced into one device batch "
+             "(default 8)")
+    parser.add_argument(
+        "--serve-queue-depth", type=int, default=None, metavar="N",
+        help="serving: bounded request-queue depth; requests beyond "
+             "it get 429 + Retry-After (default 64)")
+    parser.add_argument(
+        "--serve-rate-limit", type=float, default=None, metavar="R",
+        help="serving: per-client token-bucket rate in requests/s "
+             "(default: no limit)")
+    parser.add_argument(
+        "--serve-deadline", type=float, default=None, metavar="SEC",
+        help="serving: per-request deadline; expired requests are "
+             "cancelled unserved (default 30)")
+    parser.add_argument(
+        "--serve-token", default=None, metavar="SECRET",
+        help="serving: require X-Status-Token on /api/generate")
+    parser.add_argument(
+        "--serve-warmup", action="store_true",
+        help="serving: run the bucket grid once at startup, so the "
+             "first request pays no first-call costs")
+    parser.add_argument(
+        "--serve-kv-blocks", type=int, default=None, metavar="N",
+        help="serving: paged KV cache pool size in blocks (default: "
+             "sized so max-batch rows can each hold a full-length "
+             "sequence)")
+    parser.add_argument(
+        "--serve-kv-block-size", type=int, default=None, metavar="N",
+        help="serving: tokens per paged KV cache block (default 16)")
+    parser.add_argument(
+        "--serve-kv-dtype", default=None, choices=KV_DTYPES,
+        help="serving: paged KV cache storage dtype (default f32); "
+             "int8/fp8 quantize per (block, head) with f32 scales")
+    parser.add_argument(
+        "--serve-weight-dtype", default=None, choices=("f32", "int8"),
+        help="serving: decode-matmul weight storage (default f32); "
+             "int8 = weight-only quantization with per-output-channel "
+             "scales")
+    parser.add_argument(
+        "--serve-no-paged", action="store_true",
+        help="serving: disable paged decode-step batching and fall "
+             "back to whole-request generate batching")
+    parser.add_argument(
+        "--serve-spec", action="store_true",
+        help="serving: speculative decoding with the prompt-lookup "
+             "(n-gram) drafter; greedy output equals plain paged decode")
+    parser.add_argument(
+        "--serve-spec-draft", default=None, metavar="PATH",
+        help="serving: speculative draft model artifact (same "
+             "vocabulary); implies --serve-spec")
+    parser.add_argument(
+        "--serve-spec-max-k", type=int, default=None, metavar="K",
+        help="serving: max draft tokens verified per dispatch "
+             "(1..15, default 4)")
+    parser.add_argument(
+        "--serve-spec-draft-blocks", type=int, default=None,
+        metavar="N",
+        help="serving: draft-model KV pool size in blocks (default: "
+             "the target pool's size)")
+    parser.add_argument(
+        "--serve-drain-timeout", type=float, default=None,
+        metavar="SEC",
+        help="serving: graceful-stop budget — admissions close with "
+             "503 + Retry-After and live decode rows get this long to "
+             "finish (default 30)")
+    parser.add_argument(
+        "--serve-reload-watch", default=None, metavar="PATH",
+        help="serving: hot-reload watch target — a serving artifact or "
+             "a snapshotter *_current.lnk pointer; a new "
+             "manifest-verified artifact is swapped in without dropping "
+             "live streams")
+    parser.add_argument(
+        "--serve-reload-poll", type=float, default=None, metavar="SEC",
+        help="serving: reload-watch poll interval (default 5)")
+
+
+#: The ``root.common.serving`` keys :class:`RESTfulAPI` takes its
+#: defaults from (the JAX package's list; the unit refuses the fabric's
+#: three).
+SERVING_KEYS = ("max_batch", "queue_depth", "rate_limit", "deadline",
+                "token", "warmup", "kv_blocks", "kv_block_size",
+                "kv_dtype", "paged", "drain_timeout", "reload_watch",
+                "reload_poll", "spec", "spec_draft", "spec_max_k",
+                "spec_draft_blocks", "fabric_replicas", "fabric_disagg",
+                "tenant")
+
+
+def serving_config_defaults():
+    """Serving kwargs from ``root.common.serving`` (set by the
+    ``--serve-*`` flags or a config file); explicit unit kwargs win."""
+    out = {}
+    for key in SERVING_KEYS:
+        value = root.common.serving.get(key)
+        if value is not None:
+            out[key] = value
+    return out
 
 
 def _decode_input(payload, input_shape):
@@ -426,3 +546,110 @@ def _retry_headers(e):
     if e.retry_after is None:
         return None
     return {"Retry-After": "%d" % max(1, round(e.retry_after))}
+
+
+class RESTfulAPI(Unit):
+    """In-workflow serving unit (the JAX package's ``RESTfulAPI``):
+    link it after the decision with ``gate_block = ~decision.complete``;
+    when training completes it exports the workflow to
+    ``artifact_path`` (gzip level 9, as the JAX package's unit does)
+    and serves it through :class:`ModelServer` on the workflow's
+    device — the CUDA card unless the workflow was initialized on the
+    CPU — in a background thread (``blocking=True`` serves on the
+    caller's thread instead).  The knobs are the
+    ``--serve-*`` flags' (:func:`serving_config_defaults`) or kwargs;
+    a serving-fabric kwarg (``fabric_replicas`` > 1, ``fabric_disagg``,
+    ``tenant``) raises :class:`~veles_tpu_torch.error.Bug`.
+    ``export_seconds`` and ``start_seconds`` (the server's load and
+    warmup) are read after ``run``."""
+
+    def __init__(self, workflow, **kwargs):
+        super(RESTfulAPI, self).__init__(workflow, **kwargs)
+        self.view_group = "SERVICE"
+        kwargs = dict(serving_config_defaults(), **kwargs)
+        if int(kwargs.get("fabric_replicas") or 1) != 1 or \
+                kwargs.get("fabric_disagg") or kwargs.get("tenant"):
+            raise Bug("RESTfulAPI(fabric_replicas=%r, fabric_disagg=%r, "
+                      "tenant=%r): the serving fabric is not yet ported "
+                      "(ROADMAP A8)" % tuple(kwargs.get(k) for k in (
+                          "fabric_replicas", "fabric_disagg", "tenant")))
+        self.host = kwargs.get("host", "0.0.0.0")
+        self.port = kwargs.get("port", 8180)
+        self.artifact_path = kwargs.get("artifact_path",
+                                        "served.veles.tgz")
+        self.blocking = kwargs.get("blocking", False)
+        self.max_batch = kwargs.get("max_batch", 8)
+        self.queue_depth = kwargs.get("queue_depth", 64)
+        self.rate_limit = kwargs.get("rate_limit", None)
+        self.deadline = kwargs.get("deadline", 30.0)
+        self.token = kwargs.get("token", None)
+        self.warmup = kwargs.get("warmup", False)
+        self.paged = kwargs.get("paged", None)
+        self.kv_blocks = kwargs.get("kv_blocks", None)
+        self.kv_block_size = kwargs.get("kv_block_size", 16)
+        self.kv_dtype = kwargs.get("kv_dtype", None)
+        self.drain_timeout = kwargs.get("drain_timeout", 30.0)
+        self.reload_watch = kwargs.get("reload_watch", None)
+        self.reload_poll = kwargs.get("reload_poll", 5.0)
+        self.spec = kwargs.get("spec", False)
+        self.spec_draft = kwargs.get("spec_draft", None)
+        self.spec_max_k = kwargs.get("spec_max_k", 4)
+        self.spec_draft_blocks = kwargs.get("spec_draft_blocks", None)
+        self.device = "cuda"
+        self.server = None
+        self.export_seconds = None
+        self.start_seconds = None
+
+    def init_unpickled(self):
+        super(RESTfulAPI, self).init_unpickled()
+        self.server = None
+
+    def __getstate__(self):
+        state = super(RESTfulAPI, self).__getstate__()
+        state["server"] = None
+        return state
+
+    def initialize(self, device=None, **kwargs):
+        super(RESTfulAPI, self).initialize(**kwargs)
+        if device is not None:
+            self.device = getattr(device, "name", None) or \
+                getattr(device, "type", None) or str(device)
+
+    def run(self):
+        if self.server is not None:
+            return
+        t0 = time.monotonic()
+        export_workflow(self.workflow, self.artifact_path)
+        self.export_seconds = time.monotonic() - t0
+        t0 = time.monotonic()
+        self.server = ModelServer(
+            self.artifact_path, host=self.host, port=self.port,
+            token=self.token, max_batch=self.max_batch,
+            queue_depth=self.queue_depth, rate_limit=self.rate_limit,
+            deadline=self.deadline, warmup=self.warmup,
+            paged=self.paged, kv_blocks=self.kv_blocks,
+            kv_block_size=self.kv_block_size, kv_dtype=self.kv_dtype,
+            drain_timeout=self.drain_timeout,
+            reload_watch=self.reload_watch,
+            reload_poll=self.reload_poll, spec=self.spec,
+            spec_draft=self.spec_draft, spec_max_k=self.spec_max_k,
+            spec_draft_blocks=self.spec_draft_blocks,
+            device=self.device)
+        self.port = self.server.port
+        self.info("serving %s on port %d (%s)", self.artifact_path,
+                  self.port, self.device)
+        if self.blocking:
+            self.start_seconds = time.monotonic() - t0
+            self.server.serve()
+        else:
+            self.server.start()
+            self.start_seconds = time.monotonic() - t0
+
+    def stop(self, drain=True, timeout=None):
+        """Stops the server — by default draining it: admissions close,
+        live decode rows finish within the drain budget, then the
+        listener goes down."""
+        if self.server is not None:
+            self.server.stop(drain=drain, timeout=timeout)
+            self.server = None
+        super(RESTfulAPI, self).stop()

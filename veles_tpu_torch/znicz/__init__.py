@@ -3,8 +3,9 @@
 Ported so far: the layer and trainer bases, the optimizer registry, the
 FC family (all2all, standalone activations), conv, pooling, LRN,
 dropout, the per-layer GD units, the softmax / MSE / LM evaluators, the
-decision, the declarative ``StandardWorkflow`` and the dense
-transformer LM units.  Importing the package registers every layer
+decision, the declarative ``StandardWorkflow``, the dense transformer
+LM units, and the pretraining units (RBM, tied-weight deconv,
+Kohonen).  Importing the package registers every layer
 type, so ``StandardWorkflow`` resolves them by name.
 """
 
@@ -29,4 +30,9 @@ from . import gd  # noqa: F401
 from .attention import (Embedding, TransformerBlock,  # noqa: F401
                         LMHead, EvaluatorLM)
 from .decision import DecisionBase, DecisionGD  # noqa: F401
+from .rbm import (RBM, GDRBM, EvaluatorRBM, All2AllDeconv,  # noqa: F401
+                  All2AllDeconvSigmoid, All2AllDeconvTanh, GDA2ADeconv,
+                  GDA2ADeconvSigmoid, GDA2ADeconvTanh)
+from .kohonen import (KohonenForward, KohonenTrainer,  # noqa: F401
+                      GDKohonen)
 from .standard_workflow import StandardWorkflow  # noqa: F401

@@ -41,6 +41,18 @@ def get(name):
             % (name, ", ".join(sorted(OPTIMIZERS)))) from None
 
 
+def init_parser(parser):
+    """The optimizer flag of the command line (ZeRO's ``--zero`` comes
+    with the mesh, ROADMAP A6)."""
+    parser.add_argument(
+        "--optimizer", default=None, choices=sorted(OPTIMIZERS),
+        help="update rule for GD units that do not pin one "
+             "explicitly: sgd (momentum SGD, the default), adam, adamw "
+             "or lion (sets root.common.engine.optimizer; resuming a "
+             "snapshot under another optimizer than it was trained "
+             "with fails with a slot-mismatch error)")
+
+
 def slot_prefixes():
     """Every registered slot-name prefix, longest first."""
     out = set()
