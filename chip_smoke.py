@@ -125,6 +125,20 @@ any failure exits non-zero:
    the card (quantization error < 0.1, a finite 8x8 U-matrix) and
    ``MnistRBMWorkflow`` on the seeded synthetic IDX files (its
    validation reconstruction error falls every epoch of 3);
+7g. population — the GA's population step (``PopulationEvaluator``,
+   ``torch.func.vmap`` of the train tick over the members): the
+   full-width AlexNet, P = 4 members tuning learning_rate and
+   gradient_moment over two epochs of one validation and two train
+   ticks (B6 twice a vmapped tick and B7 twice a vmapped train tick, on
+   the members folded into the batch, register route); each member
+   against itself run alone through the sequential tick with its genes
+   as hypers; a second generation bit-equal; readings: the vmapped tick
+   p50 against P sequential ticks', the peak memory.  Then the
+   bench-width TinyLM cut to 2 blocks, P = 2 (B1-B3 as often per vmapped
+   tick as per sequential tick, on the fold); then MNIST FC through the
+   command line with ``--optimize 4:2``, ``--population 4:2`` and
+   ``--ensemble-train 2:0.8`` with ``--ensemble-test``, their result
+   files checked;
 9. quantized serving — a second artifact (another seed) is written;
    the first is served with ``--kv-dtype int8 --weight-dtype int8
    --spec --warmup`` (and once without ``--spec``) to the mixed wave
@@ -142,8 +156,9 @@ any failure exits non-zero:
    must compute its first logits, token and last-position k/v as the
    prompt's first serving did, bit for bit;
 10. exit — drains the servers, prints the training, AlexNet, snapshot,
-   streamed, serving, in-workflow serving and pretraining numbers and
-   the kernels (B1-B4's launches from phase 7r too) as JSON lines, the command's time, the
+   streamed, serving, in-workflow serving, pretraining and population
+   numbers and the kernels (B1-B4's launches from phase 7r too, B1-B3's
+   and B6/B7's from phase 7g) as JSON lines, the command's time, the
    card's name and power limit, and ``{"ok": true, "device": {...}}``
    last.
 """
@@ -3675,6 +3690,609 @@ def phase_pretraining(workdir, smi):
                           "seconds": rbm_s}}
 
 
+#: Phase 7g (population): P members of the full-width AlexNet with
+#: tuned (learning_rate, gradient_moment) — one vmapped population step
+#: per tick — over POP_EPOCHS epochs of one validation and POP_TRAIN
+#: train ticks at ALEXNET_BATCH (POP_BATCH_CUT when P times that does
+#: not fit), and P members of the bench-width TinyLM cut to INWF_BLOCKS
+#: blocks with a tuned learning_rate over one epoch of one validation
+#: and POP_LM_TICKS train ticks.
+POP_GENES = ((0.01, 0.9), (0.02, 0.5), (0.005, 0.95), (0.015, 0.0))
+POP_EPOCHS, POP_TRAIN, POP_BATCH_CUT = 2, 2, 256
+POP_LM_GENES = ((0.01,), (0.03,))
+POP_LM_TICKS = 2
+#: A vmapped member is held to the same member run alone through the
+#: sequential tick with its genes as hypers (``execute_block(...,
+#: hypers=...)``), from the same state over the same blocks: each
+#: parameter tensor's gap (norm) within a tolerance of the norm of its
+#: change over the run plus the floor per sqrt(element).  The vmapped
+#: convolutions run with the members' weights stacked (a grouped
+#: convolution where the input is per member too), the vmapped matrix
+#: products as batched ones, and the sums over a member's batch (a
+#: bias's gradient) over a tensor with a member axis: cuDNN and cuBLAS
+#: pick other algorithms and orders than for one member, and on the
+#: bfloat16 stream (activations, conv operands, their gradients) the
+#: float32 sums round at other elements.  Calibration on an H100 at this
+#: geometry (P = 4, batch 512, 4 train ticks): at most 0.098 of the
+#: change (conv2's bias; the conv biases' gradients sum the most
+#: bfloat16 values), less for every weight tensor; a member against its
+#: neighbour's genes at least 0.29 of the change on its most-moved
+#: tensor.  So the bfloat16 gate is POP_CHANGE_TOL = 0.2, and a member
+#: against its neighbour's genes must fail it (``population_gate``'s
+#: planted fault).  The same generation in float32 (``precision_level``
+#: 1) is held to POP_F32_TOL: there only the float32 sums' order
+#: differs (0.0024 of the change on the same card).  TinyLM: phase 5's
+#: TRAIN_CHANGE_TOL.  The fitness (1 − the validation error of the last
+#: validation pass) within POP_FITNESS_TOL: a count of errors, which
+#: such roundings move only at near ties.
+POP_FITNESS_TOL = 0.01
+POP_CHANGE_TOL, POP_F32_TOL = 0.2, 0.01
+#: Timing: warm vmapped train ticks and runs of P sequential member
+#: ticks, each timed alone by CUDA events.
+POP_TIMED = 5
+
+
+class LaunchLog(object):
+    """Records every launch of the LRN (and flash) kernels while it is
+    installed: the C entry point and its arguments' geometry (the LRN's
+    route code and row count, the flash kernels' batch)."""
+
+    def __init__(self):
+        from veles_tpu_torch.ops import flash_attention as FA
+        from veles_tpu_torch.ops import lrn as L
+        self.calls = []
+        self.modules = (L, FA)
+        self.originals = [m._launch for m in self.modules]
+        lrn_launch, flash_launch = self.originals
+
+        def lrn(fn, name, route, dtype, *args):
+            # args: the tensors, then rows, channels, n, k, alpha/n, beta
+            self.calls.append((fn, route, args[-6]))
+            return lrn_launch(fn, name, route, dtype, *args)
+
+        def flash(fn, name, *args):
+            self.calls.append((fn, None, args[2].shape[0]))
+            return flash_launch(fn, name, *args)
+        L._launch, FA._launch = lrn, flash
+
+    def remove(self):
+        for module, original in zip(self.modules, self.originals):
+            module._launch = original
+
+    def of(self, prefix):
+        return [c for c in self.calls if c[0].startswith(prefix)]
+
+
+def population_module(name, build):
+    """A workflow module (``run(load, main)``) whose ``load`` builds
+    ``build()``'s (class, kwargs)."""
+    import types
+    module = types.ModuleType(name)
+
+    def run(load, main):
+        cls, kwargs = build()
+        load(cls, **kwargs)
+        main()
+    module.run = run
+    module.__file__ = os.path.join(HERE, name + ".py")
+    return module
+
+
+def restore_start(compiler, start):
+    """Puts every parameter and state back to ``start``; a state the
+    step has gained since (the float32 stream's Kahan carry) to
+    zeros."""
+    import torch
+    compiler._ensure_compiled()
+    for n, v in list(compiler._param_vecs.items()) + \
+            list(compiler._state_vecs.items()):
+        v.devmem = start[n].clone() if n in start else \
+            torch.zeros_like(v.devmem)
+
+
+def member_alone(evaluator, genes, epochs, start):
+    """One member run alone through the sequential tick: the workflow's
+    parameters and states put back to ``start`` (the evaluator's tiling
+    source), the generators and the loader's walk replayed as
+    ``PopulationEvaluator.evaluate`` replays them, every block through
+    ``execute_block(..., hypers=genes)``; returns (fitness, host copies
+    of the parameters)."""
+    import numpy
+    from veles_tpu_torch import prng
+    from veles_tpu_torch.loader.base import TRAIN, VALID
+    wf = evaluator.workflow
+    loader, compiler = wf.loader, wf.compiler
+    restore_start(compiler, start)
+    hypers = dict(zip(evaluator.names, (float(g) for g in genes)))
+    prng.get(0).seed(evaluator.seed)
+    if getattr(loader, "prng_key", 0) != 0:
+        prng.get(loader.prng_key).seed(evaluator.seed)
+    loader.shuffled_indices.map_write()
+    loader.shuffled_indices.mem[...] = evaluator._loader_indices
+    loader.global_offset = evaluator._loader_offset
+    loader.epoch_number = evaluator._loader_epoch
+    acc_keys = [n for n in compiler._state_vecs
+                if n.endswith("/epoch_acc") or n.endswith("/epoch_acc_c")]
+    K = max(int(getattr(wf, "ticks_per_dispatch", 1) or 1), 8)
+    min_err = {VALID: numpy.inf, TRAIN: numpy.inf}
+    seen = set()
+    first = loader.epoch_number
+    while loader.epoch_number - first < epochs:
+        blocks = loader.serve_block(K)
+        cls = int(loader.minibatch_class)
+        compiler.execute_block(blocks, cls == TRAIN, hypers=hypers)
+        if loader.last_minibatch and cls in min_err:
+            for name in acc_keys:
+                acc = compiler._state_vecs[name].devmem
+                if name.endswith("/epoch_acc"):
+                    row = acc[cls].cpu().numpy()
+                    min_err[cls] = min(min_err[cls],
+                                       row[0] / max(row[1], 1.0))
+                    seen.add(cls)
+                acc[cls] = 0.0
+    cls = VALID if VALID in seen else TRAIN
+    params = {n: v.devmem.to("cpu") for n, v in
+              compiler._param_vecs.items()}
+    return float(1.0 - min_err[cls]), params
+
+
+def population_gate(label, members, alone, start, tol, floor):
+    """Per member and parameter tensor: the vmapped member's gap (norm)
+    to the member run alone, against tol x the norm of its change over
+    the run plus floor x sqrt(elements); fails when a gap passes its
+    bound.  A planted fault shows the gate sees a member trained with
+    other genes: member i against the run alone of member i + 1 must
+    fail it.  Returns (the largest share of the bound, the planted
+    fault's smallest largest-share over the members, the tensor of the
+    largest share)."""
+    import math
+    P = len(alone)
+
+    def shares(got_i, want):
+        out = {}
+        for name, ref in want.items():
+            got = members[name][got_i].to("cpu").float()
+            gap = (got - ref.float()).norm().item()
+            change = (ref.float() - start[name].to("cpu").float()
+                      ).norm().item()
+            out[name] = gap / (tol * change + floor * math.sqrt(
+                ref.numel()))
+        return out
+    worst, where = 0.0, None
+    for i in range(P):
+        for name, share in shares(i, alone[i]).items():
+            if share > worst:
+                worst, where = share, "member %d %s" % (i, name)
+    planted = min(max(shares(i, alone[(i + 1) % P]).values())
+                  for i in range(P))
+    print("%s: vmapped members vs alone: largest share of the bound "
+          "%.4f (%s; bound %g x change + %g x sqrt(n)); a member against "
+          "its neighbour's genes: at least %.1f" % (
+              label, worst, where, tol, floor, planted))
+    if worst > 1.0:
+        fail("%s: %s vmapped vs alone at %.3f of the bound" % (
+            label, where, worst))
+    if planted <= 1.0:
+        fail("%s: a member against another member's genes reads only "
+             "%.3f of the bound: the gate cannot see a wrong member" % (
+                 label, planted))
+    return worst, planted, where
+
+
+def event_ms(fn):
+    import torch
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end)
+
+
+def population_timing(evaluator, genes, block):
+    """Warm tick times: a vmapped train tick of P members, and P member
+    ticks run one after another through the sequential tick (each with
+    its genes), on the same one-tick train block; POP_TIMED of each, in
+    turns.  Returns (vmapped p50, sequential-P p50) in ms."""
+    import numpy
+    import torch
+    compiler = evaluator.workflow.compiler
+    pop_params, pop_states = evaluator.last_population
+    consts = {str(id(v)): v.devmem for v in compiler.const_vectors}
+    hvals = torch.tensor(genes, dtype=torch.float32,
+                         device=compiler._device())
+    gen = compiler._generator()
+    box = [pop_params, pop_states]
+
+    def vmapped():
+        box[0], box[1] = compiler._pop_block(box[0], box[1], block,
+                                             consts, gen, True, hvals)
+
+    def sequential():
+        for g in genes:
+            compiler.execute_block(block, True, hypers=dict(
+                zip(evaluator.names, (float(x) for x in g))))
+    vmapped()
+    sequential()
+    v_ms, s_ms = [], []
+    for _ in range(POP_TIMED):
+        v_ms.append(event_ms(vmapped))
+        s_ms.append(event_ms(sequential))
+    return float(numpy.median(v_ms)), float(numpy.median(s_ms))
+
+
+def phase_population(workdir, smi):
+    """Phase 7g: the GA's population step on the card.
+
+    AlexNet: ``PopulationEvaluator`` over the full-width AlexNet (phase
+    6's synthetic 227 px / 1000-class set) with P = len(POP_GENES)
+    members tuning learning_rate and gradient_moment — one
+    ``torch.func.vmap`` of the train tick over the members per tick, the
+    LRN kernels on the members folded into their batch.  Gates: B6 and
+    B7 launch twice per vmapped train tick (B6 twice per validation
+    tick), every launch on the register route over P·N rows; each
+    member's parameters and fitness match the member run alone
+    (``member_alone``); a second generation with the same genes reads
+    bit-equal fitnesses and parameters.  Readings: the vmapped tick p50
+    against P sequential ticks' p50, the peak device memory.
+
+    TinyLM at the bench width cut to INWF_BLOCKS blocks, P =
+    len(POP_LM_GENES) with a tuned learning_rate, no remat (the
+    population step keeps its activations): B1-B3 launch per vmapped
+    tick as many times as the sequential tick does, on the members folded
+    into the batch; members match their runs alone.
+
+    The command line on the card, MNIST FC on ``write_mnist_idx``'s
+    files: ``--optimize 4:2``, ``--population 4:2`` and
+    ``--ensemble-train 2:0.8`` then ``--ensemble-test``, each result
+    file's keys and values checked as the JAX package's tests check
+    them.  Returns (launches of B1, B2, B3, B6 and B7, numbers)."""
+    import json as _json
+    import numpy
+    import torch
+    from veles_tpu_torch import prng, resilience
+    from veles_tpu_torch.config import Tune, override_scope, root
+    from veles_tpu_torch.genetics import collect_tunes
+    from veles_tpu_torch.genetics.vmap_eval import PopulationEvaluator
+    from veles_tpu_torch.ops import flash_attention as FA
+    from veles_tpu_torch.ops import lrn as L
+    from veles_tpu_torch.znicz.samples.imagenet import AlexNetWorkflow
+    from veles_tpu_torch.znicz.samples.tinylm import TinyLMWorkflow
+    started = time.monotonic()
+    engine = root.common.engine
+    saved_engine = dict(engine.__dict__)
+    numbers, launches = {}, {}
+    P = len(POP_GENES)
+
+    # -- AlexNet -------------------------------------------------------
+    engine.precision_level = 0
+    engine.pallas_lrn = True
+    batch = [ALEXNET_BATCH]
+
+    def alexnet():
+        n = batch[0]
+        return AlexNetWorkflow, dict(
+            minibatch_size=n, max_epochs=POP_EPOCHS,
+            loader_config={"sim_train": n * POP_TRAIN, "sim_valid": n,
+                           "sim_image_size": 227, "sim_classes": 1000,
+                           "validate_labels": False})
+    tuned = {"population_smoke.learning_rate": Tune(0.01, 0.001, 0.05),
+             "population_smoke.gradient_moment": Tune(0.9, 0.0, 0.99)}
+    module = population_module("alexnet_population", alexnet)
+    log = LaunchLog()
+    try:
+        with override_scope(root, tuned):
+            tunes = [(p, t) for p, t in collect_tunes(root)
+                     if p in tuned]
+            t0 = time.monotonic()
+            evaluator = PopulationEvaluator(module, tunes, seed=SEED)
+            build_s = time.monotonic() - t0
+            genes = [[dict(zip(("learning_rate", "gradient_moment"),
+                               g))[n] for n in evaluator.names]
+                     for g in POP_GENES]
+            compiler = evaluator.workflow.compiler
+            start = {n: v.devmem.clone() for n, v in
+                     list(compiler._param_vecs.items()) +
+                     list(compiler._state_vecs.items())}
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            L.reset_launches()
+            t0 = time.monotonic()
+            try:
+                fitness = evaluator.evaluate(genes)
+            except torch.cuda.OutOfMemoryError:
+                print("population: P=%d x batch %d does not fit; the "
+                      "batch is cut to %d" % (P, batch[0], POP_BATCH_CUT))
+                del evaluator, compiler, start
+                gc.collect()
+                torch.cuda.empty_cache()
+                batch[0] = POP_BATCH_CUT
+                evaluator = PopulationEvaluator(module, tunes, seed=SEED)
+                compiler = evaluator.workflow.compiler
+                start = {n: v.devmem.clone() for n, v in
+                         list(compiler._param_vecs.items()) +
+                         list(compiler._state_vecs.items())}
+                torch.cuda.reset_peak_memory_stats()
+                L.reset_launches()
+                log.calls = []
+                t0 = time.monotonic()
+                fitness = evaluator.evaluate(genes)
+            torch.cuda.synchronize()
+            gen_s = time.monotonic() - t0
+            peak = torch.cuda.max_memory_allocated()
+            n = batch[0]
+            train_ticks = POP_EPOCHS * POP_TRAIN
+            ticks = POP_EPOCHS * (POP_TRAIN + 1)
+            launches["lrn_forward"] = L.lrn_forward.launches
+            launches["lrn_backward"] = L.lrn_backward.launches
+            routes = {"lrn_forward": dict(L.lrn_forward.launches_by_route),
+                      "lrn_backward": dict(L.lrn_backward.launches_by_route)}
+            rows = sorted({c[2] for c in log.of("veles_lrn")})
+            want_rows = [P * n * 27 * 27, P * n * 55 * 55]
+            codes = {c[1] for c in log.of("veles_lrn")}
+            print("population: AlexNet P=%d x batch %d, genes %s: "
+                  "generation of %d ticks (%d train) in %.1f s, fitness %s;"
+                  " B6 %d, B7 %d launches (expected %d, %d), routes %s, "
+                  "rows %s (expected %s); build %.1f s; peak %.2f GB" % (
+                      P, n, genes, ticks, train_ticks, gen_s,
+                      fitness.tolist(), launches["lrn_forward"],
+                      launches["lrn_backward"], 2 * ticks,
+                      2 * train_ticks, routes, rows, want_rows, build_s,
+                      peak / 1e9))
+            if (launches["lrn_forward"], launches["lrn_backward"]) != \
+                    (2 * ticks, 2 * train_ticks):
+                fail("population: B6/B7 launched %d/%d times; %d vmapped "
+                     "ticks (%d train) imply %d/%d" % (
+                         launches["lrn_forward"],
+                         launches["lrn_backward"], ticks, train_ticks,
+                         2 * ticks, 2 * train_ticks))
+            if rows != want_rows or codes != {
+                    L._ROUTE_CODES["register"]} or \
+                    routes["lrn_forward"]["wide"] or \
+                    routes["lrn_backward"]["wide"]:
+                fail("population: LRN launches over rows %s on routes "
+                     "%s; the fold of P=%d members implies rows %s on "
+                     "the register route" % (rows, routes, P, want_rows))
+            first = {k: v.clone() for k, v in
+                     evaluator.last_population[0].items()}
+            again = evaluator.evaluate(genes)
+            if not numpy.array_equal(fitness, again) or not all(
+                    torch.equal(first[k], v) for k, v in
+                    evaluator.last_population[0].items()):
+                fail("population: a second generation with the same "
+                     "genes read fitness %s (first %s) or other weights"
+                     % (again.tolist(), fitness.tolist()))
+            del first
+            members = evaluator.last_population[0]
+            alone, alone_fit = [], []
+            for g in genes:
+                f, params = member_alone(evaluator, g, POP_EPOCHS, start)
+                alone.append(params)
+                alone_fit.append(f)
+            worst, planted, where = population_gate(
+                "population: AlexNet", members, alone, start,
+                POP_CHANGE_TOL, ALEXNET_FLOOR)
+            fit_gap = float(numpy.abs(numpy.array(alone_fit) -
+                                      fitness).max())
+            print("population: AlexNet fitness alone %s, largest gap "
+                  "%.5f" % (alone_fit, fit_gap))
+            if fit_gap > POP_FITNESS_TOL:
+                fail("population: vmapped fitness %s vs alone %s" % (
+                    fitness.tolist(), alone_fit))
+            # The same generation with the float32 stream (the stream's
+            # dtype is read at every tick), from the same start.
+            del members, alone
+            engine.precision_level = 1
+            restore_start(compiler, start)
+            f32_fit = evaluator.evaluate(genes)
+            alone = [member_alone(evaluator, g, POP_EPOCHS, start)[1]
+                     for g in genes]
+            f32_worst, f32_planted, f32_where = population_gate(
+                "population: AlexNet float32", evaluator.last_population[0],
+                alone, start, POP_F32_TOL, ALEXNET_FLOOR)
+            engine.precision_level = 0
+            del alone
+            block = {}
+            loader = evaluator.workflow.loader
+            while int(loader.minibatch_class) != 2 or not block:
+                block = loader.serve_block(1)
+            v_ms, s_ms = population_timing(evaluator, genes, block)
+            print("population: AlexNet warm train tick p50: vmapped P=%d "
+                  "%.2f ms, %d sequential member ticks %.2f ms (%.2fx); "
+                  "peak %.2f GB; %s" % (P, v_ms, P, s_ms, s_ms / v_ms,
+                                        peak / 1e9, smi))
+            numbers["alexnet"] = {
+                "members": P, "batch": n, "genes": genes,
+                "batch_cut": n != ALEXNET_BATCH,
+                "epochs": POP_EPOCHS, "ticks": ticks,
+                "train_ticks": train_ticks, "generation_s": gen_s,
+                "fitness": fitness.tolist(), "alone_fitness": alone_fit,
+                "vmapped_vs_alone_share_of_bound": worst,
+                "largest_share_at": where,
+                "other_genes_share_of_bound": planted,
+                "float32": {"fitness": f32_fit.tolist(),
+                            "tol": POP_F32_TOL,
+                            "share_of_bound": f32_worst,
+                            "largest_share_at": f32_where,
+                            "other_genes_share_of_bound": f32_planted},
+                "fitness_gap": fit_gap, "repeat_bit_equal": True,
+                "lrn_launches": dict(launches), "lrn_routes": routes,
+                "lrn_rows": rows, "vmapped_tick_p50_ms": v_ms,
+                "sequential_p_ticks_p50_ms": s_ms,
+                "peak_bytes": peak, "card": smi}
+            del evaluator, compiler, start
+            gc.collect()
+            torch.cuda.empty_cache()
+
+        # -- TinyLM at the bench width, INWF_BLOCKS blocks ------------
+        engine.remat = False
+        engine.precision_level = 0
+        engine.attention_dtype = "f32"
+        engine.attention_kernel = "auto"
+        corpus = synthetic_corpus(TRAIN_BATCH, TRAIN_BATCH * POP_LM_TICKS)
+
+        def tinylm():
+            return TinyLMWorkflow, dict(
+                vocab_size=VOCAB, seq_len=POSITIONS, embed_dim=EMBED,
+                n_heads=HEADS, n_blocks=INWF_BLOCKS,
+                minibatch_size=TRAIN_BATCH, max_epochs=1,
+                loader_cls=corpus,
+                loader_config={"validate_labels": False})
+        lm_tuned = {"population_smoke.learning_rate":
+                    Tune(0.01, 0.001, 0.05)}
+        with override_scope(root, lm_tuned):
+            tunes = [(p, t) for p, t in collect_tunes(root)
+                     if p in lm_tuned]
+            t0 = time.monotonic()
+            evaluator = PopulationEvaluator(
+                population_module("tinylm_population", tinylm), tunes,
+                seed=SEED)
+            compiler = evaluator.workflow.compiler
+            start = {n: v.devmem.clone() for n, v in
+                     list(compiler._param_vecs.items()) +
+                     list(compiler._state_vecs.items())}
+            FA.reset_launches()
+            log.calls = []
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            lm_fit = evaluator.evaluate(POP_LM_GENES, epochs=1)
+            torch.cuda.synchronize()
+            lm_s = time.monotonic() - t0
+            lm_peak = torch.cuda.max_memory_allocated()
+            vm = {k: getattr(FA, k).launches for k in
+                  ("flash_forward", "flash_dq", "flash_dkv")}
+            batches = sorted({c[2] for c in log.of("veles_flash")})
+            FA.reset_launches()
+            alone = []
+            for g in POP_LM_GENES:
+                alone.append(member_alone(evaluator, g, 1, start)[1])
+            seq = {k: getattr(FA, k).launches for k in vm}
+            lm_ticks = 1 + POP_LM_TICKS
+            want = {"flash_forward": INWF_BLOCKS * lm_ticks,
+                    "flash_dq": INWF_BLOCKS * POP_LM_TICKS,
+                    "flash_dkv": INWF_BLOCKS * POP_LM_TICKS}
+            per_member = {k: v // len(POP_LM_GENES) for k, v in seq.items()}
+            print("population: TinyLM %d blocks P=%d, genes %s: %.1f s "
+                  "with the build, fitness %s; B1/B2/B3 vmapped %s, "
+                  "sequential per member %s (expected %s), batches %s; "
+                  "peak %.2f GB" % (
+                      INWF_BLOCKS, len(POP_LM_GENES), POP_LM_GENES, lm_s,
+                      lm_fit.tolist(), vm, per_member, want, batches,
+                      lm_peak / 1e9))
+            if vm != want or per_member != want or \
+                    batches != [len(POP_LM_GENES) * TRAIN_BATCH]:
+                fail("population: flash launches vmapped %s, sequential "
+                     "per member %s, over batches %s; the ticks imply %s "
+                     "each, over batch %d" % (
+                         vm, per_member, batches, want,
+                         len(POP_LM_GENES) * TRAIN_BATCH))
+            lm_worst, lm_planted, lm_where = population_gate(
+                "population: TinyLM", evaluator.last_population[0], alone,
+                start, TRAIN_CHANGE_TOL, TRAIN_FLOOR)
+            launches.update(vm)
+            numbers["tinylm"] = {
+                "blocks": INWF_BLOCKS, "members": len(POP_LM_GENES),
+                "genes": [list(g) for g in POP_LM_GENES],
+                "seconds": lm_s, "fitness": lm_fit.tolist(),
+                "flash_launches": vm, "flash_batches": batches,
+                "vmapped_vs_alone_share_of_bound": lm_worst,
+                "largest_share_at": lm_where,
+                "other_genes_share_of_bound": lm_planted,
+                "peak_bytes": lm_peak}
+            del evaluator, compiler, start, alone
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        log.remove()
+        engine.__dict__.clear()
+        engine.__dict__.update(saved_engine)
+
+    # -- the command line: MNIST FC ------------------------------------
+    datasets = os.path.join(workdir, "datasets")
+    write_mnist_idx(datasets)
+    mnist_py = os.path.join(HERE, "veles_tpu_torch", "znicz", "samples",
+                            "mnist.py")
+    common = [mnist_py, "root.common.dirs.datasets=%r" % datasets,
+              "--random-seed", "42", "-v", "warning"]
+    cli, counters = {}, {}
+
+    def run_json(argv, name):
+        path = os.path.join(workdir, name)
+        prng.reset()
+        resilience.reset()
+        t0 = time.monotonic()
+        run_cli(common + argv + ["--result-file", path])
+        counters[name] = resilience.stats.snapshot()
+        clean_cli_config()
+        root.__dict__.pop("mnist", None)
+        with open(path) as fin:
+            data = _json.load(fin)
+        cli[name] = time.monotonic() - t0
+        return data
+
+    tune = "root.mnist.learning_rate=Tune(0.0005, 0.0001, 0.5)"
+    ga = run_json(["root.mnist.max_epochs=2", tune, "--optimize", "4:2"],
+                  "ga.json")
+    if not (ga["mode"] == "genetics" and ga["generations"] == 2 and
+            len(ga["history"]) == 2 and
+            ga["best_fitness"] > ga["history"][0] - 1e-9 and
+            ga["best_fitness"] > 0.5 and
+            "root.mnist.learning_rate" in ga["best_config"]):
+        fail("--optimize 4:2 wrote %s" % ga)
+    pop = run_json(["root.mnist.max_epochs=2", tune, "--population",
+                    "4:2"], "population.json")
+    vmap_jobs = counters["population.json"].get(
+        "population.vmap_generations")
+    if not (vmap_jobs == 2 and
+            pop["mode"] == "population" and pop["scheduling"] == "ga" and
+            pop["size"] == 4 and pop["best_member"] == "ga" and
+            pop["best_fitness"] > 0.5 and
+            set(pop["best_overrides"]) == {"mnist.learning_rate"}):
+        fail("--population 4:2 wrote %s after %s vmapped generations" %
+             (pop, vmap_jobs))
+    snaps = os.path.join(workdir, "ensemble")
+    ens = run_json(["root.mnist.max_epochs=4", "root.mnist.learning_rate="
+                    "0.03", "--snapshot-dir", snaps, "--ensemble-train",
+                    "2:0.8"], "ensemble.json")
+    if not (ens["mode"] == "ensemble-train" and ens["size"] == 2 and
+            len(ens["instances"]) == 2 and
+            len({i["seed"] for i in ens["instances"]}) == 2 and
+            all(os.path.isfile(i["snapshot"]) and i["fitness"] > 0.7 and
+                i["train_ratio"] == 0.8 for i in ens["instances"])):
+        fail("--ensemble-train 2:0.8 wrote %s" % ens)
+    test = run_json(["--ensemble-test", os.path.join(workdir,
+                                                     "ensemble.json")],
+                    "ensemble_test.json")
+    errs = [i["validation_err"] for i in test["instances"]]
+    if not (test["mode"] == "ensemble-test" and test["size"] == 2 and
+            test["ensemble_validation_err"] <= max(errs) + 1e-9 and
+            test["ensemble_validation_err"] < 0.12):
+        fail("--ensemble-test wrote %s" % test)
+    print("population: the command line on the card — --optimize 4:2 "
+          "best %.4f %s (history %s); --population 4:2 best %.4f %s; "
+          "--ensemble-train 2:0.8 fitnesses %s, --ensemble-test errors "
+          "%s, joint %.4f; seconds %s" % (
+              ga["best_fitness"], ga["best_config"], ga["history"],
+              pop["best_fitness"], pop["best_overrides"],
+              ens["fitnesses"], errs, test["ensemble_validation_err"],
+              {k: round(v, 1) for k, v in cli.items()}))
+    numbers["command_line"] = {
+        "optimize": {k: ga[k] for k in ("best_fitness", "best_config",
+                                        "history")},
+        "population": {k: pop[k] for k in ("best_fitness",
+                                           "best_overrides")},
+        "population_vmap_generations": vmap_jobs,
+        "ensemble_fitnesses": ens["fitnesses"],
+        "ensemble_errors": errs,
+        "ensemble_joint_error": test["ensemble_validation_err"],
+        "seconds": cli}
+    numbers["seconds"] = time.monotonic() - started
+    print("population: phase %.1f s" % numbers["seconds"])
+    return launches, numbers
+
+
 #: The quantized serving path: --kv-dtype int8 --weight-dtype int8 --spec
 #: at --spec-max-k 4 (verifies of up to 5 columns).  Beside the mixed wave,
 #: two prompts that repeat a short pattern, where the n-gram drafter
@@ -4463,6 +5081,9 @@ def main():
         pretraining = phase_pretraining(workdir, smi)
         gc.collect()
         torch.cuda.empty_cache()
+        pop_launches, population = phase_population(workdir, smi)
+        gc.collect()
+        torch.cuda.empty_cache()
         reload_path = os.path.join(workdir, "lm-reload.veles.tgz")
         t0 = time.monotonic()
         from veles_tpu_torch import export as X
@@ -4556,9 +5177,11 @@ def main():
                      "operands" % (TRAIN_BATCH, POSITIONS, HEADS,
                                    EMBED // HEADS),
             "units": way,
-            "launches": flash_launches[name] + inwf_flash[name],
+            "launches": flash_launches[name] + inwf_flash[name] +
+            pop_launches[name],
             "launches_by_path": {"training": flash_launches[name],
-                                 "in_workflow_training": inwf_flash[name]},
+                                 "in_workflow_training": inwf_flash[name],
+                                 "population_tinylm": pop_launches[name]},
             "launches_by_route": training["flash_routes"][name],
             "max_abs_err": flash_err[name],
             "tol": BF16_TOL_TEXT,
@@ -4594,12 +5217,13 @@ def main():
                      " and ".join("%s %s" % (n, sh) for n, sh in
                                   LRN_SHAPES),
             "launches": lrn_launches[name] + snapshot_launches[name] +
-            stream_launches[name],
+            stream_launches[name] + pop_launches[name],
             "launches_by_path": {
                 "alexnet_run": lrn_launches[name],
                 "alexnet_snapshot_ticks_and_artifact_forward":
                     snapshot_launches[name],
-                "alexnet_streamed": stream_launches[name]},
+                "alexnet_streamed": stream_launches[name],
+                "alexnet_population": pop_launches[name]},
             "launches_by_route": lrn_routes[name],
             "max_abs_err": lrn_err[name],
             "tol": "f32 fwd rtol %g, bwd %g x the terms' magnitude; bf16 "
@@ -4639,6 +5263,7 @@ def main():
     print(json.dumps({"serving": numbers}))
     print(json.dumps({"in_workflow_serving": inworkflow}))
     print(json.dumps({"pretraining": pretraining}))
+    print(json.dumps({"population": population}))
     print(json.dumps({"quant_serving": quant}))
     print(json.dumps(kernels))
     print("chip_smoke: command time %.1f s" % (time.monotonic() - started))

@@ -18,7 +18,8 @@ from veles_tpu_torch import __main__ as tmain
 from veles_tpu_torch import restful as trestful
 from veles_tpu_torch.config import root as troot
 
-SUBTREES = ("serving", "guardian", "loader", "engine")
+SUBTREES = ("serving", "guardian", "loader", "engine", "population",
+            "genetics")
 
 
 def _jax_options():
@@ -43,7 +44,7 @@ def test_every_jax_option_is_parsed_or_refused_by_name():
     assert missing == []
     # A flag is one or the other, never both.
     assert sorted(port & refused) == []
-    assert set(tmain.NOT_PORTED.values()) <= {"A6", "A7", "A8"}
+    assert set(tmain.NOT_PORTED.values()) <= {"A6", "A7a", "A8"}
 
 
 @pytest.mark.parametrize("flag", REFUSED)
@@ -185,3 +186,37 @@ def test_explicit_flags_win_over_config_sources():
             "guardian.window": 6}
     assert got_jax == want
     assert got_port == want
+
+
+#: The meta-workflow flags (genetics, populations, ensembles): only
+#: ``--population-vmap`` sets a key; the others choose the run's mode.
+META_CASES = [
+    (["--population-vmap", "on"], {"population.vmap": True}),
+    (["--population", "4:2"], {}),
+    (["--optimize", "4:2"], {}),
+    (["--ensemble-train", "2:0.8"], {}),
+    (["--ensemble-test", "ens.json"], {}),
+]
+
+
+@pytest.mark.parametrize("argv,want", META_CASES,
+                         ids=lambda v: " ".join(v)
+                         if isinstance(v, list) else "")
+def test_meta_flag_sets_the_same_keys_in_both_trees(argv, want):
+    with _kept_trees():
+        got_jax = _apply(jmain, jroot, argv)
+    with _kept_trees():
+        got_port = _apply(tmain, troot, argv)
+    assert got_jax == want
+    assert got_port == want
+    args = tmain.Main(["wf.py"] + argv).parse()
+    dest = argv[0].lstrip("-").replace("-", "_")
+    assert getattr(args, dest) == (argv[1] if dest != "population_vmap"
+                                   else "on")
+
+
+@pytest.mark.parametrize("flag", ["--pbt", "--pbt-interval",
+                                  "--ensemble-population", "-l", "-m"])
+def test_fleet_population_flags_stay_refused_naming_a7a(flag):
+    with pytest.raises(NotImplementedError, match="ROADMAP A7a"):
+        tmain.Main(["wf.py", flag, "1"]).parse()

@@ -50,7 +50,13 @@ def test_import_leaves_jax_and_veles_tpu_out():
             "veles_tpu_torch.loader.hdfs_loader, "
             "veles_tpu_torch.znicz.rbm, veles_tpu_torch.znicz.kohonen, "
             "veles_tpu_torch.znicz.samples.mnist_rbm, "
-            "veles_tpu_torch.znicz.samples.kohonen\n"
+            "veles_tpu_torch.znicz.samples.kohonen, "
+            "veles_tpu_torch.genetics, veles_tpu_torch.genetics.core, "
+            "veles_tpu_torch.genetics.vmap_eval, "
+            "veles_tpu_torch.genetics.optimizer, veles_tpu_torch.ensemble, "
+            "veles_tpu_torch.population, "
+            "veles_tpu_torch.population.engine, "
+            "veles_tpu_torch.population.vmap_backend\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib', 'veles_tpu.')) or "
             "m == 'veles_tpu')\n"

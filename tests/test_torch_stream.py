@@ -238,9 +238,9 @@ def test_execute_block_takes_device_tensors_as_they_are():
     seen = {}
     tick = compiler._tick
 
-    def spy(batch, training, block=False):
+    def spy(batch, training, block=False, hypers=None):
         seen.update({k: v.data_ptr() for k, v in batch.items()})
-        return tick(batch, training, block)
+        return tick(batch, training, block, hypers)
 
     compiler._tick = spy
     compiler.execute_block(blocks, True)

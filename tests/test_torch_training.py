@@ -374,7 +374,7 @@ def test_cli_refuses_what_is_not_ported():
     ported"; a missing card raises instead of running on the CPU."""
     from veles_tpu_torch.__main__ import Main
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        Main(["wf.py", "--optimize", "4"]).parse()
+        Main(["wf.py", "--pbt"]).parse()
     with pytest.raises(NotImplementedError, match="A7"):
         Main(["wf.py", "-l", "127.0.0.1:1"]).parse()
     if not torch.cuda.is_available():

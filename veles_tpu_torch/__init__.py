@@ -12,6 +12,9 @@ engine, the HTTP server, the flash-decode kernel); training through the
 fused tick (the TinyLM workflow with the flash-attention kernels); and
 the znicz layer library with ``StandardWorkflow``, the MNIST FC sample
 and the AlexNet sample, whose LRN layers run hand-written forward and
-backward kernels (``ops/lrn.py``).  Every kernel is CUDA C++ for
-Hopper under ``ops/csrc/``.
+backward kernels (``ops/lrn.py``); and the meta-workflows that run in
+one process — the genetic search (``genetics``), whose generations train
+as one population step vmapped over the members, the population
+engine's GA mode (``population``) and ensembles (``ensemble``).  Every
+kernel is CUDA C++ for Hopper under ``ops/csrc/``.
 """

@@ -14,7 +14,10 @@ Usage::
         [--guardian-spike K] [--guardian-window N] \
         [--train-ratio R] [--shuffle-limit N] [--optimizer NAME] \
         [--attn-fused-qkv on|off] [--attn-dtype f32|bf16] \
-        [--attn-kernel xla|pallas|auto] [--serve-* ...]
+        [--attn-kernel xla|pallas|auto] [--serve-* ...] \
+        [--optimize SIZE[:GENERATIONS] | --population N[:GENERATIONS]
+         [--population-vmap on] | --ensemble-train N[:RATIO] |
+         --ensemble-test FILE]
 
 It seeds generator 0, applies the config files and ``root.x.y=v``
 overrides in argv order (the positional ones, then ``-c``'s), then the
@@ -31,8 +34,13 @@ generation in the snapshot directory) — and ``main`` initializes it
 on the device (the CUDA card unless ``--device cpu``), runs it and
 writes the results JSON.  The ``--serve-*`` flags configure an in-workflow
 :class:`~veles_tpu_torch.restful.RESTfulAPI` unit through
-``root.common.serving``.  The JAX CLI's other modes — master/worker,
-multi-process, genetics, ensembles, populations, profiling, tracing,
+``root.common.serving``.  The meta-workflow modes run in this process
+instead of the plain run: ``--optimize`` (the genetic search over
+``Tune()`` leaves, :mod:`.genetics`), ``--population`` (a GA
+population, one vmapped device job per generation, :mod:`.population`),
+``--ensemble-train`` and ``--ensemble-test`` (:mod:`.ensemble`).  The
+JAX CLI's other modes — master/worker, multi-process, the fleet's
+population modes (PBT, ``--ensemble-population``), profiling, tracing,
 the serving fabric — are not yet ported: their flags raise, naming
 their ROADMAP queue (:data:`NOT_PORTED`).
 """
@@ -44,7 +52,7 @@ import logging
 import os
 import sys
 
-from . import guardian, prng, restful, snapshotter
+from . import guardian, population, prng, restful, snapshotter
 from .loader import base as loader_base
 from .ops import attention
 from .znicz import optimizers
@@ -57,29 +65,29 @@ from .logger import Logger
 #: Flags of the JAX CLI that the port refuses, with the ROADMAP queue
 #: that brings each.
 NOT_PORTED = {
-    "--chaos": "A7", "-l": "A7", "--listen-address": "A7",
-    "--blacklist-cooldown": "A7", "-m": "A7", "--master-address": "A7",
-    "--nodes": "A7", "--jax-coordinator": "A6",
-    "--jax-num-processes": "A6", "--jax-process-id": "A6",
+    "--chaos": "A7a", "-l": "A7a", "--listen-address": "A7a",
+    "--blacklist-cooldown": "A7a", "-m": "A7a",
+    "--master-address": "A7a", "--nodes": "A7a",
+    "--jax-coordinator": "A6", "--jax-num-processes": "A6",
+    "--jax-process-id": "A6",
     "-a": "A8", "--backend": "A8", "--dry-run": "A8",
-    "--workflow-graph": "A8", "--dump-config": "A8", "--optimize": "A7",
-    "--ensemble-train": "A7", "--ensemble-test": "A7",
-    "--profile": "A8", "--frontend": "A8", "--population": "A7",
-    "--pbt": "A7",
+    "--workflow-graph": "A8", "--dump-config": "A8",
+    "--profile": "A8", "--frontend": "A8",
+    "--pbt": "A7a",
     # The serving fabric.
     "--serve-fabric-replicas": "A8", "--serve-fabric-disagg": "A8",
     "--serve-tenant": "A8",
     # Parallelism.
     "--pp-schedule": "A6", "--pp-chunks": "A6", "--moe-topk": "A6",
     "--moe-router-z": "A6", "--sp-ring-kernel": "A6", "--zero": "A6",
-    # The data plane, the fleet and the meta-workflows.
-    "--net-codec": "A7", "--net-dtype": "A7", "--net-legacy": "A7",
-    "--net-require": "A7", "--net-zero": "A7", "--job-ticks": "A7",
-    "--async-slave": "A7", "--reconnect-attempts": "A7",
-    "--reconnect-delay": "A7", "--preempt-grace": "A7",
-    "--slave-death-probability": "A7", "--pbt-interval": "A7",
-    "--pbt-perturb": "A7", "--pbt-quantile": "A7",
-    "--population-vmap": "A7", "--ensemble-population": "A7",
+    # The data plane, the fleet and its population modes.
+    "--net-codec": "A7a", "--net-dtype": "A7a", "--net-legacy": "A7a",
+    "--net-require": "A7a", "--net-zero": "A7a", "--job-ticks": "A7a",
+    "--async-slave": "A7a", "--reconnect-attempts": "A7a",
+    "--reconnect-delay": "A7a", "--preempt-grace": "A7a",
+    "--slave-death-probability": "A7a", "--pbt-interval": "A7a",
+    "--pbt-perturb": "A7a", "--pbt-quantile": "A7a",
+    "--ensemble-population": "A7a",
     # Observability and power.
     "--trace-out": "A8", "--trace-ring": "A8", "--xprof": "A8",
     "--xprof-steps": "A8", "--measure-power": "A8",
@@ -123,6 +131,19 @@ def make_parser():
     parser.add_argument(
         "-v", "--verbosity", default="info",
         choices=("debug", "info", "warning", "error"), help="log level")
+    parser.add_argument(
+        "--optimize", default="", metavar="SIZE[:GENERATIONS]",
+        help="genetic hyperparameter search over Tune() config "
+             "leaves with the given population size")
+    parser.add_argument(
+        "--ensemble-train", default="", metavar="N[:RATIO]",
+        help="train an ensemble of N instances, each on RATIO of "
+             "the train set (default 1.0)")
+    parser.add_argument(
+        "--ensemble-test", default="", metavar="FILE",
+        help="evaluate the ensemble described by FILE (written by "
+             "--ensemble-train)")
+    population.init_parser(parser)
     snapshotter.init_parser(parser)
     guardian.init_parser(parser)
     loader_base.init_parser(parser)
@@ -204,6 +225,10 @@ class Main(Logger):
                     "%s of the veles_tpu command line has no counterpart "
                     "in the port: %s" % (flag, NO_COUNTERPART[flag]))
         self.args = make_parser().parse_intermixed_args(self.argv)
+        if self.args.population_vmap == "off":
+            raise NotImplementedError(
+                "--population-vmap off forces fleet population lineages, "
+                "which are not yet ported (ROADMAP A7a)")
         logging.getLogger().setLevel(self.args.verbosity.upper())
         return self.args
 
@@ -267,6 +292,8 @@ class Main(Logger):
             engine.attention_kernel = args.attn_kernel
         if args.optimizer is not None:
             engine.optimizer = args.optimizer
+        if args.population_vmap is not None:
+            root.common.population.vmap = args.population_vmap == "on"
 
     def load(self, WorkflowClass, **kwargs):
         """The ``load`` closure of the module's ``run`` hook: builds the
@@ -308,6 +335,38 @@ class Main(Logger):
         self.launcher.run()
         self.write_results()
 
+    # -- the meta-workflow modes -------------------------------------------
+
+    @staticmethod
+    def _size_spec(spec, default_tail=None, tail_type=int):
+        """``N[:TAIL]`` → (N, TAIL)."""
+        if ":" in spec:
+            head, tail = spec.split(":", 1)
+            return int(head), tail_type(tail)
+        return int(spec), default_tail
+
+    def run_genetics(self):
+        from .genetics.optimizer import GeneticsOptimizer
+        size, generations = self._size_spec(self.args.optimize)
+        GeneticsOptimizer(main=self, size=size,
+                          generations=generations).run()
+
+    def run_ensemble_train(self):
+        from .ensemble import EnsembleTrainer
+        n, ratio = self._size_spec(self.args.ensemble_train, 1.0, float)
+        EnsembleTrainer(main=self, instances=n, train_ratio=ratio).run()
+
+    def run_population(self):
+        from .population import PopulationEngine
+        size, generations = self._size_spec(self.args.population)
+        PopulationEngine(main=self, size=size,
+                         generations=generations).run()
+
+    def run_ensemble_test(self):
+        from .ensemble import EnsembleTester
+        EnsembleTester(main=self,
+                       ensemble_file=self.args.ensemble_test).run()
+
     def write_results(self):
         path = self.args.result_file
         if not path:
@@ -348,7 +407,16 @@ class Main(Logger):
                 self.module.__file__)))
             prng.poison_numpy_random()
         try:
-            run_hook(self.load, self.main)
+            if self.args.population:
+                self.run_population()
+            elif self.args.optimize:
+                self.run_genetics()
+            elif self.args.ensemble_train:
+                self.run_ensemble_train()
+            elif self.args.ensemble_test:
+                self.run_ensemble_test()
+            else:
+                run_hook(self.load, self.main)
         except KeyboardInterrupt:
             self.warning("interrupted")
             if self.launcher is not None:

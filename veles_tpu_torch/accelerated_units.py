@@ -25,7 +25,20 @@ CUDA graphs — with the same structure and the same gating:
   their updates by per-tick validity (an all-zero mask) and
   finiteness.  Validation ticks run forward only — the JAX block
   program also differentiates them (and discards the result), so the
-  validation row of ``health_acc`` gets no gradient norm here.
+  validation row of ``health_acc`` gets no gradient norm here;
+* hyperparameter overrides (``execute``/``execute_block`` with
+  ``hypers``, :meth:`StepCompiler._hyper_program`): the GD units'
+  learning rate, decay, momentum or betas come from a float32 tensor
+  instead of the units' Python floats — one population member's genes;
+* the population block (:meth:`StepCompiler.compile_population`):
+  ``torch.func.vmap`` of one tick over a leading member axis of the
+  parameters, the states and the hyperparameter vectors, with the
+  minibatch, the constants and the random generator shared by every
+  member (``randomness="same"``: all members draw the same dropout
+  masks, as the JAX package's broadcast key gives them).  Its train
+  tick differentiates with ``torch.func.grad`` over the same forward
+  (``torch.autograd.grad`` does not compose with ``vmap``); the health
+  row, the non-finite gate and the epoch accumulators are per member.
 
 Tensors stay on the device between ticks; the host reads the epoch
 accumulators at epoch boundaries (and ``step_metrics`` when asked).
@@ -192,6 +205,8 @@ class StepCompiler(object):
         self._outputs = {}
         self._compiled = None
         self._fingerprint = None
+        self._hyper_vals_ = {}    # (names, values) -> hyper vector
+        self._hyper_progs_ = {}   # (mode, names) -> program
 
     # -- graph analysis ----------------------------------------------------
 
@@ -356,9 +371,11 @@ class StepCompiler(object):
             new_states[state_key] = acc
         return finite
 
-    def _apply_updates(self, params, grads, new_states, gate):
+    def _apply_updates(self, params, grads, new_states, gate, hypers=None):
         """Runs every GD unit's update rule; ``gate`` (None or a bool
-        tensor) keeps the old values where it is False."""
+        tensor) keeps the old values where it is False; ``hypers``
+        (``{name: 0-dim tensor}``) overrides the units'
+        hyperparameters."""
         pname = self.param_name
         new_params = dict(params)
         for u in self.forward_units:
@@ -369,7 +386,7 @@ class StepCompiler(object):
                 key = pname(u, attr)
                 gstate = {a: new_states[pname(gd, a)] for a in gd.tstate}
                 new_p, new_gs = gd.tupdate(attr, params[key], grads[key],
-                                           gstate, None)
+                                           gstate, None, hypers=hypers)
                 if gate is not None:
                     new_p = torch.where(gate, new_p, params[key])
                 new_params[key] = new_p
@@ -381,7 +398,7 @@ class StepCompiler(object):
         return new_params, new_states
 
     def _train_tick(self, params, states, batch, consts, generator,
-                    block=False):
+                    block=False, hypers=None):
         """``train_core`` (and, with ``block``, the body of
         ``block_core``): returns (new_params, new_states, metrics)."""
         ctx = StepContext(generator=generator, training=True)
@@ -403,21 +420,55 @@ class StepCompiler(object):
             metrics = {k: v.detach() if isinstance(v, torch.Tensor)
                        else v for k, v in metrics.items()}
             new_states = {k: v.detach() for k, v in new_states.items()}
-            nv = metrics.get("n_valid")
-            valid = None if nv is None else nv > 0
-            gate = valid if block else None
-            if self._health_specs:
-                gnorm = self.global_grad_norm(grads)
-                metrics["grad_norm"] = gnorm
-                finite = self._health_update(
-                    new_states, batch, gnorm, metrics.get("loss"),
-                    valid=valid)
-                metrics["step_finite"] = finite
-                if self._device_skip:
-                    gate = finite if gate is None else gate & finite
-            new_params, new_states = self._apply_updates(
-                params, grads, new_states, gate)
+            return self._finish_train(params, grads, new_states, metrics,
+                                      batch, block, hypers)
+
+    def _finish_train(self, params, grads, new_states, metrics, batch,
+                      block, hypers):
+        """The rest of a train tick after the gradients: the health
+        row, the gate (per-tick validity in block mode, finiteness) and
+        the updates."""
+        nv = metrics.get("n_valid")
+        valid = None if nv is None else nv > 0
+        gate = valid if block else None
+        if self._health_specs:
+            gnorm = self.global_grad_norm(grads)
+            metrics["grad_norm"] = gnorm
+            finite = self._health_update(
+                new_states, batch, gnorm, metrics.get("loss"),
+                valid=valid)
+            metrics["step_finite"] = finite
+            if self._device_skip:
+                gate = finite if gate is None else gate & finite
+        new_params, new_states = self._apply_updates(
+            params, grads, new_states, gate, hypers)
         return new_params, new_states, metrics
+
+    def _member_train(self, params, states, batch, consts, generator,
+                      hypers):
+        """One member's gated block train tick, composable with
+        ``torch.func.vmap``: the gradients by ``torch.func.grad`` over
+        :meth:`_run_forward`, then :meth:`_finish_train` with the
+        member's hyperparameters.  Returns (new_params, new_states)."""
+        def loss_fn(p):
+            ctx = StepContext(generator=generator, training=True)
+            loss, metrics, new_states = self._run_forward(
+                p, states, batch, consts, ctx)
+            if loss is None:
+                raise ValueError(
+                    "no unit called ctx.set_loss() — an evaluator must "
+                    "be present in the step's chain")
+            metrics = {k: v for k, v in metrics.items()
+                       if isinstance(v, torch.Tensor)}
+            return loss, (metrics, new_states)
+
+        grads, (metrics, new_states) = torch.func.grad(
+            loss_fn, has_aux=True)(params)
+        with torch.no_grad():
+            new_params, new_states, _ = self._finish_train(
+                params, grads, dict(new_states), metrics, batch, True,
+                hypers)
+        return new_params, new_states
 
     def _infer_tick(self, params, states, batch, consts, generator):
         """``infer_step``: returns (new_states, metrics)."""
@@ -452,13 +503,21 @@ class StepCompiler(object):
         from . import prng
         return prng.get().torch_generator(self._device())
 
-    def _tick(self, batch, training, block=False):
+    def _tick(self, batch, training, block=False, hypers=None):
         params = {n: v.devmem for n, v in self._param_vecs.items()}
         states = {n: v.devmem for n, v in self._state_vecs.items()}
         consts = {str(id(v)): v.devmem for v in self.const_vectors}
         if training:
-            new_params, new_states, metrics = self._train_tick(
-                params, states, batch, consts, self._generator(), block)
+            if hypers:
+                names, hvals = self._hyper_values(hypers)
+                new_params, new_states, metrics = self._hyper_program(
+                    "block" if block else "train", names)(
+                    params, states, batch, consts, self._generator(),
+                    hvals)
+            else:
+                new_params, new_states, metrics = self._train_tick(
+                    params, states, batch, consts, self._generator(),
+                    block)
             for n, v in self._param_vecs.items():
                 v.devmem = new_params[n]
         else:
@@ -472,30 +531,135 @@ class StepCompiler(object):
         self._outputs = {}
         return metrics
 
-    def execute(self, training=True):
+    def execute(self, training=True, hypers=None):
         """Runs one tick on the loader's current minibatch; returns its
-        metrics (device tensors)."""
+        metrics (device tensors).  ``hypers`` (``{name: float}``, train
+        ticks only) overrides the GD units' hyperparameters through
+        :meth:`_hyper_program`."""
         self._ensure_compiled()
         batch = {str(id(v)): v.devmem for v in self.batch_vectors}
-        return self._tick(batch, training)
+        return self._tick(batch, training, hypers=hypers)
 
-    def execute_block(self, blocks, training):
+    def execute_block(self, blocks, training, hypers=None):
         """Runs K stacked ticks; ``blocks`` maps batch vector id →
         (K, ...) block: a numpy array (the full-batch loader's index
         blocks), uploaded once per block, or a tensor already on the
         step's device (a streamed loader's staged block), taken as it
         is — a tensor on another device raises rather than taking a
         second trip through the host.  Every tick's metrics stay on the
-        device (the evaluator's epoch accumulator)."""
+        device (the evaluator's epoch accumulator).  ``hypers`` as in
+        :meth:`execute`."""
         self._ensure_compiled()
-        device = self._device()
-        blocks = {k: self._block_tensor(k, v, device)
-                  for k, v in blocks.items()}
-        ticks = next(iter(blocks.values())).shape[0] if blocks else 1
-        for t in range(ticks):
+        blocks = self._block_tensors(blocks)
+        for t in range(self._block_ticks(blocks)):
             self._tick({k: v[t] for k, v in blocks.items()}, training,
-                       block=True)
+                       block=True, hypers=hypers)
         return {}
+
+    def _block_tensors(self, blocks):
+        device = self._device()
+        return {k: self._block_tensor(k, v, device)
+                for k, v in blocks.items()}
+
+    @staticmethod
+    def _block_ticks(blocks):
+        return next(iter(blocks.values())).shape[0] if blocks else 1
+
+    # -- hyperparameter overrides and the population block ---------------
+
+    #: Bound of the cache of hyperparameter vectors on the device (one
+    #: per distinct value tuple).
+    HYPER_VALS_CAP = 64
+
+    def _hyper_values(self, hypers):
+        """(names, float32 vector on the step's device) for a
+        ``{name: float}`` override dict, cached per distinct value
+        tuple (least recently used out past ``HYPER_VALS_CAP``)."""
+        names = tuple(sorted(hypers))
+        key = (names, tuple(float(hypers[n]) for n in names))
+        cache = self._hyper_vals_
+        cached = cache.pop(key, None)
+        if cached is None:
+            cached = torch.tensor([hypers[n] for n in names],
+                                  dtype=torch.float32,
+                                  device=self._device())
+        cache[key] = cached
+        while len(cache) > self.HYPER_VALS_CAP:
+            cache.pop(next(iter(cache)))
+        return names, cached
+
+    def _hyper_program(self, mode, names):
+        """A train tick whose GD hyperparameters come from ONE float32
+        vector ``hvals`` aligned with ``names`` — the single-member form
+        of :meth:`compile_population`'s hyperparameters: ``fn(params,
+        states, batch, consts, generator, hvals) -> (new_params,
+        new_states, metrics)``.  ``mode`` "train" is an ungated tick,
+        "block" a tick of a block (gated by its validity).  Cached per
+        (mode, names)."""
+        progs = self._hyper_progs_
+        prog = progs.get((mode, names))
+        if prog is None:
+            block = mode == "block"
+
+            def prog(params, states, batch, consts, generator, hvals):
+                hypers = {n: hvals[i] for i, n in enumerate(names)}
+                return self._train_tick(params, states, batch, consts,
+                                        generator, block, hypers)
+            progs[(mode, names)] = prog
+        return prog
+
+    def compile_population(self, hyper_names):
+        """The population block step over the hyperparameters named by
+        ``hyper_names``: ``fn(pop_params, pop_states, blocks, consts,
+        generator, training, pop_hypers) -> (pop_params, pop_states)``,
+        where every parameter and state carries a leading member axis
+        (:meth:`population_arrays`) and ``pop_hypers`` is a (P,
+        len(hyper_names)) float32 tensor.  Each of the block's ticks is
+        ONE ``torch.func.vmap`` over the members — a train tick through
+        :meth:`_member_train`, a validation tick through the infer tick
+        — with the tick's minibatch, the constants and the generator
+        shared (``randomness="same"``).  The kernels of the path see the
+        members folded into their batch (their ``vmap`` rules)."""
+        self._ensure_compiled()
+        names = tuple(hyper_names)
+
+        def pop_block(pop_params, pop_states, blocks, consts, generator,
+                      training, pop_hypers):
+            blocks = self._block_tensors(blocks)
+            for t in range(self._block_ticks(blocks)):
+                batch = {k: v[t] for k, v in blocks.items()}
+                if training:
+                    def member(p, s, h, batch=batch):
+                        hypers = {n: h[i] for i, n in enumerate(names)}
+                        return self._member_train(p, s, batch, consts,
+                                                  generator, hypers)
+                    pop_params, pop_states = torch.func.vmap(
+                        member, randomness="same")(
+                        pop_params, pop_states, pop_hypers)
+                else:
+                    def member(p, s, batch=batch):
+                        return self._infer_tick(p, s, batch, consts,
+                                                generator)[0]
+                    pop_states = torch.func.vmap(
+                        member, randomness="same")(pop_params,
+                                                   pop_states)
+                self._outputs = {}
+            return pop_params, pop_states
+
+        self._pop_block = pop_block
+        return pop_block
+
+    def population_arrays(self, pop_size):
+        """The current parameters and states tiled to a leading axis of
+        ``pop_size`` members, each member owning its memory (every
+        member starts from the same weights)."""
+        self._ensure_compiled()
+
+        def tile(vectors):
+            return {n: v.devmem.unsqueeze(0).expand(
+                (pop_size,) + tuple(v.devmem.shape)).clone()
+                for n, v in vectors.items()}
+        return tile(self._param_vecs), tile(self._state_vecs)
 
     @staticmethod
     def _block_tensor(key, value, device):
@@ -640,3 +804,41 @@ def params_from_numpy(workflow, arrays):
                     unit_name, attr, arr.shape, vec.shape))
             vec.mem = arr.astype(vec.dtype, copy=True)
     return workflow
+
+
+def population_from_numpy(workflow, arrays):
+    """The population counterpart of :func:`params_from_numpy`: member
+    parameters and states — a leading member axis over every parameter,
+    optimizer slot and accumulator — from ``{unit.name: {attr: (P, ...)
+    ndarray}}`` (e.g. the JAX package's ``population_arrays`` read back
+    to the host).  Returns ``(pop_params, pop_states)`` on the step's
+    device, keyed as :meth:`StepCompiler.population_arrays` keys them:
+    its tiling of the current values, with every array given put in
+    place.  An unknown unit or attribute, another member count or
+    another shape raises."""
+    compiler = workflow.compiler
+    sizes = {numpy.shape(a)[0] for attrs in arrays.values()
+             for a in attrs.values()}
+    if len(sizes) != 1:
+        raise ValueError("population arrays disagree on the member "
+                         "count: %s" % sorted(sizes))
+    pop = sizes.pop()
+    pop_params, pop_states = compiler.population_arrays(pop)
+    by_name = {u.name: u for u in workflow.units}
+    for unit_name, attrs in arrays.items():
+        if unit_name not in by_name:
+            raise KeyError("workflow %s has no unit %r" %
+                           (workflow.name, unit_name))
+        for attr, arr in attrs.items():
+            key = compiler.param_name(by_name[unit_name], attr)
+            target = pop_params if key in pop_params else pop_states
+            if key not in target:
+                raise KeyError("unit %s has no parameter or state %r" %
+                               (unit_name, attr))
+            arr = numpy.asarray(arr)
+            if tuple(arr.shape) != tuple(target[key].shape):
+                raise ValueError("%s: shape %s, expected %s" % (
+                    key, arr.shape, tuple(target[key].shape)))
+            target[key] = torch.as_tensor(arr.copy()).to(
+                device=target[key].device, dtype=target[key].dtype)
+    return pop_params, pop_states

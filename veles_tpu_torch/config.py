@@ -11,8 +11,13 @@ the same names and defaults as the JAX package.  Unlike the JAX
 package it executes no site or user configuration file; the command
 line applies config files and ``root.x=y`` overrides in argv order
 (``__main__.apply_config_sources``), with ``root`` and :class:`Tune` in
-scope.
+scope.  :func:`override_scope` applies dotted-path leaf overrides for the
+length of a ``with`` block and puts the prior leaves back after it (the
+genetics, ensemble and population runs vary the tree per member with
+it).
 """
+
+import contextlib
 
 PROTECTED_KEYS = {"update", "keys", "items", "path_str", "as_dict",
                   "reset"}
@@ -121,6 +126,34 @@ def get(value, default=None):
     if isinstance(value, Tune):
         return value.default
     return value
+
+
+@contextlib.contextmanager
+def override_scope(node, overrides):
+    """Applies ``{dotted.path: value}`` leaf overrides under ``node`` and
+    restores the exact prior leaves on exit: values that were set
+    (``Tune`` objects included) are put back by object, and leaves that
+    did not exist are deleted again.  Intermediate nodes vivified by the
+    walk stay (an empty node reads as unset)."""
+    saved = []  # (parent, leaf, existed, old value) in apply order
+    try:
+        for path, value in overrides.items():
+            parts = path.split(".")
+            parent = node
+            for part in parts[:-1]:
+                parent = getattr(parent, part)
+            leaf = parts[-1]
+            existed = leaf in parent.__dict__
+            saved.append((parent, leaf, existed,
+                          parent.__dict__.get(leaf)))
+            setattr(parent, leaf, value)
+        yield
+    finally:
+        for parent, leaf, existed, old in reversed(saved):
+            if existed:
+                object.__setattr__(parent, leaf, old)
+            elif leaf in parent.__dict__:
+                object.__delattr__(parent, leaf)
 
 
 #: The global configuration root.

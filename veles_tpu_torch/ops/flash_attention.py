@@ -19,7 +19,12 @@ The port of the TPU kernels ``_fwd_kernel``, ``_dq_kernel`` and
   ``torch.autograd.Function`` whose backward runs the dq and dk/dv
   wrappers and accepts the lse cotangent), :func:`flash_attention`
   (``out`` only — the JAX package's ``pallas_attention``),
-  :func:`merge_partials` and :func:`flash_resume`.
+  :func:`merge_partials` and :func:`flash_resume`.  The forward and the
+  backward Functions carry ``vmap`` rules, so they run under
+  ``torch.func.vmap`` and ``torch.func.grad`` (the population step):
+  the members fold into the batch of q, k, v, ``out``, ``lse`` and the
+  cotangents, ``(P·B, S, H, D)``, and each kernel launches once for
+  every member; the offsets and ``kv_len`` are shared.
 
 The kernels are CUDA C++ for ``sm_90a``, built at first use by
 :mod:`.nvcc`, on two routes:
@@ -52,6 +57,7 @@ import threading
 import torch
 
 from . import nvcc
+from .lrn import fold_mapped
 
 #: Largest head dim the kernels take.
 MAX_HEAD_DIM = 128
@@ -341,28 +347,80 @@ reset_launches()
 
 
 class _FlashLSE(torch.autograd.Function):
-    """``_flash_lse``: (out, lse) forward; the backward recomputes the
-    probabilities from the saved lse and folds the lse cotangent into
-    the delta row (``delta = Σ dO·O − g_lse``), so autodiff through a
-    chunk + :func:`merge_partials` composition is exact."""
+    """``_flash_lse``: (out, lse) forward; the backward
+    (:class:`_FlashGrad`) recomputes the probabilities from the saved
+    lse and folds the lse cotangent into the delta row (``delta = Σ dO·O
+    − g_lse``), so autodiff through a chunk + :func:`merge_partials`
+    composition is exact.  Under ``vmap`` the members fold into the
+    batch axis."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, q_offset, k_offset, kv_len, od):
-        out, lse = flash_forward(q, k, v, causal, q_offset, k_offset,
-                                 kv_len, od)
+    def forward(q, k, v, causal, q_offset, k_offset, kv_len, od):
+        return flash_forward(q, k, v, causal, q_offset, k_offset,
+                             kv_len, od)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        q, k, v, causal, q_offset, k_offset, kv_len, od = inputs
+        out, lse = output
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.args = (causal, q_offset, k_offset, kv_len, od)
-        return out, lse
 
     @staticmethod
     def backward(ctx, dout, dlse):
         q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = _FlashGrad.apply(q, k, v, out, lse, dout, dlse,
+                                      *ctx.args)
+        return dq, dk, dv, None, None, None, None, None
+
+    @staticmethod
+    def vmap(info, in_dims, q, k, v, causal, q_offset, k_offset, kv_len,
+             od):
+        args = (causal, q_offset, k_offset, kv_len, od)
+        if all(d is None for d in in_dims[:3]):
+            return _FlashLSE.apply(q, k, v, *args), (None, None)
+        folded, unfold = fold_mapped((q, k, v), in_dims[:3],
+                                     info.batch_size)
+        out, lse = _FlashLSE.apply(*folded, *args)
+        return (unfold(out), unfold(lse)), (0, 0)
+
+
+class _FlashGrad(torch.autograd.Function):
+    """The backward kernels (dq, then dk/dv) as a Function of their own,
+    so that the backward of a ``vmap(grad(...))`` folds the members into
+    one launch of each too.  Not differentiable again."""
+
+    @staticmethod
+    def forward(q, k, v, out, lse, dout, dlse, causal, q_offset,
+                k_offset, kv_len, od):
         # The small elementwise pass the JAX package leaves to XLA.
         delta = (dout.float() * out.float()).sum(dim=-1) - dlse.float()
         dout = dout.to(q.dtype)
-        dq = flash_dq(q, k, v, dout, lse, delta, *ctx.args)
-        dk, dv = flash_dkv(q, k, v, dout, lse, delta, *ctx.args)
-        return dq, dk, dv, None, None, None, None, None
+        args = (causal, q_offset, k_offset, kv_len, od)
+        dq = flash_dq(q, k, v, dout, lse, delta, *args)
+        dk, dv = flash_dkv(q, k, v, dout, lse, delta, *args)
+        return dq, dk, dv
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, ddq, ddk, ddv):
+        raise NotImplementedError("the flash-attention backward kernels "
+                                  "have no derivative of their own")
+
+    @staticmethod
+    def vmap(info, in_dims, q, k, v, out, lse, dout, dlse, causal,
+             q_offset, k_offset, kv_len, od):
+        args = (causal, q_offset, k_offset, kv_len, od)
+        tensors = (q, k, v, out, lse, dout, dlse)
+        if all(d is None for d in in_dims[:7]):
+            return _FlashGrad.apply(*tensors, *args), (None, None, None)
+        folded, unfold = fold_mapped(tensors, in_dims[:7],
+                                     info.batch_size)
+        dq, dk, dv = _FlashGrad.apply(*folded, *args)
+        return (unfold(dq), unfold(dk), unfold(dv)), (0, 0, 0)
 
 
 def flash_chunk(q, k, v, causal=False, q_offset=0, k_offset=0,

@@ -29,7 +29,13 @@ over the last (channel) axis.  What lives here:
   every other call; the two agree bit for bit;
 * :func:`lrn`, the dispatch: a CPU tensor takes :func:`lrn_reference`;
   a CUDA tensor goes through a ``torch.autograd.Function`` whose
-  forward launches B6 and whose backward launches B7.
+  forward launches B6 and whose backward launches B7 (a Function of its
+  own).  Both Functions carry a ``vmap`` rule, so they run under
+  ``torch.func.vmap`` and ``torch.func.grad`` (the population step): the
+  rule moves the mapped axis in front of the leading axes — the members
+  folded into the batch, ``(P·N, H, W, C)`` — and launches the kernel
+  once for every member; the LRN is independent per row of C channels,
+  so the fold computes what P launches would.
 
 There is no availability probe: on a CUDA tensor a missing ``nvcc``, a
 build or launch error, an unsupported dtype or a channel count outside
@@ -249,21 +255,82 @@ def reset_launches():
 reset_launches()
 
 
+def fold_mapped(tensors, in_dims, size):
+    """The ``vmap`` rule's fold: every tensor with its mapped axis moved
+    to the front (an unmapped one expanded to ``size``) and merged with
+    the next axis, ``(P, N, ...) -> (P·N, ...)``.  Returns the folded
+    tensors and the unfold of a result, ``(P·N, ...) -> (P, N, ...)``.
+    Raises for a member tensor of fewer than two axes (no batch axis
+    before the last one to fold into)."""
+    folded = []
+    for t, dim in zip(tensors, in_dims):
+        t = t.unsqueeze(0).expand((size,) + tuple(t.shape)) \
+            if dim is None else t.movedim(dim, 0)
+        if t.dim() < 3:
+            raise ValueError("vmap rule: cannot fold the mapped axis of "
+                             "a %d-axis operand into a batch axis" %
+                             (t.dim() - 1))
+        folded.append(t.reshape((-1,) + tuple(t.shape[2:])))
+
+    def unfold(out):
+        return out.reshape((size, -1) + tuple(out.shape[1:]))
+    return folded, unfold
+
+
 class _LRN(torch.autograd.Function):
     """``lrn_pallas``'s custom VJP: the forward kernel saves x, the
-    backward kernel recomputes the denominator from it."""
+    backward kernel (:class:`_LRNGrad`) recomputes the denominator from
+    it.  Under ``vmap`` the members fold into the batch axis."""
 
     @staticmethod
-    def forward(ctx, x, n, alpha, beta, k):
+    def forward(x, n, alpha, beta, k):
+        return lrn_forward(x, n, alpha, beta, k)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, n, alpha, beta, k = inputs
         ctx.save_for_backward(x)
         ctx.args = (n, alpha, beta, k)
-        return lrn_forward(x, n, alpha, beta, k)
 
     @staticmethod
     def backward(ctx, dy):
         x, = ctx.saved_tensors
-        return (lrn_backward(x, dy.to(x.dtype), *ctx.args), None, None,
+        return (_LRNGrad.apply(x, dy.to(x.dtype), *ctx.args), None, None,
                 None, None)
+
+    @staticmethod
+    def vmap(info, in_dims, x, n, alpha, beta, k):
+        if in_dims[0] is None:
+            return _LRN.apply(x, n, alpha, beta, k), None
+        (xf,), unfold = fold_mapped((x,), in_dims[:1], info.batch_size)
+        return unfold(_LRN.apply(xf, n, alpha, beta, k)), 0
+
+
+class _LRNGrad(torch.autograd.Function):
+    """The backward kernel as a Function of its own, so that the
+    backward of a ``vmap(grad(...))`` folds the members into one launch
+    too.  It is not differentiable again."""
+
+    @staticmethod
+    def forward(x, dy, n, alpha, beta, k):
+        return lrn_backward(x, dy, n, alpha, beta, k)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, ddx):
+        raise NotImplementedError("the LRN backward kernel has no "
+                                  "derivative of its own")
+
+    @staticmethod
+    def vmap(info, in_dims, x, dy, n, alpha, beta, k):
+        if in_dims[0] is None and in_dims[1] is None:
+            return _LRNGrad.apply(x, dy, n, alpha, beta, k), None
+        (xf, dyf), unfold = fold_mapped((x, dy), in_dims[:2],
+                                        info.batch_size)
+        return unfold(_LRNGrad.apply(xf, dyf, n, alpha, beta, k)), 0
 
 
 def lrn(x, n, alpha, beta, k):

@@ -6,7 +6,9 @@ hand-written flash kernels on the card — a tied LM head and the
 next-token evaluator, plus their gradient-descent units.  Each block
 can rematerialize (``torch.utils.checkpoint``, non-reentrant): its
 forward runs again inside the backward instead of keeping its
-activations.
+activations — except under a ``torch.func`` transform (the population
+step), whose ``grad`` does not take the checkpoint's saved-tensor hooks:
+there every block keeps its activations.
 
 At ``precision_level`` 0 the activation stream is bfloat16 and every
 projection multiplies bfloat16-rounded operands with a float32 result,
@@ -285,7 +287,8 @@ class TransformerBlock(ForwardBase):
                 p, h, self.n_heads, self.causal, self.compute_dtype,
                 attend=self._attend)
 
-        if remat_enabled(self.remat) and torch.is_grad_enabled():
+        if remat_enabled(self.remat) and torch.is_grad_enabled() and \
+                not torch._C._functorch.is_functorch_wrapped_tensor(x):
             out = checkpoint(apply, params, x, use_reentrant=False)
         else:
             out = apply(params, x)

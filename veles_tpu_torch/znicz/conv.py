@@ -83,13 +83,17 @@ def nhwc(x):
 def conv2d_nhwc(x, w, sliding, padding):
     """NHWC input, HWIO weights → NHWC output; ``padding`` is
     ((top, bottom), (left, right)), asymmetric padding taken by an
-    explicit zero pad."""
+    explicit zero pad.  The weights go to the convolution channels-last,
+    except under a ``torch.func`` transform (the population step), which
+    cannot lay a mapped tensor out by memory format: there the
+    convolution takes the permuted view."""
     (pt, pb), (pl, pr) = padding
     if pt != pb or pl != pr:
         x = F.pad(x, (0, 0, pl, pr, pt, pb))
         pt = pl = 0
-    weight = w.permute(3, 2, 0, 1).contiguous(
-        memory_format=torch.channels_last)
+    weight = w.permute(3, 2, 0, 1)
+    if not torch._C._functorch.is_functorch_wrapped_tensor(weight):
+        weight = weight.contiguous(memory_format=torch.channels_last)
     return nhwc(F.conv2d(nchw(x), weight, stride=sliding,
                          padding=(pt, pl)))
 

@@ -160,7 +160,11 @@ class EvaluatorSoftmax(EvaluatorBase):
         if state is not None and "capture" in state:
             idx = read(self.sample_indices).long()
             trash = state["capture"].shape[0] - 1
-            safe = torch.where(mask > 0, idx, torch.full_like(idx, trash))
+            # Padded lanes, and samples past the buffer (a train subset
+            # keeps the dataset's indices; the JAX package's scatter
+            # drops them), go to the trash row.
+            safe = torch.where((mask > 0) & (idx < trash), idx,
+                               torch.full_like(idx, trash))
             updates = dict(updates or {})
             updates["capture"] = state["capture"].index_put(
                 (safe,), torch.exp(logp) * mask[:, None])

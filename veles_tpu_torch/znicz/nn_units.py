@@ -150,6 +150,13 @@ class GradientDescentBase(TracedUnit, metaclass=GDUnitRegistry):
         self.gradient_moment = kwargs.get("gradient_moment", 0.0)
         self.gradient_moment_bias = kwargs.get(
             "gradient_moment_bias", self.gradient_moment)
+        #: Whether a bias hyper was left to follow its plain value at
+        #: construction: only then does a tensor override of the plain
+        #: hyper (the population step) reach the bias too.
+        self._bias_tied = {
+            "learning_rate": "learning_rate_bias" not in kwargs,
+            "gradient_moment": "gradient_moment_bias" not in kwargs,
+        }
         self._velocities = {}
 
     @property
@@ -195,27 +202,64 @@ class GradientDescentBase(TracedUnit, metaclass=GDUnitRegistry):
                     v.initialize(self.device)
                     self._velocities[slot] = v
 
-    def _hyper(self, attr):
-        """(learning rate, weight decay, momentum) of ``attr``: the
-        bias trio for "bias", the main trio otherwise."""
-        if attr == "bias":
-            return (self.learning_rate_bias, self.weights_decay_bias,
-                    self.gradient_moment_bias)
-        return (self.learning_rate, self.weights_decay,
-                self.gradient_moment)
+    def _bias_ties(self):
+        """The construction-time ties of the bias hypers; a snapshot
+        from before they were recorded ties by value equality."""
+        ties = getattr(self, "_bias_tied", None)
+        if ties is None:
+            ties = {"learning_rate":
+                    self.learning_rate_bias == self.learning_rate,
+                    "gradient_moment":
+                    self.gradient_moment_bias == self.gradient_moment}
+        return ties
 
-    def _hyper_dict(self, attr):
-        """The hyperparameter dict handed to the optimizer's rule."""
-        lr, decay, moment = self._hyper(attr)
+    def _hyper(self, attr, hypers=None):
+        """(learning rate, weight decay, momentum) of ``attr``: the
+        bias trio for "bias", the main trio otherwise.  ``hypers``
+        (``{name: 0-dim tensor}``, the population step) overrides them:
+        ``name + "_bias"`` the bias trio, and a plain name the bias
+        trio too where the bias value is tied to the plain one
+        (``weights_decay_bias`` never is)."""
+        if attr == "bias":
+            own = (self.learning_rate_bias, self.weights_decay_bias,
+                   self.gradient_moment_bias)
+            suffix = "_bias"
+        else:
+            own = (self.learning_rate, self.weights_decay,
+                   self.gradient_moment)
+            suffix = ""
+        if not hypers:
+            return own
+        out = []
+        for name, own_v in zip(("learning_rate", "weights_decay",
+                                "gradient_moment"), own):
+            if suffix:
+                tied = self._bias_ties().get(name, False)
+                fallback = hypers.get(name, own_v) if tied else own_v
+                out.append(hypers.get(name + suffix, fallback))
+            else:
+                out.append(hypers.get(name, own_v))
+        return tuple(out)
+
+    def _hyper_dict(self, attr, hypers=None):
+        """The hyperparameter dict handed to the optimizer's rule, each
+        entry overridable by a tensor of ``hypers``."""
+        lr, decay, moment = self._hyper(attr, hypers)
         out = {"learning_rate": lr, "weights_decay": decay,
                "gradient_moment": moment}
         defaults = self.optimizer_obj.HYPER_DEFAULTS
         for name in ("beta1", "beta2", "eps"):
+            if hypers and name in hypers:
+                out[name] = hypers[name]
+                continue
             own = getattr(self, name, None)
             out[name] = defaults.get(name) if own is None else own
         return out
 
-    def tupdate(self, attr, param, grad, state, ctx):
-        """Applies this unit's optimizer rule to one parameter."""
-        return self.optimizer_obj.update(attr, param, grad, state,
-                                         self._hyper_dict(attr))
+    def tupdate(self, attr, param, grad, state, ctx, hypers=None):
+        """Applies this unit's optimizer rule to one parameter;
+        ``hypers`` overrides the Python-float hyperparameters with
+        tensors (the population step, where they differ per member)."""
+        return self.optimizer_obj.update(
+            attr, param, grad, state, self._hyper_dict(attr, hypers),
+            traced=bool(hypers))

@@ -6,8 +6,14 @@ Every optimizer declares its slot names — ``velocity_<param>``,
 ``tstate`` Vectors of the gradient-descent units, with the JAX
 package's names, so :func:`~veles_tpu_torch.accelerated_units.
 params_from_numpy` carries them across.  The update rule is a function
-``update(attr, param, grad, state, hyper) -> (new_param, new_slots)``
-of device tensors and Python-float hyperparameters.
+``update(attr, param, grad, state, hyper, traced=False) -> (new_param,
+new_slots)`` of device tensors and Python-float hyperparameters — or,
+with ``traced``, 0-dim tensors (the vmapped population step, where a
+hyperparameter is a per-member input and no Python truth test may
+touch it).  Each optimizer also declares which hyperparameters it reads
+(``CONSUMED_HYPERS``), which the genetics may tune beyond the classic
+learning rate / decay / momentum (``EXTRA_HYPERS``), and which need a
+slot to have any effect (``SLOT_BACKED_HYPERS``).
 
 ``sgd`` (momentum SGD with L2 decay, the znicz rule) is the default.
 """
@@ -76,6 +82,15 @@ class Optimizer(object):
     NAME = None
     #: Slot-name prefixes this optimizer owns (unique per kind).
     SLOT_PREFIXES = ()
+    #: Hyper leaf names beyond learning_rate/weights_decay/
+    #: gradient_moment that the vmapped genetics may tune.
+    EXTRA_HYPERS = ()
+    #: Hyper names this rule reads (tuning one no unit's optimizer
+    #: reads is a configuration error).
+    CONSUMED_HYPERS = ("learning_rate", "weights_decay")
+    #: hyper name → slot prefix that must be allocated for the hyper to
+    #: have any effect.
+    SLOT_BACKED_HYPERS = {}
     #: Defaults of beta1/beta2/eps when the GD unit does not set them.
     HYPER_DEFAULTS = {}
 
@@ -84,9 +99,10 @@ class Optimizer(object):
         ``vec``) on GD unit ``gd``: yields ``(name, shape, dtype)``."""
         return ()
 
-    def update(self, attr, param, grad, state, hyper):
+    def update(self, attr, param, grad, state, hyper, traced=False):
         """Returns ``(new_param, new_slots)``; ``hyper`` holds
-        learning_rate/weights_decay/gradient_moment/beta1/beta2/eps."""
+        learning_rate/weights_decay/gradient_moment/beta1/beta2/eps —
+        Python floats, or 0-dim tensors when ``traced``."""
         raise NotImplementedError()
 
 
@@ -96,17 +112,28 @@ class SGD(Optimizer):
 
     NAME = "sgd"
     SLOT_PREFIXES = ("velocity_",)
+    CONSUMED_HYPERS = ("learning_rate", "weights_decay",
+                       "gradient_moment")
+    SLOT_BACKED_HYPERS = {"gradient_moment": "velocity_"}
 
     def slots(self, attr, vec, gd):
         # Velocities exist only when the unit has any momentum at all.
         if gd.gradient_moment or gd.gradient_moment_bias:
             yield "velocity_" + attr, vec.shape, vec.dtype
 
-    def update(self, attr, param, grad, state, hyper):
+    def update(self, attr, param, grad, state, hyper, traced=False):
         lr = hyper["learning_rate"]
         decay = hyper["weights_decay"]
         moment = hyper["gradient_moment"]
         slot = "velocity_" + attr
+        if traced:
+            # Tensor hypers: the momentum branch is decided by the
+            # presence of the slot alone.
+            g = grad + decay * param
+            if slot in state:
+                v = moment * state[slot] - lr * g
+                return param + v, {slot: v}
+            return param - lr * g, {}
         g = grad + decay * param if decay else grad
         if moment and slot in state:
             v = moment * state[slot] - lr * g
@@ -123,6 +150,9 @@ class Adam(Optimizer):
 
     NAME = "adam"
     SLOT_PREFIXES = ("adam_m_", "adam_v_", "adam_t_")
+    EXTRA_HYPERS = ("beta1", "beta2", "eps")
+    CONSUMED_HYPERS = ("learning_rate", "weights_decay",
+                       "beta1", "beta2", "eps")
     HYPER_DEFAULTS = {"beta1": 0.9, "beta2": 0.999, "eps": 1e-8}
 
     def slots(self, attr, vec, gd):
@@ -142,9 +172,9 @@ class Adam(Optimizer):
         return direction, {"adam_m_" + attr: m, "adam_v_" + attr: v,
                            "adam_t_" + attr: t}
 
-    def update(self, attr, param, grad, state, hyper):
+    def update(self, attr, param, grad, state, hyper, traced=False):
         lr, decay = hyper["learning_rate"], hyper["weights_decay"]
-        g = grad + decay * param if decay else grad
+        g = grad + decay * param if (traced or decay) else grad
         direction, new_slots = self._moments(attr, g, state, hyper)
         return param - (lr * direction).to(param.dtype), new_slots
 
@@ -156,7 +186,7 @@ class AdamW(Adam):
 
     NAME = "adamw"
 
-    def update(self, attr, param, grad, state, hyper):
+    def update(self, attr, param, grad, state, hyper, traced=False):
         lr, decay = hyper["learning_rate"], hyper["weights_decay"]
         direction, new_slots = self._moments(attr, grad, state, hyper)
         step = lr * direction + (lr * decay) * param
@@ -170,12 +200,15 @@ class Lion(Optimizer):
 
     NAME = "lion"
     SLOT_PREFIXES = ("lion_m_",)
+    EXTRA_HYPERS = ("beta1", "beta2")
+    CONSUMED_HYPERS = ("learning_rate", "weights_decay",
+                       "beta1", "beta2")
     HYPER_DEFAULTS = {"beta1": 0.9, "beta2": 0.99}
 
     def slots(self, attr, vec, gd):
         yield "lion_m_" + attr, vec.shape, numpy.float32
 
-    def update(self, attr, param, grad, state, hyper):
+    def update(self, attr, param, grad, state, hyper, traced=False):
         lr, decay = hyper["learning_rate"], hyper["weights_decay"]
         b1, b2 = hyper["beta1"], hyper["beta2"]
         m = state["lion_m_" + attr]
