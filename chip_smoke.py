@@ -5,6 +5,10 @@ Run from the root of a checkout, on a machine with one CUDA card:
 
     python3 chip_smoke.py
 
+(``python3 chip_smoke.py --ranks 4`` on a machine with four cards runs
+only the build and the parallel styles as four NCCL ranks, each style's
+ticks held to the unsplit tick on card 0: ``phase_ranks``.)
+
 It drives the port's paths once each, at full width — training
 the TinyLM workflow through the fused tick and serving an exported LM,
 both at the LM bench geometry (embed 2048, 16 heads of dim 128, MLP
@@ -139,6 +143,25 @@ any failure exits non-zero:
    command line with ``--optimize 4:2``, ``--population 4:2`` and
    ``--ensemble-train 2:0.8`` with ``--ensemble-test``, their result
    files checked;
+8p. parallelism — a one-rank NCCL world joined through the port's
+   launcher with ``--jax-coordinator/--jax-num-processes/
+   --jax-process-id``; (a) the MoE TinyLM at the bench width (2 blocks,
+   top-2 of 8 experts, dp×ep): one validation and two train ticks with
+   B1-B3, each again from the same state with the plain attention
+   (losses within phase 5's rtol), B1-B3 launches as the ticks imply;
+   (b) the pipelined TinyLM (2 stacked blocks, 1F1B over 4
+   microbatches, dp×pp): its ticks held to the sequential stack's from
+   the same state (losses, parameters within phase 5's bound), B1-B3
+   launches as the schedule implies, then exported — unstacked into
+   transformer blocks — and served to a wave through the paged engine,
+   token-identical to the export of the same weights as a sequential
+   TinyLM, B4 launches as the wave implies; (c) the ring's chunk loop at
+   N = 2 and 4 virtual ranks (``ops.attention.ring_step`` at offsets
+   rank·S/N and src·S/N, the training shape): B1 at every offset pair
+   the loop implies, N² launches of each kernel, the out and gradients
+   held to the plain chunks, the whole-sequence B1-B3 and the plain
+   attention (``RING_DTYPES``); (d) MNIST through the command line with
+   the ``--jax-*`` flags in the world;
 9. quantized serving — a second artifact (another seed) is written;
    the first is served with ``--kv-dtype int8 --weight-dtype int8
    --spec --warmup`` (and once without ``--spec``) to the mixed wave
@@ -3389,8 +3412,9 @@ def phase_serving(workdir, smi):
 #: package's does, and a 12-block artifact holds its ~2.6 GB of float32
 #: weights twice (weights.npz and model.bin), which one host thread
 #: compresses at a few tens of MB/s — minutes the run's time limit does
-#: not have.  The width is the bench's.
-INWF_BLOCKS, INWF_TICKS = 2, 2
+#: not have (two blocks took 73.5–80.8 s; one block leaves room for
+#: phase 8p).  The width is the bench's.
+INWF_BLOCKS, INWF_TICKS = 1, 2
 #: ``export_workflow``'s default, which the unit writes with.
 INWF_GZIP_LEVEL = 9
 #: The flags a user serving from inside the workflow gives.
@@ -4297,6 +4321,771 @@ def phase_population(workdir, smi):
 #: at --spec-max-k 4 (verifies of up to 5 columns).  Beside the mixed wave,
 #: two prompts that repeat a short pattern, where the n-gram drafter
 #: finds its matches.
+#: Phase 8p: the parallel styles on a one-rank NCCL world at the bench
+#: width (embed 2048, 16 heads of 128, MLP 8192, vocab 16384, 1024
+#: positions, batch 8), cut to PAR_BLOCKS of the bench's 12 blocks as
+#: phase 7r is.  The MoE TinyLM routes top-PAR_TOPK of PAR_EXPERTS
+#: experts (bench.py's --moe-topk geometry); the pipelined TinyLM runs
+#: 1F1B over PAR_MICRO microbatches.
+PAR_BLOCKS, PAR_TICKS = 2, 2
+PAR_EXPERTS, PAR_TOPK, PAR_MICRO = 8, 2, 4
+#: The ring's virtual rank counts, at the training shape.
+RING_NS = (2, 4)
+
+
+def par_tinylm(launcher, seed, **kwargs):
+    """The bench-width TinyLM of phase 8p (``kwargs`` pick the MoE or
+    the pipelined stack) on ``launcher``, seeded."""
+    from veles_tpu_torch import prng
+    from veles_tpu_torch.znicz.samples.tinylm import TinyLMWorkflow
+    prng.reset()
+    prng.get(0).seed(seed)
+    return TinyLMWorkflow(
+        launcher, vocab_size=VOCAB, seq_len=POSITIONS, embed_dim=EMBED,
+        n_heads=HEADS, n_blocks=PAR_BLOCKS, minibatch_size=TRAIN_BATCH,
+        ticks_per_dispatch=1, max_epochs=1,
+        loader_cls=synthetic_corpus(TRAIN_BATCH, TRAIN_BATCH * PAR_TICKS),
+        loader_config={"validate_labels": False}, **kwargs)
+
+
+class TickRecorder(object):
+    """Wraps a compiler's ``execute``: each tick's class, loss, seconds,
+    the state before it (device clones, the partitioned slots gathered
+    first) and its minibatch; :meth:`replay` runs a recorded tick again
+    from its state."""
+
+    def __init__(self, compiler):
+        self.compiler = compiler
+        self.execute = compiler.execute
+        self.ticks = []
+        compiler.execute = self._run
+
+    def state(self):
+        c = self.compiler
+        c._ensure_compiled()
+        c.gather_state()
+        return {n: v.devmem.clone() for n, v in
+                list(c._param_vecs.items()) + list(c._state_vecs.items())}
+
+    def _run(self, training=True):
+        import torch
+        before = self.state()
+        batch = [v.mem.copy() for v in self.compiler.batch_vectors]
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        metrics = self.execute(training=training)
+        loss = float(metrics["loss"])
+        torch.cuda.synchronize()
+        self.ticks.append((training, loss, time.monotonic() - t0, before,
+                           batch))
+        return metrics
+
+    def restore(self, state, batch):
+        c = self.compiler
+        c._held = {}
+        for n, v in list(c._param_vecs.items()) + \
+                list(c._state_vecs.items()):
+            v.devmem = state[n].clone()
+        for vec, arr in zip(c.batch_vectors, batch):
+            vec.mem = arr
+
+    def replay(self):
+        """Every recorded tick again from its state: (losses, the
+        parameters after each train tick)."""
+        losses, afters = [], []
+        for training, _, _, before, batch in self.ticks:
+            self.restore(before, batch)
+            losses.append(float(self.execute(training=training)["loss"]))
+            if training:
+                afters.append({n: v.devmem.clone() for n, v in
+                               self.compiler._param_vecs.items()})
+        return losses, afters
+
+    def close(self):
+        self.compiler.execute = self.execute
+
+
+def flash_counts():
+    from veles_tpu_torch.ops import flash_attention as FA
+    return {"flash_forward": FA.flash_forward.launches,
+            "flash_dq": FA.flash_dq.launches,
+            "flash_dkv": FA.flash_dkv.launches}
+
+
+def param_gaps(afters, others, befores):
+    """name -> max over the train ticks of gap / (TRAIN_CHANGE_TOL ·
+    change + TRAIN_FLOOR · sqrt(n)): above 1 fails phase 5's gate."""
+    import math
+    worst = {}
+    for after, other, before in zip(afters, others, befores):
+        for name, now in other.items():
+            gap = (after[name] - now).norm().item()
+            change = (now - before[name]).norm().item()
+            bound = TRAIN_CHANGE_TOL * change + \
+                TRAIN_FLOOR * math.sqrt(now.numel())
+            worst[name] = max(worst.get(name, 0.0), gap / bound)
+    return worst
+
+
+#: The ring check's dtype pairs (storage/operands).  On the FP32 units
+#: (f32/f32) the ring's out and gradients are held to the same loop
+#: through the kernels' plain versions, to the whole-sequence B1-B3 and
+#: to the plain attention at float32 tolerance.  With bf16 operands a
+#: chunk's backward rounds its cotangent exp(lse_i - lse)·dO to bf16, and
+#: two chains whose forwards (lse) differ in the last f32 bits round some
+#: of those elements to neighbouring bf16 values: the kernels' gradients
+#: read 1.6-2.2x of the bf16 tolerance against the plain chunks and the
+#: whole sequence alike, but 0.54-0.83x against the plain backward on the
+#: kernels' own forward ("kernel_fwd"), which rounds the same cotangents
+#: (NVIDIA H100 80GB HBM3).  So that pair's out is gated against the
+#: plain chunks and the whole sequence, and its out and gradients against
+#: kernel_fwd.  The training pair (bf16 storage, N = 4) also rounds each
+#: chunk's gradient to bf16 before autograd sums the chunks: it reads
+#: those shares.  Every pair gates the ring's relative L2 error against
+#: the float32 plain attention at RING_L2_LIMIT times the plain chunks'
+#: (read 1.000-1.001 with bf16 operands or storage; both chains 2.4x
+#: the whole sequence's, which rounds once, in the training pair) plus
+#: RING_L2_FLOOR, and a control with the merge's lse cotangent dropped
+#: must fail both gates.  Every pair's launches and offsets are gated.
+RING_L2_LIMIT, RING_L2_FLOOR = 1.1, 1e-6
+RING_DTYPES = ("f32/f32", "f32/bf16")
+
+
+def plain_chunk(forward=None):
+    """The chunk contract (``flash_chunk``: ``(out, lse)``, the lse
+    cotangent folded into delta) through the kernels' plain backward —
+    the plain version of one ring step.  ``forward``: the chunk's
+    ``(out, lse)`` (default the plain forward; ``flash_forward`` gives
+    the kernel's own)."""
+    import torch
+    from veles_tpu_torch.ops import flash_attention as FA
+    forward = forward or FA.flash_attention_reference
+
+    class PlainChunk(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, q, k, v, causal, q_off, k_off, od):
+            out, lse = forward(q, k, v, causal, q_off, k_off, None, od)
+            ctx.save_for_backward(q, k, v, out, lse)
+            ctx.args = (causal, q_off, k_off, None, od)
+            return out, lse
+
+        @staticmethod
+        def backward(ctx, dout, dlse):
+            q, k, v, out, lse = ctx.saved_tensors
+            delta = (dout.float() * out.float()).sum(dim=-1) - dlse.float()
+            dout = dout.to(q.dtype)
+            dq = FA.flash_attention_dq_reference(q, k, v, dout, lse, delta,
+                                                 *ctx.args)
+            dk, dv = FA.flash_attention_dkv_reference(q, k, v, dout, lse,
+                                                      delta, *ctx.args)
+            return dq, dk, dv, None, None, None, None
+
+    def step(carry, q, k, v, causal, q_off, k_off, od):
+        o, lse = PlainChunk.apply(q, k, v, causal, q_off, k_off, od)
+        if carry is None:
+            return o.float(), lse
+        return FA.merge_partials(carry[0], carry[1], o, lse)
+    return step
+
+
+def no_lse_cotangent_step(carry, q, k, v, causal, q_off, k_off, od):
+    """``ring_step`` with the merge's lse cotangent dropped: the ring
+    check's control, a fault its gate must see."""
+    from veles_tpu_torch.ops import flash_attention as FA
+    o, lse = FA.flash_chunk(q, k, v, causal=causal, q_offset=q_off,
+                            k_offset=k_off, operand_dtype=od)
+    if carry is None:
+        return o.float(), lse.detach()
+    return FA.merge_partials(carry[0], carry[1], o, lse.detach())
+
+
+def ring_check(N, label, gen, smi):
+    """The ring's chunk loop at N virtual ranks in one process: rank r
+    holds the r-th S/N shard of q, k, v (the training shape, causal,
+    the ``label`` dtype pair) and at step s folds the k/v shard of rank
+    (r − s) mod N through ``ops.attention.ring_step`` at offsets r·S/N
+    and src·S/N.  The merged out and the q/k/v gradients are compared
+    with the same loop through the plain chunk, through the plain
+    backward on the kernels' forward, the whole-sequence B1-B3 and the
+    plain attention (see ``RING_DTYPES`` for which are gated), and each
+    chain's relative L2 error against the float32 plain attention is
+    read and gated against the plain chunks'.  Returns the numbers (the
+    offsets the launches ran at included)."""
+    import torch
+    from veles_tpu_torch.ops import attention as A
+    from veles_tpu_torch.ops import flash_attention as FA
+    B, S, H, D = TRAIN_BATCH, POSITIONS, HEADS, EMBED // HEADS
+    storage, od = (getattr(torch, {"f32": "float32", "bf16": "bfloat16"}[x])
+                   for x in label.split("/"))
+    q, k, v, do, _ = flash_inputs(B, S, S, H, D, storage, gen)
+    Sn = S // N
+    offsets = []
+    launch = FA._launch
+
+    def recording_launch(fn, name, *args):
+        launch(fn, name, *args)
+        offsets.append((name, int(args[-3]), int(args[-2])))
+
+    def grads(fn):
+        leaves = [t.detach().clone().requires_grad_(True)
+                  for t in (q, k, v)]
+        out = fn(*leaves)
+        (out.float() * do.float()).sum().backward()
+        return [out.detach()] + [t.grad for t in leaves]
+
+    def ring(step_fn):
+        def run(qq, kk, vv):
+            outs = []
+            for r in range(N):
+                carry = None
+                for step in range(N):
+                    src = (r - step) % N
+                    carry = step_fn(
+                        carry, qq[:, r * Sn:(r + 1) * Sn],
+                        kk[:, src * Sn:(src + 1) * Sn],
+                        vv[:, src * Sn:(src + 1) * Sn], True, r * Sn,
+                        src * Sn, od)
+                outs.append(carry[0].to(qq.dtype))
+            return torch.cat(outs, dim=1)
+        return run
+
+    FA.reset_launches()
+    FA._launch = recording_launch
+    try:
+        t0 = time.monotonic()
+        got = grads(ring(A.ring_step))
+        torch.cuda.synchronize()
+        ring_s = time.monotonic() - t0
+    finally:
+        FA._launch = launch
+    launches = flash_counts()
+    routes = {n: dict(getattr(FA, n).route_launches) for n in launches}
+    chains = {
+        "plain_chunks": grads(ring(plain_chunk())),
+        "kernel_fwd": grads(ring(plain_chunk(FA.flash_forward))),
+        "whole_b1_b3": grads(lambda a, b, c: FA.flash_attention(
+            a, b, c, causal=True, operand_dtype=od)),
+        "plain": grads(lambda a, b, c: A.attention(
+            a, b, c, causal=True, precision="f32", kernel="xla"))}
+    control = grads(ring(no_lse_cotangent_step))
+    abs_v_out = FA.flash_attention_reference(
+        q, k, v.abs(), causal=True, operand_dtype=od)[0].float()
+    names = ("out", "dq", "dk", "dv")
+
+    def share(g, w, name):
+        rtol, atol = flash_tolerance(label, name, w.float(), abs_v_out)
+        err = (g.float() - w.float()).abs()
+        return (err / (atol + rtol * w.float().abs())).max().item()
+
+    shares = {"%s %s" % (which, name): share(g, w, name)
+              for which, want in chains.items()
+              for name, g, w in zip(names, got, want)}
+    control_shares = {name: share(g, w, name) for name, g, w in zip(
+        names, control, chains["kernel_fwd"])}
+    rel_l2 = {which: {name: ((g.float() - w.float()).norm() /
+                             w.float().norm()).item()
+                      for name, g, w in zip(names, grad_set,
+                                            chains["plain"])}
+              for which, grad_set in (("ring", got),
+                                      ("plain_chunks",
+                                       chains["plain_chunks"]),
+                                      ("whole_b1_b3",
+                                       chains["whole_b1_b3"]),
+                                      ("control", control))}
+    gated = [k for k in shares if label == "f32/f32" or
+             label == "f32/bf16" and (k.startswith("kernel_fwd ") or
+                                      k.endswith(" out") and
+                                      not k.startswith("plain "))]
+
+    def l2_over(which):
+        return [n for n in names if rel_l2[which][n] > RING_L2_LIMIT *
+                rel_l2["plain_chunks"][n] + RING_L2_FLOOR]
+    fwd = sorted({(qo, ko) for n, qo, ko in offsets
+                  if n == "flash attention forward"})
+    nonzero = [o for o in fwd if o != (0, 0)]
+    want_fwd = sorted({(r * Sn, ((r - s) % N) * Sn)
+                       for r in range(N) for s in range(N)})
+    tol_text = "rtol = atol = 1e-5" if label == "f32/f32" else \
+        BF16_TOL_TEXT
+    numbers = {"N": N, "dtypes": label, "launches": launches,
+               "routes": routes, "forward_offsets": fwd,
+               "largest_share_of_tol": shares, "gated": gated,
+               "control_no_lse_cotangent": control_shares,
+               "rel_l2_vs_f32_plain": rel_l2,
+               "rel_l2_limit": [RING_L2_LIMIT, RING_L2_FLOOR],
+               "tol": tol_text, "ring_s": ring_s}
+    print("8p ring N=%d at B=%d S=%d H=%d D=%d %s causal on %s: launches "
+          "%s by route %s; B1 ran at %d (q_offset, k_offset) pairs, %d "
+          "nonzero; largest error / tolerance (%s) %s, gated: %s; the "
+          "control with the lse cotangent dropped against kernel_fwd %s; "
+          "relative L2 error against the f32 plain attention %s (the "
+          "ring's gated at %g x the plain chunks' + %g); the loop with its backward %.3f s" % (
+              N, B, S, H, D, label, smi, launches, routes, len(fwd),
+              len(nonzero), tol_text, {k: round(v, 4) for k, v in
+                                       shares.items()}, gated,
+              {k: round(v, 4) for k, v in control_shares.items()},
+              {w: {k: float("%.4g" % v) for k, v in r.items()}
+               for w, r in rel_l2.items()}, RING_L2_LIMIT, RING_L2_FLOOR,
+              ring_s))
+    implied = {"flash_forward": N * N, "flash_dq": N * N,
+               "flash_dkv": N * N}
+    if launches != implied or fwd != want_fwd or not nonzero:
+        fail("8p ring N=%d: launches %s at offsets %s; the loop implies "
+             "%s at %s" % (N, launches, fwd, implied, want_fwd))
+    if any(shares[k] > 1.0 for k in gated) or l2_over("ring"):
+        fail("8p ring N=%d %s disagrees: %s; relative L2 %s" % (
+            N, label, shares, rel_l2))
+    gated_control = [n for n in names if "kernel_fwd " + n in gated]
+    if not l2_over("control") or gated_control and max(
+            control_shares[n] for n in gated_control) <= 1.0:
+        fail("8p ring N=%d %s: the gates do not see a dropped lse "
+             "cotangent (%s; relative L2 %s)" % (
+                 N, label, control_shares, rel_l2["control"]))
+    return numbers
+
+
+def phase_parallel(workdir, smi):
+    """Phase 8p: A6a on the card — a one-rank NCCL world joined through
+    the port's launcher with the ``--jax-*`` flags, then (a) the MoE
+    TinyLM under dp×ep, (b) the pipelined TinyLM under dp×pp (1F1B)
+    held to its sequential stack, exported, unstacked and served on B4
+    token-identical to the sequential model's export, (c) the ring's
+    chunk loop at N = 2 and 4 virtual ranks, (d) MNIST through the
+    command line in the world.  Returns (B1-B3 launches of the (a)/(b)
+    main paths, B4 launches of the served wave, numbers)."""
+    import socket
+    import numpy
+    import torch
+    import torch.distributed as dist
+    import veles_tpu_torch.parallel as par
+    from veles_tpu_torch.__main__ import Main
+    from veles_tpu_torch.config import root
+    from veles_tpu_torch.export import ExportedModel, export_workflow
+    from veles_tpu_torch.launcher import Launcher
+    from veles_tpu_torch.ops import decode_attention as DA
+    from veles_tpu_torch.ops import flash_attention as FA
+    started = time.monotonic()
+    engine = root.common.engine
+    engine.remat = True
+    engine.precision_level = 0
+    engine.attention_dtype = "f32"
+    engine.attention_kernel = "auto"
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    flags = ["--jax-coordinator", "127.0.0.1:%d" % port,
+             "--jax-num-processes", "1", "--jax-process-id", "0"]
+    main = Main(["wf.py"] + flags)
+    main.parse()
+    kw = main._launcher_kwargs()
+    numbers = {"flags": flags}
+    main_path = dict.fromkeys(("flash_forward", "flash_dq", "flash_dkv"),
+                              0)
+    try:
+        # (a) the MoE TinyLM, ep over the world.
+        t0 = time.monotonic()
+        launcher = Launcher(**kw)
+        wf = par_tinylm(launcher, 44, n_experts=PAR_EXPERTS,
+                        top_k=PAR_TOPK, expert_axis="expert")
+        launcher.initialize(device="cuda")
+        if dist.get_backend() != "nccl" or dist.get_world_size() != 1:
+            fail("8p: the launcher joined a %s world of %d" % (
+                dist.get_backend(), dist.get_world_size()))
+        par.apply_dp_ep_sharding(wf, par.make_mesh(
+            None, {"data": 1, "expert": 1}))
+        blk = wf.forwards[1]
+        if blk.params["w1"].placement != ("expert", None, None):
+            fail("8p: the experts are placed %s" %
+                 (blk.params["w1"].placement,))
+        init_s = time.monotonic() - t0
+        rec = TickRecorder(wf.compiler)
+        torch.cuda.synchronize()
+        FA.reset_launches()
+        launcher.run()
+        torch.cuda.synchronize()
+        moe_launches = flash_counts()
+        classes = [t[0] for t in rec.ticks]
+        losses = [t[1] for t in rec.ticks]
+        expected = {"flash_forward": PAR_BLOCKS * (1 + 2 * PAR_TICKS),
+                    "flash_dq": PAR_BLOCKS * PAR_TICKS,
+                    "flash_dkv": PAR_BLOCKS * PAR_TICKS}
+        engine.attention_kernel = "xla"
+        plain, _ = rec.replay()
+        engine.attention_kernel = "auto"
+        rec.close()
+        loads = [blk.read_moe_acc(c) for c in (1, 2)]
+        print("8p (a) MoE TinyLM %d blocks, top-%d of %d experts, dp×ep "
+              "%s on %s: init %.1f s; ticks %s %s s; losses %s, plain "
+              "attention from the same state %s; B1-B3 launches %s "
+              "(expected %s); router rows %s" % (
+                  PAR_BLOCKS, PAR_TOPK, PAR_EXPERTS, wf.mesh.shape, smi,
+                  init_s, classes, ["%.3f" % t[2] for t in rec.ticks],
+                  ["%.5f" % x for x in losses],
+                  ["%.5f" % x for x in plain], moe_launches, expected,
+                  [r.tolist() for r in loads]))
+        if classes != [False] + [True] * PAR_TICKS or \
+                moe_launches != expected:
+            fail("8p (a): ticks %s launched %s; the epoch implies %s" % (
+                classes, moe_launches, expected))
+        if not all(numpy.isfinite(losses)) or any(
+                abs(a - b) > TRAIN_LOSS_RTOL * abs(b)
+                for a, b in zip(losses, plain)):
+            fail("8p (a): losses %s against the plain attention's %s "
+                 "(rtol %g)" % (losses, plain, TRAIN_LOSS_RTOL))
+        for name in main_path:
+            main_path[name] += moe_launches[name]
+        numbers["moe"] = {"losses": losses, "plain_losses": plain,
+                          "launches": moe_launches,
+                          "tick_s": [t[2] for t in rec.ticks],
+                          "init_s": init_s}
+        del wf, launcher, rec, blk
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (b) the pipelined TinyLM, 1F1B over the stage axis.
+        t0 = time.monotonic()
+        launcher = Launcher(**kw)
+        wf = par_tinylm(launcher, 45, pipelined=True, stage_axis="stage",
+                        n_microbatches=PAR_MICRO, schedule="1f1b")
+        launcher.initialize(device="cuda")
+        par.apply_dp_pp_sharding(wf, par.make_mesh(
+            None, {"data": 1, "stage": 1}))
+        stack = wf.forwards[1]
+        if stack.params["wq"].placement[0] != "stage":
+            fail("8p: the stack is placed %s" %
+                 (stack.params["wq"].placement,))
+        rec = TickRecorder(wf.compiler)
+        torch.cuda.synchronize()
+        FA.reset_launches()
+        launcher.run()
+        torch.cuda.synchronize()
+        pp_launches = flash_counts()
+        classes = [t[0] for t in rec.ticks]
+        losses = [t[1] for t in rec.ticks]
+        afters = [t[3] for t in rec.ticks[2:]] + [rec.state()]
+        befores = [t[3] for t in rec.ticks[1:]]
+        # Every active schedule step runs the 2 local blocks on one
+        # microbatch: forward once, and again in the backward.
+        per = PAR_BLOCKS * PAR_MICRO
+        expected = {"flash_forward": per * (1 + 2 * PAR_TICKS),
+                    "flash_dq": per * PAR_TICKS,
+                    "flash_dkv": per * PAR_TICKS}
+        stack.stage_axis = None
+        seq_losses, seq_afters = rec.replay()
+        stack.stage_axis = "stage"
+        rec.close()
+        gaps = param_gaps([{n: a[n] for n in wf.compiler._param_vecs}
+                           for a in afters], seq_afters, befores)
+        print("8p (b) pipelined TinyLM, %d stacked blocks, 1F1B over %d "
+              "microbatches, dp×pp %s: ticks %s %s s; losses %s, the "
+              "sequential stack from the same state %s; B1-B3 launches %s "
+              "(expected %s); the largest parameter gap / phase 5's bound "
+              "%.3f (%s)" % (
+                  PAR_BLOCKS, PAR_MICRO, wf.mesh.shape, classes,
+                  ["%.3f" % t[2] for t in rec.ticks],
+                  ["%.5f" % x for x in losses],
+                  ["%.5f" % x for x in seq_losses], pp_launches, expected,
+                  max(gaps.values()), max(gaps, key=gaps.get)))
+        if classes != [False] + [True] * PAR_TICKS or \
+                pp_launches != expected:
+            fail("8p (b): ticks %s launched %s; the schedule implies %s"
+                 % (classes, pp_launches, expected))
+        if not all(numpy.isfinite(losses)) or any(
+                abs(a - b) > TRAIN_LOSS_RTOL * abs(b)
+                for a, b in zip(losses, seq_losses)) or \
+                max(gaps.values()) > 1.0:
+            fail("8p (b): the pipelined ticks leave the sequential stack's"
+                 ": losses %s vs %s, gaps %s" % (losses, seq_losses, gaps))
+        for name in main_path:
+            main_path[name] += pp_launches[name]
+        # The export unstacks the stack; the same weights as a sequential
+        # TinyLM export the same blocks.
+        pp_path = os.path.join(workdir, "pipelined.veles.tgz")
+        seq_path = os.path.join(workdir, "sequential.veles.tgz")
+        t1 = time.monotonic()
+        export_workflow(wf, pp_path, compresslevel=0)
+        export_s = time.monotonic() - t1
+        seq_wf = par_tinylm(Launcher(), 46)
+        seq_wf.workflow.initialize(device="cpu")
+        src = {u.name: u for u in wf.forwards}
+        for u in seq_wf.forwards:
+            if u.name.startswith("block"):
+                i = int(u.name[len("block"):])
+                for n, vec in u.trainables.items():
+                    stack.params[n].map_read()
+                    vec.mem = stack.params[n].mem[i].copy()
+            else:
+                for n, vec in u.trainables.items():
+                    src[u.name].trainables[n].map_read()
+                    vec.mem = src[u.name].trainables[n].mem.copy()
+        export_workflow(seq_wf, seq_path, compresslevel=0)
+        del seq_wf
+        pp_model = ExportedModel(pp_path, device="cuda")
+        seq_model = ExportedModel(seq_path, device="cuda")
+        kinds = [e["type"] for e in pp_model.units]
+        if kinds != ["embedding"] + ["transformer_block"] * PAR_BLOCKS + \
+                ["lm_head"] or not pp_model.is_lm:
+            fail("8p (b): the pipelined export holds %s" % kinds)
+        rng = numpy.random.RandomState(SEED % (1 << 31) + 8)
+        prompts = [rng.randint(0, VOCAB, n).tolist()
+                   for n in PROMPT_LENGTHS]
+        answers, b4 = {}, {}
+        for label, model in (("pipelined", pp_model),
+                             ("sequential", seq_model)):
+            log = CallLog(model)
+            try:
+                got, served = serve_wave(model, prompts, [], log=log)
+            finally:
+                log.restore()
+            served["server"].stop()
+            check_launches("8p (b) %s export" % label, served, log, True,
+                           False, blocks=PAR_BLOCKS)
+            answers[label], b4[label] = got, served["b4"]
+        same = sum(a == b for a, b in zip(answers["pipelined"],
+                                          answers["sequential"]))
+        print("8p (b) export %.1f s (gzip level 0): units %s; a wave of %d "
+              "prompts through the paged engine: %d/%d answers token-"
+              "identical to the sequential model's export; B4 launches "
+              "%s" % (export_s, kinds, len(prompts), same, len(prompts),
+                      b4))
+        if same != len(prompts):
+            fail("8p (b): the unstacked export answers differently from "
+                 "the sequential one")
+        numbers["pipelined"] = {
+            "losses": losses, "sequential_losses": seq_losses,
+            "launches": pp_launches, "largest_gap_share": max(
+                gaps.values()), "tick_s": [t[2] for t in rec.ticks],
+            "export_s": export_s, "b4_launches": b4,
+            "answers_identical": same}
+        del wf, launcher, rec, stack, pp_model, seq_model
+        os.remove(pp_path)
+        os.remove(seq_path)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (c) the ring's chunk loop at N virtual ranks.
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(SEED)
+        numbers["ring"] = [ring_check(n, label, gen, smi)
+                           for label in RING_DTYPES for n in RING_NS]
+        numbers["ring"].append(ring_check(RING_NS[-1], MAIN_DTYPES, gen,
+                                          smi))
+
+        # (d) MNIST through the command line in the world.
+        datasets = os.path.join(workdir, "datasets")
+        write_mnist_idx(datasets)
+        result = os.path.join(workdir, "mnist-world.json")
+        t1 = time.monotonic()
+        cli = run_cli([os.path.join(HERE, "veles_tpu_torch", "znicz",
+                                    "samples", "mnist.py"),
+                       "-v", "warning", "--random-seed", "5",
+                       "--result-file", result,
+                       "root.common.dirs.datasets=%r" % datasets,
+                       "root.mnist.max_epochs=2"] + flags)
+        cli_s = time.monotonic() - t1
+        with open(result) as fin:
+            res = json.load(fin)
+        mesh = cli.workflow.mesh
+        print("8p (d) MNIST through the command line with %s: mode %s, "
+              "mesh %s, %.1f s; results %s" % (
+                  " ".join(flags), res["mode"], mesh.shape if mesh else
+                  None, cli_s, res["results"]))
+        if res["mode"] != "distributed" or mesh is None or \
+                res["results"].get("epochs") != 2 or not numpy.isfinite(
+                    res["results"].get("min_validation_err", numpy.nan)):
+            fail("8p (d): the command line's distributed run gave %s" %
+                 res)
+        numbers["mnist_cli"] = {"seconds": cli_s,
+                                "results": res["results"]}
+        clean_cli_config()
+        del cli
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    numbers["phase_s"] = time.monotonic() - started
+    print("8p readings on %s: the phase %.1f s" % (smi,
+                                                   numbers["phase_s"]))
+    return main_path, numbers["pipelined"]["b4_launches"]["pipelined"], \
+        numbers
+
+
+#: ``--ranks 4``: the parallel styles on four cards, one rank each in an
+#: NCCL world (mesh axes, applier, TinyLM kwargs, ZeRO level).  The
+#: tests' geometry (vocab 16, 32 positions, embed 32, 4 heads, 2 blocks,
+#: batch 16) at float32: only the ranks' agreement with the unsplit tick
+#: is read, not their speed.
+RANK_CASES = {
+    "dp": ({"data": 4}, "apply_dp_sharding", {}, 0),
+    "dp_tp": ({"data": 2, "model": 2}, "apply_dp_tp_sharding", {}, 0),
+    "dp_tp_sp_ring": ({"data": 1, "model": 2, "seq": 2},
+                      "apply_dp_tp_sp_sharding", {"seq_axis": "seq"}, 0),
+    "dp_sp_ulysses": ({"data": 2, "seq": 2}, "apply_dp_sp_sharding",
+                      {"seq_axis": "seq", "sp_mode": "ulysses"}, 0),
+    "dp_ep_top2": ({"data": 2, "expert": 2}, "apply_dp_ep_sharding",
+                   {"n_experts": 4, "top_k": 2, "expert_axis": "expert"},
+                   0),
+    "dp_ep_tp": ({"data": 1, "expert": 2, "model": 2},
+                 "apply_dp_ep_tp_sharding",
+                 {"n_experts": 4, "expert_axis": "expert"}, 0),
+    "dp_pp_1f1b": ({"data": 2, "stage": 2}, "apply_dp_pp_sharding",
+                   {"pipelined": True, "stage_axis": "stage",
+                    "n_microbatches": 2, "schedule": "1f1b"}, 0),
+    "dp_pp_tp": ({"data": 1, "stage": 2, "model": 2},
+                 "apply_dp_pp_tp_sharding",
+                 {"pipelined": True, "stage_axis": "stage",
+                  "n_microbatches": 2, "schedule": "1f1b"}, 0),
+    "zero1_dp_tp": ({"data": 2, "model": 2}, "apply_dp_tp_sharding", {},
+                    1),
+    "zero2_dp": ({"data": 4}, "apply_dp_sharding", {}, 2),
+}
+RANK_GEOMETRY = dict(vocab_size=16, seq_len=32, embed_dim=32, n_heads=4,
+                     n_blocks=2, minibatch_size=16,
+                     loader_config={"n_train": 64, "n_valid": 16})
+RANK_TICKS = 3
+#: The unsplit tick's tolerance (the CPU gates' float32 one).
+RANK_RTOL, RANK_ATOL, RANK_LOSS_RTOL = 2e-4, 2e-5, 1e-5
+#: Kwargs that act only under a mesh (the unsplit reference drops them).
+MESH_ONLY = ("seq_axis", "sp_mode", "expert_axis", "stage_axis",
+             "schedule")
+
+
+def rank_lm(launcher, **kwargs):
+    from veles_tpu_torch import prng
+    from veles_tpu_torch.znicz.samples.tinylm import TinyLMWorkflow
+    prng.reset()
+    prng.get(0).seed(99)
+    return TinyLMWorkflow(launcher, **dict(RANK_GEOMETRY, **kwargs))
+
+
+def rank_ticks(wf):
+    """(losses, host parameters after each tick, tick seconds)."""
+    import numpy
+    import torch
+    losses, params, secs = [], [], []
+    for _ in range(RANK_TICKS):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        wf.loader.run()
+        losses.append(float(wf.step_metrics["loss"]))
+        torch.cuda.synchronize()
+        secs.append(time.monotonic() - t0)
+        out = {}
+        for u in wf.units:
+            for a, v in getattr(u, "trainables", {}).items():
+                v.map_read()
+                out["%s/%s" % (u.name, a)] = numpy.array(v.mem)
+        params.append(out)
+    return losses, params, secs
+
+
+def rank_worker(rank, n, store, out):
+    """One rank of ``--ranks``: joins the NCCL world through the port's
+    launcher and trains every case of RANK_CASES; rank 0 writes the
+    results."""
+    import pickle
+    import torch.distributed as dist
+    sys.path.insert(0, HERE)
+    import veles_tpu_torch.parallel as par
+    from veles_tpu_torch.config import root
+    from veles_tpu_torch.launcher import Launcher
+    engine = root.common.engine
+    engine.precision_level = 1
+    engine.attention_dtype = "f32"
+    engine.attention_kernel = "auto"
+    results = {}
+    try:
+        for case, (axes, applier, lm, zero) in sorted(RANK_CASES.items()):
+            launcher = Launcher(mode="distributed",
+                                coordinator_address="file://" + store,
+                                num_processes=n, process_id=rank)
+            wf = rank_lm(launcher, **lm)
+            launcher.initialize(device="cuda")
+            getattr(par, applier)(wf, par.make_mesh(None, axes))
+            if zero:
+                par.apply_zero_sharding(wf, level=zero)
+            results[case] = rank_ticks(wf) + (dist.get_backend(),)
+            del wf, launcher
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    if rank == 0:
+        with open(out, "wb") as fout:
+            pickle.dump(results, fout)
+
+
+def phase_ranks(n, workdir, smi):
+    """``--ranks n``: RANK_CASES on n cards (one rank each, NCCL), each
+    case's ticks held to the same TinyLM's unsplit ticks on card 0."""
+    import pickle
+    import numpy
+    import torch
+    import torch.multiprocessing as mp
+    from veles_tpu_torch.config import root
+    from veles_tpu_torch.launcher import Launcher
+    if torch.cuda.device_count() < n:
+        fail("--ranks %d needs %d cards, found %d" % (
+            n, n, torch.cuda.device_count()))
+    store = os.path.join(workdir, "ranks.store")
+    out = os.path.join(workdir, "ranks.pkl")
+    t0 = time.monotonic()
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=rank_worker, args=(r, n, store, out))
+             for r in range(n)]
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(600)
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    codes = [p.exitcode for p in procs]
+    if any(codes):
+        fail("--ranks %d: the ranks exited %s" % (n, codes))
+    ranks_s = time.monotonic() - t0
+    with open(out, "rb") as fin:
+        got = pickle.load(fin)
+    engine = root.common.engine
+    engine.precision_level = 1
+    engine.attention_dtype = "f32"
+    engine.attention_kernel = "auto"
+    refs, worst = {}, {}
+    for case, (axes, applier, lm, zero) in sorted(RANK_CASES.items()):
+        plain = {k: v for k, v in lm.items() if k not in MESH_ONLY}
+        key = tuple(sorted(plain.items()))
+        if key not in refs:
+            launcher = Launcher()
+            wf = rank_lm(launcher, **plain)
+            launcher.initialize(device="cuda")
+            refs[key] = rank_ticks(wf)
+            del wf, launcher
+        losses, params, secs, backend = got[case]
+        want_losses, want_params, _ = refs[key]
+        share = 0.0
+        for g, w in zip(params, want_params):
+            for name, arr in w.items():
+                bound = RANK_ATOL + RANK_RTOL * numpy.abs(arr)
+                share = max(share, float((numpy.abs(g[name] - arr) /
+                                          bound).max()))
+        loss_gap = max(abs(a - b) / abs(b)
+                       for a, b in zip(losses, want_losses))
+        worst[case] = {"share_of_tol": share, "loss_rel": loss_gap,
+                       "tick_s": secs, "backend": backend, "mesh": axes}
+        print("ranks %s %s on %d cards (%s): losses %s vs unsplit %s; "
+              "largest parameter error / tolerance (rtol %g, atol %g) "
+              "%.4f; ticks %s s" % (
+                  case, axes, n, backend, ["%.6f" % x for x in losses],
+                  ["%.6f" % x for x in want_losses], RANK_RTOL, RANK_ATOL,
+                  share, ["%.4f" % x for x in secs]))
+    bad = {c: w for c, w in worst.items() if w["share_of_tol"] > 1.0 or
+           w["loss_rel"] > RANK_LOSS_RTOL or w["backend"] != "nccl"}
+    print(json.dumps({"ranks": {"n": n, "cases": worst,
+                                "ranks_s": ranks_s}}))
+    print("ranks on %s: %d cases in %.1f s" % (smi, len(worst), ranks_s))
+    if bad:
+        fail("--ranks %d: cases leave the unsplit ticks: %s" % (n, bad))
+
+
 SPEC_K = 4
 REPEATING = ((8, 8), (5, 30))   # (pattern length, repeats)
 TOKEN = "chip-smoke"
@@ -5047,6 +5836,19 @@ def main():
     if not torch.backends.cudnn.deterministic:
         fail("backends.CUDADevice left cudnn.deterministic off")
     phase_build()
+    if "--ranks" in sys.argv[1:]:
+        # The parallel styles on several cards, and nothing else.
+        n = int(sys.argv[sys.argv.index("--ranks") + 1])
+        workdir = os.path.join(HERE, ".chip_smoke")
+        os.makedirs(workdir, exist_ok=True)
+        try:
+            phase_ranks(n, workdir, smi)
+        finally:
+            shutil.rmtree(workdir, ignore_errors=True)
+        print(smi)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind, "count": count}}))
+        return 0
     max_err, timings = phase_kernels()
     quant_worst, quant_faults, quant_b4_equal, inv_rows, quant_times = \
         phase_quant_kernels()
@@ -5084,6 +5886,9 @@ def main():
         pop_launches, population = phase_population(workdir, smi)
         gc.collect()
         torch.cuda.empty_cache()
+        par_flash, par_b4, parallel = phase_parallel(workdir, smi)
+        gc.collect()
+        torch.cuda.empty_cache()
         reload_path = os.path.join(workdir, "lm-reload.veles.tgz")
         t0 = time.monotonic()
         from veles_tpu_torch import export as X
@@ -5107,9 +5912,10 @@ def main():
         "replaces": "veles_tpu/ops/pallas_attention.py:616",
         "shape": "B=%d Sq=1 H=%d D=%d L=%d f32" % (
             MAX_BATCH, HEADS, EMBED // HEADS, POSITIONS),
-        "launches": launches + inwf_b4,
+        "launches": launches + inwf_b4 + par_b4,
         "launches_by_path": {"serving": launches,
-                             "in_workflow_serving": inwf_b4},
+                             "in_workflow_serving": inwf_b4,
+                             "pipelined_export_serving": par_b4},
         "max_abs_err": max_err,
         "max_err": max_err,
         "tol": {"rtol": RTOL, "atol": ATOL},
@@ -5178,10 +5984,12 @@ def main():
                                    EMBED // HEADS),
             "units": way,
             "launches": flash_launches[name] + inwf_flash[name] +
-            pop_launches[name],
+            pop_launches[name] + par_flash[name],
             "launches_by_path": {"training": flash_launches[name],
                                  "in_workflow_training": inwf_flash[name],
-                                 "population_tinylm": pop_launches[name]},
+                                 "population_tinylm": pop_launches[name],
+                                 "parallel_moe_and_pipelined":
+                                     par_flash[name]},
             "launches_by_route": training["flash_routes"][name],
             "max_abs_err": flash_err[name],
             "tol": BF16_TOL_TEXT,
@@ -5264,6 +6072,7 @@ def main():
     print(json.dumps({"in_workflow_serving": inworkflow}))
     print(json.dumps({"pretraining": pretraining}))
     print(json.dumps({"population": population}))
+    print(json.dumps({"parallel": parallel}))
     print(json.dumps({"quant_serving": quant}))
     print(json.dumps(kernels))
     print("chip_smoke: command time %.1f s" % (time.monotonic() - started))

@@ -20,8 +20,8 @@ at an even n = 4 with a window that dominates.
   with the same ``forward_numpy`` bytes, its ``forward`` within the same
   tolerance.
 * The long-tail types ``rbm``, ``all2all_deconv*`` and ``kohonen``, from
-  hand-written unit tables, the same way; ``moe_transformer_block`` is
-  refused with its ROADMAP pointer.
+  hand-written unit tables, the same way; a ``moe_transformer_block``
+  artifact loads and ``generate`` refuses it, pointing at ``forward``.
 * The port's MNIST and conv artifacts match ``native/veles_infer`` at
   ``tests/test_native.py``'s tolerances (FC rtol 1e-4, atol 1e-5; conv
   rtol 1e-3, atol 1e-5).
@@ -289,14 +289,18 @@ def test_longtail_types_agree(tmp_path, kind):
 
 
 def test_moe_block_is_refused_with_its_pointer(tmp_path):
+    """A MoE artifact loads and runs through forward(); generate()
+    refuses it, pointing at forward() as the JAX package's does."""
     units = [{"name": "moe", "type": "moe_transformer_block",
               "config": {"n_heads": 2, "n_experts": 2,
                          "capacity_factor": 1.25},
               "params": {}}]
     path = write_artifact(str(tmp_path / "moe.veles.tgz"),
                           _manifest(units, (4,), (4,)), {})
-    with pytest.raises(Bug, match="A6"):
-        ExportedModel(path, device="cpu")
+    model = ExportedModel(path, device="cpu")
+    assert not model.is_lm
+    with pytest.raises(Bug, match="through forward"):
+        model.generate(numpy.zeros((1, 2), numpy.int32), 1)
 
 
 # -- native runtime parity -------------------------------------------------

@@ -220,3 +220,53 @@ def test_meta_flag_sets_the_same_keys_in_both_trees(argv, want):
 def test_fleet_population_flags_stay_refused_naming_a7a(flag):
     with pytest.raises(NotImplementedError, match="ROADMAP A7a"):
         tmain.Main(["wf.py", flag, "1"]).parse()
+
+
+#: The parallelism flags: the six knobs land at the JAX command line's
+#: ``root.common.engine`` keys; the three ``--jax-*`` flags set no key —
+#: they choose the launcher's distributed mode (checked below).
+A6_CASES = [
+    (["--pp-schedule", "1f1b"], {"engine.pp_schedule": "1f1b"}),
+    (["--pp-chunks", "2"], {"engine.pp_chunks": 2}),
+    (["--moe-topk", "2"], {"engine.moe_top_k": 2}),
+    (["--moe-router-z", "0.001"], {"engine.moe_router_z": 0.001}),
+    (["--sp-ring-kernel", "xla"], {"engine.sp_ring_kernel": "xla"}),
+    (["--zero", "2"], {"engine.zero": 2}),
+    (["--jax-coordinator", "127.0.0.1:9"], {}),
+    (["--jax-num-processes", "2"], {}),
+    (["--jax-process-id", "1"], {}),
+]
+
+
+@pytest.mark.parametrize("argv,want", A6_CASES,
+                         ids=lambda v: " ".join(v)
+                         if isinstance(v, list) else "")
+def test_parallelism_flag_sets_the_same_keys_in_both_trees(argv, want):
+    with _kept_trees():
+        got_jax = _apply(jmain, jroot, argv)
+    with _kept_trees():
+        got_port = _apply(tmain, troot, argv)
+    assert got_jax == want
+    assert got_port == want
+
+
+def test_jax_flags_choose_the_distributed_launcher_together():
+    """The three ``--jax-*`` flags make the launcher distributed; a
+    partial set raises, as in the JAX command line."""
+    from veles_tpu_torch.error import Bug
+    main = tmain.Main(["wf.py", "--jax-coordinator", "127.0.0.1:9",
+                       "--jax-num-processes", "2", "--jax-process-id",
+                       "1"])
+    main.parse()
+    assert main._launcher_kwargs() == {
+        "mode": "distributed", "coordinator_address": "127.0.0.1:9",
+        "num_processes": 2, "process_id": 1}
+    for argv in (["--jax-coordinator", "127.0.0.1:9"],
+                 ["--jax-num-processes", "2", "--jax-process-id", "1"],
+                 ["--jax-coordinator", "h:1", "--jax-num-processes", "2",
+                  "--jax-process-id", "2"]):
+        main = tmain.Main(["wf.py"] + argv)
+        main.parse()
+        with pytest.raises(Bug, match="must be given together"):
+            main._launcher_kwargs()
+    assert tmain.Main(["wf.py"]).parse() is not None

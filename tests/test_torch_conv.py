@@ -87,7 +87,8 @@ def _apply(unit, arrays, params, training=False):
         out[names.get(id(vec), id(vec))] = val
 
     ctx = types.SimpleNamespace(training=training, metrics={},
-                                loss=None, next_key=lambda: None)
+                                loss=None, next_key=lambda: None,
+                                batch_sum=lambda v: v)
     ctx.set_loss = lambda v: setattr(ctx, "loss", v)
     ctx.add_metric = lambda k, v: ctx.metrics.__setitem__(k, v)
     upd = unit.tforward(lambda vec: by_id[id(vec)], write, params, ctx,

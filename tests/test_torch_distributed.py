@@ -1,0 +1,448 @@
+"""The port's parallel styles on ``torch.distributed`` (gloo on the CPU)
+against the JAX package.
+
+Every test here that starts ranks lives in this one file, so the
+suite's ``--dist loadfile`` runs them one after another on one worker.
+The ranks:
+
+* start with the ``spawn`` method, run ``torch.set_num_threads(1)``
+  and meet through a ``file://`` store in the test's ``tmp_path`` — no
+  TCP port, except the command-line test, which must go through
+  ``--jax-coordinator`` and retries once on a taken port;
+* run one scripted session (:data:`SESSIONS`) and write their results
+  to files; each joins by a deadline, after which every rank is killed
+  and the test fails with their stderr;
+* call ``destroy_process_group`` in ``finally``.
+
+Every rank builds the port's TinyLM from one seed — its initial weights
+equal the JAX package's bit for bit (``test_torch_training``) — applies
+a style over a 2×2 (or 1×2×2) mesh and trains; the parent process runs
+the JAX package's TinyLM from the same seed on one device, with no
+mesh, and holds the port's parameters after each tick to it at float32
+(``precision_level`` 1) within :data:`TOL`.  The JAX package's own
+gates hold its 8-device styles to that replicated step
+(``tests/test_transformer_tp.py``, ``test_moe_topk.py``,
+``test_pipeline_schedules.py``, ``test_ring_flash.py``).  The JAX
+package's trees, and the port's in this process, are put back whole
+after each test.
+"""
+
+import os
+import pickle
+import socket
+import subprocess
+import sys
+import time
+import traceback
+
+import numpy
+import pytest
+import torch
+
+from test_torch_mesh import clean_roots  # noqa: F401 (a fixture)
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+#: TinyLM geometry of every session (the JAX gates' sample, cut to 2
+#: blocks, 16 sequences a minibatch).
+GEOMETRY = dict(vocab_size=16, seq_len=32, embed_dim=32, n_heads=4,
+                n_blocks=2, minibatch_size=16,
+                loader_config={"n_train": 64, "n_valid": 16})
+#: Parameters after each tick vs the JAX package's: float32 reduction
+#: orders differ (an all-reduce over ranks vs one sum, the pipeline's
+#: microbatch loop, the ring's merges), so each element is held within
+#: rtol 2e-4 and atol 2e-5 — the tolerance of the JAX package's own
+#: sharded-vs-replicated gates.  Losses within rel 1e-5.
+TOL = dict(rtol=2e-4, atol=2e-5, loss=1e-5)
+#: Ticks each session trains: a validation tick, then train ticks.
+TICKS = 3
+#: Seconds a session may take before its ranks are killed.
+DEADLINE = 90
+
+
+# -- the rank side ------------------------------------------------------------
+
+
+def _port_lm(**kwargs):
+    from veles_tpu_torch import prng
+    from veles_tpu_torch.launcher import Launcher
+    from veles_tpu_torch.znicz.samples.tinylm import TinyLMWorkflow
+    prng.reset()
+    prng.get(0).seed(99)
+    launcher = Launcher()
+    wf = TinyLMWorkflow(launcher, **dict(GEOMETRY, **kwargs))
+    launcher.initialize(device="cpu")
+    return wf
+
+
+def _params(wf):
+    out = {}
+    for u in wf.units:
+        for attr, vec in getattr(u, "trainables", {}).items():
+            vec.map_read()
+            out["%s/%s" % (u.name, attr)] = numpy.array(vec.mem)
+    return out
+
+
+def _train(wf, ticks=TICKS):
+    """Runs ``ticks`` loader ticks; returns the losses and the
+    parameters after each."""
+    losses, params = [], []
+    for _ in range(ticks):
+        wf.loader.run()
+        losses.append(float(wf.step_metrics["loss"]))
+        params.append(_params(wf))
+    return {"losses": losses, "params": params}
+
+
+def _styled(style, **lm):
+    """A TinyLM laid out in ``style`` over the world's ranks."""
+    import veles_tpu_torch.parallel as par
+    wf = _port_lm(**lm)
+    axes, applier, kwargs = STYLES[style]
+    applier = getattr(par, applier)
+    applier(wf, par.make_mesh(None, axes), **kwargs)
+    return wf
+
+
+#: style → (mesh axes, applier, applier kwargs).
+STYLES = {
+    "dp": ({"data": 4}, "apply_dp_sharding", {}),
+    "dp_tp": ({"data": 2, "model": 2}, "apply_dp_tp_sharding", {}),
+    "dp_tp_sp": ({"data": 1, "model": 2, "seq": 2},
+                 "apply_dp_tp_sp_sharding", {}),
+    "dp_sp": ({"data": 2, "seq": 2}, "apply_dp_sp_sharding", {}),
+    "dp_ep": ({"data": 2, "expert": 2}, "apply_dp_ep_sharding", {}),
+    "dp_pp": ({"data": 2, "stage": 2}, "apply_dp_pp_sharding", {}),
+    "dp_ep_tp": ({"data": 1, "expert": 2, "model": 2},
+                 "apply_dp_ep_tp_sharding", {}),
+    "dp_pp_tp": ({"data": 1, "stage": 2, "model": 2},
+                 "apply_dp_pp_tp_sharding", {}),
+}
+
+#: case → (style, TinyLM kwargs, ZeRO level).  Each is also run by the
+#: JAX package from the same seed (:func:`_jax_reference`).
+CASES = {
+    "dp": ("dp", {}, 0),
+    "dp_tp_split": ("dp_tp", {}, 0),
+    "dp_tp_fused": ("dp_tp", {"fused_qkv": True}, 0),
+    "dp_tp_sp_ring": ("dp_tp_sp", {"seq_axis": "seq"}, 0),
+    "dp_sp_ulysses": ("dp_sp", {"seq_axis": "seq", "sp_mode": "ulysses"},
+                      0),
+    "dp_ep_top2": ("dp_ep", {"n_experts": 4, "top_k": 2,
+                             "expert_axis": "expert"}, 0),
+    "dp_pp_1f1b": ("dp_pp", {"pipelined": True, "stage_axis": "stage",
+                             "n_microbatches": 2, "schedule": "1f1b"},
+                   0),
+    "dp_pp_gpipe": ("dp_pp", {"pipelined": True, "stage_axis": "stage",
+                              "n_microbatches": 2, "schedule": "gpipe"},
+                    0),
+    "dp_pp_interleaved": ("dp_pp", {"pipelined": True, "n_blocks": 4,
+                                    "stage_axis": "stage",
+                                    "n_microbatches": 2,
+                                    "schedule": "interleaved",
+                                    "n_chunks": 2}, 0),
+    "dp_tp_moe": ("dp_tp", {"n_experts": 4}, 0),
+    "dp_tp_pipelined": ("dp_tp", {"pipelined": True,
+                                  "n_microbatches": 2}, 0),
+    "dp_ep_tp": ("dp_ep_tp", {"n_experts": 4, "expert_axis": "expert"},
+                 0),
+    "dp_pp_tp_1f1b": ("dp_pp_tp", {"pipelined": True,
+                                   "stage_axis": "stage",
+                                   "n_microbatches": 2,
+                                   "schedule": "1f1b"}, 0),
+    "zero1": ("dp_tp", {}, 1),
+    "zero2": ("dp", {}, 2),
+}
+
+
+def _session_styles(rank, world, out):
+    """Every case of :data:`CASES` on a 4-rank world; rank 0 writes the
+    losses and parameters, every rank checks that it holds the same
+    parameters as rank 0."""
+    import torch.distributed as dist
+    from veles_tpu_torch.config import root
+    import veles_tpu_torch.parallel as par
+    root.common.engine.precision_level = 1
+    results = {}
+    for case, (style, lm, zero) in sorted(CASES.items()):
+        wf = _styled(style, **lm)
+        if zero:
+            par.apply_zero_sharding(wf, level=zero)
+        run = _train(wf)
+        run["placements"] = {
+            "%s/%s" % (u.name, a): v.placement
+            for u in wf.units for which in ("trainables", "tstate")
+            for a, v in (getattr(u, which, None) or {}).items()
+            if isinstance(v, type(wf.loader.minibatch_mask))}
+        mine = numpy.concatenate([a.ravel() for _, a in
+                                  sorted(run["params"][-1].items())])
+        ref = torch.from_numpy(mine.copy())
+        dist.broadcast(ref, 0)
+        run["same_on_ranks"] = bool(numpy.array_equal(ref.numpy(), mine))
+        results[case] = run
+    if rank == 0:
+        with open(out, "wb") as fout:
+            pickle.dump(results, fout)
+
+
+def _session_topology(rank, world, out):
+    """The cross-topology restore: train dp×tp 2×2 on four ranks, take a
+    snapshot (``SnapshotterToFile``, each rank into its own directory),
+    then restore it on the first two ranks as dp×tp 1×2 and on rank 0
+    alone with no mesh, train on, and report what each restore saw."""
+    import torch.distributed as dist
+    from veles_tpu_torch.config import root
+    from veles_tpu_torch.launcher import Launcher
+    from veles_tpu_torch.snapshotter import SnapshotterToFile
+    import veles_tpu_torch.parallel as par
+    root.common.engine.precision_level = 1
+    wf = _styled("dp_tp")
+    _train(wf, 2)
+    snap = SnapshotterToFile(
+        wf, directory=os.path.join(os.path.dirname(out), "snap%d" % rank),
+        prefix="lm", compression="", time_interval=0.0)
+    snap.export()
+    restored = SnapshotterToFile.import_(snap.destination)
+    report = {"placement_after_restore":
+              restored.forwards[1].params["wq"].placement,
+              "mesh_after_restore": restored.mesh}
+    if rank < 2:
+        launcher = Launcher()
+        launcher.add_ref(restored)
+        launcher.initialize(device="cpu", snapshot=True)
+        par.apply_dp_tp_sharding(restored,
+                                 par.make_mesh([0, 1],
+                                               {"data": 1, "model": 2}))
+        report["two"] = _train(restored, 2)
+    dist.barrier()
+    if rank == 0:
+        alone = SnapshotterToFile.import_(snap.destination)
+        launcher = Launcher()
+        launcher.add_ref(alone)
+        launcher.initialize(device="cpu", snapshot=True)
+        report["one"] = _train(alone, 2)
+        with open(out, "wb") as fout:
+            pickle.dump(report, fout)
+
+
+SESSIONS = {"styles": _session_styles, "topology": _session_topology}
+
+
+def _rank_main(session, rank, world, store, out, err):
+    fd = os.open(err, os.O_WRONLY | os.O_CREAT | os.O_TRUNC)
+    os.dup2(fd, 2)
+    import torch.distributed as dist
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method="file://" + store,
+                            world_size=world, rank=rank)
+    try:
+        SESSIONS[session](rank, world, out)
+    except BaseException:
+        traceback.print_exc()
+        raise
+    finally:
+        dist.destroy_process_group()
+
+
+# -- the parent side ----------------------------------------------------------
+
+
+def _run_session(tmp_path, session, world=4, deadline=DEADLINE):
+    """Starts ``world`` spawned ranks of ``session``; returns rank 0's
+    results, or fails with every rank's stderr."""
+    ctx = torch.multiprocessing.get_context("spawn")
+    store = str(tmp_path / ("%s.store" % session))
+    out = str(tmp_path / ("%s.pkl" % session))
+    errs = [str(tmp_path / ("%s.%d.err" % (session, r)))
+            for r in range(world)]
+    procs = [ctx.Process(target=_rank_main,
+                         args=(session, r, world, store, out, errs[r]))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    end = time.monotonic() + deadline
+    for p in procs:
+        p.join(max(0.0, end - time.monotonic()))
+    late = [p for p in procs if p.is_alive()]
+    for p in late:
+        p.kill()
+        p.join()
+
+    def stderr():
+        return "\n".join("--- rank %d ---\n%s" % (r, open(e).read()
+                                                   if os.path.exists(e)
+                                                   else "")
+                         for r, e in enumerate(errs))
+    if late:
+        pytest.fail("session %r passed its %ds deadline; ranks killed\n%s"
+                    % (session, deadline, stderr()))
+    if any(p.exitcode for p in procs):
+        pytest.fail("session %r: exit codes %s\n%s" % (
+            session, [p.exitcode for p in procs], stderr()))
+    with open(out, "rb") as fin:
+        return pickle.load(fin)
+
+
+@pytest.fixture
+def kept_roots(clean_roots):
+    """Both packages' config trees from a clean slate, put back whole
+    after the test; yields the JAX package's root."""
+    yield clean_roots[0]
+
+
+_SESSION_CACHE = {}
+
+
+@pytest.fixture
+def styles_run(tmp_path_factory):
+    """The "styles" session, run once for the tests that read it."""
+    if "styles" not in _SESSION_CACHE:
+        _SESSION_CACHE["styles"] = _run_session(
+            tmp_path_factory.mktemp("styles"), "styles")
+    return _SESSION_CACHE["styles"]
+
+
+#: TinyLM kwargs that do not change the one-device function (the axes
+#: and the schedule act only under a mesh): references are shared
+#: across them.
+MESH_ONLY = ("seq_axis", "sp_mode", "expert_axis", "stage_axis",
+             "schedule", "n_chunks")
+_JAX_CACHE = {}
+
+
+def _jax_reference(jroot, lm, ticks=TICKS):
+    """The JAX package's TinyLM from the same seed on one device:
+    losses and parameters after each tick (computed once per distinct
+    one-device model)."""
+    lm = {k: v for k, v in lm.items() if k not in MESH_ONLY}
+    key = tuple(sorted(lm.items()))
+    if key not in _JAX_CACHE:
+        _JAX_CACHE[key] = _jax_run(jroot, lm, ticks)
+    return _JAX_CACHE[key]
+
+
+def _jax_run(jroot, lm, ticks):
+    import jax
+    import veles_tpu.prng as jprng
+    from veles_tpu.launcher import Launcher
+    from veles_tpu.znicz.samples.tinylm import TinyLMWorkflow
+    jroot.common.engine.precision_level = 1
+    jprng.reset()
+    jprng.get(0).seed(99)
+    launcher = Launcher()
+    wf = TinyLMWorkflow(launcher, **dict(GEOMETRY, **lm))
+    launcher.initialize()
+    losses, params = [], []
+    for _ in range(ticks):
+        wf.loader.run()
+        losses.append(float(jax.device_get(wf.step_metrics["loss"])))
+        params.append(_params(wf))
+    jprng.reset()
+    return {"losses": losses, "params": params}
+
+
+def _assert_matches_jax(got, want, case):
+    assert got["same_on_ranks"], "%s: ranks disagree" % case
+    for tick, (g, w) in enumerate(zip(got["losses"], want["losses"])):
+        assert g == pytest.approx(w, rel=TOL["loss"]), (case, tick)
+    for tick, (g, w) in enumerate(zip(got["params"], want["params"])):
+        assert sorted(g) == sorted(w)
+        for name in w:
+            numpy.testing.assert_allclose(
+                g[name], w[name], rtol=TOL["rtol"], atol=TOL["atol"],
+                err_msg="%s tick %d: %s" % (case, tick, name))
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_style_ticks_match_jax(case, styles_run, kept_roots):
+    """Each style's ticks on a gloo world == the JAX package's ticks:
+    dp 4, dp×tp 2×2 (split and fused qkv, the MoE and pipelined
+    families), dp×tp×sp 1×2×2 (the ring on the flash chunk contract),
+    dp×sp 2×2 (Ulysses), dp×ep 2×2 (top-2), dp×ep×tp 1×2×2, dp×pp 2×2
+    (1F1B, GPipe, interleaved with 2 chunks), dp×pp×tp 1×2×2, ZeRO-1
+    over dp×tp and ZeRO-2 over dp."""
+    style, lm, zero = CASES[case]
+    got = styles_run[case]
+    _assert_matches_jax(got, _jax_reference(kept_roots, lm), case)
+    # The style really split the work: every mesh axis but the data
+    # axis (and the seq axis, which splits activations) places some
+    # parameter, and ZeRO some slot.
+    axes = set(STYLES[style][0]) - {"data", "seq"}
+    placed = {a for p in got["placements"].values() for a in (p or ())
+              if a is not None}
+    assert axes <= placed, (case, placed)
+    if zero:
+        assert any(p and p[0] == "data"
+                   for p in got["placements"].values()), case
+
+
+def test_cross_topology_restore(tmp_path, kept_roots):
+    """A snapshot of a workflow trained under dp×tp on four ranks holds
+    no mesh and no placement; restored on two ranks (dp×tp 1×2) and on
+    one (no mesh) it trains on from the checkpointed weights, and both
+    restores take the same first tick from them (the JAX package's
+    ``test_cross_topology_snapshot_restore``, at 4 → 2 → 1)."""
+    report = _run_session(tmp_path, "topology")
+    assert report["placement_after_restore"] is None
+    assert report["mesh_after_restore"] is None
+    two, one = report["two"], report["one"]
+    for run in (two, one):
+        assert numpy.isfinite(run["losses"]).all()
+    assert two["losses"][0] == pytest.approx(one["losses"][0], rel=1e-5)
+    for name, arr in one["params"][0].items():
+        numpy.testing.assert_allclose(two["params"][0][name], arr,
+                                      rtol=TOL["rtol"], atol=TOL["atol"])
+
+
+def _free_port():
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _cli_pair(tmp_path, port):
+    env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1")
+    procs = []
+    for rank in range(2):
+        argv = [sys.executable, "-m", "veles_tpu_torch",
+                os.path.join(ROOT, "veles_tpu_torch", "znicz", "samples",
+                             "tinylm.py"),
+                "--device", "cpu", "--random-seed", "5",
+                "--jax-coordinator", "127.0.0.1:%d" % port,
+                "--jax-num-processes", "2", "--jax-process-id", str(rank),
+                "--result-file", str(tmp_path / ("r%d.json" % rank)),
+                "root.tinylm.max_epochs=2"]
+        procs.append(subprocess.Popen(
+            argv, env=env, cwd=str(tmp_path), stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT))
+    outs = []
+    end = time.monotonic() + DEADLINE
+    for p in procs:
+        try:
+            outs.append(p.communicate(
+                timeout=max(1.0, end - time.monotonic()))[0].decode())
+        except subprocess.TimeoutExpired:
+            for q in procs:
+                q.kill()
+                q.wait()
+            pytest.fail("the two CLI ranks passed their deadline")
+    return [p.returncode for p in procs], outs
+
+
+def test_cli_two_processes(tmp_path):
+    """Two processes of the command line with ``--jax-coordinator`` /
+    ``--jax-num-processes`` / ``--jax-process-id`` form a gloo world,
+    train the TinyLM data-parallel and write the same results (one
+    retry on a new port if the first was taken)."""
+    import json
+    codes, outs = _cli_pair(tmp_path, _free_port())
+    if any(codes) and any("address already in use" in o.lower()
+                          for o in outs):
+        codes, outs = _cli_pair(tmp_path, _free_port())
+    assert codes == [0, 0], "\n".join(outs)
+    results = [json.load(open(str(tmp_path / ("r%d.json" % r))))
+               for r in range(2)]
+    assert results[0]["mode"] == "distributed"
+    assert results[0]["results"] == results[1]["results"]
+    assert results[0]["results"]["epochs"] == 2

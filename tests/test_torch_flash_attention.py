@@ -206,7 +206,8 @@ def test_attention_ops_match_jax(attention_knobs, precision, causal,
 
 def test_wrappers_refuse_what_the_kernels_do_not_take():
     """Unsupported dtypes, head dims and operand types raise before any
-    device branch; sequence-parallel attention is refused."""
+    device branch; the sequence-parallel ring refuses an unknown kernel
+    mode."""
     q = torch.zeros((1, 4, 1, 8), dtype=torch.float16)
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         FA.flash_forward(q, q, q)
@@ -216,8 +217,8 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
     x = torch.zeros((1, 4, 1, 8))
     with pytest.raises(ValueError, match="operand dtype"):
         FA.flash_forward(x, x, x, operand_dtype=torch.float16)
-    with pytest.raises(NotImplementedError, match="A6"):
-        TA.ring_attention(x, x, x, "seq")
+    with pytest.raises(ValueError, match="unknown ring kernel mode"):
+        TA.ring_attention(x, x, x, None, kernel="cuda")
 
 
 class _CardTensor(torch.Tensor):

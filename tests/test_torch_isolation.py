@@ -56,7 +56,11 @@ def test_import_leaves_jax_and_veles_tpu_out():
             "veles_tpu_torch.genetics.optimizer, veles_tpu_torch.ensemble, "
             "veles_tpu_torch.population, "
             "veles_tpu_torch.population.engine, "
-            "veles_tpu_torch.population.vmap_backend\n"
+            "veles_tpu_torch.population.vmap_backend, "
+            "veles_tpu_torch.parallel, veles_tpu_torch.parallel.mesh, "
+            "veles_tpu_torch.parallel.collectives, "
+            "veles_tpu_torch.parallel.placed, veles_tpu_torch.ops.moe, "
+            "veles_tpu_torch.ops.pipeline\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib', 'veles_tpu.')) or "
             "m == 'veles_tpu')\n"

@@ -32,20 +32,29 @@ MNIST_PY = os.path.join(ROOT, "veles_tpu_torch", "znicz", "samples",
                         "mnist.py")
 
 
+def _config_nodes(node):
+    """(node, a copy of its attributes) for ``node`` and every node under
+    it: what a test's command line sets, put back afterwards."""
+    out = [(node, dict(node.__dict__))]
+    for _, value in node.items():
+        if isinstance(value, type(node)):
+            out.extend(_config_nodes(value))
+    return out
+
+
 @pytest.fixture(autouse=True)
 def port_state():
-    common = root.common
-    keys = ("dirs", "snapshotter", "guardian")
-    saved = {k: common.__dict__.get(k) for k in keys}
+    """Fresh port generators and resilience state, and every node of the
+    configuration put back after the test."""
+    saved = _config_nodes(root)
     prng.reset()
     resilience.reset()
     yield
     prng.reset()
     resilience.reset()
-    for k, v in saved.items():
-        common.__dict__.pop(k, None)
-        if v is not None:
-            common.__dict__[k] = v
+    for node, state in saved:
+        node.__dict__.clear()
+        node.__dict__.update(state)
 
 
 def build_guarded(directory, policy, chaos, max_epochs=4, seed=11):

@@ -8,9 +8,8 @@ the CPU.
   point, retention, longer-prefix families, a dangling pointer, an
   unhealthy generation skipped, and the database backend's retention,
   retry, walk-back and unhealthy rows.  A snapshot pickles the port's
-  own classes, so these gates run on the port alone;
-  ``test_cross_topology_snapshot_restore`` waits for the port's mesh
-  (ROADMAP A6).
+  own classes, so these gates run on the port alone; the
+  cross-topology restore is ``test_torch_distributed``'s.
 * Across packages, host side: one directory of blobs, manifests and
   pointers (stamps set here) gives the same ordered generations from
   the JAX package's ``iter_generations`` / ``resilience.iter_snapshots``
@@ -64,27 +63,30 @@ MNIST_PY = os.path.join(ROOT, "veles_tpu_torch", "znicz", "samples",
                         "mnist.py")
 
 
+def _config_nodes(node):
+    """(node, a copy of its attributes) for ``node`` and every node under
+    it: what a test's command line sets, put back afterwards."""
+    out = [(node, dict(node.__dict__))]
+    for _, value in node.items():
+        if isinstance(value, type(node)):
+            out.extend(_config_nodes(value))
+    return out
+
+
 @pytest.fixture(autouse=True)
 def port_state():
-    """Fresh port generators, resilience counters and injector, and the
-    configuration keys the CLI's snapshot and guardian flags set, put
-    back after the test."""
-    common = root.common
-    keys = ("dirs", "snapshotter", "guardian")
-    saved = {k: common.__dict__.get(k) for k in keys}
-    saved_disabled = common.__dict__.get("snapshot_disabled")
+    """Fresh port generators, resilience counters and injector, and every
+    node of the configuration (the CLI's snapshot, guardian and sample
+    keys among them) put back after the test."""
+    saved = _config_nodes(root)
     prng.reset()
     resilience.reset()
     yield
     prng.reset()
     resilience.reset()
-    for k, v in saved.items():
-        common.__dict__.pop(k, None)
-        if v is not None:
-            common.__dict__[k] = v
-    common.__dict__.pop("snapshot_disabled", None)
-    if saved_disabled is not None:
-        common.__dict__["snapshot_disabled"] = saved_disabled
+    for node, state in saved:
+        node.__dict__.clear()
+        node.__dict__.update(state)
 
 
 def build(tmp_path, max_epochs, **snap_kwargs):

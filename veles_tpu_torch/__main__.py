@@ -54,7 +54,7 @@ import sys
 
 from . import guardian, population, prng, restful, snapshotter
 from .loader import base as loader_base
-from .ops import attention
+from .ops import attention, moe, pipeline
 from .znicz import optimizers
 from .config import Tune, root
 from .error import Bug
@@ -68,8 +68,6 @@ NOT_PORTED = {
     "--chaos": "A7a", "-l": "A7a", "--listen-address": "A7a",
     "--blacklist-cooldown": "A7a", "-m": "A7a",
     "--master-address": "A7a", "--nodes": "A7a",
-    "--jax-coordinator": "A6", "--jax-num-processes": "A6",
-    "--jax-process-id": "A6",
     "-a": "A8", "--backend": "A8", "--dry-run": "A8",
     "--workflow-graph": "A8", "--dump-config": "A8",
     "--profile": "A8", "--frontend": "A8",
@@ -77,9 +75,6 @@ NOT_PORTED = {
     # The serving fabric.
     "--serve-fabric-replicas": "A8", "--serve-fabric-disagg": "A8",
     "--serve-tenant": "A8",
-    # Parallelism.
-    "--pp-schedule": "A6", "--pp-chunks": "A6", "--moe-topk": "A6",
-    "--moe-router-z": "A6", "--sp-ring-kernel": "A6", "--zero": "A6",
     # The data plane, the fleet and its population modes.
     "--net-codec": "A7a", "--net-dtype": "A7a", "--net-legacy": "A7a",
     "--net-require": "A7a", "--net-zero": "A7a", "--job-ticks": "A7a",
@@ -129,6 +124,19 @@ def make_parser():
         "--device", default="cuda", choices=("cuda", "cpu"),
         help="device of the run (default: the CUDA card)")
     parser.add_argument(
+        "--jax-coordinator", default="", metavar="HOST:PORT",
+        help="distributed run: the address every process meets at "
+             "(torch.distributed init_method tcp://HOST:PORT); each "
+             "process is one rank and the step is data-parallel over "
+             "the world (NCCL on the card, gloo with --device cpu)")
+    parser.add_argument(
+        "--jax-num-processes", type=int, default=0, metavar="N",
+        help="distributed run: the number of processes (the world "
+             "size)")
+    parser.add_argument(
+        "--jax-process-id", type=int, default=0, metavar="I",
+        help="distributed run: this process's rank")
+    parser.add_argument(
         "-v", "--verbosity", default="info",
         choices=("debug", "info", "warning", "error"), help="log level")
     parser.add_argument(
@@ -149,6 +157,8 @@ def make_parser():
     loader_base.init_parser(parser)
     optimizers.init_parser(parser)
     attention.init_parser(parser)
+    moe.init_parser(parser)
+    pipeline.init_parser(parser)
     restful.init_parser(parser)
     return parser
 
@@ -292,15 +302,49 @@ class Main(Logger):
             engine.attention_kernel = args.attn_kernel
         if args.optimizer is not None:
             engine.optimizer = args.optimizer
+        if args.zero is not None:
+            engine.zero = args.zero
+        if args.sp_ring_kernel is not None:
+            engine.sp_ring_kernel = args.sp_ring_kernel
+        if args.pp_schedule is not None:
+            engine.pp_schedule = args.pp_schedule
+        if args.pp_chunks is not None:
+            engine.pp_chunks = args.pp_chunks
+        if args.moe_topk is not None:
+            engine.moe_top_k = args.moe_topk
+        if args.moe_router_z is not None:
+            engine.moe_router_z = args.moe_router_z
         if args.population_vmap is not None:
             root.common.population.vmap = args.population_vmap == "on"
+
+    def _launcher_kwargs(self):
+        """The launcher's mode: distributed when the three ``--jax-*``
+        flags are given together (a partial set raises).  Unlike the
+        JAX command line, a world of one process is allowed: on the
+        card it is a one-rank NCCL world."""
+        args = self.args
+        if not (args.jax_coordinator or args.jax_num_processes or
+                args.jax_process_id):
+            return {}
+        if not (args.jax_coordinator and args.jax_num_processes >= 1 and
+                0 <= args.jax_process_id < args.jax_num_processes):
+            raise Bug(
+                "--jax-coordinator, --jax-num-processes (>=1) and a "
+                "--jax-process-id in [0, N) must be given together (got "
+                "coordinator=%r, num_processes=%r, process_id=%r)" % (
+                    args.jax_coordinator, args.jax_num_processes,
+                    args.jax_process_id))
+        return {"mode": "distributed",
+                "coordinator_address": args.jax_coordinator,
+                "num_processes": args.jax_num_processes,
+                "process_id": args.jax_process_id}
 
     def load(self, WorkflowClass, **kwargs):
         """The ``load`` closure of the module's ``run`` hook: builds the
         launcher, then resumes a snapshot or constructs the
         workflow."""
         kwargs.setdefault("result_file", self.args.result_file or None)
-        self.launcher = Launcher()
+        self.launcher = Launcher(**self._launcher_kwargs())
         if self.args.snapshot:
             spec = self.args.snapshot
             if spec.startswith(("odbc://", "sqlite://", "db://")):

@@ -30,6 +30,14 @@ CUDA graphs — with the same structure and the same gating:
   ``hypers``, :meth:`StepCompiler._hyper_program`): the GD units'
   learning rate, decay, momentum or betas come from a float32 tensor
   instead of the units' Python floats — one population member's genes;
+* under a mesh (``workflow.mesh``, :mod:`.parallel`): every rank runs
+  the same tick on its slice of the placements — batch vectors split on
+  the data axis, each parameter's local shard (gathered, differentiably,
+  for units that do not take shards themselves), the loss scaled by
+  ``1 / ranks`` and each gradient summed over the ranks holding copies
+  of its shard, the update on the shard (on a ZeRO partition of it,
+  then all-gathered), and each updated parameter gathered back into its
+  Vector;
 * the population block (:meth:`StepCompiler.compile_population`):
   ``torch.func.vmap`` of one tick over a leading member axis of the
   parameters, the states and the hyperparameter vectors, with the
@@ -58,9 +66,12 @@ class StepContext(object):
     """Per-tick context handed to every TracedUnit: the device random
     generator, the training flag, the loss slot and the metrics."""
 
-    def __init__(self, generator=None, training=True):
+    def __init__(self, generator=None, training=True, batch_group=None):
         self.generator = generator
         self.training = training
+        #: The process group the minibatch is split over (a mesh's data
+        #: axis), or None.
+        self.batch_group = batch_group
         self.loss = None
         self.aux_loss = 0.0
         self.metrics = {}
@@ -74,6 +85,16 @@ class StepContext(object):
 
     def add_metric(self, name, value):
         self.metrics[name] = value
+
+    def batch_sum(self, value):
+        """``value`` summed over the ranks that split the minibatch
+        (differentiably); the value itself without a mesh.  Evaluators
+        sum their per-sample terms through it, so the loss and the
+        counts are the whole minibatch's on every rank."""
+        if self.batch_group is None:
+            return value
+        from .parallel import collectives
+        return collectives.all_reduce(value, self.batch_group)
 
     def set_loss(self, value):
         self.loss = value
@@ -207,6 +228,9 @@ class StepCompiler(object):
         self._fingerprint = None
         self._hyper_vals_ = {}    # (names, values) -> hyper vector
         self._hyper_progs_ = {}   # (mode, names) -> program
+        self._view = None         # this rank's view of the mesh
+        self._held = {}           # partitioned states between ticks
+        self._scattered = set()   # ZeRO-2 gradients kept partitioned
 
     # -- graph analysis ----------------------------------------------------
 
@@ -278,7 +302,51 @@ class StepCompiler(object):
         self._device_skip = bool(getattr(self.workflow,
                                          "health_device_skip", True))
         self._fingerprint = self.fingerprint()
+        self._compile_placements()
         self._compiled = True
+
+    def _compile_placements(self):
+        """This rank's view of the workflow's mesh, the placements of
+        the step tensors and the ZeRO axis of each parameter (None
+        without a mesh)."""
+        from .znicz.optimizers import param_of_slot
+        mesh = getattr(self.workflow, "mesh", None)
+        if mesh is None:
+            self._view = None
+            return
+        from .parallel.mesh import placement_of
+        from .parallel.placed import RankView, zero_axis
+        self._place = {n: placement_of(v) for n, v in
+                       list(self._param_vecs.items()) +
+                       list(self._state_vecs.items())}
+        self._batch_place = {str(id(v)): placement_of(v)
+                             for v in self.batch_vectors}
+        # The evaluators sum over the axis that splits the minibatch
+        # (none when every batch vector is replicated).
+        split = {a for p in self._batch_place.values() for a in p if a}
+        self._view = RankView(mesh, split.pop() if split else None)
+        self._zero = {}
+        zero = getattr(self.workflow, "_zero_", None)
+        self._zero_level = zero[0] if zero else 0
+        for u, gd in self.gd_map.items():
+            for slot in gd.tstate:
+                attr = param_of_slot(slot)
+                key = self.param_name(u, attr) if attr else None
+                if key in self._place:
+                    z = zero_axis(self._place[key],
+                                  self._place[self.param_name(gd, slot)])
+                    if z is not None:
+                        self._zero[key] = z
+
+    def gather_state(self):
+        """Writes the partitioned states the step holds back into their
+        Vectors at full size (a collective: every rank of the mesh
+        calls it)."""
+        view = self._view
+        for name, local in self._held.items():
+            self._state_vecs[name].devmem = view.gather_full(
+                local, self._place[name])
+        self._held = {}
 
     # -- the tick ----------------------------------------------------------
 
@@ -289,6 +357,19 @@ class StepCompiler(object):
         for vec in self.const_vectors:
             bag[id(vec)] = consts[str(id(vec))]
         pname = self.param_name
+        view = self._view
+        if view is not None:
+            # A unit that does not take shards (no ``PLACED``) computes
+            # with the whole parameter, gathered from the shards.
+            params = dict(params)
+            for u in self.forward_units:
+                if getattr(u, "PLACED", False):
+                    continue
+                for a in u.trainables:
+                    key = pname(u, a)
+                    if any(self._place[key]):
+                        params[key] = view.gather(params[key],
+                                                  self._place[key])
         # Trainables are readable by OTHER units through the bag (the
         # tied LM head reads the embedding); gradient flows because
         # these are the differentiated inputs.
@@ -325,6 +406,45 @@ class StepCompiler(object):
             metrics["loss"] = loss
             loss = loss + ctx.aux_loss
         return loss, metrics, new_states
+
+    def _grad_norm(self, grads):
+        """The global gradient norm; under a mesh each distinct shard
+        counts once (a sum over the mesh of Σ g² / copies)."""
+        view = self._view
+        if view is None:
+            return self.global_grad_norm(grads)
+        from .parallel import collectives
+        total = None
+        for name in sorted(grads):
+            copies = view.copies(self._place[name])
+            if name in self._scattered:
+                copies //= view.mesh.shape[self._zero[name]]
+            term = torch.sum(torch.square(grads[name].float())) / copies
+            total = term if total is None else total + term
+        total = collectives.all_reduce(
+            total.reshape(1), view.mesh.group(view.mesh.axis_names))
+        return torch.sqrt(total[0])
+
+    def _reduce_grads(self, grads):
+        """Sums each gradient over the ranks holding copies of its
+        shard; at ZeRO level 2 a ZeRO'd gradient is reduce-scattered
+        over its ZeRO axis instead (the rank keeps its partition)."""
+        from .parallel import collectives
+        view = self._view
+        self._scattered = set()
+        groups = {}
+        for name in grads:
+            axes = view.copy_axes(self._place[name])
+            z = self._zero.get(name)
+            if z is not None and self._zero_level >= 2:
+                axes = tuple(a for a in axes if a != z)
+                self._scattered.add(name)
+            groups[name] = view.mesh.group(axes)
+        grads = collectives.reduce_gradients(grads, groups)
+        for name in sorted(self._scattered):
+            grads[name] = collectives.reduce_scatter(
+                grads[name], 0, view.mesh.group(self._zero[name]))
+        return grads
 
     @staticmethod
     def global_grad_norm(grads):
@@ -378,6 +498,7 @@ class StepCompiler(object):
         hyperparameters."""
         pname = self.param_name
         new_params = dict(params)
+        zero = self._zero if self._view is not None else {}
         for u in self.forward_units:
             gd = self.gd_map.get(u)
             if not u.trainables or gd is None:
@@ -385,10 +506,25 @@ class StepCompiler(object):
             for attr in u.trainables:
                 key = pname(u, attr)
                 gstate = {a: new_states[pname(gd, a)] for a in gd.tstate}
-                new_p, new_gs = gd.tupdate(attr, params[key], grads[key],
-                                           gstate, None, hypers=hypers)
+                p, g = params[key], grads[key]
+                z = zero.get(key)
+                if z is not None:
+                    # ZeRO: the update on this rank's partition of dim
+                    # 0 (its slots hold only that), then an all-gather.
+                    n = self._view.mesh.shape[z]
+                    size = p.shape[0] // n
+                    start = self._view.coords[z] * size
+                    p = p.narrow(0, start, size)
+                    if key not in self._scattered:
+                        g = g.narrow(0, start, size)
+                new_p, new_gs = gd.tupdate(attr, p, g, gstate, None,
+                                           hypers=hypers)
                 if gate is not None:
-                    new_p = torch.where(gate, new_p, params[key])
+                    new_p = torch.where(gate, new_p, p)
+                if z is not None:
+                    from .parallel import collectives
+                    new_p = collectives.all_gather(
+                        new_p, 0, self._view.mesh.group(z))
                 new_params[key] = new_p
                 for a, val in new_gs.items():
                     if gate is not None:
@@ -401,7 +537,10 @@ class StepCompiler(object):
                     block=False, hypers=None):
         """``train_core`` (and, with ``block``, the body of
         ``block_core``): returns (new_params, new_states, metrics)."""
-        ctx = StepContext(generator=generator, training=True)
+        view = self._view
+        ctx = StepContext(generator=generator, training=True,
+                          batch_group=view.batch_group() if view
+                          else None)
         names = list(params)
         with torch.enable_grad():
             leaves = {n: params[n].detach().requires_grad_(True)
@@ -412,11 +551,20 @@ class StepCompiler(object):
                 raise ValueError(
                     "no unit called ctx.set_loss() — an evaluator must "
                     "be present in the step's chain")
+            # Under a mesh every rank computes the same loss: each
+            # differentiates 1/ranks of it, and the copies' gradients
+            # sum below.
+            seed = None if view is None else \
+                torch.full_like(loss, 1.0 / view.world)
             grads = torch.autograd.grad(
-                loss, [leaves[n] for n in names], allow_unused=True)
+                loss, [leaves[n] for n in names], grad_outputs=seed,
+                allow_unused=True)
         with torch.no_grad():
             grads = {n: torch.zeros_like(params[n]) if g is None else g
                      for n, g in zip(names, grads)}
+            self._scattered = set()
+            if view is not None:
+                grads = self._reduce_grads(grads)
             metrics = {k: v.detach() if isinstance(v, torch.Tensor)
                        else v for k, v in metrics.items()}
             new_states = {k: v.detach() for k, v in new_states.items()}
@@ -432,7 +580,7 @@ class StepCompiler(object):
         valid = None if nv is None else nv > 0
         gate = valid if block else None
         if self._health_specs:
-            gnorm = self.global_grad_norm(grads)
+            gnorm = self._grad_norm(grads)
             metrics["grad_norm"] = gnorm
             finite = self._health_update(
                 new_states, batch, gnorm, metrics.get("loss"),
@@ -472,7 +620,10 @@ class StepCompiler(object):
 
     def _infer_tick(self, params, states, batch, consts, generator):
         """``infer_step``: returns (new_states, metrics)."""
-        ctx = StepContext(generator=generator, training=False)
+        view = self._view
+        ctx = StepContext(generator=generator, training=False,
+                          batch_group=view.batch_group() if view
+                          else None)
         with torch.no_grad():
             loss, metrics, new_states = self._run_forward(
                 params, states, batch, consts, ctx)
@@ -487,7 +638,10 @@ class StepCompiler(object):
 
     def invalidate(self):
         """Drops the analysed step: the next tick re-analyses the graph
-        (and re-reads ``health_device_skip``)."""
+        (and re-reads ``health_device_skip`` and the mesh).  Partitioned
+        states go back into their Vectors first."""
+        if self._held:
+            self.gather_state()
         self._compiled = None
 
     def _ensure_compiled(self):
@@ -507,6 +661,15 @@ class StepCompiler(object):
         params = {n: v.devmem for n, v in self._param_vecs.items()}
         states = {n: v.devmem for n, v in self._state_vecs.items()}
         consts = {str(id(v)): v.devmem for v in self.const_vectors}
+        view = self._view
+        if view is not None:
+            params = {n: view.local(t, self._place[n])
+                      for n, t in params.items()}
+            states = {n: self._held[n] if n in self._held else
+                      view.local(t, self._place[n])
+                      for n, t in states.items()}
+            batch = {k: view.local(t, self._batch_place.get(k, ()))
+                     for k, t in batch.items()}
         if training:
             if hypers:
                 names, hvals = self._hyper_values(hypers)
@@ -519,12 +682,16 @@ class StepCompiler(object):
                     params, states, batch, consts, self._generator(),
                     block)
             for n, v in self._param_vecs.items():
-                v.devmem = new_params[n]
+                v.devmem = new_params[n] if view is None else \
+                    view.gather_full(new_params[n], self._place[n])
         else:
             new_states, metrics = self._infer_tick(
                 params, states, batch, consts, self._generator())
         for n, v in self._state_vecs.items():
-            v.devmem = new_states[n]
+            if view is not None and any(self._place[n]):
+                self._held[n] = new_states[n]
+            else:
+                v.devmem = new_states[n]
         for v in self.persist_vectors:
             if id(v) in self._outputs:
                 v.devmem = self._outputs[id(v)].detach()
@@ -688,6 +855,11 @@ class AcceleratedWorkflow(Workflow):
 
     def init_unpickled(self):
         super(AcceleratedWorkflow, self).init_unpickled()
+        #: The rank mesh of a parallel style (``parallel.mesh``); never
+        #: pickled — a restore re-places on the topology it finds.
+        self.mesh = None
+        self._parallel_style_ = None
+        self._zero_ = None
         self._compiler_ = None
         self._tick_id_ = 0
         self._step_done_tick_ = -1
@@ -695,8 +867,11 @@ class AcceleratedWorkflow(Workflow):
     def __getstate__(self):
         """The last tick's metrics are device tensors of this process:
         a snapshot leaves them out."""
+        if self._compiler_ is not None and self._compiler_._held:
+            self._compiler_.gather_state()
         state = super(AcceleratedWorkflow, self).__getstate__()
         state["step_metrics"] = {}
+        state.pop("mesh", None)
         return state
 
     @property

@@ -45,11 +45,12 @@ class CPUDevice(Device):
 
 
 class CUDADevice(Device):
-    """Card 0 through CUDA, with TF32 off and cuDNN deterministic."""
+    """A card through CUDA (``index``, card 0 by default), with TF32 off
+    and cuDNN deterministic."""
 
     name = "cuda"
 
-    def __init__(self):
+    def __init__(self, index=0):
         if not torch.cuda.is_available():
             raise DeviceNotFoundError(
                 "device 'cuda' requested but torch sees no CUDA card "
@@ -60,7 +61,7 @@ class CUDADevice(Device):
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cudnn.deterministic = True
         super(CUDADevice, self).__init__()
-        self.torch_device = torch.device("cuda", 0)
+        self.torch_device = torch.device("cuda", index)
 
 
 DEVICES = {"cuda": CUDADevice, "cpu": CPUDevice}

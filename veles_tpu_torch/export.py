@@ -50,8 +50,10 @@ The port of ``veles_tpu/export.py``.  Three groups:
   artifact's weights in place.
 
 Not ported yet, and refused with :class:`~veles_tpu_torch.error.Bug`:
-``moe_transformer_block`` (ROADMAP A6) and KV export/adopt across
-pools.  The decode programs and the paged surface need the causal-LM
+KV export/adopt across pools.  A ``moe_transformer_block`` artifact
+runs through ``forward`` (top-1 routing at its ``capacity_factor``, as
+the JAX package's does); ``generate`` refuses it as the JAX package's
+does.  The decode programs and the paged surface need the causal-LM
 chain (embedding → transformer blocks → lm_head); any other chain
 refuses them as the JAX package's ``generate`` does.
 
@@ -126,10 +128,6 @@ EXPORTABLE = {
 }
 
 TANH_A, TANH_B = 1.7159, 0.6666
-
-#: The one ``EXPORTABLE`` type the port does not execute yet: the routed
-#: expert FFN comes with the MoE operator (ROADMAP A6).
-NOT_PORTED_UNITS = {"moe_transformer_block": "A6"}
 
 #: Storage dtypes of the paged KV pool.  "f32" is the exact path;
 #: "bf16" a scale-free cast; "int8" and "fp8" carry per-(block, head)
@@ -443,12 +441,27 @@ def forward_chain(workflow):
 
 
 def _expand_unit(unit):
-    """One forward unit → its (entry, params) pairs.  In the JAX package
-    a pipelined transformer stack (parameters stacked on a leading
-    n_blocks dim) unstacks here into n_blocks ``transformer_block``
-    entries; the port has no such stack until ROADMAP A6 brings it, so
-    every unit is one entry."""
-    return [_unit_entry(unit)]
+    """One forward unit → its (entry, params) pairs.  A pipelined
+    transformer stack (parameters stacked on a leading n_blocks dim)
+    unstacks into n_blocks ``transformer_block`` entries: the pipeline
+    is a training layout, so a stack trained under dp×pp deploys
+    through the same surfaces as a sequential model."""
+    from .znicz.attention import PipelinedTransformerStack
+    if not isinstance(unit, PipelinedTransformerStack):
+        return [_unit_entry(unit)]
+    out = []
+    for i in range(unit.n_blocks):
+        params = {}
+        for pname, vec in unit.trainables.items():
+            vec.map_read()
+            params[pname] = numpy.ascontiguousarray(
+                numpy.asarray(vec.mem, dtype=numpy.float32)[i])
+        entry = {"name": "%s_block%d" % (unit.name, i),
+                 "type": "transformer_block",
+                 "config": {"n_heads": unit.n_heads,
+                            "causal": int(unit.causal)}}
+        out.append((entry, params))
+    return out
 
 
 def export_workflow(workflow, path, compresslevel=9):
@@ -826,7 +839,11 @@ def lm_chain(units):
     inference and skipped."""
     entries = [e for e in units if e["type"] != "dropout"]
     if any(e["type"] == "moe_transformer_block" for e in entries):
-        raise Bug("moe_transformer_block is not yet ported")
+        # The JAX package's refusal: the routed-expert FFN has no cached
+        # decode path.
+        raise Bug("MoE blocks are not yet supported by generate() — "
+                  "serve moe_transformer_block artifacts through "
+                  "forward()")
     if len(entries) < 3 or entries[0]["type"] != "embedding" or \
             entries[-1]["type"] != "lm_head" or \
             any(e["type"] != "transformer_block"
@@ -960,12 +977,12 @@ def _mm(h, p, name):
     return y if s is None else y * s
 
 
-def _block(p, x, n_heads, attn_fn):
+def _block(p, x, n_heads, attn_fn, mlp=None):
     """One pre-LN transformer block: ``x + MHA(LN(x))``, then
     ``+ MLP(LN(·))``.  ``attn_fn(q, k, v)`` takes the chunk's
     ``(B, S, H, D)`` projections and returns its attention output —
     it owns the cache write and the key table (none, dense cache or
-    block pool)."""
+    block pool); ``mlp(h)`` replaces the dense MLP (the MoE block)."""
     B, S, E = x.shape
     H = n_heads
     D = E // H
@@ -981,8 +998,25 @@ def _block(p, x, n_heads, attn_fn):
     attn = attn_fn(q, k, v)
     x = x + _mm(attn.reshape(B, S, E), p, "wo") + p["bo"]
     h = _ln(x, p["ln2_g"], p["ln2_b"])
+    if mlp is not None:
+        return x + mlp(h)
     return x + _mm(torch.relu(_mm(h, p, "w1") + p["b1"]), p, "w2") + \
         p["b2"]
+
+
+def _moe_mlp(p, cfg):
+    """The artifact forward's MoE FFN: ``ops.moe.moe_ffn`` (top-1) at
+    the entry's capacity factor over the block's tokens."""
+    from .ops.moe import moe_ffn
+
+    def mlp(h):
+        B, S, E = h.shape
+        y, _aux, _load = moe_ffn(
+            h.reshape(B * S, E), p["router"], p["w1"], p["b1"], p["w2"],
+            p["b2"], capacity_factor=float(cfg.get("capacity_factor",
+                                                   1.25)))
+        return y.reshape(B, S, E)
+    return mlp
 
 
 def _head_logits(x_last, params):
@@ -1170,10 +1204,6 @@ class ExportedModel(object):
             if t not in EXPORTABLE:
                 raise Bug("unknown unit type %r (unit %s) in artifact" %
                           (t, entry["name"]))
-            if t in NOT_PORTED_UNITS:
-                raise Bug("unit type %r (unit %s) is not yet ported "
-                          "(ROADMAP %s)" % (t, entry["name"],
-                                            NOT_PORTED_UNITS[t]))
         self.weights = dict(numpy.load(io.BytesIO(
             blobs.pop("weights.npz"))))
         self.input_shape = tuple(
@@ -1448,7 +1478,7 @@ class ExportedModel(object):
                 tokens = torch.clamp(x.to(torch.int64), 0,
                                      w.shape[0] - 1)
                 x = w[tokens] + par(entry, "pos")[:tokens.shape[1]]
-            elif t == "transformer_block":
+            elif t in ("transformer_block", "moe_transformer_block"):
                 p = {n: par(entry, n) for n in entry["params"]}
                 B, S = x.shape[0], x.shape[1]
                 mask = torch.ones((S, S), dtype=torch.bool,
@@ -1458,7 +1488,9 @@ class ExportedModel(object):
                 mask = mask.expand(B, S, S)
                 x = _block(p, x, int(cfg["n_heads"]),
                            lambda q, k, v, m=mask:
-                           decode_attention_reference(q, k, v, m))
+                           decode_attention_reference(q, k, v, m),
+                           mlp=_moe_mlp(p, cfg)
+                           if t == "moe_transformer_block" else None)
             elif t == "lm_head":
                 x = x @ par(entry, "weights")
                 if "bias" in entry["params"]:
@@ -1537,6 +1569,10 @@ class ExportedModel(object):
                     ).astype(numpy.float32)
         if t == "transformer_block":
             return self._transformer_numpy(entry, x)
+        if t == "moe_transformer_block":
+            return self._transformer_numpy(
+                entry, x,
+                mlp=lambda h, p: self._moe_ffn_numpy(entry, h, p))
         if t == "lm_head":
             w = self._param(entry, "weights")
             y = x @ w
@@ -1551,9 +1587,10 @@ class ExportedModel(object):
             return self._lrn_numpy(cfg, x)
         raise Bug("unknown unit type %r in artifact" % t)
 
-    def _transformer_numpy(self, entry, x):
+    def _transformer_numpy(self, entry, x, mlp=None):
         """Pre-LN block, numpy mirror of the JAX package's
-        ``transformer_block_apply``."""
+        ``transformer_block_apply`` (``mlp(h, p)`` replaces the dense
+        MLP)."""
         cfg = entry["config"]
         H = int(cfg["n_heads"])
         causal = bool(cfg.get("causal", 1))
@@ -1588,8 +1625,39 @@ class ExportedModel(object):
             .reshape(B, S, E)
         x = x + attn @ p["wo"] + p["bo"]
         h = ln(x, p["ln2_g"], p["ln2_b"])
+        if mlp is not None:
+            return (x + mlp(h, p)).astype(numpy.float32)
         h = numpy.maximum(h @ p["w1"] + p["b1"], 0.0)
         return (x + h @ p["w2"] + p["b2"]).astype(numpy.float32)
+
+    def _moe_ffn_numpy(self, entry, h, p):
+        """Top-1 capacity routing, the numpy mirror of ``ops.moe``
+        ``moe_ffn``: tokens flatten batch-major, each goes to its argmax
+        expert while the expert has queue slots left (capacity = cf·T/E
+        over the whole batch, in token order); overflow tokens
+        contribute zero."""
+        cfg = entry["config"]
+        nexp = int(cfg["n_experts"])
+        cf = float(cfg.get("capacity_factor", 1.25))
+        B, S, E = h.shape
+        tok = h.reshape(B * S, E).astype(numpy.float32)
+        T = tok.shape[0]
+        capacity = max(1, int(cf * T / nexp))
+        logits = tok @ p["router"]
+        logits -= logits.max(axis=-1, keepdims=True)
+        probs = numpy.exp(logits)
+        probs /= probs.sum(axis=-1, keepdims=True)
+        gate = probs.max(axis=-1)
+        expert = probs.argmax(axis=-1)
+        y = numpy.zeros_like(tok)
+        count = numpy.zeros(nexp, dtype=numpy.int64)
+        for t in range(T):
+            e = int(expert[t])
+            if count[e] < capacity:
+                h1 = numpy.maximum(tok[t] @ p["w1"][e] + p["b1"][e], 0.0)
+                y[t] = gate[t] * (h1 @ p["w2"][e] + p["b2"][e])
+            count[e] += 1
+        return y.reshape(B, S, E)
 
     def _kohonen_numpy(self, entry, x):
         # Squared distance to each SOM neuron (KohonenForward emits

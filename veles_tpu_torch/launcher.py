@@ -7,6 +7,15 @@ asks for the CPU — and initializes the workflow on it
 state and put their Vectors on the device); ``run`` drives the
 workflow's graph to completion on this thread; ``stop`` ends it;
 ``resume_latest`` adopts the newest verified snapshot of a directory.
+
+The distributed mode (``mode="distributed"`` with
+``coordinator_address``, ``num_processes`` and ``process_id`` — the
+command line's ``--jax-*`` flags) runs every process as one rank of a
+``torch.distributed`` world: ``initialize`` joins it (once per process,
+whatever the number of launchers), with NCCL when the device is a CUDA
+card — rank ``r`` on card ``r % cards`` — and gloo only for a CPU
+device the caller asked for; then it applies data parallelism over the
+world's mesh, and ZeRO at ``root.common.engine.zero``'s level.
 Master/worker modes, web-status heartbeats and remote worker spawn
 wait for ROADMAP A7/A8: asking for them raises.
 """
@@ -31,6 +40,10 @@ class Launcher(Logger):
                 raise NotImplementedError(
                     "Launcher(%s=...): master/worker and fleet modes "
                     "are not yet ported (ROADMAP A7)" % key)
+        self._mode = kwargs.get("mode", "standalone")
+        self.coordinator_address = kwargs.get("coordinator_address")
+        self.num_processes = int(kwargs.get("num_processes", 1))
+        self.process_id = int(kwargs.get("process_id", 0))
         self.workflow = None
         self.device = None
         self._running = threading.Event()
@@ -39,7 +52,7 @@ class Launcher(Logger):
 
     @property
     def mode(self):
-        return "standalone"
+        return self._mode
 
     @property
     def is_running(self):
@@ -91,10 +104,67 @@ class Launcher(Logger):
         """Resolves ``device`` ("cuda" — the default — or "cpu", a
         ``torch.device`` or a ``backends.Device``; a missing card
         raises) and initializes the workflow on it; ``kwargs``
-        (``snapshot=True`` on a resume) reach every unit."""
+        (``snapshot=True`` on a resume) reach every unit.  In the
+        distributed mode the process joins the world first and the
+        workflow's step goes data-parallel over it afterwards."""
+        distributed = self._mode == "distributed"
+        if distributed and str(device) == "cuda":
+            import torch
+            from .backends import CUDADevice
+            count = torch.cuda.device_count()
+            device = CUDADevice(self.process_id % count) if count else \
+                device
         self.device = resolve_device(device)
+        if distributed:
+            self._join_world()
         self.workflow.initialize(device=self.device, **kwargs)
+        if distributed:
+            self._apply_data_parallelism()
         return self
+
+    def _join_world(self):
+        """``init_process_group`` for this rank, unless the process is
+        in a world already; the backend follows the device (NCCL for a
+        CUDA card, gloo for the CPU) and a world of the other backend
+        raises."""
+        import torch.distributed as dist
+        backend = "nccl" if self.device.torch_device.type == "cuda" \
+            else "gloo"
+        if dist.is_initialized():
+            if dist.get_backend() != backend:
+                raise RuntimeError(
+                    "this process is in a %s world, but a %s device "
+                    "needs %s" % (dist.get_backend(),
+                                  self.device.torch_device.type, backend))
+            return
+        address = self.coordinator_address
+        if "://" not in address:
+            address = "tcp://" + address
+        if backend == "nccl":
+            import torch
+            torch.cuda.set_device(self.device.torch_device)
+        dist.init_process_group(backend, init_method=address,
+                                world_size=self.num_processes,
+                                rank=self.process_id)
+        self.info("distributed: rank %d of %d (%s)", self.process_id,
+                  self.num_processes, backend)
+
+    def _apply_data_parallelism(self):
+        """Data parallelism over the world (the JAX launcher's
+        multi-controller SPMD), ZeRO at ``root.common.engine.zero``."""
+        if not hasattr(self.workflow, "compiler"):
+            self.warning(
+                "distributed mode requested but %s has no fused-step "
+                "compiler — every process runs the whole workflow "
+                "redundantly", type(self.workflow).__name__)
+            return
+        from .parallel import (make_mesh, apply_dp_sharding,
+                               apply_zero_sharding)
+        apply_dp_sharding(self.workflow, make_mesh())
+        zero = int(config_get(root.common.engine.zero, 0) or 0)
+        if zero:
+            apply_zero_sharding(self.workflow, self.workflow.mesh,
+                                level=zero)
 
     def run(self):
         """Runs the workflow to completion on this thread."""

@@ -49,6 +49,19 @@ class Vector(Pickleable):
         self._host_dirty_ = True
         self._host_stale_ = False
         self._lock_ = threading.RLock()
+        # The mesh placement (``parallel.mesh``): transient, re-applied
+        # on whatever topology exists after a restore.
+        self._placement_ = None
+
+    @property
+    def placement(self):
+        """One mesh axis (or None) per dimension, or None: how a mesh
+        splits this tensor over its ranks (``parallel.mesh``)."""
+        return self._placement_
+
+    @placement.setter
+    def placement(self, value):
+        self._placement_ = None if value is None else tuple(value)
 
     # -- host side ---------------------------------------------------------
 

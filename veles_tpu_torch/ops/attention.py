@@ -18,7 +18,16 @@ tensors and the output accumulator are in the ``attention_dtype``
 operands in float32, as the JAX package's
 ``preferred_element_type=float32`` does.
 
-Ring, Ulysses and sequence-parallel attention wait for ROADMAP A6.
+Sequence parallelism over a mesh's seq axis (``torch.distributed``):
+
+* :func:`ring_attention` — the k/v shards go round the ring by
+  point-to-point while each step folds the held chunk into the local
+  queries through :func:`ring_step`, the flash chunk contract (B1–B3 at
+  global offsets on the card), or the plain streaming update under
+  ``sp_ring_kernel`` "xla";
+* :func:`ulysses_attention` — two ``all_to_all``s around a local
+  attention over a subset of heads;
+* :func:`sequence_parallel_attention` — either, from inside a step.
 """
 
 import torch
@@ -27,9 +36,14 @@ from ..config import root, get as config_get
 
 NEG_INF = -1e30
 
+#: Valid sequence-parallel strategies.
+SP_MODES = ("ring", "ulysses")
+
 #: Valid attention-kernel dispatch modes.
 KERNEL_MODES = ("xla", "pallas", "auto")
 DEFAULT_KERNEL_MODE = "auto"
+#: Default ring-kernel mode of sequence-parallel attention.
+DEFAULT_RING_KERNEL_MODE = "auto"
 
 
 def init_parser(parser):
@@ -50,6 +64,12 @@ def init_parser(parser):
         help="training attention: 'auto' and 'pallas' take the flash "
              "kernels on CUDA tensors (or raise), 'xla' the plain "
              "attention on any device")
+    parser.add_argument(
+        "--sp-ring-kernel", default=None, choices=KERNEL_MODES,
+        help="sequence-parallel ring: 'pallas'/'auto' (default) run each "
+             "ring step through the flash kernels on the held k/v shard "
+             "at global causal offsets, merging partials by lse; 'xla' "
+             "the plain streaming update")
 
 
 def attention_compute_dtype(precision=None):
@@ -178,14 +198,140 @@ def blockwise_attention(q, k, v, block_size=128, causal=False,
     return _finish(acc, l, q.dtype)
 
 
-def _not_ported(name):
-    def refuse(*args, **kwargs):
-        raise NotImplementedError(
-            "%s is not yet ported (ROADMAP A6)" % name)
-    refuse.__name__ = name
-    return refuse
+def _ring_kernel_mode():
+    mode = str(config_get(root.common.engine.sp_ring_kernel,
+                          DEFAULT_RING_KERNEL_MODE))
+    if mode not in KERNEL_MODES:
+        raise ValueError("unknown ring kernel mode %r — valid: %s" %
+                         (mode, list(KERNEL_MODES)))
+    return mode
 
 
-ring_attention = _not_ported("ring_attention")
-ulysses_attention = _not_ported("ulysses_attention")
-sequence_parallel_attention = _not_ported("sequence_parallel_attention")
+def ring_step(carry, q, k, v, causal, q_offset, k_offset, operand_dtype):
+    """The ring-flash step body: folds the held k/v chunk (B, Sk, H, D)
+    of the sequence positions from ``k_offset`` into the local queries'
+    running ``(out, lse)`` carry (None starts one), through the chunk
+    contract of :mod:`.flash_attention` — B1 forward at the global
+    offsets, B2/B3 in the backward, the lse cotangent of the merge
+    included.  The carry is held float32."""
+    from . import flash_attention as FA
+    return FA.flash_resume(carry, q, k, v, causal=causal,
+                           q_offset=q_offset, k_offset=k_offset,
+                           operand_dtype=operand_dtype)
+
+
+def ring_attention(q, k, v, group, causal=False, kernel=None,
+                   precision=None):
+    """Sequence-parallel attention over the ranks of ``group``: each
+    holds its (B, S/N, H, D) shard; N ring steps hand the k/v shard to
+    the next rank (``collectives.shift``, point-to-point) while folding
+    the arriving chunk — the one from rank ``rank − step`` — into the
+    local queries at global offsets ``rank·S/N`` and ``src·S/N``.
+
+    ``kernel``: None → the ``sp_ring_kernel`` knob ("auto" default);
+    "pallas"/"auto" run every step through :func:`ring_step` (the flash
+    kernels on CUDA tensors, which launch or raise; their plain chunk on
+    CPU tensors), "xla" the plain streaming-softmax update.  The
+    backward is autograd's: each step's chunk recomputes from its lse,
+    the shifts run reversed."""
+    from ..parallel import collectives as C
+    mode = kernel if kernel is not None else _ring_kernel_mode()
+    if mode not in KERNEL_MODES:
+        raise ValueError("unknown ring kernel mode %r — valid: %s" %
+                         (mode, list(KERNEL_MODES)))
+    n, rank = C.group_size(group), C.group_rank(group)
+    B, Sq, H, D = q.shape
+    dt = attention_compute_dtype(precision)
+    kr, vr = k, v
+    if mode != "xla":
+        carry = None
+        for step in range(n):
+            src = (rank - step) % n
+            carry = ring_step(carry, q, kr, vr, causal, rank * Sq,
+                              src * Sq, dt)
+            if step != n - 1:
+                kr, vr = C.shift(kr, group), C.shift(vr, group)
+        return carry[0].to(q.dtype)
+    scale = 1.0 / (D ** 0.5)
+    acc, m, l = _init(q, dt)
+    for step in range(n):
+        src = (rank - step) % n
+        mask = _causal_mask(Sq, kr.shape[1], rank * Sq, src * Sq,
+                            q.device) if causal else None
+        acc, m, l = _block_update(acc, m, l, q, kr, vr, scale, mask)
+        if step != n - 1:
+            kr, vr = C.shift(kr, group), C.shift(vr, group)
+    return _finish(acc, l, q.dtype)
+
+
+def ulysses_attention(q, k, v, group, causal=False):
+    """All-to-all sequence parallelism (DeepSpeed-Ulysses) over
+    ``group``: one ``all_to_all`` re-shards (B, S/N, H, D) to
+    (B, S, H/N, D) — the whole sequence, a subset of heads — the local
+    attention runs (:func:`_gathered_attention`), and the reverse
+    ``all_to_all`` restores the sequence shards.  Needs H % N == 0."""
+    from ..parallel import collectives as C
+    n = C.group_size(group)
+    H = q.shape[2]
+    if H % n:
+        raise ValueError("ulysses needs heads (%d) divisible by the "
+                         "sequence-axis size (%d)" % (H, n))
+
+    def to_heads(x):
+        return C.all_to_all(x, 2, 1, group)
+
+    out = _gathered_attention(to_heads(q), to_heads(k), to_heads(v),
+                              causal)
+    return C.all_to_all(out, 1, 2, group)
+
+
+#: Above this gathered length the local attention streams blockwise.
+ULYSSES_DENSE_MAX = 1024
+
+
+def _gathered_attention(q, k, v, causal):
+    """Local attention over the Ulysses-gathered activations: dense up
+    to ``ULYSSES_DENSE_MAX``, else blockwise at the largest dividing
+    block size, padding to a block multiple (``kv_len`` masks the
+    padded keys) when none divides."""
+    S = q.shape[1]
+    if S <= ULYSSES_DENSE_MAX:
+        return attention(q, k, v, causal=causal)
+    for bs in (512, 384, 256, 128, 64):
+        if S % bs == 0:
+            return blockwise_attention(q, k, v, block_size=bs,
+                                       causal=causal)
+    bs = 512
+    pad = (-S) % bs
+    padded = [torch.nn.functional.pad(x, (0, 0, 0, 0, 0, pad))
+              for x in (q, k, v)]
+    out = blockwise_attention(*padded, block_size=bs, causal=causal,
+                              kv_len=S)
+    return out[:, :S]
+
+
+def sequence_parallel_attention(q, k, v, mesh, seq_axis, causal=False,
+                                mode="ring", kernel=None):
+    """Sequence-parallel attention inside a step under ``mesh``: q, k, v
+    are this rank's (B, S, H, D) — its batch and head shards, the whole
+    sequence, which every rank of the seq axis computes alike — so the
+    rank takes its S/N slice, runs ``mode`` ("ring" →
+    :func:`ring_attention`, "ulysses" → :func:`ulysses_attention`) over
+    the seq axis's group, and all-gathers the outputs back along the
+    sequence.  ``kernel`` reaches the ring only."""
+    from ..parallel import collectives as C
+    modes = {"ring": ring_attention, "ulysses": ulysses_attention}
+    if mode not in modes:
+        raise ValueError("unknown sequence-parallel mode %r — valid: %s"
+                         % (mode, sorted(modes)))
+    group = mesh.group(seq_axis)
+    n = mesh.shape[seq_axis]
+    S = q.shape[1]
+    if S % n:
+        raise ValueError("sequence %d does not divide over %d ranks of "
+                         "axis %r" % (S, n, seq_axis))
+    r = mesh.axis_index(seq_axis)
+    shard = [x.narrow(1, r * (S // n), S // n) for x in (q, k, v)]
+    kw = {"kernel": kernel} if mode == "ring" else {}
+    out = modes[mode](*shard, group, causal=causal, **kw)
+    return C.all_gather(out, 1, group)

@@ -15,7 +15,12 @@ projection multiplies bfloat16-rounded operands with a float32 result,
 as the JAX package's ``jnp.dot(..., preferred_element_type=float32)``
 does: the operands are rounded, then multiplied in float32.
 
-The MoE block and the pipelined stack wait for ROADMAP A6.
+Under a mesh (:mod:`..parallel`) the transformer units take their
+parameter shards themselves (``PLACED``): a Megatron column shard holds
+whole heads, and the all-reduce after each row-parallel product runs
+over the model axis; a block declaring ``seq_axis`` runs its attention
+sequence-parallel; the MoE block dispatches to the experts' ranks; the
+pipelined stack runs its schedule over the stage axis.
 """
 
 import functools
@@ -103,12 +108,22 @@ def _layer_norm(x, gamma, beta, eps=1e-5):
 
 
 def transformer_block_apply(params, x, n_heads, causal, cdt,
-                            attend=None, mlp=None):
+                            attend=None, mlp=None, reduce=None):
     """Pure pre-LN block: x + MHA(LN(x)), then + MLP(LN(·)).  ``mlp``
     receives the post-LN activations (B, S, E) and returns the FFN
-    output to be residual-added; None → the dense w1/w2 MLP."""
+    output to be residual-added; None → the dense w1/w2 MLP.
+
+    The projections may be Megatron shards: q/k/v (or the head-major
+    fused qkv) and ``w1`` column shards hold whole heads and a slice of
+    the hidden units, ``wo`` and ``w2`` the matching row shards, and
+    ``reduce`` (the all-reduce over the model axis; None → identity)
+    sums the row-parallel products before their biases."""
     from ..ops import attention as A
     B, S, E = x.shape
+    D = E // n_heads
+    if reduce is None:
+        def reduce(t):
+            return t
 
     def dot(a, w, b):
         return _dot(a, w, cdt) + b
@@ -118,23 +133,36 @@ def transformer_block_apply(params, x, n_heads, causal, cdt,
         # One (E, 3E) product; the head-major column layout makes the
         # q/k/v split a reshape + index.
         qkv = dot(h, params["wqkv"], params["bqkv"]).reshape(
-            B, S, n_heads, 3, -1)
+            B, S, -1, 3, D)
         q, k, v = qkv[..., 0, :], qkv[..., 1, :], qkv[..., 2, :]
     else:
-        q = dot(h, params["wq"], params["bq"]).reshape(B, S, n_heads, -1)
-        k = dot(h, params["wk"], params["bk"]).reshape(B, S, n_heads, -1)
-        v = dot(h, params["wv"], params["bv"]).reshape(B, S, n_heads, -1)
+        q = dot(h, params["wq"], params["bq"]).reshape(B, S, -1, D)
+        k = dot(h, params["wk"], params["bk"]).reshape(B, S, -1, D)
+        v = dot(h, params["wv"], params["bv"]).reshape(B, S, -1, D)
     if attend is None:
         attend = functools.partial(A.attention, causal=causal)
-    attn = attend(q.to(cdt), k.to(cdt), v.to(cdt)).reshape(B, S, E)
-    x = x + dot(attn, params["wo"], params["bo"])
+    attn = attend(q.to(cdt), k.to(cdt), v.to(cdt)).reshape(B, S, -1)
+    x = x + (reduce(_dot(attn, params["wo"], cdt)) + params["bo"])
     h = _layer_norm(x, params["ln2_g"], params["ln2_b"])
     if mlp is not None:
         x = x + mlp(h)
     else:
         h = torch.relu(dot(h, params["w1"], params["b1"]))
-        x = x + dot(h, params["w2"], params["b2"])
+        x = x + (reduce(_dot(h, params["w2"], cdt)) + params["b2"])
     return x.float()
+
+
+def _row_reduce(unit, vec, dim):
+    """The model-axis all-reduce of a unit whose row-parallel weight
+    ``vec`` is split on ``dim`` (None when it is not)."""
+    mesh = getattr(unit.workflow, "mesh", None)
+    placement = getattr(vec, "placement", None) or ()
+    axis = placement[dim] if len(placement) > dim else None
+    if mesh is None or axis is None:
+        return None
+    from ..parallel import collectives
+    group = mesh.group(axis)
+    return lambda t: collectives.all_reduce(t, group)
 
 
 def _block_param_shapes(embed, hidden, fused_qkv=False):
@@ -220,11 +248,16 @@ class TransformerBlock(ForwardBase):
     kwargs: ``n_heads``; ``mlp_ratio`` (default 4); ``causal`` (default
     True); ``remat`` (None → ``root.common.engine.remat``);
     ``fused_qkv`` (None → ``root.common.engine.fused_qkv``, frozen at
-    construction).  ``seq_axis`` (sequence-parallel attention) waits
-    for ROADMAP A6.
+    construction); ``seq_axis`` — when set AND the workflow's mesh
+    carries that axis, attention runs sequence-parallel
+    (``ops.attention.sequence_parallel_attention``) in ``sp_mode``
+    ("ring" or "ulysses") with the ring kernel ``sp_kernel`` (None → the
+    ``sp_ring_kernel`` knob).
     """
 
     MAPPING = "transformer_block"
+    #: Takes its parameter shards under a mesh (see the module doc).
+    PLACED = True
 
     PARAM_NAMES = ("ln1_g", "ln1_b", "wq", "wk", "wv", "wo",
                    "bq", "bk", "bv", "bo",
@@ -235,10 +268,16 @@ class TransformerBlock(ForwardBase):
         self.n_heads = kwargs.get("n_heads", 4)
         self.mlp_ratio = kwargs.get("mlp_ratio", 4)
         self.causal = kwargs.get("causal", True)
-        if kwargs.get("seq_axis"):
-            raise NotImplementedError(
-                "sequence-parallel attention (seq_axis=%r) is not yet "
-                "ported (ROADMAP A6)" % kwargs["seq_axis"])
+        self.seq_axis = kwargs.get("seq_axis")
+        #: "ring" (k/v shards go round, O(S/N) memory) or "ulysses"
+        #: (two all-to-alls, dense local attention).
+        self.sp_mode = kwargs.get("sp_mode", "ring")
+        from ..ops.attention import SP_MODES
+        if self.sp_mode not in SP_MODES:
+            raise ValueError("unknown sp_mode %r — valid: %s" %
+                             (self.sp_mode, list(SP_MODES)))
+        #: Ring-kernel override: None → the ``sp_ring_kernel`` knob.
+        self.sp_kernel = kwargs.get("sp_kernel")
         self.remat = kwargs.get("remat")
         self.fused_qkv = fused_qkv_enabled(kwargs.get("fused_qkv"))
         self.params = {name: Vector()
@@ -277,15 +316,23 @@ class TransformerBlock(ForwardBase):
 
     def _attend(self, q, k, v):
         from ..ops import attention as A
+        mesh = getattr(self.workflow, "mesh", None)
+        seq_axis = getattr(self, "seq_axis", None)
+        if seq_axis and mesh is not None and seq_axis in mesh.shape:
+            return A.sequence_parallel_attention(
+                q, k, v, mesh, seq_axis, causal=self.causal,
+                mode=getattr(self, "sp_mode", "ring"),
+                kernel=getattr(self, "sp_kernel", None))
         return A.attention(q, k, v, causal=self.causal)
 
     def tforward(self, read, write, params, ctx, state=None):
         x = read(self.input)
+        reduce = _row_reduce(self, self.params["wo"], 0)
 
         def apply(p, h):
             return transformer_block_apply(
                 p, h, self.n_heads, self.causal, self.compute_dtype,
-                attend=self._attend)
+                attend=self._attend, reduce=reduce)
 
         if remat_enabled(self.remat) and torch.is_grad_enabled() and \
                 not torch._C._functorch.is_functorch_wrapped_tensor(x):
@@ -293,6 +340,287 @@ class TransformerBlock(ForwardBase):
         else:
             out = apply(params, x)
         write(self.output, out)
+
+
+class MoETransformerBlock(TransformerBlock):
+    """Transformer block whose MLP is a top-k Mixture-of-Experts
+    (``ops.moe``).  Expert parameters carry a leading ``n_experts``
+    dim; under a mesh with an expert axis (``apply_dp_ep_sharding``)
+    each rank holds its experts and the block dispatches tokens to them
+    by ``all_to_all`` (``moe_ffn_parallel``).
+
+    kwargs beyond TransformerBlock: ``n_experts``; ``capacity_factor``
+    (default 1.25); ``aux_weight`` — load-balance loss weight (default
+    0.01); ``top_k`` (default ``root.common.engine.moe_top_k`` or 1);
+    ``router_z_weight`` (default ``root.common.engine.moe_router_z`` or
+    0); ``expert_axis``; ``minibatch_class_vec`` and ``minibatch_mask``
+    — the loader's, which bucket the router-health rows by class and
+    gate padded ticks out.
+
+    ``moe_acc`` is the (3 classes × 2 + n_experts) router-health
+    accumulator — [aux_sum, ticks, load_0 … load_{E−1}] — added to
+    inside the step and read at epoch boundaries.
+    """
+
+    MAPPING = "moe_transformer_block"
+
+    PARAM_NAMES = ("ln1_g", "ln1_b", "wq", "wk", "wv", "wo",
+                   "bq", "bk", "bv", "bo",
+                   "ln2_g", "ln2_b", "router",
+                   "w1", "b1", "w2", "b2")
+
+    def __init__(self, workflow, **kwargs):
+        self.n_experts = kwargs.get("n_experts", 4)
+        self.capacity_factor = kwargs.get("capacity_factor", 1.25)
+        self.aux_weight = kwargs.get("aux_weight", 0.01)
+        top_k = kwargs.get("top_k")
+        if top_k is None:
+            top_k = config_get(root.common.engine.moe_top_k, 1)
+        self.top_k = int(top_k)
+        if not 1 <= self.top_k <= self.n_experts:
+            raise ValueError(
+                "top_k=%d must satisfy 1 <= k <= n_experts=%d"
+                % (self.top_k, self.n_experts))
+        z_weight = kwargs.get("router_z_weight")
+        if z_weight is None:
+            z_weight = config_get(root.common.engine.moe_router_z, 0.0)
+        self.router_z_weight = float(z_weight)
+        self.expert_axis = kwargs.get("expert_axis")
+        self.minibatch_class_vec = kwargs.get("minibatch_class_vec")
+        self.minibatch_mask = kwargs.get("minibatch_mask")
+        self.moe_acc = Vector()
+        super(MoETransformerBlock, self).__init__(workflow, **kwargs)
+
+    @property
+    def tstate(self):
+        state = dict(super(MoETransformerBlock, self).tstate)
+        if not self.moe_acc:
+            self.moe_acc.mem = numpy.zeros((3, 2 + self.n_experts),
+                                           dtype=numpy.float32)
+        state["moe_acc"] = self.moe_acc
+        return state
+
+    def read_moe_acc(self, cls):
+        """Host fetch of one class's router row — [aux_sum, ticks,
+        per-expert load]."""
+        acc = self.tstate["moe_acc"]
+        acc.map_read()
+        return numpy.array(acc.mem[cls])
+
+    def reset_moe_acc(self, cls):
+        acc = self.tstate["moe_acc"]
+        acc.map_write()
+        acc.mem[cls] = 0.0
+
+    def initialize(self, device=None, **kwargs):
+        batch, seq, embed = self.input.shape
+        hidden = embed * self.mlp_ratio
+        stddev = self.weights_stddev or (1.0 / numpy.sqrt(embed))
+        E = self.n_experts
+        moe_shapes = {
+            "router": (embed, E),
+            "w1": (E, embed, hidden), "b1": (E, hidden),
+            "w2": (E, hidden, embed), "b2": (E, embed),
+        }
+        for name, shape in moe_shapes.items():
+            vec = self.params[name]
+            if vec:
+                continue
+            arr = numpy.zeros(shape, dtype=numpy.float32)
+            if name in ("router", "w1", "w2"):
+                self.rand().fill_normal(arr, stddev=stddev)
+            vec.mem = arr
+            vec.initialize(device if device is not None else self.device)
+        self.tstate["moe_acc"].initialize(device)
+        super(MoETransformerBlock, self).initialize(device=device,
+                                                    **kwargs)
+
+    @property
+    def expert_params(self):
+        """The expert-stacked Vectors (leading n_experts dim) — what
+        ``apply_dp_ep_sharding`` splits."""
+        return {n: self.params[n] for n in ("w1", "b1", "w2", "b2")}
+
+    def _moe(self, h2d, p, ctx):
+        """The routed FFN over (T, D) tokens: plain without a mesh, the
+        parallel dispatch under one."""
+        from ..ops import moe as M
+        mesh = getattr(self.workflow, "mesh", None)
+        top_k = getattr(self, "top_k", 1)
+        args = (h2d, p["router"], p["w1"], p["b1"], p["w2"], p["b2"])
+        if mesh is None:
+            return M.moe_ffn_topk(*args,
+                                  capacity_factor=self.capacity_factor,
+                                  top_k=top_k)
+        lead = (getattr(self.params["w1"], "placement", None) or
+                (None,))[0]
+        return M.moe_ffn_parallel(
+            *args, capacity_factor=self.capacity_factor, top_k=top_k,
+            data_group=ctx.batch_group,
+            expert_group=mesh.group(lead) if lead else None,
+            reduce=_row_reduce(self, self.params["w2"], 1))
+
+    def tforward(self, read, write, params, ctx, state=None):
+        x = read(self.input)
+        B, S, E = x.shape
+        reduce = _row_reduce(self, self.params["wo"], 0)
+
+        def apply(p, h0):
+            box = {}
+
+            def mlp(h):
+                y, aux, z, load = self._moe(h.reshape(B * S, E), p, ctx)
+                box["aux"], box["z"], box["load"] = aux, z, load
+                return y.reshape(B, S, E)
+
+            out = transformer_block_apply(
+                p, h0, self.n_heads, self.causal, self.compute_dtype,
+                attend=self._attend, mlp=mlp, reduce=reduce)
+            return out, box["aux"], box["z"], box["load"]
+
+        if remat_enabled(self.remat) and torch.is_grad_enabled() and \
+                not torch._C._functorch.is_functorch_wrapped_tensor(x):
+            out, aux, z, load = checkpoint(apply, params, x,
+                                           use_reentrant=False)
+        else:
+            out, aux, z, load = apply(params, x)
+        total_aux = self.aux_weight * aux
+        if self.router_z_weight:
+            total_aux = total_aux + self.router_z_weight * z
+        ctx.add_aux_loss(total_aux)
+        ctx.add_metric("%s_max_expert_load" % self.name,
+                       load.max() / torch.clamp_min(load.sum(), 1.0))
+        write(self.output, out)
+        if state is not None and "moe_acc" in state:
+            # Router-health row at the minibatch's class; a padded
+            # block tick (all-zero mask) is gated out whole.
+            cvec = self.minibatch_class_vec
+            cls = read(cvec).long().reshape(1) if cvec is not None \
+                else torch.full((1,), 2, dtype=torch.long,
+                                device=x.device)
+            mvec = self.minibatch_mask
+            valid = (ctx.batch_sum(read(mvec).sum()) > 0).float() \
+                if mvec is not None else torch.ones((), device=x.device)
+            row = torch.cat([
+                torch.stack([aux.float().detach(),
+                             torch.ones((), device=x.device)]),
+                load.float()]) * valid
+            return {"moe_acc": state["moe_acc"].index_add(
+                0, cls, row[None])}
+
+
+class PipelinedTransformerStack(ForwardBase):
+    """N homogeneous transformer blocks as ONE unit with stage-stacked
+    parameters (leading ``n_blocks`` dim) — the pipeline-parallel
+    formulation (``ops.pipeline``): under a mesh with the stage axis
+    the stack splits over its ranks, the minibatch into
+    ``n_microbatches``, and activations go stage to stage by point-to-
+    point; without it the same stacked parameters run as a plain loop
+    (the same function, so pipelined vs sequential parity is testable).
+    ``schedule`` (None → ``root.common.engine.pp_schedule`` or "gpipe")
+    and ``n_chunks`` (interleaved; None → ``root.common.engine.
+    pp_chunks``) pick the schedule.
+    """
+
+    MAPPING = "pipelined_transformer_stack"
+    PLACED = True
+
+    def __init__(self, workflow, **kwargs):
+        super(PipelinedTransformerStack, self).__init__(workflow,
+                                                        **kwargs)
+        self.n_blocks = kwargs.get("n_blocks", 4)
+        self.n_heads = kwargs.get("n_heads", 4)
+        self.mlp_ratio = kwargs.get("mlp_ratio", 4)
+        self.causal = kwargs.get("causal", True)
+        self.stage_axis = kwargs.get("stage_axis")
+        self.n_microbatches = kwargs.get("n_microbatches", 4)
+        schedule = kwargs.get("schedule")
+        if schedule is None:
+            schedule = config_get(root.common.engine.pp_schedule, "gpipe")
+        from ..ops.pipeline import SCHEDULES
+        if schedule not in SCHEDULES:
+            raise ValueError("unknown pipeline schedule %r — valid: %s"
+                             % (schedule, list(SCHEDULES)))
+        self.schedule = schedule
+        n_chunks = kwargs.get("n_chunks")
+        if n_chunks is None:
+            n_chunks = config_get(root.common.engine.pp_chunks, None)
+        self.n_chunks = n_chunks
+        self.remat = kwargs.get("remat")
+        self.fused_qkv = fused_qkv_enabled(kwargs.get("fused_qkv"))
+        self.params = {name: Vector()
+                       for name in qkv_param_names(
+                           TransformerBlock.PARAM_NAMES, self.fused_qkv)}
+
+    @property
+    def trainables(self):
+        return {n: v for n, v in self.params.items() if v}
+
+    def initialize(self, device=None, **kwargs):
+        super(PipelinedTransformerStack, self).initialize(
+            device=device, **kwargs)
+        batch, seq, embed = self.input.shape
+        if embed % self.n_heads:
+            raise ValueError("embed dim %d not divisible by %d heads"
+                             % (embed, self.n_heads))
+        hidden = embed * self.mlp_ratio
+        stddev = self.weights_stddev or (1.0 / numpy.sqrt(embed))
+        shapes = _block_param_shapes(embed, hidden,
+                                     fused_qkv=self.fused_qkv)
+        for name, shape in shapes.items():
+            vec = self.params[name]
+            if vec:
+                continue
+            arr = numpy.zeros((self.n_blocks,) + shape,
+                              dtype=numpy.float32)
+            if name.startswith("w"):
+                self.rand().fill_normal(arr, stddev=stddev)
+            elif name.endswith("_g"):
+                arr[...] = 1.0
+            vec.mem = arr
+            vec.initialize(self.device)
+        self.output.mem = numpy.zeros((batch, seq, embed),
+                                      dtype=numpy.float32)
+        self.output.initialize(self.device)
+
+    @property
+    def stage_params(self):
+        """The stage-stacked Vectors — what ``apply_dp_pp_sharding``
+        splits on the stage axis."""
+        return dict(self.trainables)
+
+    def tforward(self, read, write, params, ctx, state=None):
+        from ..ops import pipeline as PL
+        x = read(self.input)
+        cdt = self.compute_dtype
+        reduce = _row_reduce(self, self.params["wo"], 1)
+
+        def block_fn(p, h):
+            return transformer_block_apply(p, h, self.n_heads,
+                                           self.causal, cdt,
+                                           reduce=reduce)
+
+        mesh = getattr(self.workflow, "mesh", None)
+        lead = (getattr(self.params["wo"], "placement", None) or
+                (None,))[0]
+        if self.stage_axis and mesh is not None and \
+                lead == self.stage_axis:
+            out = PL.pipeline(block_fn, params, x, mesh, self.stage_axis,
+                              self.n_microbatches,
+                              schedule=self.schedule,
+                              n_chunks=self.n_chunks)
+        else:
+            fn = block_fn
+            if remat_enabled(self.remat) and torch.is_grad_enabled() and \
+                    not torch._C._functorch.is_functorch_wrapped_tensor(x):
+                def fn(p, h):
+                    return checkpoint(block_fn, p, h, use_reentrant=False)
+            out = PL.sequential_stack(fn, params, x)
+        write(self.output, out)
+
+
+class GDPipelinedStack(GradientDescentBase):
+    MAPPING = "pipelined_transformer_stack"
 
 
 class LMHead(ForwardBase):
@@ -366,17 +694,18 @@ class EvaluatorLM(EvaluatorBase):
         mask = read(self.mask)
         tok_mask = mask[:, None] * torch.ones(
             (1, labels.shape[1]), dtype=torch.float32, device=mask.device)
-        n_valid = torch.clamp_min(tok_mask.sum(), 1.0)
+        # Sums over the whole minibatch, also when a mesh splits it.
+        n_tok = ctx.batch_sum(tok_mask.sum())
+        n_valid = torch.clamp_min(n_tok, 1.0)
         logp = torch.log_softmax(logits.float(), dim=-1)
         nll = -torch.gather(logp, -1, labels[..., None])[..., 0]
-        loss = (nll * tok_mask).sum() / n_valid
+        loss = ctx.batch_sum((nll * tok_mask).sum()) / n_valid
         pred = torch.argmax(logits, dim=-1)
-        n_err = ((pred != labels).float() * tok_mask).sum()
+        n_err = ctx.batch_sum(((pred != labels).float() * tok_mask).sum())
         ctx.set_loss(loss)
         ctx.add_metric("n_err", n_err)
-        ctx.add_metric("n_valid", tok_mask.sum())
-        return self._accumulate(read, state, n_err, tok_mask.sum(),
-                                loss)
+        ctx.add_metric("n_valid", n_tok)
+        return self._accumulate(read, state, n_err, n_tok, loss)
 
 
 class GDEmbedding(GradientDescentBase):
@@ -385,6 +714,10 @@ class GDEmbedding(GradientDescentBase):
 
 class GDTransformerBlock(GradientDescentBase):
     MAPPING = "transformer_block"
+
+
+class GDMoETransformerBlock(GradientDescentBase):
+    MAPPING = "moe_transformer_block"
 
 
 class GDLMHead(GradientDescentBase):

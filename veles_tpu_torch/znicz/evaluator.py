@@ -147,16 +147,18 @@ class EvaluatorSoftmax(EvaluatorBase):
         logits = read(self.input)
         labels = read(self.labels).long()
         mask = read(self.mask)
-        n_valid = torch.clamp_min(mask.sum(), 1.0)
+        # Sums over the whole minibatch, also when a mesh splits it.
+        n_mask = ctx.batch_sum(mask.sum())
+        n_valid = torch.clamp_min(n_mask, 1.0)
         logp = torch.log_softmax(logits.float(), dim=-1)
         nll = -torch.gather(logp, 1, labels[:, None])[:, 0]
-        loss = (nll * mask).sum() / n_valid
+        loss = ctx.batch_sum((nll * mask).sum()) / n_valid
         pred = torch.argmax(logits, dim=-1)
-        n_err = ((pred != labels).float() * mask).sum()
+        n_err = ctx.batch_sum(((pred != labels).float() * mask).sum())
         ctx.set_loss(loss)
         ctx.add_metric("n_err", n_err)
-        ctx.add_metric("n_valid", mask.sum())
-        updates = self._accumulate(read, state, n_err, mask.sum(), loss)
+        ctx.add_metric("n_valid", n_mask)
+        updates = self._accumulate(read, state, n_err, n_mask, loss)
         if state is not None and "capture" in state:
             idx = read(self.sample_indices).long()
             trash = state["capture"].shape[0] - 1

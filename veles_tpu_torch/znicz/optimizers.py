@@ -48,8 +48,7 @@ def get(name):
 
 
 def init_parser(parser):
-    """The optimizer flag of the command line (ZeRO's ``--zero`` comes
-    with the mesh, ROADMAP A6)."""
+    """The optimizer and ZeRO flags of the command line."""
     parser.add_argument(
         "--optimizer", default=None, choices=sorted(OPTIMIZERS),
         help="update rule for GD units that do not pin one "
@@ -57,6 +56,13 @@ def init_parser(parser):
              "or lion (sets root.common.engine.optimizer; resuming a "
              "snapshot under another optimizer than it was trained "
              "with fails with a slot-mismatch error)")
+    parser.add_argument(
+        "--zero", type=int, default=None, choices=(0, 1, 2),
+        help="ZeRO optimizer-state sharding over the mesh's data axis of "
+             "a distributed run: 1 partitions the optimizer slots (each "
+             "data rank keeps and updates 1/dp), 2 also reduce-scatters "
+             "the gradients feeding them, 0 disables (sets "
+             "root.common.engine.zero)")
 
 
 def slot_prefixes():

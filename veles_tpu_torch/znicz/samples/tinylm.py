@@ -11,8 +11,11 @@ attending across the whole (causal) context.  Run::
     python -m veles_tpu_torch veles_tpu_torch/znicz/samples/tinylm.py \
         --device cpu
 
-(the default device is the CUDA card).  Mixture-of-experts blocks, the
-pipelined stack and sequence-parallel attention wait for ROADMAP A6.
+(the default device is the CUDA card).  ``n_experts`` builds
+Mixture-of-Experts blocks, ``pipelined`` one stage-stacked
+PipelinedTransformerStack, ``seq_axis`` sequence-parallel attention —
+each engaging its parallelism once a mesh carries the axis
+(``veles_tpu_torch.parallel``).
 """
 
 import numpy
@@ -22,7 +25,9 @@ from ...loader.fullbatch import FullBatchLoader
 from ...plumbing import Repeater
 from ...accelerated_units import AcceleratedWorkflow
 from ..attention import (Embedding, EvaluatorLM, GDEmbedding, GDLMHead,
-                         GDTransformerBlock, LMHead, TransformerBlock)
+                         GDMoETransformerBlock, GDPipelinedStack,
+                         GDTransformerBlock, LMHead, MoETransformerBlock,
+                         PipelinedTransformerStack, TransformerBlock)
 from ..decision import DecisionGD
 
 
@@ -56,16 +61,12 @@ class TinyLMWorkflow(AcceleratedWorkflow):
                  embed_dim=32, n_heads=4, n_blocks=1,
                  minibatch_size=64, learning_rate=0.01,
                  gradient_moment=0.9, max_epochs=8, seq_axis=None,
-                 n_experts=0, pipelined=False, fused_qkv=None,
+                 sp_mode="ring", sp_kernel=None, n_experts=0,
+                 expert_axis=None, top_k=None, router_z_weight=None,
+                 pipelined=False, stage_axis=None, n_microbatches=4,
+                 schedule=None, n_chunks=None, fused_qkv=None,
                  loader_cls=FirstTokenLoader, loader_config=None,
                  **kwargs):
-        for name, value, queue in (("n_experts", n_experts, "A6"),
-                                   ("pipelined", pipelined, "A6"),
-                                   ("seq_axis", seq_axis, "A6")):
-            if value:
-                raise NotImplementedError(
-                    "TinyLMWorkflow(%s=%r) is not yet ported (ROADMAP "
-                    "%s)" % (name, value, queue))
         super(TinyLMWorkflow, self).__init__(workflow, **kwargs)
         self.repeater = Repeater(self)
         self.repeater.link_from(self.start_point)
@@ -84,10 +85,38 @@ class TinyLMWorkflow(AcceleratedWorkflow):
 
         self.forwards = [self.embedding]
         prev = self.embedding
+        if pipelined and n_experts:
+            raise ValueError(
+                "pipelined=True with n_experts>0 is not supported — the "
+                "pipelined stack holds dense blocks only")
+        if pipelined:
+            stack = PipelinedTransformerStack(
+                self, n_blocks=n_blocks, n_heads=n_heads, causal=True,
+                stage_axis=stage_axis, n_microbatches=n_microbatches,
+                schedule=schedule, n_chunks=n_chunks,
+                fused_qkv=fused_qkv, name="stack")
+            stack.link_from(prev)
+            stack.input = prev.output
+            self.forwards.append(stack)
+            prev = stack
+            n_blocks = 0
         for i in range(n_blocks):
-            block = TransformerBlock(
-                self, n_heads=n_heads, causal=True,
-                fused_qkv=fused_qkv, name="block%d" % i)
+            if n_experts:
+                block = MoETransformerBlock(
+                    self, n_heads=n_heads, causal=True,
+                    seq_axis=seq_axis, sp_mode=sp_mode,
+                    sp_kernel=sp_kernel, n_experts=n_experts,
+                    top_k=top_k, router_z_weight=router_z_weight,
+                    fused_qkv=fused_qkv, expert_axis=expert_axis,
+                    minibatch_class_vec=self.loader.minibatch_class_vec,
+                    minibatch_mask=self.loader.minibatch_mask,
+                    name="block%d" % i)
+            else:
+                block = TransformerBlock(
+                    self, n_heads=n_heads, causal=True,
+                    seq_axis=seq_axis, sp_mode=sp_mode,
+                    sp_kernel=sp_kernel, fused_qkv=fused_qkv,
+                    name="block%d" % i)
             block.link_from(prev)
             block.input = prev.output
             self.forwards.append(block)
@@ -121,6 +150,8 @@ class TinyLMWorkflow(AcceleratedWorkflow):
         for unit in reversed(self.forwards):
             cls = {Embedding: GDEmbedding,
                    TransformerBlock: GDTransformerBlock,
+                   MoETransformerBlock: GDMoETransformerBlock,
+                   PipelinedTransformerStack: GDPipelinedStack,
                    LMHead: GDLMHead}[type(unit)]
             gd = cls(self, target=unit, **gd_kw)
             gd.link_from(prev_gd)
@@ -142,7 +173,11 @@ def run(load, main):
          n_heads=config_get(cfg.n_heads, 4),
          n_blocks=config_get(cfg.n_blocks, 1),
          n_experts=config_get(cfg.n_experts, 0),
+         top_k=config_get(cfg.top_k, None),
+         router_z_weight=config_get(cfg.router_z_weight, None),
          pipelined=config_get(cfg.pipelined, False),
+         schedule=config_get(cfg.schedule, None),
+         n_chunks=config_get(cfg.n_chunks, None),
          minibatch_size=config_get(cfg.minibatch_size, 64),
          learning_rate=config_get(cfg.learning_rate, 0.01),
          max_epochs=config_get(cfg.max_epochs, 8))
