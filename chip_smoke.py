@@ -7,7 +7,9 @@ Run from the root of a checkout, on a machine with one CUDA card:
 
 (``python3 chip_smoke.py --ranks 4`` on a machine with four cards runs
 only the build and the parallel styles as four NCCL ranks, each style's
-ticks held to the unsplit tick on card 0: ``phase_ranks``.)
+ticks held to the unsplit tick on card 0, then reads each rank's
+parameter bytes — a placed parameter held at its shard's size — and
+peak memory: ``phase_ranks``.)
 
 It drives the port's paths once each, at full width — training
 the TinyLM workflow through the fused tick and serving an exported LM,
@@ -162,6 +164,16 @@ any failure exits non-zero:
    held to the plain chunks, the whole-sequence B1-B3 and the plain
    attention (``RING_DTYPES``); (d) MNIST through the command line with
    the ``--jax-*`` flags in the world;
+   9n (``phase_net``). the data plane — a master
+   ``Launcher(listen_address="127.0.0.1:0")`` holding the full-width
+   AlexNet (batch 128) and one worker process on the same card
+   (``Launcher(master_address=...)``): one validation job and NET_JOBS
+   train jobs of ``--job-ticks 2`` with fp32 deltas, the master's
+   parameters after them equal to the in-process run of the same ticks
+   bit for bit, the worker's B6/B7 launches 2 + 2 a train tick; one
+   train job with bf16 deltas within the codec's rounding bound; the
+   wire bytes per minibatch; the AlexNet train tick with and without
+   ``torch.use_deterministic_algorithms``;
 9. quantized serving — a second artifact (another seed) is written;
    the first is served with ``--kv-dtype int8 --weight-dtype int8
    --spec --warmup`` (and once without ``--spec``) to the mixed wave
@@ -179,9 +191,10 @@ any failure exits non-zero:
    must compute its first logits, token and last-position k/v as the
    prompt's first serving did, bit for bit;
 10. exit — drains the servers, prints the training, AlexNet, snapshot,
-   streamed, serving, in-workflow serving, pretraining and population
-   numbers and the kernels (B1-B4's launches from phase 7r too, B1-B3's
-   and B6/B7's from phase 7g) as JSON lines, the command's time, the
+   streamed, serving, in-workflow serving, pretraining, population,
+   parallel and data-plane numbers and the kernels (B1-B4's launches
+   from phase 7r too, B1-B3's and B6/B7's from phase 7g, B6/B7's from
+   phase 9n's worker) as JSON lines, the command's time, the
    card's name and power limit, and ``{"ok": true, "device": {...}}``
    last.
 """
@@ -4909,6 +4922,277 @@ def phase_parallel(workdir, smi):
         numbers
 
 
+#: Phase 9n, the data plane: the full-width AlexNet at NET_BATCH a
+#: minibatch, one validation minibatch, then NET_JOBS train jobs of
+#: NET_TICKS ticks each (fp32 deltas), then one train job with bf16
+#: deltas.
+NET_BATCH, NET_JOBS, NET_TICKS = 128, 4, 2
+#: Ticks timed for the deterministic-algorithms reading, each way.
+NET_DET_TICKS = 6
+
+
+def net_alexnet(launcher, n_train):
+    """The phase's AlexNet, seeded alike in every process."""
+    from veles_tpu_torch import prng
+    from veles_tpu_torch.znicz.samples.imagenet import AlexNetWorkflow
+    prng.reset()
+    prng.get(0).seed(42)
+    return AlexNetWorkflow(
+        launcher, minibatch_size=NET_BATCH, max_epochs=1,
+        loader_config={"sim_train": n_train, "sim_valid": NET_BATCH,
+                       "sim_image_size": 227, "sim_classes": 1000,
+                       "validate_labels": False})
+
+
+def net_config(dtype):
+    from veles_tpu_torch.config import root
+    engine, net = root.common.engine, root.common.net
+    engine.precision_level = 0
+    engine.pallas_lrn = True
+    net.job_ticks = NET_TICKS
+    net.dtype = dtype
+    net.codec = "none"
+
+
+def net_worker(sessions, out):
+    """The worker process of phase 9n: for each (train images, wire
+    dtype) it takes from ``sessions`` (until None) it builds the phase's
+    AlexNet on the card — while the master builds its own — then takes
+    the master's address, joins it with ``Launcher(master_address=...)``
+    and runs its client; writes each session's B6/B7 launches and jobs
+    to ``out``."""
+    sys.path.insert(0, HERE)
+    import torch
+    from veles_tpu_torch.launcher import Launcher
+    from veles_tpu_torch.ops import lrn as L
+    torch.set_num_threads(4)
+    report = []
+    while True:
+        item = sessions.get(timeout=300)
+        if item is None:
+            break
+        n_train, dtype = item
+        net_config(dtype)
+        launcher = Launcher(master_address="127.0.0.1:0",
+                            slave_kwargs={"reconnect_attempts": 3})
+        wf = net_alexnet(launcher, n_train)
+        launcher.initialize(device="cuda")
+        # The master's port is known once it listens.
+        launcher.client.address = sessions.get(timeout=300)
+        L.reset_launches()
+        t0 = time.monotonic()
+        launcher.run()
+        torch.cuda.synchronize()
+        report.append({"lrn_forward": L.lrn_forward.launches,
+                       "lrn_backward": L.lrn_backward.launches,
+                       "jobs": launcher.client.jobs_done,
+                       "seconds": time.monotonic() - t0})
+        del wf, launcher
+    with open(out, "w") as fout:
+        json.dump(report, fout)
+
+
+def net_params(wf):
+    import numpy
+    out = {}
+    for u in wf.units:
+        for a, v in (getattr(u, "trainables", None) or {}).items():
+            v.map_read()
+            out["%s/%s" % (u.name, a)] = numpy.array(v.mem)
+    return out
+
+
+def net_session(sessions, n_train, dtype, train_jobs=None):
+    """One master session of phase 9n in this process: the master's
+    AlexNet on the card behind ``Launcher(listen_address=...)``, the
+    worker process told its address; with ``train_jobs`` the master's
+    decision completes once that many train jobs are folded.  Returns
+    (master parameters after the run, wire bytes both ways,
+    seconds)."""
+    from veles_tpu_torch import resilience
+    from veles_tpu_torch.launcher import Launcher
+    from veles_tpu_torch.loader.base import TRAIN
+    sessions.put((n_train, dtype))
+    net_config(dtype)
+    launcher = Launcher(listen_address="127.0.0.1:0")
+    wf = net_alexnet(launcher, n_train)
+    launcher.initialize(device="cuda")
+    if train_jobs is not None:
+        apply = wf.apply_data_from_slave
+        folded = []
+
+        def apply_and_count(data, slave=None):
+            train = (data or {}).get("__job__", {}).get(
+                "minibatch_class") == TRAIN
+            apply(data, slave)
+            folded.append(train)
+            if sum(folded) >= train_jobs:
+                wf.decision.complete <<= True
+
+        wf.apply_data_from_slave = apply_and_count
+    resilience.stats.reset()
+    t0 = time.monotonic()
+    sessions.put("127.0.0.1:%d" % launcher.server.port)
+    launcher.run()
+    seconds = time.monotonic() - t0
+    snap = resilience.stats.snapshot()
+    wire = snap.get("net.bytes_sent", 0) + snap.get("net.bytes_recv", 0)
+    if not wf.decision.complete:
+        fail("9n: the %s session ended before its decision completed"
+             % dtype)
+    params = net_params(wf)
+    del wf, launcher
+    return params, wire, seconds
+
+
+def net_reference(n_train):
+    """The in-process run of the same ticks from the same seed: the
+    parameters after every tick, then the deterministic-algorithms
+    reading (NET_DET_TICKS train ticks timed with
+    ``torch.use_deterministic_algorithms`` off, then on with
+    ``warn_only``)."""
+    import warnings
+    import torch
+    from veles_tpu_torch.launcher import Launcher
+    net_config("fp32")
+    launcher = Launcher()
+    wf = net_alexnet(launcher, n_train)
+    launcher.initialize(device="cuda")
+    compiler = wf.compiler
+    execute = compiler.execute
+    after = []
+
+    def recorded(training=True):
+        metrics = execute(training=training)
+        after.append((training, net_params(wf)))
+        return metrics
+
+    compiler.execute = recorded
+    launcher.run()
+    compiler.execute = execute
+
+    def timed():
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        for _ in range(NET_DET_TICKS):
+            execute(training=True)
+        torch.cuda.synchronize()
+        return (time.monotonic() - t0) * 1e3 / NET_DET_TICKS
+
+    timed()  # warm
+    det = {"off_ms": timed()}
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            det["on_ms"] = timed()
+        finally:
+            torch.use_deterministic_algorithms(False)
+    det["warnings"] = sorted({str(w.message).split(".")[0][:160]
+                              for w in caught})
+    del wf, launcher
+    return after, det
+
+
+def phase_net(workdir, smi):
+    """Phase 9n, the data plane on the card: a master
+    ``Launcher(listen_address="127.0.0.1:0")`` holding the full-width
+    AlexNet, one worker process on the same card
+    (``Launcher(master_address=...)``, spawned), NET_JOBS train jobs of
+    ``--job-ticks`` NET_TICKS with fp32 deltas (codec none).  Gates: the
+    master's parameters after the jobs equal an in-process run of the
+    same ticks from the same seed bit for bit; the worker launched B6
+    twice and B7 twice per train tick (B6 twice per validation tick).
+    Then one train job with bf16 deltas, held to the in-process
+    parameters after that job's ticks within the bf16 codec's rounding:
+    |got - want| <= 2^-8 |want - start| + 2^-22 max(|want|, |start|)
+    per element.  Prints the wire bytes per minibatch of both, and the
+    deterministic-algorithms reading."""
+    import numpy
+    import torch
+    import torch.multiprocessing as mp
+    started = time.monotonic()
+    n_train = NET_BATCH * NET_TICKS * NET_JOBS
+    ctx = mp.get_context("spawn")
+    sessions = ctx.Queue()
+    out = os.path.join(workdir, "net_worker.json")
+    worker = ctx.Process(target=net_worker, args=(sessions, out))
+    worker.start()
+    try:
+        got, wire32, s32 = net_session(sessions, n_train, "fp32")
+        got16, wire16, s16 = net_session(sessions, n_train, "bf16",
+                                         train_jobs=1)
+        sessions.put(None)
+        worker.join(300)
+    finally:
+        if worker.is_alive():
+            worker.kill()
+            worker.join()
+    if worker.exitcode:
+        fail("9n: the worker process exited %s" % worker.exitcode)
+    with open(out) as fin:
+        report = json.load(fin)
+    after, det = net_reference(n_train)
+    torch.cuda.empty_cache()
+    want = after[-1][1]
+    equal = {n: bool(numpy.array_equal(got[n], want[n])) for n in want}
+    print("9n fp32: %d jobs of %d ticks; master parameters == in-process "
+          "ticks bit for bit: %d/%d tensors" % (
+              report[0]["jobs"], NET_TICKS, sum(equal.values()),
+              len(equal)))
+    if not all(equal.values()):
+        worst = {n: float(numpy.abs(got[n] - want[n]).max())
+                 for n, ok in equal.items() if not ok}
+        fail("9n: the master's parameters after the fp32 jobs differ from "
+             "the in-process ticks: %s" % worst)
+    classes = [t for t, _ in after]
+    train = sum(classes)
+    valid = len(classes) - train
+    expect = {"lrn_forward": 2 * (train + valid), "lrn_backward": 2 * train}
+    launches = {k: report[0][k] for k in expect}
+    print("9n: worker LRN launches %s for %d train + %d validation ticks "
+          "(expected %s)" % (launches, train, valid, expect))
+    if launches != expect:
+        fail("9n: the worker launched the LRN kernels %s times, the ticks "
+             "imply %s" % (launches, expect))
+    # The bf16 session: one validation job, then one train job, whose
+    # in-process counterpart is after[NET_TICKS] (its last tick).
+    start, want16 = after[0][1], after[NET_TICKS][1]
+    share = 0.0
+    for n in want16:
+        a, b = want16[n], start[n]
+        bound = 2.0 ** -8 * numpy.abs(a - b) + 2.0 ** -22 * numpy.maximum(
+            numpy.abs(a), numpy.abs(b))
+        gap = numpy.abs(got16[n] - a)
+        share = max(share, float((gap / numpy.maximum(bound, 1e-30)).max()))
+    print("9n bf16: one train job, largest error / bf16 rounding bound "
+          "%.4f" % share)
+    if share > 1.0:
+        fail("9n: the bf16 job leaves its rounding bound (%.4f)" % share)
+    if {k: report[1][k] for k in expect} != {
+            "lrn_forward": 2 * (NET_TICKS + 1),
+            "lrn_backward": 2 * NET_TICKS}:
+        fail("9n: the bf16 worker's LRN launches %s" % report[1])
+    per32 = wire32 / float(len(classes))
+    per16 = wire16 / float(NET_TICKS + 1)
+    print("9n on %s: wire bytes per minibatch fp32 %.0f (%d B, %.1f s), "
+          "bf16 %.0f (%d B, %.1f s); deterministic algorithms off %.2f ms "
+          "/ on %.2f ms a train tick (%d warnings: %s); phase %.1f s" % (
+              smi, per32, wire32, s32, per16, wire16, s16, det["off_ms"],
+              det["on_ms"], len(det["warnings"]), det["warnings"],
+              time.monotonic() - started))
+    numbers = {"jobs": report[0]["jobs"], "job_ticks": NET_TICKS,
+               "batch": NET_BATCH, "fp32_equal_tensors": len(equal),
+               "bf16_share_of_bound": share,
+               "wire_bytes_per_minibatch": {"fp32": per32, "bf16": per16},
+               "wire_bytes": {"fp32": wire32, "bf16": wire16},
+               "session_s": {"fp32": s32, "bf16": s16},
+               "worker": report, "deterministic_algorithms": det,
+               "phase_s": time.monotonic() - started}
+    total = {k: report[0][k] + report[1][k] for k in expect}
+    return total, numbers
+
+
 #: ``--ranks 4``: the parallel styles on four cards, one rank each in an
 #: NCCL world (mesh axes, applier, TinyLM kwargs, ZeRO level).  The
 #: tests' geometry (vocab 16, 32 positions, embed 32, 4 heads, 2 blocks,
@@ -4978,10 +5262,41 @@ def rank_ticks(wf):
     return losses, params, secs
 
 
+def rank_memory(wf):
+    """After one more tick (no host read, so every placed tensor stays
+    held as this rank's shard): this rank's parameter bytes, the bytes
+    of the full parameters, the placed parameters whose held tensor is
+    not their shard's size, and the peak of ``max_memory_allocated``."""
+    import torch
+    wf.loader.run()
+    torch.cuda.synchronize()
+    compiler = wf.compiler
+    mesh = wf.mesh
+    mine = full = 0
+    wrong = []
+    for name, vec in compiler._param_vecs.items():
+        full += vec.nbytes
+        held = compiler._held.get(name)
+        if held is None:
+            mine += vec.devmem.numel() * vec.devmem.element_size()
+            if any(vec.placement or ()):
+                wrong.append((name, "not held"))
+            continue
+        mine += held.numel() * held.element_size()
+        shard = tuple(d // mesh.shape[a] if a else d
+                      for d, a in zip(vec.shape, vec.placement))
+        if tuple(held.shape) != shard or vec._devmem_ is not None:
+            wrong.append((name, tuple(held.shape), shard))
+    return {"param_bytes": mine, "full_param_bytes": full,
+            "wrong_shards": wrong,
+            "peak_bytes": torch.cuda.max_memory_allocated()}
+
+
 def rank_worker(rank, n, store, out):
     """One rank of ``--ranks``: joins the NCCL world through the port's
-    launcher and trains every case of RANK_CASES; rank 0 writes the
-    results."""
+    launcher and trains every case of RANK_CASES, then reads its memory
+    (:func:`rank_memory`); rank 0 writes the results and every rank's
+    memory."""
     import pickle
     import torch.distributed as dist
     sys.path.insert(0, HERE)
@@ -4992,7 +5307,9 @@ def rank_worker(rank, n, store, out):
     engine.precision_level = 1
     engine.attention_dtype = "f32"
     engine.attention_kernel = "auto"
+    import torch
     results = {}
+    memory = {}
     try:
         for case, (axes, applier, lm, zero) in sorted(RANK_CASES.items()):
             launcher = Launcher(mode="distributed",
@@ -5003,14 +5320,18 @@ def rank_worker(rank, n, store, out):
             getattr(par, applier)(wf, par.make_mesh(None, axes))
             if zero:
                 par.apply_zero_sharding(wf, level=zero)
+            torch.cuda.reset_peak_memory_stats()
             results[case] = rank_ticks(wf) + (dist.get_backend(),)
+            memory[case] = rank_memory(wf)
             del wf, launcher
+        gathered = [None] * n
+        dist.all_gather_object(gathered, memory)
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()
     if rank == 0:
         with open(out, "wb") as fout:
-            pickle.dump(results, fout)
+            pickle.dump((results, gathered), fout)
 
 
 def phase_ranks(n, workdir, smi):
@@ -5044,7 +5365,7 @@ def phase_ranks(n, workdir, smi):
         fail("--ranks %d: the ranks exited %s" % (n, codes))
     ranks_s = time.monotonic() - t0
     with open(out, "rb") as fin:
-        got = pickle.load(fin)
+        got, memory = pickle.load(fin)
     engine = root.common.engine
     engine.precision_level = 1
     engine.attention_dtype = "f32"
@@ -5070,15 +5391,36 @@ def phase_ranks(n, workdir, smi):
         loss_gap = max(abs(a - b) / abs(b)
                        for a, b in zip(losses, want_losses))
         worst[case] = {"share_of_tol": share, "loss_rel": loss_gap,
-                       "tick_s": secs, "backend": backend, "mesh": axes}
+                       "tick_s": secs, "backend": backend, "mesh": axes,
+                       "param_bytes_by_rank": [
+                           m[case]["param_bytes"] for m in memory],
+                       "full_param_bytes": memory[0][case][
+                           "full_param_bytes"],
+                       "peak_bytes_by_rank": [
+                           m[case]["peak_bytes"] for m in memory],
+                       "wrong_shards": [m[case]["wrong_shards"]
+                                        for m in memory
+                                        if m[case]["wrong_shards"]]}
         print("ranks %s %s on %d cards (%s): losses %s vs unsplit %s; "
               "largest parameter error / tolerance (rtol %g, atol %g) "
               "%.4f; ticks %s s" % (
                   case, axes, n, backend, ["%.6f" % x for x in losses],
                   ["%.6f" % x for x in want_losses], RANK_RTOL, RANK_ATOL,
                   share, ["%.4f" % x for x in secs]))
+        print("ranks %s: parameter bytes by rank %s of %d whole (placed "
+              "parameters held as shards between ticks); peak "
+              "max_memory_allocated by rank %s" % (
+                  case, worst[case]["param_bytes_by_rank"],
+                  worst[case]["full_param_bytes"],
+                  worst[case]["peak_bytes_by_rank"]))
     bad = {c: w for c, w in worst.items() if w["share_of_tol"] > 1.0 or
-           w["loss_rel"] > RANK_LOSS_RTOL or w["backend"] != "nccl"}
+           w["loss_rel"] > RANK_LOSS_RTOL or w["backend"] != "nccl" or
+           w["wrong_shards"]}
+    for case in ("dp_tp", "dp_ep_top2", "dp_pp_1f1b", "dp_pp_tp",
+                 "dp_ep_tp"):
+        w = worst[case]
+        if max(w["param_bytes_by_rank"]) >= w["full_param_bytes"]:
+            bad[case] = dict(w, why="a rank holds every parameter whole")
     print(json.dumps({"ranks": {"n": n, "cases": worst,
                                 "ranks_s": ranks_s}}))
     print("ranks on %s: %d cases in %.1f s" % (smi, len(worst), ranks_s))
@@ -5889,6 +6231,9 @@ def main():
         par_flash, par_b4, parallel = phase_parallel(workdir, smi)
         gc.collect()
         torch.cuda.empty_cache()
+        net_launches, net = phase_net(workdir, smi)
+        gc.collect()
+        torch.cuda.empty_cache()
         reload_path = os.path.join(workdir, "lm-reload.veles.tgz")
         t0 = time.monotonic()
         from veles_tpu_torch import export as X
@@ -6025,13 +6370,15 @@ def main():
                      " and ".join("%s %s" % (n, sh) for n, sh in
                                   LRN_SHAPES),
             "launches": lrn_launches[name] + snapshot_launches[name] +
-            stream_launches[name] + pop_launches[name],
+            stream_launches[name] + pop_launches[name] +
+            net_launches[name],
             "launches_by_path": {
                 "alexnet_run": lrn_launches[name],
                 "alexnet_snapshot_ticks_and_artifact_forward":
                     snapshot_launches[name],
                 "alexnet_streamed": stream_launches[name],
-                "alexnet_population": pop_launches[name]},
+                "alexnet_population": pop_launches[name],
+                "alexnet_data_plane_worker": net_launches[name]},
             "launches_by_route": lrn_routes[name],
             "max_abs_err": lrn_err[name],
             "tol": "f32 fwd rtol %g, bwd %g x the terms' magnitude; bf16 "
@@ -6073,6 +6420,7 @@ def main():
     print(json.dumps({"pretraining": pretraining}))
     print(json.dumps({"population": population}))
     print(json.dumps({"parallel": parallel}))
+    print(json.dumps({"data_plane": net}))
     print(json.dumps({"quant_serving": quant}))
     print(json.dumps(kernels))
     print("chip_smoke: command time %.1f s" % (time.monotonic() - started))

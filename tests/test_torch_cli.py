@@ -44,7 +44,8 @@ def test_every_jax_option_is_parsed_or_refused_by_name():
     assert missing == []
     # A flag is one or the other, never both.
     assert sorted(port & refused) == []
-    assert set(tmain.NOT_PORTED.values()) <= {"A6", "A7a", "A8"}
+    assert set(tmain.NOT_PORTED.values()) <= {"A7a-ii", "A7b", "A8",
+                                              "A8a"}
 
 
 @pytest.mark.parametrize("flag", REFUSED)
@@ -218,7 +219,18 @@ def test_meta_flag_sets_the_same_keys_in_both_trees(argv, want):
 @pytest.mark.parametrize("flag", ["--pbt", "--pbt-interval",
                                   "--ensemble-population", "-l", "-m"])
 def test_fleet_population_flags_stay_refused_naming_a7a(flag):
-    with pytest.raises(NotImplementedError, match="ROADMAP A7a"):
+    """The fleet's population flags stay refused by name: since A7 was
+    split, their queue is A7b, its fleet half.  ``-l`` and ``-m``,
+    refused until the data plane (A7a-i) was ported, now choose the
+    launcher's master and worker modes."""
+    if flag in ("-l", "-m"):
+        main = tmain.Main(["wf.py", flag, "127.0.0.1:1"])
+        main.parse()
+        kw = main._launcher_kwargs()
+        key = "listen_address" if flag == "-l" else "master_address"
+        assert kw == {key: "127.0.0.1:1"}
+        return
+    with pytest.raises(NotImplementedError, match="ROADMAP A7b"):
         tmain.Main(["wf.py", flag, "1"]).parse()
 
 

@@ -95,6 +95,28 @@ def _train(wf, ticks=TICKS):
     return {"losses": losses, "params": params}
 
 
+def _held_shards(wf):
+    """After one more tick: each placed parameter's (tensor shape the
+    rank holds, its shard's shape, whether the Vector dropped its full
+    tensor)."""
+    wf.loader.run()
+    compiler = wf.compiler
+    mesh = wf.mesh
+    out = {}
+    for u in wf.units:
+        for attr, vec in getattr(u, "trainables", {}).items():
+            if not any(vec.placement or ()):
+                continue
+            name = "%s/%s" % (u.name, attr)
+            shard = tuple(d // mesh.shape[a] if a else d
+                          for d, a in zip(vec.shape, vec.placement))
+            held = compiler._held.get(name)
+            out[name] = (None if held is None else tuple(held.shape),
+                         shard, vec.holder is compiler and
+                         vec._devmem_ is None)
+    return out
+
+
 def _styled(style, **lm):
     """A TinyLM laid out in ``style`` over the world's ranks."""
     import veles_tpu_torch.parallel as par
@@ -170,6 +192,7 @@ def _session_styles(rank, world, out):
         if zero:
             par.apply_zero_sharding(wf, level=zero)
         run = _train(wf)
+        run["shards"] = _held_shards(wf)
         run["placements"] = {
             "%s/%s" % (u.name, a): v.placement
             for u in wf.units for which in ("trainables", "tstate")
@@ -375,6 +398,12 @@ def test_style_ticks_match_jax(case, styles_run, kept_roots):
     if zero:
         assert any(p and p[0] == "data"
                    for p in got["placements"].values()), case
+    # Between ticks a rank keeps only its shard of each placed
+    # parameter, as a sharded jax.Array holds only its shard.
+    if axes & {"model", "expert", "stage"}:
+        assert got["shards"], case
+    for name, (held, shard, dropped) in got["shards"].items():
+        assert held == shard and dropped, (case, name, held, shard)
 
 
 def test_cross_topology_restore(tmp_path, kept_roots):

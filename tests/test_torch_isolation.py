@@ -60,7 +60,10 @@ def test_import_leaves_jax_and_veles_tpu_out():
             "veles_tpu_torch.parallel, veles_tpu_torch.parallel.mesh, "
             "veles_tpu_torch.parallel.collectives, "
             "veles_tpu_torch.parallel.placed, veles_tpu_torch.ops.moe, "
-            "veles_tpu_torch.ops.pipeline\n"
+            "veles_tpu_torch.ops.pipeline, "
+            "veles_tpu_torch.network_common, veles_tpu_torch.server, "
+            "veles_tpu_torch.client, veles_tpu_torch.fleet, "
+            "veles_tpu_torch.fleet.scheduler\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib', 'veles_tpu.')) or "
             "m == 'veles_tpu')\n"

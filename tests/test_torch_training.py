@@ -376,7 +376,7 @@ def test_cli_refuses_what_is_not_ported():
     with pytest.raises(NotImplementedError, match="not yet ported"):
         Main(["wf.py", "--pbt"]).parse()
     with pytest.raises(NotImplementedError, match="A7"):
-        Main(["wf.py", "-l", "127.0.0.1:1"]).parse()
+        Main(["wf.py", "--nodes", "local"]).parse()
     if not torch.cuda.is_available():
         from veles_tpu_torch.error import DeviceNotFoundError
         with pytest.raises(DeviceNotFoundError):

@@ -38,11 +38,17 @@ writes the results JSON.  The ``--serve-*`` flags configure an in-workflow
 instead of the plain run: ``--optimize`` (the genetic search over
 ``Tune()`` leaves, :mod:`.genetics`), ``--population`` (a GA
 population, one vmapped device job per generation, :mod:`.population`),
-``--ensemble-train`` and ``--ensemble-test`` (:mod:`.ensemble`).  The
-JAX CLI's other modes — master/worker, multi-process, the fleet's
-population modes (PBT, ``--ensemble-population``), profiling, tracing,
-the serving fabric — are not yet ported: their flags raise, naming
-their ROADMAP queue (:data:`NOT_PORTED`).
+``--ensemble-train`` and ``--ensemble-test`` (:mod:`.ensemble`).
+``-l HOST:PORT`` makes the process the data plane's coordinator and
+``-m HOST:PORT`` one of its workers (with the ``--net-*``,
+``--job-ticks``, ``--async-slave``, ``--reconnect-*``,
+``--preempt-grace``, ``--slave-death-probability``, ``--measure-power``
+and ``--chaos`` flags); the three ``--jax-*`` flags make it one rank of
+a ``torch.distributed`` world.  The JAX CLI's other modes — the fleet's
+worker spawn and parole, its population modes (PBT,
+``--ensemble-population``), profiling, tracing, the serving fabric —
+are not yet ported: their flags raise, naming their ROADMAP queue
+(:data:`NOT_PORTED`).
 """
 
 import argparse
@@ -52,7 +58,8 @@ import logging
 import os
 import sys
 
-from . import guardian, population, prng, restful, snapshotter
+from . import (client, guardian, network_common, population, prng,
+               restful, snapshotter)
 from .loader import base as loader_base
 from .ops import attention, moe, pipeline
 from .znicz import optimizers
@@ -65,27 +72,20 @@ from .logger import Logger
 #: Flags of the JAX CLI that the port refuses, with the ROADMAP queue
 #: that brings each.
 NOT_PORTED = {
-    "--chaos": "A7a", "-l": "A7a", "--listen-address": "A7a",
-    "--blacklist-cooldown": "A7a", "-m": "A7a",
-    "--master-address": "A7a", "--nodes": "A7a",
+    # The fleet: remote worker spawn and blacklist parole.
+    "--nodes": "A7a-ii", "--blacklist-cooldown": "A7a-ii",
     "-a": "A8", "--backend": "A8", "--dry-run": "A8",
     "--workflow-graph": "A8", "--dump-config": "A8",
     "--profile": "A8", "--frontend": "A8",
-    "--pbt": "A7a",
     # The serving fabric.
     "--serve-fabric-replicas": "A8", "--serve-fabric-disagg": "A8",
     "--serve-tenant": "A8",
-    # The data plane, the fleet and its population modes.
-    "--net-codec": "A7a", "--net-dtype": "A7a", "--net-legacy": "A7a",
-    "--net-require": "A7a", "--net-zero": "A7a", "--job-ticks": "A7a",
-    "--async-slave": "A7a", "--reconnect-attempts": "A7a",
-    "--reconnect-delay": "A7a", "--preempt-grace": "A7a",
-    "--slave-death-probability": "A7a", "--pbt-interval": "A7a",
-    "--pbt-perturb": "A7a", "--pbt-quantile": "A7a",
-    "--ensemble-population": "A7a",
-    # Observability and power.
-    "--trace-out": "A8", "--trace-ring": "A8", "--xprof": "A8",
-    "--xprof-steps": "A8", "--measure-power": "A8",
+    # The population modes of the fleet.
+    "--pbt": "A7b", "--pbt-interval": "A7b", "--pbt-perturb": "A7b",
+    "--pbt-quantile": "A7b", "--ensemble-population": "A7b",
+    # Observability.
+    "--trace-out": "A8a", "--trace-ring": "A8a", "--xprof": "A8a",
+    "--xprof-steps": "A8a",
 }
 
 #: Flags of the JAX CLI that have no counterpart in the port, with the
@@ -151,6 +151,21 @@ def make_parser():
         "--ensemble-test", default="", metavar="FILE",
         help="evaluate the ensemble described by FILE (written by "
              "--ensemble-train)")
+    parser.add_argument(
+        "--chaos", default="", metavar="PLAN",
+        help="deterministic fault-injection plan, e.g. "
+             "'net.drop@job:7,worker.kill@job:12,seed:42' "
+             "(resilience.FaultInjector)")
+    parser.add_argument(
+        "-l", "--listen-address", default="", metavar="HOST:PORT",
+        help="run as the data plane's coordinator (master), "
+             "listening on HOST:PORT")
+    parser.add_argument(
+        "-m", "--master-address", default="", metavar="HOST:PORT",
+        help="run as a worker (slave) of the coordinator at "
+             "HOST:PORT")
+    network_common.init_parser(parser)
+    client.init_parser(parser)
     population.init_parser(parser)
     snapshotter.init_parser(parser)
     guardian.init_parser(parser)
@@ -316,16 +331,76 @@ class Main(Logger):
             engine.moe_router_z = args.moe_router_z
         if args.population_vmap is not None:
             root.common.population.vmap = args.population_vmap == "on"
+        # The data plane's knobs, read back by the handshake's
+        # negotiation and the channels.
+        net = root.common.net
+        if args.net_codec is not None:
+            name, level, threshold = network_common.parse_codec_spec(
+                args.net_codec)
+            net.codec = name
+            if level is not None:
+                net.codec_level = level
+            if threshold is not None:
+                net.codec_threshold = threshold
+        if args.net_dtype is not None:
+            net.dtype = args.net_dtype
+        if args.job_ticks is not None:
+            if args.job_ticks < 1:
+                raise Bug("--job-ticks must be >= 1 (got %d)"
+                          % args.job_ticks)
+            net.job_ticks = args.job_ticks
+        if args.net_zero is not None:
+            if args.net_zero < 0:
+                raise Bug("--net-zero must be >= 0 (got %d)"
+                          % args.net_zero)
+            net.zero = args.net_zero
+        if args.net_legacy:
+            net.mode = "legacy"
+        if args.net_require:
+            net.require = True
+
+    def _data_plane_kwargs(self):
+        """The launcher's master (``-l``) or worker (``-m``) mode, the
+        worker's client options and the chaos plan."""
+        args = self.args
+        kw = {}
+        if args.chaos:
+            kw["chaos"] = args.chaos
+        if args.listen_address:
+            kw["listen_address"] = args.listen_address
+        if args.master_address:
+            kw["master_address"] = args.master_address
+            slave = {}
+            if args.async_slave:
+                slave["async_mode"] = True
+            if args.slave_death_probability:
+                slave["death_probability"] = args.slave_death_probability
+                # A worker of the command line really dies (its
+                # supervisor or the master's respawn hook restarts it).
+                slave["death_exits"] = True
+            if args.measure_power:
+                slave["measure_power"] = True
+            for key in ("reconnect_attempts", "reconnect_delay",
+                        "preempt_grace"):
+                if getattr(args, key) is not None:
+                    slave[key] = getattr(args, key)
+            if args.net_legacy:
+                slave["net_legacy"] = True
+            if slave:
+                kw["slave_kwargs"] = slave
+        return kw
 
     def _launcher_kwargs(self):
-        """The launcher's mode: distributed when the three ``--jax-*``
+        """The launcher's mode: master or worker of the data plane
+        (``-l``, ``-m``), or distributed when the three ``--jax-*``
         flags are given together (a partial set raises).  Unlike the
         JAX command line, a world of one process is allowed: on the
         card it is a one-rank NCCL world."""
         args = self.args
+        kw = self._data_plane_kwargs()
         if not (args.jax_coordinator or args.jax_num_processes or
                 args.jax_process_id):
-            return {}
+            return kw
         if not (args.jax_coordinator and args.jax_num_processes >= 1 and
                 0 <= args.jax_process_id < args.jax_num_processes):
             raise Bug(
@@ -334,10 +409,10 @@ class Main(Logger):
                 "coordinator=%r, num_processes=%r, process_id=%r)" % (
                     args.jax_coordinator, args.jax_num_processes,
                     args.jax_process_id))
-        return {"mode": "distributed",
-                "coordinator_address": args.jax_coordinator,
-                "num_processes": args.jax_num_processes,
-                "process_id": args.jax_process_id}
+        return dict(kw, mode="distributed",
+                    coordinator_address=args.jax_coordinator,
+                    num_processes=args.jax_num_processes,
+                    process_id=args.jax_process_id)
 
     def load(self, WorkflowClass, **kwargs):
         """The ``load`` closure of the module's ``run`` hook: builds the

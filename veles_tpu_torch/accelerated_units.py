@@ -36,8 +36,9 @@ CUDA graphs — with the same structure and the same gating:
   for units that do not take shards themselves), the loss scaled by
   ``1 / ranks`` and each gradient summed over the ranks holding copies
   of its shard, the update on the shard (on a ZeRO partition of it,
-  then all-gathered), and each updated parameter gathered back into its
-  Vector;
+  then all-gathered); each placed parameter and state stays this rank's
+  shard between ticks (``Vector.hold``) and is gathered to full size
+  only when a full copy is read (:meth:`StepCompiler.gather_state`);
 * the population block (:meth:`StepCompiler.compile_population`):
   ``torch.func.vmap`` of one tick over a leading member axis of the
   parameters, the states and the hyperparameter vectors, with the
@@ -50,6 +51,14 @@ CUDA graphs — with the same structure and the same gating:
 
 Tensors stay on the device between ticks; the host reads the epoch
 accumulators at epoch boundaries (and ``step_metrics`` when asked).
+
+On the data plane (``server``, ``client``) an :class:`AcceleratedWorkflow`
+is either the master — it serves jobs (the loader's indices, the
+trainables) from ``generate_data_for_slave``, folds the workers' updates
+and metrics back in ``apply_data_from_slave`` and closes each (epoch,
+class) bucket of its decision once every job of it is answered — or a
+worker, whose ``do_job`` runs a job's ticks: one tick, or a multi-tick
+job as one block (``--job-ticks``).
 """
 
 import numpy
@@ -229,7 +238,7 @@ class StepCompiler(object):
         self._hyper_vals_ = {}    # (names, values) -> hyper vector
         self._hyper_progs_ = {}   # (mode, names) -> program
         self._view = None         # this rank's view of the mesh
-        self._held = {}           # partitioned states between ticks
+        self._held = {}           # placed shards between ticks
         self._scattered = set()   # ZeRO-2 gradients kept partitioned
 
     # -- graph analysis ----------------------------------------------------
@@ -284,6 +293,8 @@ class StepCompiler(object):
                         self.batch_vectors))
 
     def compile(self):
+        if self._held:
+            self.gather_state()
         self.analyze()
         self._param_vecs = self._collect("params")
         self._state_vecs = self._collect("state")
@@ -339,14 +350,38 @@ class StepCompiler(object):
                         self._zero[key] = z
 
     def gather_state(self):
-        """Writes the partitioned states the step holds back into their
-        Vectors at full size (a collective: every rank of the mesh
-        calls it)."""
+        """Writes the shards the step holds — placed parameters and
+        partitioned states — back into their Vectors at full size (a
+        collective: every rank of the mesh calls it; a held Vector's
+        first full read does).  A Vector written since its hold keeps
+        what was written."""
+        if not self._held:
+            return
         view = self._view
-        for name, local in self._held.items():
-            self._state_vecs[name].devmem = view.gather_full(
-                local, self._place[name])
-        self._held = {}
+        held, self._held = self._held, {}
+        vecs = {**self._param_vecs, **self._state_vecs}
+        for name in sorted(held):
+            vec = vecs[name]
+            if vec.holder is self:
+                vec.devmem = view.gather_full(held[name], self._place[name])
+
+    def _local(self, name, vec):
+        """This rank's slice of a step tensor under the mesh: the shard
+        the step holds, else the slice of the Vector's full value."""
+        if vec.holder is self and name in self._held:
+            return self._held[name]
+        self._held.pop(name, None)
+        return self._view.local(vec.devmem, self._place[name])
+
+    def _keep(self, name, vec, value):
+        """Stores a tick's new value: a placed tensor's shard stays with
+        the step (the Vector is held), anything else goes into its
+        Vector."""
+        if self._view is not None and any(self._place[name]):
+            self._held[name] = value
+            vec.hold(self)
+        else:
+            vec.devmem = value
 
     # -- the tick ----------------------------------------------------------
 
@@ -638,8 +673,8 @@ class StepCompiler(object):
 
     def invalidate(self):
         """Drops the analysed step: the next tick re-analyses the graph
-        (and re-reads ``health_device_skip`` and the mesh).  Partitioned
-        states go back into their Vectors first."""
+        (and re-reads ``health_device_skip`` and the mesh).  Held
+        shards go back into their Vectors first."""
         if self._held:
             self.gather_state()
         self._compiled = None
@@ -658,16 +693,16 @@ class StepCompiler(object):
         return prng.get().torch_generator(self._device())
 
     def _tick(self, batch, training, block=False, hypers=None):
-        params = {n: v.devmem for n, v in self._param_vecs.items()}
-        states = {n: v.devmem for n, v in self._state_vecs.items()}
         consts = {str(id(v)): v.devmem for v in self.const_vectors}
         view = self._view
-        if view is not None:
-            params = {n: view.local(t, self._place[n])
-                      for n, t in params.items()}
-            states = {n: self._held[n] if n in self._held else
-                      view.local(t, self._place[n])
-                      for n, t in states.items()}
+        if view is None:
+            params = {n: v.devmem for n, v in self._param_vecs.items()}
+            states = {n: v.devmem for n, v in self._state_vecs.items()}
+        else:
+            params = {n: self._local(n, v)
+                      for n, v in self._param_vecs.items()}
+            states = {n: self._local(n, v)
+                      for n, v in self._state_vecs.items()}
             batch = {k: view.local(t, self._batch_place.get(k, ()))
                      for k, t in batch.items()}
         if training:
@@ -682,16 +717,12 @@ class StepCompiler(object):
                     params, states, batch, consts, self._generator(),
                     block)
             for n, v in self._param_vecs.items():
-                v.devmem = new_params[n] if view is None else \
-                    view.gather_full(new_params[n], self._place[n])
+                self._keep(n, v, new_params[n])
         else:
             new_states, metrics = self._infer_tick(
                 params, states, batch, consts, self._generator())
         for n, v in self._state_vecs.items():
-            if view is not None and any(self._place[n]):
-                self._held[n] = new_states[n]
-            else:
-                v.devmem = new_states[n]
+            self._keep(n, v, new_states[n])
         for v in self.persist_vectors:
             if id(v) in self._outputs:
                 v.devmem = self._outputs[id(v)].detach()
@@ -863,6 +894,14 @@ class AcceleratedWorkflow(Workflow):
         self._compiler_ = None
         self._tick_id_ = 0
         self._step_done_tick_ = -1
+        # Master: each worker's in-flight jobs as ((epoch, class),
+        # last minibatch, epoch ended), the count per bucket, and the
+        # buckets whose last minibatch was served (bucket → epoch
+        # ended).  Worker: the current job's meta.
+        self._inflight_by_slave_ = {}
+        self._inflight_count_ = {}
+        self._finish_pending_ = {}
+        self._job_meta_ = None
 
     def __getstate__(self):
         """The last tick's metrics are device tensors of this process:
@@ -927,7 +966,7 @@ class AcceleratedWorkflow(Workflow):
                      getattr(loader, "epoch_number", "?"),
                      getattr(loader, "minibatch_class", "?"))
 
-    def execute_block(self, blocks, training=None):
+    def execute_block(self, blocks, training=None, hypers=None):
         """Dispatches a stacked block of ticks."""
         if self._step_done_tick_ == self._tick_id_:
             return
@@ -949,8 +988,225 @@ class AcceleratedWorkflow(Workflow):
                              "no loader mask to poison — ignored")
         if training is None:
             training = self.training
-        self.compiler.execute_block(blocks, training)
+        self.compiler.execute_block(blocks, training, hypers=hypers)
         self.step_metrics = {}
+
+    # -- the data plane: master and worker ------------------------------------
+
+    @property
+    def decision_unit(self):
+        return getattr(self, "decision", None)
+
+    def should_stop_serving(self):
+        """The master's serve predicate (consulted by the Server)."""
+        d = self.decision_unit
+        if d is not None:
+            return bool(d.complete)
+        return bool(self.stopped)
+
+    def generate_data_for_slave(self, slave=None):
+        """A job: the units' pieces (the loader's indices, the
+        trainables) plus the serve-time flags the master's decision
+        needs echoed back with the update."""
+        loader = getattr(self, "loader", None)
+        # The serve below advances epoch_number when it hands out the
+        # epoch's last minibatch: the value before it is the one every
+        # job of this epoch agrees on, and keys its bucket.
+        epoch_key = loader.epoch_number if loader is not None else None
+        data = super(AcceleratedWorkflow,
+                     self).generate_data_for_slave(slave)
+        if loader is not None:
+            meta = {
+                "minibatch_class": loader.minibatch_class,
+                "last_minibatch": bool(loader.last_minibatch),
+                "epoch_ended": bool(loader.epoch_ended),
+                "epoch_number": loader.epoch_number,
+                "epoch_key": epoch_key,
+                "weights_version": self.weights_version,
+            }
+            data["__job__"] = meta
+            key = (epoch_key, meta["minibatch_class"])
+            self._inflight_by_slave_.setdefault(slave, []).append(
+                (key, meta["last_minibatch"], meta["epoch_ended"]))
+            self._inflight_count_[key] = \
+                self._inflight_count_.get(key, 0) + 1
+        return data
+
+    def apply_data_from_master(self, data):
+        super(AcceleratedWorkflow, self).apply_data_from_master(data)
+        if data and "__job__" in data:
+            self._job_meta_ = data["__job__"]
+
+    def do_job(self, data, update, callback):
+        """A worker's job: applies the master's data and runs the job's
+        ticks — one tick, or a multi-tick job (``--job-ticks``) as one
+        block — then returns the updated trainables with the metrics
+        (a block's from the evaluator's epoch accumulator, reset
+        before and read after)."""
+        self.apply_data_from_master(data)
+        if update is not None:
+            self.apply_update_from_master(update)
+        meta = self._job_meta_ or {}
+        if meta.get("rng") is not None:
+            raise NotImplementedError(
+                "a job that pins the step's random key (a population "
+                "member's) needs the population fleet, which is not "
+                "yet ported (ROADMAP A7b)")
+        from .loader.base import TRAIN
+        cls = meta.get("minibatch_class", TRAIN)
+        training = cls == TRAIN
+        hypers = meta.get("hypers") or None
+        loader = getattr(self, "loader", None)
+        take_block = getattr(loader, "take_staged_block", None)
+        block = take_block() if take_block is not None else None
+        self.begin_tick()
+        if block is not None:
+            host_metrics = self._run_job_block(block, cls, training,
+                                               hypers=hypers)
+        else:
+            metrics = self.compiler.execute(training=training,
+                                            hypers=hypers)
+            host_metrics = {k: float(v) for k, v in metrics.items()
+                            if isinstance(v, torch.Tensor) and
+                            v.numel() == 1}
+        result = self.generate_data_for_master()
+        result["__metrics__"] = host_metrics
+        # The echoed meta keys the master's bucket; the hyper overrides
+        # were inputs, not accounting.
+        result["__job__"] = {k: v for k, v in meta.items()
+                             if k not in ("rng", "hypers")}
+        callback(result)
+
+    def _run_job_block(self, block, cls, training, hypers=None):
+        """Runs a multi-tick job's block; returns its metrics summed
+        over the block ("ticks" marks them so for the decision)."""
+        ev = getattr(self, "evaluator", None)
+        if ev is not None and hasattr(ev, "reset_epoch_acc"):
+            ev.reset_epoch_acc(cls)
+            ev.reset_health_acc(cls)
+        self.execute_block(block, training, hypers=hypers)
+        metrics = {}
+        if ev is not None and hasattr(ev, "read_epoch_acc"):
+            row = ev.read_epoch_acc(cls)
+            metrics = {"n_err": float(row[0]),
+                       "n_valid": float(row[1]),
+                       "loss": float(row[2]),
+                       "ticks": float(row[3])}
+            ev.reset_epoch_acc(cls)
+            health = ev.read_health_acc(cls)
+            metrics["nonfinite"] = float(health[0])
+            metrics["grad_norm_sum"] = float(health[1])
+            ev.reset_health_acc(cls)
+        return metrics
+
+    def apply_data_from_slave(self, data, slave=None):
+        """Master side: folds a worker's update and books its metrics."""
+        meta = (data or {}).pop("__job__", None)
+        metrics = (data or {}).pop("__metrics__", None)
+        if meta is not None:
+            key = (meta.get("epoch_key"), meta.get("minibatch_class"))
+            if not self._release_inflight(slave, key):
+                # An untracked job was already dropped and requeued (a
+                # blacklisted worker): its batch trains again, so its
+                # update and metrics are discarded.
+                return
+            # One answered job = one entry of the loader's pending
+            # record; what remains is what a drop requeues.
+            loader = getattr(self, "loader", None)
+            if loader is not None:
+                loader.apply_data_from_slave(None, slave)
+        super(AcceleratedWorkflow, self).apply_data_from_slave(
+            data, slave)
+        try:
+            d = self.decision_unit
+            if d is None or meta is None:
+                return
+            cls = meta.get("minibatch_class")
+            epoch = meta.get("epoch_key")
+            key = (epoch, cls)
+            if metrics is not None and \
+                    hasattr(d, "accumulate_remote"):
+                d.accumulate_remote(cls, metrics, epoch)
+            if meta.get("last_minibatch"):
+                # Other jobs of this (epoch, class) may still be out:
+                # the class finishes once they are answered.
+                self._finish_pending_[key] = bool(
+                    meta.get("epoch_ended"))
+            self._maybe_finish_remote(key)
+        finally:
+            # A deferred snapshot fires even for a workflow without a
+            # decision.
+            self._notify_if_drained()
+
+    def total_inflight_jobs(self):
+        """Jobs served and not yet answered or requeued (the
+        snapshotter defers a checkpoint until none is)."""
+        return sum(self._inflight_count_.values())
+
+    def _notify_if_drained(self):
+        if self._inflight_count_:
+            return
+        for unit in self.units:
+            drained = getattr(unit, "on_jobs_drained", None)
+            if drained is not None:
+                drained()
+
+    def _release_inflight(self, slave, key):
+        """Removes one tracked job of ``slave`` in bucket ``key``;
+        False when none is tracked (a drop released it)."""
+        lst = self._inflight_by_slave_.get(slave)
+        if not lst:
+            return False
+        for i, (k, _last, _ended) in enumerate(lst):
+            if k == key:
+                lst.pop(i)
+                break
+        else:
+            return False
+        if not lst:
+            self._inflight_by_slave_.pop(slave, None)
+        n = self._inflight_count_.get(key, 0)
+        if n <= 1:
+            self._inflight_count_.pop(key, None)
+        else:
+            self._inflight_count_[key] = n - 1
+        return True
+
+    def _maybe_finish_remote(self, key):
+        """Fires the deferred epoch-boundary decision once every job
+        served for (epoch, class) has been answered or requeued."""
+        if key not in self._finish_pending_ or \
+                self._inflight_count_.get(key, 0) > 0:
+            return
+        epoch_ended = self._finish_pending_.pop(key)
+        d = self.decision_unit
+        if d is None:
+            return
+        epoch, cls = key
+        if hasattr(d, "finish_remote_class"):
+            d.finish_remote_class(cls, epoch)
+            # The guardian reacts as it would in one process (a
+            # rollback restores the master's Vectors, which ship with
+            # the next jobs).
+            guardian = getattr(self, "guardian", None)
+            if guardian is not None and hasattr(guardian, "check_class"):
+                guardian.check_class(cls)
+            if epoch_ended:
+                d.on_epoch_ended()
+
+    def drop_slave(self, slave=None):
+        """A dropped worker's jobs are requeued by the loader; their
+        accounting is released here, and a dropped epoch's last
+        minibatch restores the epoch boundary (the loader serves that
+        batch again with ``last_minibatch`` False)."""
+        super(AcceleratedWorkflow, self).drop_slave(slave)
+        entries = list(self._inflight_by_slave_.get(slave, ()))
+        for key, was_last, epoch_ended in entries:
+            self._release_inflight(slave, key)
+            if was_last:
+                self._finish_pending_.setdefault(key, epoch_ended)
+            self._maybe_finish_remote(key)
+        self._notify_if_drained()
 
 
 def params_from_numpy(workflow, arrays):

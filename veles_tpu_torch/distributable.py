@@ -7,9 +7,12 @@
   is not ported yet (ROADMAP A8), so this lock only sniffs.
 * :class:`Pickleable` — attributes ending with ``_`` are transient:
   left out of pickles and recreated by ``init_unpickled``.
-* :class:`Distributable` — the no-op hooks of the master/worker
-  contract; the port runs local mode only, and the distributed control
-  plane (with the unit data lock) waits for ROADMAP A7.
+* :class:`Distributable` — the unit data lock (a deadlock-sniffing
+  lock that guards a unit's distributed state against the data plane's
+  threads; the workflow takes it around every unit's hook) and the
+  default (no-op) hooks of the master/worker contract: what a unit
+  ships to a worker, what it folds back from one, and what it requeues
+  when a worker is lost.
 """
 
 import logging
@@ -86,16 +89,40 @@ class Pickleable(Logger):
 
 
 class Distributable(Pickleable):
-    """The default (no-op) hooks of the master/worker contract."""
+    """The unit data lock and the default (no-op) hooks of the
+    master/worker contract."""
+
+    def __init__(self, **kwargs):
+        #: Whether the unit ships state in the handshake (the
+        #: workflow's ``generate_initial_data_for_slave``).
+        self.negotiates_on_connect = kwargs.get(
+            "negotiates_on_connect", False)
+        super(Distributable, self).__init__(**kwargs)
+
+    def init_unpickled(self):
+        super(Distributable, self).init_unpickled()
+        self._data_lock_ = SniffedLock(
+            name="%s.data_lock" % type(self).__name__)
+
+    def data_threadsafe(self):
+        """The unit's data lock as a context manager: guards the
+        generate/apply state against the data plane's threads, with
+        deadlock sniffing."""
+        return self._data_lock_
+
+    # -- master side ---------------------------------------------------------
 
     def generate_data_for_slave(self, slave=None):
+        """State shipped to a joining or requesting worker."""
         return None
 
     def apply_data_from_slave(self, data, slave=None):
-        pass
+        """Aggregation point of a worker's result."""
 
     def drop_slave(self, slave=None):
-        pass
+        """Worker lost: requeue its outstanding work."""
+
+    # -- worker side ---------------------------------------------------------
 
     def generate_data_for_master(self):
         return None

@@ -1,5 +1,5 @@
 """Workflow lifecycle for this process (the JAX package's
-``launcher``, local mode).
+``launcher``).
 
 ``initialize`` resolves the device — the CUDA card unless the caller
 asks for the CPU — and initializes the workflow on it
@@ -16,8 +16,16 @@ whatever the number of launchers), with NCCL when the device is a CUDA
 card — rank ``r`` on card ``r % cards`` — and gloo only for a CPU
 device the caller asked for; then it applies data parallelism over the
 world's mesh, and ZeRO at ``root.common.engine.zero``'s level.
-Master/worker modes, web-status heartbeats and remote worker spawn
-wait for ROADMAP A7/A8: asking for them raises.
+
+The data plane's modes: ``listen_address`` makes the process the
+coordinator (master) — ``initialize`` starts a
+:class:`~veles_tpu_torch.server.Server` over the workflow, and ``run``
+waits for it to finish — and ``master_address`` a worker, whose ``run``
+is a :class:`~veles_tpu_torch.client.Client`'s job loop (SIGTERM drains
+it: the in-flight job finishes, its update ships, ``bye`` goes out).
+``chaos`` installs a fault-injection plan process-wide.  Remote worker
+spawn (``nodes``) is ROADMAP A7a-ii and web-status heartbeats
+(``status_address``) A8: asking for them raises.
 """
 
 import threading
@@ -30,17 +38,33 @@ from .logger import Logger
 
 
 class Launcher(Logger):
-    """Owns the workflow of this process, in local mode."""
+    """Owns the workflow of this process."""
 
     def __init__(self, **kwargs):
         super(Launcher, self).__init__()
-        for key in ("listen_address", "master_address", "nodes",
-                    "status_address"):
+        for key, queue in (("nodes", "A7a-ii"), ("status_address", "A8")):
             if kwargs.get(key):
                 raise NotImplementedError(
-                    "Launcher(%s=...): master/worker and fleet modes "
-                    "are not yet ported (ROADMAP A7)" % key)
+                    "Launcher(%s=...) is not yet ported (ROADMAP %s)" %
+                    (key, queue))
         self._mode = kwargs.get("mode", "standalone")
+        self.listen_address = kwargs.get("listen_address")
+        self.master_address = kwargs.get("master_address")
+        if self.listen_address and self._mode == "standalone":
+            self._mode = "master"
+        if self.master_address and self._mode == "standalone":
+            self._mode = "slave"
+        self.slave_kwargs = dict(kwargs.get("slave_kwargs") or {})
+        # A chaos plan installed process-wide reaches every Channel,
+        # Server, Client and Snapshotter without explicit wiring.
+        chaos = kwargs.get("chaos")
+        if chaos:
+            self.injector = resilience.install(chaos)
+            self.info("chaos plan installed: %s", chaos)
+        else:
+            self.injector = kwargs.get("injector")
+        self.server = None
+        self.client = None
         self.coordinator_address = kwargs.get("coordinator_address")
         self.num_processes = int(kwargs.get("num_processes", 1))
         self.process_id = int(kwargs.get("process_id", 0))
@@ -53,6 +77,16 @@ class Launcher(Logger):
     @property
     def mode(self):
         return self._mode
+
+    @property
+    def is_master(self):
+        return self._mode == "master" or (
+            self._mode == "distributed" and self.process_id == 0)
+
+    @property
+    def is_slave(self):
+        return self._mode == "slave" or (
+            self._mode == "distributed" and self.process_id != 0)
 
     @property
     def is_running(self):
@@ -120,6 +154,17 @@ class Launcher(Logger):
         self.workflow.initialize(device=self.device, **kwargs)
         if distributed:
             self._apply_data_parallelism()
+        if self.is_master and self.listen_address:
+            from .server import Server
+            self.server = Server(self.listen_address, self.workflow,
+                                 on_stopped=self.on_workflow_finished,
+                                 injector=self.injector)
+        elif self.is_slave and self.master_address:
+            from .client import Client
+            slave_kwargs = dict(self.slave_kwargs)
+            slave_kwargs.setdefault("injector", self.injector)
+            self.client = Client(self.master_address, self.workflow,
+                                 **slave_kwargs)
         return self
 
     def _join_world(self):
@@ -167,21 +212,54 @@ class Launcher(Logger):
                                 level=zero)
 
     def run(self):
-        """Runs the workflow to completion on this thread."""
+        """Runs the workflow to completion on this thread: the
+        master waits for its server, a worker runs its client's job
+        loop, a standalone process runs the graph."""
         self._start_time = time.time()
         self._running.set()
         self._finished.clear()
         try:
-            self.workflow.run()
-            self._finished.wait()
+            if self.server is not None:
+                self.server.wait()
+                if self.server.crashed:
+                    # A crashed coordinator must not look like a clean
+                    # exit (no results file, a nonzero exit code).
+                    raise resilience.MasterCrash("master.crash")
+                if self.server.failure is not None:
+                    raise self.server.failure
+            elif self.client is not None:
+                from .client import install_sigterm_drain
+                previous = install_sigterm_drain(self.client)
+                try:
+                    self.client.run()
+                finally:
+                    if previous is not None:
+                        import signal
+                        signal.signal(signal.SIGTERM, previous)
+            else:
+                self.workflow.run()
+                self._finished.wait()
         finally:
             self._running.clear()
+            if self.server is not None:
+                self.server.stop()
+                self.server.join(timeout=10.0)
+                slaves = self.server.all_slaves
+                if slaves:
+                    self.info("Worker throughput: %s", "; ".join(
+                        "%s=%d jobs (%.2f/s)" % (
+                            sid, desc.jobs_done, desc.jobs_per_second)
+                        for sid, desc in sorted(slaves.items())))
             self.workflow.print_stats()
 
     def on_workflow_finished(self):
         self._finished.set()
 
     def stop(self):
+        if self.server is not None:
+            self.server.stop()
+        if self.client is not None:
+            self.client.stop()
         if self.workflow is not None and self.workflow.is_running:
             self.workflow.stop()
         self._finished.set()

@@ -11,10 +11,13 @@ local mode).
 * the final partial minibatch of a class is PADDED to
   ``max_minibatch_size`` and ``minibatch_mask`` marks the valid rows;
 * block mode: :meth:`Loader.serve_block` serves up to K same-class
-  minibatches at once.
-
-Serving indices to remote workers (the coordinator/worker split) waits
-for ROADMAP A7.
+  minibatches at once;
+* the data plane: a coordinator's loader ships only indices to its
+  workers — one minibatch a job, or a block of up to K same-class
+  minibatches (``--job-ticks``) — and keeps each worker's served jobs
+  until they are answered, so a lost worker's minibatches are served
+  again; a worker's loader takes them as its current minibatch (or
+  stages the block for the job's ticks).
 """
 
 import numpy
@@ -110,6 +113,11 @@ class Loader(Unit, metaclass=UserLoaderRegistry):
         # step.  Single-tick serves hold one entry; a block serve
         # holds the whole block.
         self._in_flight_ = []
+        # Coordinator: each worker's served jobs, oldest first, each a
+        # list of (indices, class) ticks.  Worker: the block of the
+        # current multi-tick job.
+        self._pending_indices_ = {}
+        self._staged_block_ = None
 
     # -- derived sizes -----------------------------------------------------
 
@@ -346,19 +354,23 @@ class Loader(Unit, metaclass=UserLoaderRegistry):
         self.serve_next_minibatch()
         self.fill_minibatch()
 
-    def serve_next_minibatch(self):
+    def serve_next_minibatch(self, slave_id=None):
         """Advances the global offset and publishes the next minibatch's
-        indices + flags (reference: base.py:724)."""
+        indices + flags; with ``slave_id`` the minibatch is recorded as
+        that worker's pending job."""
         if self.failed_minibatches:
-            # Re-serve lost work first (reference: base.py:677-685);
-            # entries carry their sample class so retries don't
-            # inherit whatever class was served last.
+            # Re-serve lost work first; entries carry their sample
+            # class so retries don't inherit whatever class was served
+            # last.
             indices, cls = self.failed_minibatches.pop()
             self.minibatch_class = cls
             self.last_minibatch = False
             self.epoch_ended = False
         else:
             indices = self._next_fresh_indices()
+        if slave_id is not None:
+            self._pending_indices_.setdefault(slave_id, []).append(
+                [(indices, self.minibatch_class)])
         count = len(indices)
         mask = numpy.zeros(self.max_minibatch_size, dtype=numpy.float32)
         mask[:count] = 1.0
@@ -393,7 +405,7 @@ class Loader(Unit, metaclass=UserLoaderRegistry):
         return indices
 
     def _update_flags(self, stop):
-        """Epoch/flag logic (reference: base.py:856-907)."""
+        """Epoch/flag logic."""
         ends = self.class_end_offsets
         self.last_minibatch = stop in ends and stop != 0
         self.epoch_ended = (stop == self.total_samples)
@@ -450,6 +462,103 @@ class Loader(Unit, metaclass=UserLoaderRegistry):
             str(id(self.minibatch_class_vec)): numpy.full(
                 len(idxs), cls, dtype=numpy.int32),
         }
+
+    # -- the distributed contract ------------------------------------------
+
+    def generate_data_for_slave(self, slave=None):
+        """The coordinator ships only indices.  With a negotiated
+        multi-tick job size (``--job-ticks``) one job carries up to K
+        same-class minibatches, run by the worker as one block; blocks
+        stop at class boundaries (and at failed-minibatch retries,
+        which are served singly), so every tick of a job shares one
+        (epoch, class) accounting bucket."""
+        get = getattr(self.workflow, "slave_protocol", None)
+        ticks = int((get(slave) if get is not None else {})
+                    .get("ticks", 1) or 1)
+        if ticks <= 1:
+            indices = self.serve_next_minibatch(slave_id=slave)
+            return {"indices": indices,
+                    "minibatch_class": self.minibatch_class,
+                    "epoch_number": self.epoch_number}
+        epoch = self.epoch_number
+        idxs, masks, entries, cls = self._walk_block(ticks)
+        if slave is not None:
+            self._pending_indices_.setdefault(slave, []).append(entries)
+        return {"block": {
+                    "indices": numpy.stack(idxs),
+                    "mask": numpy.stack(masks),
+                    "classes": numpy.full(len(idxs), cls,
+                                          dtype=numpy.int32)},
+                "minibatch_class": cls,
+                "epoch_number": epoch}
+
+    def apply_data_from_master(self, data):
+        """Worker side: the job's minibatch becomes the current one (a
+        block is staged for :meth:`take_staged_block`, its first tick
+        mirrored into the single-tick vectors)."""
+        if "block" in data:
+            blk = data["block"]
+            indices = numpy.asarray(blk["indices"], dtype=numpy.int32)
+            mask = numpy.asarray(blk["mask"], dtype=numpy.float32)
+            classes = numpy.asarray(blk["classes"], dtype=numpy.int32)
+            self._staged_block_ = {
+                str(id(self.minibatch_indices)): indices,
+                str(id(self.minibatch_mask)): mask,
+                str(id(self.minibatch_class_vec)): classes,
+            }
+            self.minibatch_indices.mem = indices[0].copy()
+            self.minibatch_mask.mem = mask[0].copy()
+            self.minibatch_size = int(mask[0].sum())
+            self.minibatch_class = int(classes[0])
+            self.minibatch_class_vec.mem = classes[0].copy()
+            self.epoch_number = data["epoch_number"]
+            return
+        self._staged_block_ = None
+        indices = numpy.asarray(data["indices"], dtype=numpy.int32)
+        count = len(indices)
+        padded = numpy.zeros(self.max_minibatch_size, dtype=numpy.int32)
+        padded[:count] = indices
+        mask = numpy.zeros(self.max_minibatch_size, dtype=numpy.float32)
+        mask[:count] = 1.0
+        self.minibatch_indices.mem = padded
+        self.minibatch_mask.mem = mask
+        self.minibatch_size = count
+        self.minibatch_class = data["minibatch_class"]
+        self.minibatch_class_vec.mem = numpy.array(
+            self.minibatch_class, dtype=numpy.int32)
+        self.epoch_number = data["epoch_number"]
+
+    def take_staged_block(self):
+        """Worker side: the job's staged multi-tick block ({vector id →
+        (K, ...) array}) or None; consumed once per job."""
+        block = self._staged_block_
+        self._staged_block_ = None
+        return block
+
+    def apply_data_from_slave(self, data, slave=None):
+        jobs = self._pending_indices_.get(slave)
+        if jobs:
+            jobs.pop(0)  # the oldest job answered (serve order, FIFO)
+            if not jobs:
+                self._pending_indices_.pop(slave, None)
+
+    def drop_slave(self, slave=None):
+        """Requeues every tick of every pending job of the dropped
+        worker, with its class."""
+        for entry in self._pending_indices_.pop(slave, ()):
+            self.failed_minibatches.extend(entry)
+
+    # -- pickling: pending work is requeued so nothing is lost -------------
+
+    def __getstate__(self):
+        state = super(Loader, self).__getstate__()
+        pending = [tick
+                   for jobs in self._pending_indices_.values()
+                   for entry in jobs
+                   for tick in entry]
+        state["failed_minibatches"] = (
+            list(self.failed_minibatches) + pending)
+        return state
 
     # -- subclass hooks ----------------------------------------------------
 

@@ -25,9 +25,8 @@ it has completed (:meth:`StreamLoader._take` waits for the copy's event
 before it lets the buffer go): a page-locked buffer refilled while its
 copy is in flight would corrupt the block silently.
 
-Materializing a coordinator's indices on a worker
-(``apply_data_from_master``) belongs to the distributed data plane,
-which waits for ROADMAP A7.
+On a worker of the data plane, ``apply_data_from_master`` materializes
+the coordinator's indices as the current minibatch.
 """
 
 import os
@@ -321,6 +320,12 @@ class StreamLoader(Loader, TracedUnit):
         belong to the old device set and its indices were requeued from
         ``_in_flight_``)."""
         self._staged_ = None
+
+    # -- a worker materializes its assigned indices ------------------------
+
+    def apply_data_from_master(self, data):
+        super(StreamLoader, self).apply_data_from_master(data)
+        self._fill_current()
 
     # -- pickling: the staged (undispatched) block is requeued --------------
 

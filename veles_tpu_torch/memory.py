@@ -14,6 +14,13 @@ protocol, so host code never observes stale data:
 The device is the one the Vector was initialized with (a
 ``backends.Device``); a Vector never initialized lives on the CPU.
 Pickling maps device → host first.
+
+Under a mesh the step may *hold* a Vector (:meth:`Vector.hold`): its
+value then lives as this rank's shard inside the step, the Vector drops
+its full tensor, and the first full read (``devmem``, ``map_read``,
+``map_write``, a pickle) asks the holder to gather it back — a
+collective, so every rank of the mesh reads alike.  Writing the Vector
+(``mem =``, ``devmem =``, ``map_invalidate``, ``reset``) ends the hold.
 """
 
 import threading
@@ -52,6 +59,10 @@ class Vector(Pickleable):
         # The mesh placement (``parallel.mesh``): transient, re-applied
         # on whatever topology exists after a restore.
         self._placement_ = None
+        # The step holding this Vector's shard (see ``hold``), with the
+        # full value's shape and dtype.
+        self._holder_ = None
+        self._held_meta_ = None
 
     @property
     def placement(self):
@@ -75,12 +86,15 @@ class Vector(Pickleable):
             if value is None:
                 self.reset()
                 return
+            self._holder_ = None
             self._mem = numpy.ascontiguousarray(value)
             self._host_dirty_ = True
             self._host_stale_ = False
 
     @property
     def shape(self):
+        if self._holder_ is not None:
+            return self._held_meta_[0]
         if self._mem is not None:
             return self._mem.shape
         if self._devmem_ is not None:
@@ -89,6 +103,8 @@ class Vector(Pickleable):
 
     @property
     def dtype(self):
+        if self._holder_ is not None:
+            return self._held_meta_[1]
         if self._mem is not None:
             return self._mem.dtype
         if self._devmem_ is not None:
@@ -111,6 +127,8 @@ class Vector(Pickleable):
 
     @property
     def nbytes(self):
+        if self._holder_ is not None:
+            return self.size * self._held_meta_[2]
         if self._mem is not None:
             return self._mem.nbytes
         if self._devmem_ is not None:
@@ -118,7 +136,8 @@ class Vector(Pickleable):
         return 0
 
     def __bool__(self):
-        return self._mem is not None or self._devmem_ is not None
+        return self._mem is not None or self._devmem_ is not None or \
+            self._holder_ is not None
 
     def __len__(self):
         shape = self.shape
@@ -148,6 +167,7 @@ class Vector(Pickleable):
         with self._lock_:
             if device is self._device_:
                 return
+            self._unhold()
             if self._devmem_ is not None:
                 self._host_sync()
                 self._free_device()
@@ -158,6 +178,7 @@ class Vector(Pickleable):
         """The current device tensor — uploads host data first if the
         host copy is authoritative."""
         with self._lock_:
+            self._unhold()
             if self._host_dirty_ or self._devmem_ is None:
                 self._upload()
             return self._devmem_
@@ -168,12 +189,38 @@ class Vector(Pickleable):
         becomes authoritative and the host copy stale, with no
         transfer until ``map_read``."""
         with self._lock_:
+            self._holder_ = None
             self._devmem_ = value
             self._host_dirty_ = False
             self._host_stale_ = value is not None
             if value is not None and self._mem is not None and \
                     tuple(value.shape) != self._mem.shape:
                 self._mem = None
+
+    def hold(self, holder):
+        """The value now lives as a shard inside ``holder`` (a
+        ``StepCompiler``): the full device tensor is dropped, and the
+        next full read calls ``holder.gather_state()``, which writes
+        every held Vector back through ``devmem``."""
+        with self._lock_:
+            if self._holder_ is None:
+                t = self._devmem_
+                self._held_meta_ = (
+                    self.shape, self.dtype, t.element_size()
+                    if t is not None else numpy.dtype(self.dtype).itemsize)
+            self._holder_ = holder
+            self._devmem_ = None
+            self._host_dirty_ = False
+            self._host_stale_ = True
+
+    @property
+    def holder(self):
+        """The step holding this Vector's shard, or None."""
+        return self._holder_
+
+    def _unhold(self):
+        if self._holder_ is not None:
+            self._holder_.gather_state()
 
     def _upload(self):
         if self._mem is None:
@@ -202,11 +249,13 @@ class Vector(Pickleable):
     def map_read(self):
         """Ensures the host copy reflects the freshest data."""
         with self._lock_:
+            self._unhold()
             self._host_sync()
 
     def map_write(self):
         """Host copy becomes authoritative; device copy is stale."""
         with self._lock_:
+            self._unhold()
             self._host_sync()
             self._host_dirty_ = True
             self._host_stale_ = False
@@ -215,6 +264,7 @@ class Vector(Pickleable):
         """Host copy becomes authoritative WITHOUT downloading first
         (the caller will overwrite everything)."""
         with self._lock_:
+            self._holder_ = None
             self._host_dirty_ = True
             self._host_stale_ = False
 
@@ -229,6 +279,7 @@ class Vector(Pickleable):
     def reset(self, new_mem=None):
         """Drops all data."""
         with self._lock_:
+            self._holder_ = None
             self._free_device()
             self._mem = None
             if new_mem is not None:
@@ -246,7 +297,9 @@ def map_read_all(vectors):
     per device: the device copies that are newer than their host copies
     are packed into one byte tensor, copied to the host once and split.
     (bfloat16 tensors, which numpy cannot hold, take ``map_read``'s own
-    path.)"""
+    path.)  Held Vectors are gathered first."""
+    for vec in vectors:
+        vec._unhold()
     stale = {}
     for vec in vectors:
         t = vec._devmem_

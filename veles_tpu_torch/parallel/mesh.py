@@ -19,11 +19,12 @@ mesh and lets XLA insert the collectives.  The port splits that in two:
   row-parallel product, the sequence ring, the expert ``all_to_all``
   and the stage hand-off.
 
-A Vector keeps its full value between ticks (the step all-gathers each
-updated parameter), so snapshots, exports and host reads never see a
-shard; optimizer slots that a style partitions stay partitioned inside
-the step until :func:`gather_state` puts them back (before a pickle and
-before a rebuild).  Neither a mesh's groups nor a placement are pickled:
+Between ticks a placed parameter or state lives only as each rank's
+shard inside the step (``Vector.hold``), as a sharded ``jax.Array``
+holds only its shard; a full read — a snapshot's pickle, an export, a
+host read (``map_read``, ``map_read_all``) or a rebuild — gathers it
+back first (:func:`gather_state`, a collective), so none of them ever
+sees a shard.  Neither a mesh's groups nor a placement are pickled:
 a restore re-places on whatever topology exists then.
 """
 
@@ -553,8 +554,8 @@ def _rebuild_styled_mesh(workflow, ranks, n, style):
 
 
 def gather_state(workflow):
-    """Puts the step's partitioned optimizer slots back into their
-    Vectors at full size (a collective over the current mesh: every
+    """Puts the step's held shards (placed parameters, partitioned
+    optimizer slots) back into their Vectors at full size (a collective over the current mesh: every
     rank calls it)."""
     compiler = getattr(workflow, "_compiler_", None)
     if compiler is not None:

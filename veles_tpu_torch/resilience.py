@@ -1,9 +1,6 @@
-"""The resilience layer's local half: deadlines, deterministic fault
-injection, retries, resilience-event accounting and the crash-resume
-walk.
-
-Ported from the JAX package's resilience module, keeping what the
-serving engine and the snapshot path use:
+"""The resilience layer: deadlines, deterministic fault injection,
+retries, resilience-event accounting and the crash-resume walk (the
+JAX package's resilience module).
 
 * :class:`Deadline` — a wall-clock budget;
 * :class:`FaultInjector` — a seeded, *schedulable* chaos engine with
@@ -22,8 +19,28 @@ The serving engine consults ``serve.device_fault`` before every device
 call, and the hot-reload verifier ``serve.reload_corrupt`` after it
 reads an artifact.  The snapshotter consults ``snapshot.write`` and
 ``snapshot.corrupt`` on every export, and the training step
-``step.nan`` on every tick.  The control-plane points of the JAX
-package (network, worker, master) come with the distributed slice.
+``step.nan`` on every tick.  The data plane's points:
+
+========================  ================================================
+point                     consulted by
+========================  ================================================
+``net.send``              :class:`network_common.Channel` before a frame
+``net.recv``              :class:`network_common.Channel` before a read
+``net.connect``           :class:`client.Client` before dialing
+``worker.job``            :class:`client.Client` before executing a job
+``fleet.join``            :class:`server.Server` while admitting a joiner
+``master.crash``          :class:`server.Server` after serving/applying
+========================  ================================================
+
+Faults: ``net.drop`` (send dies), ``net.recv_drop`` (read dies),
+``net.connect_fail`` (dial refused), ``worker.kill`` (worker death),
+``worker.hang`` (worker stalls — the watchdog's case),
+``worker.preempt`` (planned preemption — the worker drains and says
+bye), ``fleet.join`` (a joiner's admission dies mid-handshake),
+``master.crash`` (coordinator death).  A plan is interpreted per
+process: every participant installs the same plan, and each rule fires
+off that process's own logical counters (a worker ticks ``job`` per
+job received, the master per job served).
 
 Chaos-plan grammar (comma-separated entries)::
 
@@ -55,6 +72,51 @@ class InjectedFault(ResilienceError):
         self.fault = fault
         self.counter = counter
         self.count = count
+
+
+class HandshakeRejected(ResilienceError):
+    """The coordinator is alive and refused this worker (checksum or
+    version mismatch, protocol violation): permanent, so the worker
+    does not walk its reconnect schedule against it."""
+
+
+class ProtocolError(ResilienceError):
+    """The peer spoke a desynchronized wire dialect (a delta against a
+    missing or mismatched base version, an unknown trainable):
+    session-fatal but recoverable — the worker reconnects with a fresh
+    id and the master rebases it with a full weights ship."""
+
+
+class InjectedNetworkFault(InjectedFault, ConnectionError):
+    """A dropped frame or connection.  A ConnectionError, so the
+    dead-peer handling catches it unchanged: injected faults exercise
+    the real recovery code."""
+
+
+class WorkerKilled(InjectedFault):
+    """Simulated worker process death (``--slave-death-probability``)."""
+
+
+class WorkerHang(InjectedFault):
+    """Simulated worker stall: the job never completes, which drives
+    the coordinator's adaptive-timeout watchdog."""
+
+    def __init__(self, fault, counter=None, count=None,
+                 seconds=3600.0):
+        super(WorkerHang, self).__init__(fault, counter, count)
+        self.seconds = seconds
+
+
+class WorkerPreempted(InjectedFault):
+    """Simulated preemption notice: a planned departure — the client
+    finishes the in-flight job, ships the update, sends ``bye`` and
+    leaves; the master records a retirement, not a drop.  Past the
+    ``--preempt-grace`` budget the drain degrades to an abrupt drop."""
+
+
+class MasterCrash(InjectedFault):
+    """Simulated coordinator death: every socket dies abruptly, with no
+    cleanup — recovery comes from the atomic snapshot."""
 
 
 class SnapshotWriteFault(InjectedFault, OSError):
@@ -217,6 +279,12 @@ class RetryPolicy(object):
             d = self.deadline.clamp(d)
         return max(0.0, d)
 
+    def delays(self):
+        """Yields the backoff before each retry (``max_attempts``
+        values)."""
+        for attempt in range(self.max_attempts):
+            yield self.delay(attempt)
+
     def call(self, fn, retry_on=(OSError,), on_retry=None,
              sleep=time.sleep, stat=None):
         """Calls ``fn()`` with retries.  ``on_retry(attempt, exc)``
@@ -244,6 +312,14 @@ class RetryPolicy(object):
 
 #: fault name -> (injection point, exception class)
 FAULTS = {
+    "net.drop": ("net.send", InjectedNetworkFault),
+    "net.recv_drop": ("net.recv", InjectedNetworkFault),
+    "net.connect_fail": ("net.connect", InjectedNetworkFault),
+    "worker.kill": ("worker.job", WorkerKilled),
+    "worker.hang": ("worker.job", WorkerHang),
+    "worker.preempt": ("worker.job", WorkerPreempted),
+    "fleet.join": ("fleet.join", InjectedNetworkFault),
+    "master.crash": ("master.crash", MasterCrash),
     "snapshot.fail": ("snapshot.write", SnapshotWriteFault),
     "snapshot.corrupt": ("snapshot.corrupt", InjectedSnapshotCorruption),
     "step.nan": ("step.nan", InjectedStepNaN),
@@ -251,6 +327,10 @@ FAULTS = {
     "serve.reload_corrupt": ("serve.reload_corrupt",
                              InjectedReloadCorruption),
 }
+
+#: The valid injection-point names.
+POINTS = tuple(sorted({p for p, _ in FAULTS.values()}))
+
 
 class _Rule(object):
     """One parsed chaos-plan entry."""
@@ -325,6 +405,25 @@ class FaultInjector(object):
         raise ValueError(
             "bad chaos entry %r — expected fault@counter:N, fault@N, "
             "fault%%p, or seed:N" % entry)
+
+    @property
+    def active(self):
+        return bool(self._rules)
+
+    def add_rule(self, entry):
+        """Appends one parsed entry (``--slave-death-probability``
+        folds into the injector this way)."""
+        rule = self._parse_rule(entry)
+        self._rules.append(rule)
+        self._by_point.setdefault(rule.point, []).append(rule)
+        return rule
+
+    def tick(self, counter, n=1):
+        """Advances a named logical counter (``job``, ``update``, …)."""
+        if not self._rules:
+            return
+        with self._lock:
+            self.counters[counter] = self.counters.get(counter, 0) + n
 
     def check(self, point, **ctx):
         """Consults the injector at a named point; raises the first

@@ -1,11 +1,13 @@
 """Workflow: the unit-graph container and host-side run driver (the
-JAX package's ``workflow``, local mode).
+JAX package's ``workflow``).
 
 It owns the unit set plus StartPoint/EndPoint, initializes units in
 dependency order with partial-init requeue, drives a deterministic
 FIFO queue of control events from the StartPoint until the EndPoint
-runs, and gathers results.  The master/worker aggregation of the
-distributed contract waits for ROADMAP A7.
+runs, and gathers results.  For the data plane it aggregates the
+master/worker contract over its units (each under the unit's data
+lock), runs a worker's job (``do_job``), keeps the wire protocol each
+worker negotiated and the master's weights version.
 """
 
 import collections
@@ -33,6 +35,7 @@ class Workflow(Container):
         self._queue_ = collections.deque()
         self.result_file = kwargs.get("result_file")
         super(Workflow, self).__init__(workflow, **kwargs)
+        self.negotiates_on_connect = True
         self.start_point = StartPoint(self)
         self.end_point = EndPoint(self)
 
@@ -41,6 +44,12 @@ class Workflow(Container):
         self._finished_ = threading.Event()
         self._queue_ = collections.deque()
         self._run_time_started_ = time.time()
+        # The wire protocol, renegotiated per session: the master keys
+        # each worker's, a worker holds its session's; units consult
+        # them in their distributed hooks.
+        self._slave_proto_ = {}
+        self._net_proto_ = {}
+        self._weights_version_ = 0
 
     # -- ownership ---------------------------------------------------------
 
@@ -206,6 +215,117 @@ class Workflow(Container):
             if unit is not self:
                 unit.stop()
         self.on_workflow_finished()
+
+    # -- a worker's job ----------------------------------------------------
+
+    def do_job(self, data, update, callback):
+        """Runs one coordinator-issued job on this worker: applies the
+        master's data, runs the graph, hands the result back."""
+        self.apply_data_from_master(data)
+        if update is not None:
+            self.apply_update_from_master(update)
+        self.run()
+        callback(self.generate_data_for_master())
+
+    # -- the distributed contract, aggregated over the units ------------------
+
+    def _members(self):
+        return [u for u in self._units if u is not self]
+
+    def generate_data_for_slave(self, slave=None):
+        data = {}
+        for unit in self._members():
+            with unit.data_threadsafe():
+                piece = unit.generate_data_for_slave(slave)
+            if piece is not None:
+                data[unit.name] = piece
+        return data
+
+    def generate_initial_data_for_slave(self, slave=None):
+        """Handshake-time data of the units that negotiate on
+        connect."""
+        data = {}
+        for unit in self._members():
+            if not getattr(unit, "negotiates_on_connect", False):
+                continue
+            with unit.data_threadsafe():
+                piece = unit.generate_data_for_slave(slave)
+            if piece is not None:
+                data[unit.name] = piece
+        return data
+
+    def apply_data_from_slave(self, data, slave=None):
+        for unit in self._members():
+            if data and unit.name in data:
+                with unit.data_threadsafe():
+                    unit.apply_data_from_slave(data[unit.name], slave)
+        if self.is_main:
+            # One version bump per applied worker update (nested
+            # workflows defer to the main one).
+            self.bump_weights_version()
+
+    def apply_data_from_master(self, data):
+        for unit in self._members():
+            if data and unit.name in data:
+                with unit.data_threadsafe():
+                    unit.apply_data_from_master(data[unit.name])
+
+    def apply_update_from_master(self, update):
+        self.apply_data_from_master(update)
+
+    def generate_data_for_master(self):
+        data = {}
+        for unit in self._members():
+            piece = unit.generate_data_for_master()
+            if piece is not None:
+                data[unit.name] = piece
+        return data
+
+    def drop_slave(self, slave=None):
+        for unit in self._members():
+            unit.drop_slave(slave)
+        self._slave_proto_.pop(slave, None)
+
+    # -- the negotiated wire protocol --------------------------------------
+
+    def note_slave_protocol(self, slave, proto):
+        """Master side: records the protocol negotiated with one worker
+        (delta sync, job ticks, wire dtype)."""
+        self._slave_proto_[slave] = dict(proto or {})
+
+    def slave_protocol(self, slave):
+        """The protocol negotiated with ``slave`` ({} = the legacy
+        pickle-compat dialect); nested workflows ask their parent."""
+        proto = self._slave_proto_.get(slave)
+        if proto is None and isinstance(self._workflow, Workflow):
+            return self._workflow.slave_protocol(slave)
+        return proto or {}
+
+    def note_net_proto(self, proto):
+        """Worker side: records this session's negotiated protocol."""
+        self._net_proto_ = dict(proto or {})
+
+    @property
+    def net_proto(self):
+        """The worker session's negotiated protocol ({} = legacy)."""
+        if not self._net_proto_ and isinstance(self._workflow, Workflow):
+            return self._workflow.net_proto
+        return self._net_proto_
+
+    @property
+    def weights_version(self):
+        """The master's weights version: one more per applied worker
+        update; jobs carry it, so staleness is observable and delta
+        bases are verifiable.  Nested workflows read the main one's."""
+        if isinstance(self._workflow, Workflow):
+            return self._workflow.weights_version
+        return self._weights_version_
+
+    def bump_weights_version(self):
+        if isinstance(self._workflow, Workflow):
+            return self._workflow.bump_weights_version()
+        self._weights_version_ += 1
+        return self._weights_version_
 
     # -- introspection -----------------------------------------------------
 

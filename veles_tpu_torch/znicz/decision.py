@@ -6,8 +6,10 @@ reads the evaluator's on-device epoch accumulators (one host sync per
 class-epoch), records per-class error, loss and health, tracks
 validation improvement, and decides whether training is complete —
 flipping the ``complete`` Bool that gates the Repeater loop and the
-EndPoint.  The master-side accumulation of worker metrics waits for
-ROADMAP A7.
+EndPoint.  On the data plane's master the metrics arrive in the
+workers' updates instead (:meth:`DecisionGD.accumulate_remote`), bucketed
+by (epoch, class) until every job of the bucket has been answered
+(:meth:`DecisionGD.finish_remote_class`).
 """
 
 import numpy
@@ -110,6 +112,56 @@ class DecisionGD(DecisionBase, IResultProvider):
         self.epoch_grad_norm[cls] = float(health[1]) / finite_ticks
         self.epoch_grad_norm_max[cls] = float(health[2])
         self.evaluator.reset_health_acc(cls)
+
+    # -- master-side accumulation: the metrics arrive in worker updates ------
+
+    def init_unpickled(self):
+        super(DecisionGD, self).init_unpickled()
+        self._remote_acc_ = {}
+
+    def accumulate_remote(self, cls, metrics, epoch=None):
+        """Adds one worker job's metrics to the (epoch, class) bucket:
+        with several workers, jobs of epoch N+1 flow before every
+        update of epoch N has landed.  A single-tick job ships the
+        tick's metrics with the health sentinel's ``step_finite`` and
+        ``grad_norm``; a multi-tick job (``--job-ticks``) ships them
+        summed over its block with a ``ticks`` count and the
+        ``nonfinite``/``grad_norm_sum`` health sums, so a bucket's
+        totals equal K single-tick jobs'."""
+        acc = self._remote_acc_.setdefault(
+            (epoch, cls), [0.0, 0.0, 0.0, 0.0, 0.0, 0.0])
+        ticks = float(metrics.get("ticks", 1.0))
+        if not numpy.isfinite(ticks) or ticks <= 0.0:
+            ticks = 1.0
+        acc[0] += float(metrics.get("n_err", 0.0))
+        acc[1] += float(metrics.get("n_valid", 0.0))
+        acc[2] += float(metrics.get("loss", 0.0))
+        acc[3] += ticks
+        if "nonfinite" in metrics:  # pre-aggregated block health
+            nonfinite = float(metrics["nonfinite"])
+            gsum = float(metrics.get("grad_norm_sum", 0.0))
+            acc[4] += nonfinite if numpy.isfinite(nonfinite) else ticks
+            acc[5] += gsum if numpy.isfinite(gsum) else 0.0
+        else:
+            finite = float(metrics.get("step_finite", 1.0))
+            gnorm = float(metrics.get("grad_norm", 0.0))
+            if not numpy.isfinite(finite):
+                finite = 0.0
+            acc[4] += 1.0 - finite
+            acc[5] += gnorm if finite and numpy.isfinite(gnorm) \
+                else 0.0
+
+    def finish_remote_class(self, cls, epoch=None):
+        """Closes the (epoch, class) bucket into the epoch rows."""
+        acc = self._remote_acc_.pop((epoch, cls), None)
+        if acc is None:
+            return
+        self.epoch_n_err[cls] = acc[0]
+        self.epoch_n_valid[cls] = acc[1]
+        self.epoch_loss[cls] = acc[2] / max(acc[3], 1.0)
+        self.epoch_nonfinite[cls] = acc[4]
+        self.epoch_grad_norm[cls] = acc[5] / max(acc[3] - acc[4], 1.0)
+        self.on_last_minibatch(cls)
 
     def error_rate(self, cls):
         n = self.epoch_n_valid[cls]
