@@ -174,6 +174,18 @@ any failure exits non-zero:
    train job with bf16 deltas within the codec's rounding bound; the
    wire bytes per minibatch; the AlexNet train tick with and without
    ``torch.use_deterministic_algorithms``;
+   9f (``phase_fleet``). the fleet — (a) a master
+   ``Launcher(listen_address="127.0.0.1:0", nodes=["local", "local"],
+   worker_argv=[the MNIST sample, ...])`` spawns two worker processes
+   of the command line on the card, one is SIGKILLed with a job in hand
+   after five jobs: one drop, one requeue, one respawn on the
+   least-loaded node that joins and trains, no minibatch lost, the
+   membership epochs printed; (b) PBT over two full-width
+   AlexNet members (batch 128, a tuned learning rate) by a
+   ``PopulationEngine`` coordinator and one worker process of the
+   command line (``--population 2 --pbt -m``): the members equal the
+   in-process loopback bit for bit, every exploit job is 50x smaller
+   than a full ship, the worker's B6/B7 launches 2 + 2 a train tick;
 9. quantized serving — a second artifact (another seed) is written;
    the first is served with ``--kv-dtype int8 --weight-dtype int8
    --spec --warmup`` (and once without ``--spec``) to the mixed wave
@@ -192,9 +204,9 @@ any failure exits non-zero:
    prompt's first serving did, bit for bit;
 10. exit — drains the servers, prints the training, AlexNet, snapshot,
    streamed, serving, in-workflow serving, pretraining, population,
-   parallel and data-plane numbers and the kernels (B1-B4's launches
+   parallel, data-plane and fleet numbers and the kernels (B1-B4's launches
    from phase 7r too, B1-B3's and B6/B7's from phase 7g, B6/B7's from
-   phase 9n's worker) as JSON lines, the command's time, the
+   the workers of phases 9n and 9f) as JSON lines, the command's time, the
    card's name and power limit, and ``{"ok": true, "device": {...}}``
    last.
 """
@@ -5193,6 +5205,384 @@ def phase_net(workdir, smi):
     return total, numbers
 
 
+#: Phase 9f (a): the MNIST fleet — two worker processes spawned by the
+#: launcher, FLEET_MNIST_EPOCHS epochs, one worker SIGKILLed with a job
+#: in hand once the server generated FLEET_KILL_AFTER jobs.
+FLEET_MNIST_EPOCHS, FLEET_KILL_AFTER = 2, 5
+#: Phase 9f (b): PBT over the full-width AlexNet, FLEET_P members at
+#: NET_BATCH a minibatch, FLEET_EPOCHS epochs of one validation job and
+#: one train job of FLEET_TICKS ticks each, the learning rate tuned;
+#: FLEET_SEED is a seed at which an exploit fires.
+FLEET_P, FLEET_TICKS, FLEET_EPOCHS, FLEET_SEED = 2, 2, 2, 42
+FLEET_LR = "Tune(0.01, 0.001, 0.05)"
+#: Seconds each part of phase 9f may take before it is stopped.
+FLEET_DEADLINE = 300
+
+
+def process_ports(pid):
+    """The local TCP ports of process ``pid``'s sockets (read from
+    ``/proc``): which of the server's sessions is a given worker."""
+    inodes = set()
+    for fd in os.listdir("/proc/%d/fd" % pid):
+        try:
+            link = os.readlink("/proc/%d/fd/%s" % (pid, fd))
+        except OSError:
+            continue
+        if link.startswith("socket:["):
+            inodes.add(link[8:-1])
+    ports = set()
+    for table in ("/proc/net/tcp", "/proc/net/tcp6"):
+        with open(table) as fin:
+            for row in fin.read().splitlines()[1:]:
+                fields = row.split()
+                if len(fields) > 9 and fields[9] in inodes:
+                    ports.add(int(fields[1].rsplit(":", 1)[1], 16))
+    return ports
+
+
+def fleet_mnist(workdir, smi, device="cuda"):
+    """Phase 9f (a): ``Launcher(listen_address="127.0.0.1:0",
+    nodes=["local", "local"], worker_argv=[the MNIST sample, ...])``
+    holds MNIST on the card and spawns two worker processes of the
+    command line on the same card.  Once the server generated
+    FLEET_KILL_AFTER jobs, the first worker process is SIGKILLed just
+    after it was handed a job, and the master hands out no more work
+    until the respawned worker joined.  Gates: exactly one
+    ``server.drop``, one requeue and one ``server.respawn``; the
+    respawned worker joins and trains; the run completes with no
+    minibatch lost (nothing requeued or in flight at the end); the
+    killed process exits by SIGKILL and every other with 0.  Prints
+    the membership epochs in order."""
+    import signal
+    from veles_tpu_torch import prng, resilience
+    from veles_tpu_torch.config import root
+    from veles_tpu_torch.launcher import Launcher
+    from veles_tpu_torch.znicz.samples.mnist import MnistWorkflow
+    datasets = os.path.join(workdir, "fleet")
+    write_mnist_idx(datasets)
+    argv = [os.path.join(HERE, "veles_tpu_torch", "znicz", "samples",
+                         "mnist.py"),
+            "root.common.dirs.datasets=%r" % datasets,
+            "root.mnist.max_epochs=%d" % FLEET_MNIST_EPOCHS,
+            "--device", device, "--random-seed", str(SEED),
+            "-v", "warning", "--reconnect-attempts", "5"]
+    root.common.dirs.datasets = datasets
+    # The data plane's defaults (one-tick jobs, fp32 deltas), whatever
+    # phase 9n left; put back at the end.
+    net = root.common.net
+    saved_net = dict(net.__dict__)
+    for key in ("job_ticks", "dtype", "codec", "zero"):
+        net.__dict__.pop(key, None)
+    resilience.reset()
+    launcher = Launcher(listen_address="127.0.0.1:0",
+                        nodes=["local", "local"], worker_argv=argv)
+    prng.reset()
+    prng.get(0).seed(SEED)
+    wf = MnistWorkflow(launcher, max_epochs=FLEET_MNIST_EPOCHS)
+    generate = wf.generate_data_for_slave
+    state = {"jobs": 0, "killed": None}
+
+    def generate_and_kill(slave=None):
+        # Called under the server's lock.
+        server = launcher.server
+        if state["killed"] is not None and server.fleet.joins < 3:
+            return None  # the work waits for the respawned worker
+        job = generate(slave)
+        if job is None:
+            return job
+        state["jobs"] += 1
+        if state["killed"] is None and \
+                state["jobs"] >= FLEET_KILL_AFTER:
+            proc = launcher.worker_processes[0][1]
+            desc = server._slaves.get(slave)
+            if desc is not None and \
+                    desc.address[1] in process_ports(proc.pid):
+                proc.send_signal(signal.SIGKILL)
+                state["killed"] = slave
+        return job
+
+    wf.generate_data_for_slave = generate_and_kill
+    launcher.initialize(device=device)
+    timer = threading.Timer(FLEET_DEADLINE, launcher.stop)
+    timer.start()
+    t0 = time.monotonic()
+    try:
+        launcher.run()
+    finally:
+        timer.cancel()
+        codes = launcher.reap_workers(timeout=30.0)
+    seconds = time.monotonic() - t0
+    stats = resilience.stats.snapshot()
+    events = list(launcher.server.fleet.events)
+    sessions = launcher.server.all_slaves
+    respawned = [sid for _e, kind, sid in events if kind == "join"][2:]
+    numbers = {"seconds": seconds, "jobs": state["jobs"],
+               "killed_session": state["killed"],
+               "exit_codes": codes,
+               "drops": stats.get("server.drop", 0),
+               "respawns": stats.get("server.respawn", 0),
+               "requeues": stats.get("server.requeue", 0),
+               "membership_epochs": [list(e) for e in events],
+               "respawned_jobs": [sessions[sid].jobs_done
+                                  for sid in respawned if sid in sessions],
+               "epochs_trained": int(wf.decision.epoch_number),
+               "failed_minibatches": len(wf.loader.failed_minibatches),
+               "inflight": wf.total_inflight_jobs()}
+    print("9f (a) on %s: membership epochs in order %s" % (
+        smi, numbers["membership_epochs"]))
+    print("9f (a) on %s: %d jobs generated, %d drop(s), %d requeue(s), "
+          "%d respawn(s), the respawned worker's jobs %s, worker exit "
+          "codes %s, %d epochs, %d minibatches left to retrain, %.1f s" % (
+              smi, state["jobs"], numbers["drops"], numbers["requeues"],
+              numbers["respawns"], numbers["respawned_jobs"], codes,
+              numbers["epochs_trained"], numbers["failed_minibatches"],
+              seconds))
+    root.common.__dict__.pop("dirs", None)
+    net.__dict__.clear()
+    net.__dict__.update(saved_net)
+    if not wf.decision.complete or \
+            numbers["epochs_trained"] != FLEET_MNIST_EPOCHS:
+        fail("9f (a): the fleet's run did not complete (%s)" % numbers)
+    kinds = sorted(kind for _e, kind, _sid in events)
+    if numbers["drops"] != 1 or numbers["respawns"] != 1 or \
+            numbers["requeues"] != 1 or \
+            kinds != ["drain", "drain", "drop", "join", "join", "join"] \
+            or not numbers["respawned_jobs"] or \
+            not numbers["respawned_jobs"][0] or len(codes) != 3 or \
+            codes[0] != -signal.SIGKILL or any(codes[1:]):
+        fail("9f (a): expected one drop, requeue and respawn, a respawned "
+             "worker that trains, and the killed worker's SIGKILL: %s"
+             % numbers)
+    if numbers["failed_minibatches"] or numbers["inflight"]:
+        fail("9f (a): minibatches were lost: %s" % numbers)
+    del wf, launcher
+    return numbers
+
+
+def fleet_pbt_argv(batch=NET_BATCH, size=227):
+    """The configuration of phase 9f (b), as ``root.x=y`` sources."""
+    n_train = batch * FLEET_TICKS
+    return ["root.imagenet.minibatch_size=%d" % batch,
+            "root.imagenet.max_epochs=%d" % FLEET_EPOCHS,
+            "root.imagenet.n_classes=1000",
+            "root.imagenet.sim_image_size=%d" % size,
+            "root.imagenet.sim_classes=10",
+            "root.imagenet.sim_train=%d" % n_train,
+            "root.imagenet.sim_valid=%d" % batch,
+            "root.imagenet.validate_labels=False",
+            "root.imagenet.learning_rate=%s" % FLEET_LR,
+            "root.common.engine.precision_level=0",
+            "root.common.engine.pallas_lrn=True",
+            "root.common.net.job_ticks=%d" % FLEET_TICKS,
+            "root.common.net.codec='none'",
+            "root.common.net.dtype='fp32'"]
+
+
+def fleet_pbt_worker(address, config, device, out):
+    """The worker process of phase 9f (b): ``python -m veles_tpu_torch``'s
+    ``Main`` with the ``config`` sources and ``--population --pbt -m
+    address`` on ``device``; writes its exit code and its B6/B7 launches
+    to ``out``."""
+    sys.path.insert(0, HERE)
+    import torch
+    from veles_tpu_torch.__main__ import Main
+    from veles_tpu_torch.ops import lrn as L
+    torch.set_num_threads(4)
+    L.reset_launches()
+    rc = Main([os.path.join(HERE, "veles_tpu_torch", "znicz", "samples",
+                            "imagenet.py")] + config +
+              ["--population", str(FLEET_P), "--pbt", "-m", address,
+               "--device", device, "--random-seed", str(FLEET_SEED),
+               "-v", "warning"]).run()
+    if device == "cuda":
+        torch.cuda.synchronize()
+    with open(out, "w") as fout:
+        json.dump({"rc": rc, "lrn_forward": L.lrn_forward.launches,
+                   "lrn_backward": L.lrn_backward.launches}, fout)
+
+
+def fleet_engine(listen, config, device):
+    """A PBT ``PopulationEngine`` of phase 9f (b) in this process on
+    ``device``: the coordinator (``listen``) or the in-process loopback
+    (None)."""
+    from types import SimpleNamespace
+    from veles_tpu_torch.__main__ import (apply_config_sources,
+                                          import_workflow_module)
+    from veles_tpu_torch.population import PopulationEngine
+    apply_config_sources(config)
+    module = import_workflow_module(os.path.join(
+        HERE, "veles_tpu_torch", "znicz", "samples", "imagenet.py"))
+    args = SimpleNamespace(listen_address=listen, master_address=None,
+                           result_file=None, random_seed=str(FLEET_SEED),
+                           pbt=True, device=device)
+    return PopulationEngine(SimpleNamespace(module=module, args=args),
+                            FLEET_P, pbt_interval=1)
+
+
+def fleet_states(master):
+    return {m.member_id: workflow_state(m.wf) for m in master.members}
+
+
+def fleet_pbt(workdir, smi, device="cuda", config=None):
+    """Phase 9f (b): a PBT ``PopulationEngine`` coordinator
+    (``-l 127.0.0.1:0``, ``--pbt --pbt-interval 1``, a ``Tune`` on the
+    learning rate) with FLEET_P full-width AlexNet members, and one
+    worker process of the command line (``--population --pbt -m``) on
+    the same card.  Every job's wire bytes are measured through the
+    tensor-frame encoder.  Gates: each member's weights and slots equal
+    the same run through the in-process loopback (``_run_standalone``)
+    bit for bit; an exploit fired, and every exploit job is under a
+    fiftieth of a full ship; the worker's B6/B7 launches are twice its
+    train and validation ticks (B7 twice its train ticks).  Returns the
+    worker's launches and the readings."""
+    import numpy
+    import torch
+    import torch.multiprocessing as mp
+    from veles_tpu_torch import resilience
+    from veles_tpu_torch.config import root
+    from veles_tpu_torch.loader.base import TRAIN
+    from veles_tpu_torch.network_common import encode_message
+    from veles_tpu_torch.population import master as PM
+    resilience.reset()
+    saved = [(node, dict(node.__dict__)) for node in (
+        root.imagenet, root.common.net, root.common.population,
+        root.common.engine)]
+    config = fleet_pbt_argv() if config is None else config
+    engine = fleet_engine("127.0.0.1:0", config, device)
+    original = PM.PopulationMaster.generate_data_for_slave
+    jobs = []
+
+    def measured(self, slave=None):
+        job = original(self, slave)
+        if job is not None:
+            _flags, parts = encode_message({"cmd": "job", "data": job},
+                                           codec=None, tensor=True)
+            meta = job["data"].get("__job__") or {}
+            jobs.append({"member": job["m"], "exploit": "exploit" in job,
+                         "bytes": sum(len(p) for p in parts),
+                         "class": meta.get("minibatch_class"),
+                         "ticks": self._members[job["m"]].outstanding[2]})
+        return job
+
+    PM.PopulationMaster.generate_data_for_slave = measured
+    errors = []
+
+    def coordinate():
+        try:
+            engine.run()
+        except BaseException as e:  # reported below
+            errors.append(repr(e))
+
+    t0 = time.monotonic()
+    coordinator = threading.Thread(target=coordinate, name="9f-pbt")
+    coordinator.start()
+    out = os.path.join(workdir, "fleet_worker.json")
+    worker = None
+    try:
+        while engine.server is None and coordinator.is_alive() and \
+                time.monotonic() - t0 < FLEET_DEADLINE:
+            time.sleep(0.05)
+        if engine.server is None:
+            fail("9f (b): the coordinator never listened: %s" % errors)
+        ctx = mp.get_context("spawn")
+        worker = ctx.Process(target=fleet_pbt_worker, args=(
+            "127.0.0.1:%d" % engine.server.port, config, device, out))
+        worker.start()
+        while coordinator.is_alive() and \
+                time.monotonic() - t0 < FLEET_DEADLINE:
+            coordinator.join(1.0)
+            if not worker.is_alive() and coordinator.is_alive():
+                coordinator.join(30.0)
+                break
+        if coordinator.is_alive():
+            engine.server.stop()
+            coordinator.join(60.0)
+            fail("9f (b): the PBT run did not end (worker exit %s)"
+                 % worker.exitcode)
+        worker.join(120)
+    finally:
+        PM.PopulationMaster.generate_data_for_slave = original
+        if worker is not None and worker.is_alive():
+            worker.kill()
+            worker.join()
+    session_s = time.monotonic() - t0
+    if errors or worker.exitcode:
+        fail("9f (b): coordinator errors %s, worker exit %s" % (
+            errors, worker.exitcode))
+    with open(out) as fin:
+        report = json.load(fin)
+    master = engine.master
+    exploits = master.exploits
+    summary = master.population_summary()
+    got = fleet_states(master)
+    del engine, master
+    gc.collect()
+    torch.cuda.empty_cache()
+    t1 = time.monotonic()
+    ref = fleet_engine(None, config, device)
+    ref._run_standalone()
+    standalone_s = time.monotonic() - t1
+    want = fleet_states(ref.master)
+    del ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    for node, state in saved:
+        node.__dict__.clear()
+        node.__dict__.update(state)
+    equal = {m: sum(bool(numpy.array_equal(got[m][k], want[m][k]))
+                    for k in want[m]) for m in want}
+    sizes = {k: len(v) for k, v in want.items()}
+    full = max(j["bytes"] for j in jobs if not j["exploit"])
+    exploit_bytes = [j["bytes"] for j in jobs if j["exploit"]]
+    train = sum(j["ticks"] for j in jobs if j["class"] == TRAIN)
+    valid = sum(j["ticks"] for j in jobs if j["class"] != TRAIN)
+    expect = {"lrn_forward": 2 * (train + valid), "lrn_backward": 2 * train}
+    launches = {k: report[k] for k in expect}
+    print("9f (b) on %s: %d PBT members, %d jobs (%d train + %d "
+          "validation ticks), %d exploit(s); members == the in-process "
+          "loopback bit for bit: %s of %s tensors" % (
+              smi, FLEET_P, len(jobs), train, valid, exploits, equal,
+              sizes))
+    print("9f (b) on %s: wire bytes of a full ship %d, of each exploit "
+          "job %s (%s x smaller); worker B6/B7 launches %s (expected %s); "
+          "session %.1f s, loopback reference %.1f s" % (
+              smi, full, exploit_bytes,
+              ["%.0f" % (full / float(b)) for b in exploit_bytes],
+              launches, expect, session_s, standalone_s))
+    if equal != sizes:
+        fail("9f (b): the fleet's members differ from the in-process "
+             "loopback: %s of %s tensors equal" % (equal, sizes))
+    if not exploit_bytes or exploits != len(exploit_bytes):
+        fail("9f (b): no exploit fired at seed %d (%d exploits, %d "
+             "exploit jobs)" % (FLEET_SEED, exploits, len(exploit_bytes)))
+    if any(b * 50 >= full for b in exploit_bytes):
+        fail("9f (b): an exploit job is not 50x smaller than a full ship "
+             "(%s vs %d)" % (exploit_bytes, full))
+    if launches != expect:
+        fail("9f (b): the worker launched the LRN kernels %s times, its "
+             "ticks imply %s" % (launches, expect))
+    numbers = {"members": FLEET_P, "jobs": jobs, "exploits": exploits,
+               "summary": summary, "full_ship_bytes": full,
+               "exploit_job_bytes": exploit_bytes,
+               "train_ticks": train, "validation_ticks": valid,
+               "worker_launches": launches, "session_s": session_s,
+               "loopback_reference_s": standalone_s}
+    return launches, numbers
+
+
+def phase_fleet(workdir, smi):
+    """Phase 9f: (a) :func:`fleet_mnist`, (b) :func:`fleet_pbt`; prints
+    the phase's seconds beside the card's name and power limit."""
+    started = time.monotonic()
+    mnist = fleet_mnist(workdir, smi)
+    gc.collect()
+    launches, pbt = fleet_pbt(workdir, smi)
+    numbers = {"fleet": mnist, "pbt": pbt,
+               "phase_s": time.monotonic() - started}
+    print("9f on %s: the phase %.1f s" % (smi, numbers["phase_s"]))
+    return launches, numbers
+
+
 #: ``--ranks 4``: the parallel styles on four cards, one rank each in an
 #: NCCL world (mesh axes, applier, TinyLM kwargs, ZeRO level).  The
 #: tests' geometry (vocab 16, 32 positions, embed 32, 4 heads, 2 blocks,
@@ -5326,12 +5716,51 @@ def rank_worker(rank, n, store, out):
             del wf, launcher
         gathered = [None] * n
         dist.all_gather_object(gathered, memory)
-    finally:
+        lost = rank_lost(rank, n, store)
+    except BaseException:
         if dist.is_initialized():
             dist.destroy_process_group()
+        raise
     if rank == 0:
         with open(out, "wb") as fout:
-            pickle.dump((results, gathered), fout)
+            pickle.dump((results, gathered, lost), fout)
+    # The world lost a member: its communicators are left to the
+    # process's end, never destroyed (a wait on the dead rank).
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(0)
+
+
+#: The lost-rank case of ``--ranks``: the tests' TinyLM at batch 12
+#: (split over every rank and over the survivors) under dp.
+LOST_BATCH = 12
+
+
+def rank_lost(rank, n, store):
+    """``--ranks``'s lost rank: the TinyLM under dp over all n ranks
+    ticks RANK_TICKS times, then the last rank exits (``os._exit``) and
+    the survivors rebuild the mesh over themselves — no word from the
+    dead rank, the in-flight minibatch requeued — and tick
+    RANK_TICKS more.  Returns (losses, parameters, tick seconds) after
+    the rebuild, its seconds and the new mesh; the dead rank never
+    returns."""
+    import veles_tpu_torch.parallel as par
+    from veles_tpu_torch.launcher import Launcher
+    launcher = Launcher(mode="distributed",
+                        coordinator_address="file://" + store,
+                        num_processes=n, process_id=rank)
+    wf = rank_lm(launcher, minibatch_size=LOST_BATCH)
+    launcher.initialize(device="cuda")
+    par.apply_dp_sharding(wf, par.make_mesh(None, {"data": n}))
+    rank_ticks(wf)
+    if rank == n - 1:
+        os._exit(0)
+    t0 = time.monotonic()
+    par.rebuild_mesh(wf, list(range(n - 1)))
+    rebuild_s = time.monotonic() - t0
+    requeued = len(wf.loader.failed_minibatches)
+    return {"after": rank_ticks(wf), "rebuild_s": rebuild_s,
+            "requeued": requeued, "mesh": dict(wf.mesh.shape)}
 
 
 def phase_ranks(n, workdir, smi):
@@ -5365,7 +5794,7 @@ def phase_ranks(n, workdir, smi):
         fail("--ranks %d: the ranks exited %s" % (n, codes))
     ranks_s = time.monotonic() - t0
     with open(out, "rb") as fin:
-        got, memory = pickle.load(fin)
+        got, memory, lost = pickle.load(fin)
     engine = root.common.engine
     engine.precision_level = 1
     engine.attention_dtype = "f32"
@@ -5413,6 +5842,37 @@ def phase_ranks(n, workdir, smi):
                   case, worst[case]["param_bytes_by_rank"],
                   worst[case]["full_param_bytes"],
                   worst[case]["peak_bytes_by_rank"]))
+    # The lost rank: the unsplit TinyLM's same ticks, its in-flight
+    # minibatch requeued after the third as the rebuild requeues it.
+    launcher = Launcher()
+    wf = rank_lm(launcher, minibatch_size=LOST_BATCH)
+    launcher.initialize(device="cuda")
+    rank_ticks(wf)
+    wf.loader.failed_minibatches.extend(wf.loader._in_flight_)
+    wf.loader._in_flight_ = []
+    want_losses, want_params, _ = rank_ticks(wf)
+    del wf, launcher
+    losses, params, secs = lost["after"]
+    share = 0.0
+    for g, w in zip(params, want_params):
+        for name, arr in w.items():
+            bound = RANK_ATOL + RANK_RTOL * numpy.abs(arr)
+            share = max(share, float((numpy.abs(g[name] - arr) /
+                                      bound).max()))
+    loss_gap = max(abs(a - b) / abs(b) for a, b in zip(losses,
+                                                       want_losses))
+    worst["lost_rank_dp"] = {
+        "share_of_tol": share, "loss_rel": loss_gap, "tick_s": secs,
+        "backend": "nccl", "mesh": lost["mesh"], "wrong_shards": [],
+        "rebuild_s": lost["rebuild_s"], "requeued": lost["requeued"]}
+    print("ranks lost_rank_dp: rank %d of %d exited; the survivors re-formed "
+          "as %s in %.3f s (%d minibatch requeued) and ticked: losses %s vs "
+          "unsplit %s; largest parameter error / tolerance %.4f" % (
+              n - 1, n, lost["mesh"], lost["rebuild_s"], lost["requeued"],
+              ["%.6f" % x for x in losses], ["%.6f" % x for x in want_losses],
+              share))
+    if lost["mesh"] != {"data": n - 1} or lost["requeued"] != 1:
+        fail("--ranks %d: the lost-rank rebuild gave %s" % (n, lost))
     bad = {c: w for c, w in worst.items() if w["share_of_tol"] > 1.0 or
            w["loss_rel"] > RANK_LOSS_RTOL or w["backend"] != "nccl" or
            w["wrong_shards"]}
@@ -6234,6 +6694,9 @@ def main():
         net_launches, net = phase_net(workdir, smi)
         gc.collect()
         torch.cuda.empty_cache()
+        fleet_launches, fleet = phase_fleet(workdir, smi)
+        gc.collect()
+        torch.cuda.empty_cache()
         reload_path = os.path.join(workdir, "lm-reload.veles.tgz")
         t0 = time.monotonic()
         from veles_tpu_torch import export as X
@@ -6371,14 +6834,15 @@ def main():
                                   LRN_SHAPES),
             "launches": lrn_launches[name] + snapshot_launches[name] +
             stream_launches[name] + pop_launches[name] +
-            net_launches[name],
+            net_launches[name] + fleet_launches[name],
             "launches_by_path": {
                 "alexnet_run": lrn_launches[name],
                 "alexnet_snapshot_ticks_and_artifact_forward":
                     snapshot_launches[name],
                 "alexnet_streamed": stream_launches[name],
                 "alexnet_population": pop_launches[name],
-                "alexnet_data_plane_worker": net_launches[name]},
+                "alexnet_data_plane_worker": net_launches[name],
+                "alexnet_pbt_fleet_worker": fleet_launches[name]},
             "launches_by_route": lrn_routes[name],
             "max_abs_err": lrn_err[name],
             "tol": "f32 fwd rtol %g, bwd %g x the terms' magnitude; bf16 "
@@ -6421,6 +6885,7 @@ def main():
     print(json.dumps({"population": population}))
     print(json.dumps({"parallel": parallel}))
     print(json.dumps({"data_plane": net}))
+    print(json.dumps({"fleet": fleet}))
     print(json.dumps({"quant_serving": quant}))
     print(json.dumps(kernels))
     print("chip_smoke: command time %.1f s" % (time.monotonic() - started))

@@ -19,7 +19,7 @@ from veles_tpu_torch import restful as trestful
 from veles_tpu_torch.config import root as troot
 
 SUBTREES = ("serving", "guardian", "loader", "engine", "population",
-            "genetics")
+            "genetics", "server")
 
 
 def _jax_options():
@@ -44,8 +44,7 @@ def test_every_jax_option_is_parsed_or_refused_by_name():
     assert missing == []
     # A flag is one or the other, never both.
     assert sorted(port & refused) == []
-    assert set(tmain.NOT_PORTED.values()) <= {"A7a-ii", "A7b", "A8",
-                                              "A8a"}
+    assert set(tmain.NOT_PORTED.values()) <= {"A8", "A8a"}
 
 
 @pytest.mark.parametrize("flag", REFUSED)
@@ -219,10 +218,10 @@ def test_meta_flag_sets_the_same_keys_in_both_trees(argv, want):
 @pytest.mark.parametrize("flag", ["--pbt", "--pbt-interval",
                                   "--ensemble-population", "-l", "-m"])
 def test_fleet_population_flags_stay_refused_naming_a7a(flag):
-    """The fleet's population flags stay refused by name: since A7 was
-    split, their queue is A7b, its fleet half.  ``-l`` and ``-m``,
-    refused until the data plane (A7a-i) was ported, now choose the
-    launcher's master and worker modes."""
+    """The fleet's flags, refused by name until their queues (A7a, A7b)
+    were ported, now parse: ``-l`` and ``-m`` choose the launcher's
+    master and worker modes, ``--pbt`` and ``--ensemble-population``
+    the population's scheduling, ``--pbt-interval`` its key."""
     if flag in ("-l", "-m"):
         main = tmain.Main(["wf.py", flag, "127.0.0.1:1"])
         main.parse()
@@ -230,8 +229,38 @@ def test_fleet_population_flags_stay_refused_naming_a7a(flag):
         key = "listen_address" if flag == "-l" else "master_address"
         assert kw == {key: "127.0.0.1:1"}
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP A7b"):
-        tmain.Main(["wf.py", flag, "1"]).parse()
+    argv = ["wf.py", flag] + (["2"] if flag == "--pbt-interval" else [])
+    args = tmain.Main(argv).parse()
+    dest = flag.lstrip("-").replace("-", "_")
+    assert getattr(args, dest) == (2 if flag == "--pbt-interval"
+                                   else True)
+    assert flag not in tmain.NOT_PORTED
+
+
+#: The fleet's flags (A7a-ii, A7b): the keys they set in both trees.
+FLEET_CASES = [
+    (["--pbt-interval", "3"], {"population.pbt_interval": 3}),
+    (["--pbt-quantile", "0.4"], {"population.pbt_quantile": 0.4}),
+    (["--pbt-perturb", "1.5"], {"population.pbt_perturb": 1.5}),
+    (["--population-vmap", "off"], {"population.vmap": False}),
+    (["--blacklist-cooldown", "7.5"],
+     {"server.blacklist_cooldown": 7.5}),
+    (["--pbt"], {}),
+    (["--ensemble-population"], {}),
+    (["--nodes", "local,host2"], {}),
+]
+
+
+@pytest.mark.parametrize("argv,want", FLEET_CASES,
+                         ids=lambda v: " ".join(v)
+                         if isinstance(v, list) else "")
+def test_fleet_flag_sets_the_same_keys_in_both_trees(argv, want):
+    with _kept_trees():
+        got_jax = _apply(jmain, jroot, argv)
+    with _kept_trees():
+        got_port = _apply(tmain, troot, argv)
+    assert got_jax == want
+    assert got_port == want
 
 
 #: The parallelism flags: the six knobs land at the JAX command line's

@@ -249,7 +249,53 @@ def _session_topology(rank, world, out):
             pickle.dump(report, fout)
 
 
-SESSIONS = {"styles": _session_styles, "topology": _session_topology}
+#: The lost-rank sessions' TinyLM: 12 sequences a minibatch, so the
+#: batch splits over 4 ranks and over the 3 survivors.
+LOST = dict(minibatch_size=12)
+#: Seconds the survivors' rebuild (or its refusal) may take.
+REBUILD_SECONDS = 10.0
+
+
+def _session_lost_rank(rank, world, out):
+    """Rank 3 of four dies (``os._exit``) after three ticks of two
+    TinyLMs: one under dp, one under dp with ZeRO-1 (slot shards held
+    between ticks).  The survivors rebuild both over ranks 0-2 with no
+    word from rank 3: the ZeRO one raises ``LostRankError``, the dp one
+    re-forms, requeues its in-flight minibatch and trains three more
+    ticks."""
+    from veles_tpu_torch import resilience
+    from veles_tpu_torch.config import root
+    import veles_tpu_torch.parallel as par
+    root.common.engine.precision_level = 1
+    zero = _styled("dp", **LOST)
+    par.apply_zero_sharding(zero, level=1)
+    _train(zero, 2)
+    wf = _styled("dp", **LOST)
+    before = _train(wf)
+    if rank == world - 1:
+        sys.stderr.flush()
+        os._exit(0)
+    survivors = list(range(world - 1))
+    report = {"held": list(zero.compiler._held)}
+    start = time.monotonic()
+    try:
+        par.rebuild_mesh(zero, survivors)
+    except resilience.LostRankError as e:
+        report["zero_error"] = str(e)
+    report["zero_seconds"] = time.monotonic() - start
+    start = time.monotonic()
+    par.rebuild_mesh(wf, survivors)
+    report["requeued"] = len(wf.loader.failed_minibatches)
+    report["dp_seconds"] = time.monotonic() - start
+    report["mesh"] = wf.mesh.shape
+    report["before"], report["after"] = before, _train(wf)
+    if rank == 0:
+        with open(out, "wb") as fout:
+            pickle.dump(report, fout)
+
+
+SESSIONS = {"styles": _session_styles, "topology": _session_topology,
+            "lost_rank": _session_lost_rank}
 
 
 def _rank_main(session, rank, world, store, out, err):
@@ -265,6 +311,7 @@ def _rank_main(session, rank, world, store, out, err):
         traceback.print_exc()
         raise
     finally:
+        # No collective: a lost-rank session's world has a dead member.
         dist.destroy_process_group()
 
 
@@ -475,3 +522,51 @@ def test_cli_two_processes(tmp_path):
     assert results[0]["mode"] == "distributed"
     assert results[0]["results"] == results[1]["results"]
     assert results[0]["results"]["epochs"] == 2
+
+
+def test_lost_rank_dp_survivors_reform_and_match_jax(tmp_path, kept_roots):
+    """A rank of a 4-rank gloo world exits between ticks: the three
+    survivors rebuild the dp TinyLM over themselves within
+    :data:`REBUILD_SECONDS` without a word from the dead rank, requeue
+    the in-flight minibatch and train on; their losses and parameters
+    equal the JAX package's TinyLM laid out over 4 virtual devices and
+    rebuilt over 3 (``rebuild_mesh(wf, jax.devices()[:3])``) within
+    :data:`TOL`.  The same death under ZeRO-1, whose slot shards lived
+    only on their ranks, raises ``LostRankError`` naming
+    ``Launcher.resume_latest`` instead of waiting on the dead rank."""
+    import jax
+    import veles_tpu.prng as jprng
+    import veles_tpu.parallel as jpar
+    from veles_tpu.launcher import Launcher
+    from veles_tpu.znicz.samples.tinylm import TinyLMWorkflow
+    report = _run_session(tmp_path, "lost_rank")
+    assert report["held"], "ZeRO-1 held no slot shard"
+    assert "resume_latest" in report["zero_error"]
+    assert report["zero_seconds"] < REBUILD_SECONDS
+    assert report["dp_seconds"] < REBUILD_SECONDS
+    assert report["mesh"] == {"data": 3}
+    kept_roots.common.engine.precision_level = 1
+    jprng.reset()
+    jprng.get(0).seed(99)
+    launcher = Launcher()
+    wf = TinyLMWorkflow(launcher, **dict(GEOMETRY, **LOST))
+    launcher.initialize()
+    jpar.apply_dp_sharding(wf, jpar.make_mesh(jax.devices()[:4],
+                                              {"data": 4}))
+
+    def ticks():
+        losses, params = [], []
+        for _ in range(TICKS):
+            wf.loader.run()
+            losses.append(float(jax.device_get(wf.step_metrics["loss"])))
+            params.append(_params(wf))
+        return {"losses": losses, "params": params}
+
+    before = ticks()
+    jpar.rebuild_mesh(wf, jax.devices()[:3])
+    assert len(wf.loader.failed_minibatches) == report["requeued"] == 1
+    after = ticks()
+    jprng.reset()
+    for got, want in ((report["before"], before), (report["after"], after)):
+        _assert_matches_jax(dict(got, same_on_ranks=True), want,
+                            "lost rank")

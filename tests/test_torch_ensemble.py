@@ -13,8 +13,8 @@ package's, on the CPU.
   is a count of errors over the validation set, and the two packages'
   f32 roundings do not move a count here).
 * ``--train-ratio`` shrinks the train set, and
-  ``--ensemble-population``, which needs the fleet, raises naming
-  ROADMAP A7a.
+  ``--ensemble-population`` trains the instances as population lineages
+  with the sequential path's seeds, fitnesses and snapshots.
 
 Every test restores both packages' ``root`` trees, and snapshots go to
 the test's temporary directory."""
@@ -181,9 +181,29 @@ def test_train_ratio_shrinks_train_set():
     assert sizes[0] <= sizes[1] * 0.5 + 1
 
 
-def test_ensemble_population_raises_naming_a7a():
-    main = _main(None, 1, None)
-    main.args.ensemble_population = True
-    main.module = SimpleNamespace(__file__="mnist.py", __name__="mnist")
-    with pytest.raises(NotImplementedError, match="ROADMAP A7a"):
-        EnsembleTrainer(main, 2, 0.8).run()
+def test_ensemble_population_raises_naming_a7a(tmp_path):
+    """``--ensemble-population`` no longer raises: ``--ensemble-train
+    2:0.8`` through the population scheduler gives the sequential path's
+    instance seeds, bit-equal fitnesses, train ratio and snapshots (the
+    JAX package's ``test_ensemble_population_matches_sequential``)."""
+    troot.mnist.max_epochs = 2
+    troot.mnist.minibatch_size = 200
+    module = import_workflow_module(TMNIST)
+    descs = {}
+    for name, population in (("seq", False), ("pop", True)):
+        main = _main(module, 42, str(tmp_path / ("%s.json" % name)))
+        main.args.ensemble_population = population
+        main.args.listen_address = main.args.master_address = None
+        main.args.pbt = False
+        tprng.reset()
+        EnsembleTrainer(main, 2, 0.8,
+                        snapshot_dir=str(tmp_path / name)).run()
+        descs[name] = json.loads((tmp_path / ("%s.json" % name))
+                                 .read_text())
+    seq, pop = descs["seq"], descs["pop"]
+    assert [i["seed"] for i in seq["instances"]] == \
+        [i["seed"] for i in pop["instances"]]
+    for a, b in zip(seq["instances"], pop["instances"]):
+        assert a["fitness"] == b["fitness"], a["index"]
+        assert a["train_ratio"] == b["train_ratio"] == 0.8
+        assert os.path.isfile(b["snapshot"])

@@ -15,12 +15,16 @@ package's, on the CPU.
   (``evaluate_chromosome``) within 1e-6, two generations with the same
   genes read equal fitnesses, and topology tunes are rejected.
 * ``--optimize`` through the command line, the subprocess evaluation,
-  and the coordinator/worker modes, which raise naming ROADMAP A7a.
+  and the coordinator/worker modes over a socket (jobs are chromosomes,
+  updates are fitnesses), run under
+  ``test_torch_network.kept_process_state``.
 
 Every test restores both packages' ``root`` trees (``_kept_roots``)."""
 
 import json
 import os
+import threading
+import time
 from types import SimpleNamespace
 
 import numpy
@@ -308,11 +312,95 @@ def test_subprocess_evaluation_matches_in_process(monkeypatch):
 
 @pytest.mark.parametrize("mode", ["listen_address", "master_address"])
 def test_coordinator_and_worker_raise_naming_a7a(mode):
+    """The coordinator (``-l``) and worker (``-m``) modes, which raised
+    until the fleet was ported, now run: ``GeneticsOptimizer`` on the
+    side ``mode`` names, an ``OptimizationWorkflow`` over a socket on
+    the other, a 2-chromosome generation of MNIST learning rates; every
+    fitness recorded equals the chromosome evaluated in this process."""
+    from test_torch_network import joined, kept_process_state, stopped
+    from veles_tpu_torch.client import Client
+    from veles_tpu_torch.genetics.optimizer import OptimizationWorkflow
+    from veles_tpu_torch.launcher import Launcher
+    from veles_tpu_torch.server import Server
+    troot.mnist.max_epochs = 1
+    troot.mnist.minibatch_size = 200
     troot.mnist.learning_rate = Tune(0.01, 0.001, 0.1)
-    args = SimpleNamespace(listen_address=None, master_address=None,
-                           result_file=None, random_seed="42",
-                           device="cpu")
-    setattr(args, mode, "127.0.0.1:1")
-    main = SimpleNamespace(module=None, args=args)
-    with pytest.raises(NotImplementedError, match="ROADMAP A7a"):
-        GeneticsOptimizer(main, 2, 1).run()
+    module = import_workflow_module(TMNIST)
+    tunes = collect_tunes(troot)
+    with kept_process_state():
+        args = SimpleNamespace(listen_address=None, master_address=None,
+                               result_file=None, random_seed="42",
+                               device="cpu")
+        main = SimpleNamespace(module=module, args=args)
+        if mode == "listen_address":
+            args.listen_address = "127.0.0.1:0"
+            opt = GeneticsOptimizer(main, 2, 1)
+            t = threading.Thread(target=opt.run, name="test-ga")
+            t.start()
+            end = time.monotonic() + 30
+            while opt.server is None and time.monotonic() < end:
+                time.sleep(0.02)
+            assert opt.server is not None, "the coordinator never listened"
+            client = Client("127.0.0.1:%d" % opt.server.port,
+                            OptimizationWorkflow(Launcher(), module,
+                                                 seed=42, device="cpu"),
+                            reconnect_attempts=1)
+            client.run()
+            joined(t, 60)
+            pop = opt.population
+        else:
+            pop = Population(tunes, 2, 1, seed=42)
+            master = OptimizationWorkflow(Launcher(), module,
+                                          population=pop)
+            server = Server("127.0.0.1:0", master)
+            args.master_address = "127.0.0.1:%d" % server.port
+            assert GeneticsOptimizer(main, 2, 1).run() is None
+            server.wait(timeout=60)
+            stopped(server)
+    assert pop.complete
+    for chromosome in pop.chromosomes:
+        want = evaluate_chromosome(module, tunes, chromosome.genes,
+                                   seed=42, device="cpu")
+        assert chromosome.fitness == want
+
+
+def test_distributed_chromosome_jobs():
+    """A coordinator and two workers over real sockets: chromosomes
+    out, fitnesses back, three generations of a synthetic fitness (two
+    workers exercise the nothing-pending poll while one holds a
+    generation's last chromosome)."""
+    from test_torch_network import joined, kept_process_state, stopped
+    from veles_tpu_torch.client import Client
+    from veles_tpu_torch.genetics.optimizer import OptimizationWorkflow
+    from veles_tpu_torch.launcher import Launcher
+    from veles_tpu_torch.server import Server
+    _synthetic(troot, Tune)
+    tunes = collect_tunes(troot)[1:]
+    target = numpy.array([0.25, 0.75])
+
+    class SyntheticOptWorkflow(OptimizationWorkflow):
+        def do_job(self, data, update, callback):
+            genes = numpy.asarray(data["genes"])
+            callback({"index": data["index"],
+                      "fitness": -float(numpy.sum((genes - target) ** 2))})
+
+    with kept_process_state():
+        pop = Population(tunes, size=6, generations=3, seed=7)
+        server = Server("127.0.0.1:0",
+                        SyntheticOptWorkflow(Launcher(), None,
+                                             population=pop))
+        threads = []
+        for _ in range(2):
+            client = Client("127.0.0.1:%d" % server.port,
+                            SyntheticOptWorkflow(Launcher(), None),
+                            reconnect_attempts=1)
+            threads.append(threading.Thread(target=client.run,
+                                            name="test-client"))
+            threads[-1].start()
+        server.wait(timeout=60)
+        for t in threads:
+            joined(t)
+        stopped(server)
+    assert pop.complete
+    assert len(pop.history) == 3
+    assert pop.best.fitness > -0.5

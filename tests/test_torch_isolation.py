@@ -63,7 +63,10 @@ def test_import_leaves_jax_and_veles_tpu_out():
             "veles_tpu_torch.ops.pipeline, "
             "veles_tpu_torch.network_common, veles_tpu_torch.server, "
             "veles_tpu_torch.client, veles_tpu_torch.fleet, "
-            "veles_tpu_torch.fleet.scheduler\n"
+            "veles_tpu_torch.fleet.scheduler, "
+            "veles_tpu_torch.population.lineage, "
+            "veles_tpu_torch.population.master, "
+            "veles_tpu_torch.population.worker\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib', 'veles_tpu.')) or "
             "m == 'veles_tpu')\n"

@@ -476,11 +476,17 @@ def test_launcher_master_slave_modes():
 
 
 def test_launcher_refuses_what_is_not_ported():
-    for kwargs, queue in (({"nodes": ["local"]}, "A7a-ii"),
-                          ({"status_address": "127.0.0.1:1"}, "A8")):
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP %s" % queue):
-            Launcher(**kwargs)
+    """Heartbeats (``status_address``) are ROADMAP A8 and raise; the
+    fleet mode (``nodes``), ported, takes its nodes and worker argv and
+    spawns nothing before ``initialize``."""
+    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
+        Launcher(status_address="127.0.0.1:1")
+    launcher = Launcher(listen_address="127.0.0.1:0", nodes=["local"],
+                        worker_argv=["wf.py", "-m", "{master}"])
+    assert launcher.nodes == ["local"] and launcher.is_master
+    assert launcher.worker_processes == []
+    assert launcher._worker_command("127.0.0.1:9")[-3:] == [
+        "wf.py", "-m", "127.0.0.1:9"]
 
 
 def test_tracing_hello_is_refused_naming_a8a():

@@ -26,8 +26,9 @@ package's, on the CPU.
     may sum in another order.
 * The engine: the vmap backend's gating, the automatic mode, GA over
   the vmap backend through ``--population 4:2`` (and the same argv in
-  the JAX package: the same best member's genes and fitness), and every
-  mode that needs the fleet raising, naming ROADMAP A7a.
+  the JAX package: the same best member's genes and fitness), the
+  topology refusal both packages share, and ``--population-vmap off``
+  forcing fleet lineages.
 
 Every test restores both packages' ``root`` trees."""
 
@@ -51,6 +52,7 @@ from veles_tpu_torch import resilience
 from veles_tpu_torch.__main__ import Main, import_workflow_module
 from veles_tpu_torch.accelerated_units import population_from_numpy
 from veles_tpu_torch.config import Tune, root as troot
+from veles_tpu_torch.error import Bug
 from veles_tpu_torch.genetics.core import collect_tunes
 from veles_tpu_torch.launcher import Launcher as TLauncher
 from veles_tpu_torch.loader.base import TRAIN, VALID
@@ -538,23 +540,28 @@ def test_engine_auto_mode_selection():
     assert PopulationEngine(main, 2).mode == "pbt"
 
 
-@pytest.mark.parametrize("case", ["train", "pbt", "coordinator", "worker",
-                                  "topology", "vmap_off"])
+@pytest.mark.parametrize("case", ["topology"])
 def test_fleet_modes_raise_naming_a7a(case):
-    module = _mnist()
+    """Of the fleet modes that raised until the fleet was ported, the
+    one left is a refusal of the JAX package's own: a GA whose tunes are
+    not all GD hyperparameters cannot ride fleet lineages (nor the vmap
+    backend), and both packages' engines raise ``Bug``.  The modes that
+    now run are held in ``test_torch_population_fleet.py``."""
+    from veles_tpu.error import Bug as JBug
+    from veles_tpu.population import PopulationEngine as JEngine
+    from veles_tpu.__main__ import import_workflow_module as jimport
+    from veles_tpu.config import Tune as JTune
     troot.mnist.learning_rate = Tune(0.01, 0.001, 0.1)
-    kw = {"coordinator": {"listen_address": "127.0.0.1:1"},
-          "worker": {"master_address": "127.0.0.1:1"},
-          "pbt": {"pbt": True}}.get(case, {})
-    if case == "train":
-        troot.mnist.reset()
-    if case == "topology":
-        troot.ga_test.n_layers = Tune(2, 1, 4)
-    if case == "vmap_off":
-        troot.common.population.vmap = False
-    engine = PopulationEngine(_main(module, **kw), 2, generations=1)
-    with pytest.raises(NotImplementedError, match="ROADMAP A7a"):
+    troot.ga_test.n_layers = Tune(2, 1, 4)
+    engine = PopulationEngine(_main(_mnist()), 2, generations=1)
+    assert engine.mode == "ga"
+    with pytest.raises(Bug, match="topology"):
         engine.run()
+    jroot.mnist.learning_rate = JTune(0.01, 0.001, 0.1)
+    jroot.ga_test.n_layers = JTune(2, 1, 4)
+    jargs = _main(jimport(JMNIST))
+    with pytest.raises(JBug, match="topology"):
+        JEngine(jargs, 2, generations=1).run()
 
 
 def _population_cli(module_path, main_cls, tmp_path, name, extra=()):
@@ -591,7 +598,25 @@ def test_population_ga_cli_matches_jax(tmp_path):
     assert got["best_fitness"] > 0.5
 
 
-def test_population_vmap_off_is_refused_by_the_cli():
-    with pytest.raises(NotImplementedError, match="ROADMAP A7a"):
-        Main([TMNIST, "--population", "2", "--population-vmap",
-              "off"]).parse()
+def test_population_vmap_off_is_refused_by_the_cli(tmp_path):
+    """``--population-vmap off`` is no longer refused: it forces the GA
+    onto fleet lineages (the in-process loopback here), so the result's
+    summary is the population master's, with its GA generation, and the
+    best chromosome's genes are among the lineages'."""
+    result = tmp_path / "pop.json"
+    rc = Main([TMNIST, "root.mnist.max_epochs=1",
+               "root.mnist.minibatch_size=200",
+               "root.mnist.learning_rate=Tune(0.0005, 0.0001, 0.5)",
+               "--population", "2:1", "--population-vmap", "off",
+               "--device", "cpu", "--result-file", str(result),
+               "--random-seed", "42", "-v", "warning"]).run()
+    assert rc == 0
+    assert "population.vmap_generations" not in resilience.stats.snapshot()
+    assert resilience.stats.snapshot()["population.jobs"] > 0
+    data = json.loads(result.read_text())
+    assert data["scheduling"] == "ga" and data["best_member"] == "ga"
+    assert data["summary"]["mode"] == "ga"
+    assert data["summary"]["ga_generation"] == 0
+    assert set(data["summary"]["fitness"]) == {"g0c0", "g0c1"}
+    assert data["best_fitness"] == pytest.approx(
+        max(data["summary"]["fitness"].values()), abs=1e-6)

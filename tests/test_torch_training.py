@@ -374,9 +374,9 @@ def test_cli_refuses_what_is_not_ported():
     ported"; a missing card raises instead of running on the CPU."""
     from veles_tpu_torch.__main__ import Main
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        Main(["wf.py", "--pbt"]).parse()
-    with pytest.raises(NotImplementedError, match="A7"):
-        Main(["wf.py", "--nodes", "local"]).parse()
+        Main(["wf.py", "--trace-out", "t.json"]).parse()
+    with pytest.raises(NotImplementedError, match="A8"):
+        Main(["wf.py", "--dry-run"]).parse()
     if not torch.cuda.is_available():
         from veles_tpu_torch.error import DeviceNotFoundError
         with pytest.raises(DeviceNotFoundError):

@@ -15,8 +15,10 @@ Usage::
         [--train-ratio R] [--shuffle-limit N] [--optimizer NAME] \
         [--attn-fused-qkv on|off] [--attn-dtype f32|bf16] \
         [--attn-kernel xla|pallas|auto] [--serve-* ...] \
+        [-l HOST:PORT [--nodes HOST,...] | -m HOST:PORT] \
         [--optimize SIZE[:GENERATIONS] | --population N[:GENERATIONS]
-         [--population-vmap on] | --ensemble-train N[:RATIO] |
+         [--pbt ...] [--population-vmap on|off] |
+         --ensemble-train N[:RATIO] [--ensemble-population] |
          --ensemble-test FILE]
 
 It seeds generator 0, applies the config files and ``root.x.y=v``
@@ -42,11 +44,16 @@ population, one vmapped device job per generation, :mod:`.population`),
 ``-l HOST:PORT`` makes the process the data plane's coordinator and
 ``-m HOST:PORT`` one of its workers (with the ``--net-*``,
 ``--job-ticks``, ``--async-slave``, ``--reconnect-*``,
-``--preempt-grace``, ``--slave-death-probability``, ``--measure-power``
-and ``--chaos`` flags); the three ``--jax-*`` flags make it one rank of
-a ``torch.distributed`` world.  The JAX CLI's other modes — the fleet's
-worker spawn and parole, its population modes (PBT,
-``--ensemble-population``), profiling, tracing, the serving fabric —
+``--preempt-grace``, ``--slave-death-probability``, ``--measure-power``,
+``--blacklist-cooldown`` and ``--chaos`` flags); ``--nodes`` with ``-l``
+spawns the workers (``local`` a subprocess of this machine, any other
+host through ssh) with the worker's half of this command line, and
+respawns a dropped one.  ``--population`` and ``--pbt`` schedule
+population members as lineages over the fleet (``-l``/``-m``, or an
+in-process loopback), ``--ensemble-population`` routes
+``--ensemble-train`` through them.  The three ``--jax-*`` flags make
+the process one rank of a ``torch.distributed`` world.  The JAX CLI's
+other modes — web status, profiling, tracing, the serving fabric —
 are not yet ported: their flags raise, naming their ROADMAP queue
 (:data:`NOT_PORTED`).
 """
@@ -72,17 +79,12 @@ from .logger import Logger
 #: Flags of the JAX CLI that the port refuses, with the ROADMAP queue
 #: that brings each.
 NOT_PORTED = {
-    # The fleet: remote worker spawn and blacklist parole.
-    "--nodes": "A7a-ii", "--blacklist-cooldown": "A7a-ii",
     "-a": "A8", "--backend": "A8", "--dry-run": "A8",
     "--workflow-graph": "A8", "--dump-config": "A8",
     "--profile": "A8", "--frontend": "A8",
     # The serving fabric.
     "--serve-fabric-replicas": "A8", "--serve-fabric-disagg": "A8",
     "--serve-tenant": "A8",
-    # The population modes of the fleet.
-    "--pbt": "A7b", "--pbt-interval": "A7b", "--pbt-perturb": "A7b",
-    "--pbt-quantile": "A7b", "--ensemble-population": "A7b",
     # Observability.
     "--trace-out": "A8a", "--trace-ring": "A8a", "--xprof": "A8a",
     "--xprof-steps": "A8a",
@@ -164,6 +166,17 @@ def make_parser():
         "-m", "--master-address", default="", metavar="HOST:PORT",
         help="run as a worker (slave) of the coordinator at "
              "HOST:PORT")
+    parser.add_argument(
+        "--blacklist-cooldown", type=float, default=None, metavar="SEC",
+        help="blacklist parole: a worker machine blacklisted by the "
+             "job-timeout watchdog is re-admitted on probation (one "
+             "in-flight job until it completes clean) after this many "
+             "seconds (default 60; 0 = immediate probation)")
+    parser.add_argument(
+        "--nodes", default="", metavar="HOST[,HOST...]",
+        help="with -l: spawn workers on these hosts over ssh ('local' "
+             "spawns subprocesses on this machine); dropped workers "
+             "respawn the same way")
     network_common.init_parser(parser)
     client.init_parser(parser)
     population.init_parser(parser)
@@ -250,10 +263,6 @@ class Main(Logger):
                     "%s of the veles_tpu command line has no counterpart "
                     "in the port: %s" % (flag, NO_COUNTERPART[flag]))
         self.args = make_parser().parse_intermixed_args(self.argv)
-        if self.args.population_vmap == "off":
-            raise NotImplementedError(
-                "--population-vmap off forces fleet population lineages, "
-                "which are not yet ported (ROADMAP A7a)")
         logging.getLogger().setLevel(self.args.verbosity.upper())
         return self.args
 
@@ -329,8 +338,17 @@ class Main(Logger):
             engine.moe_top_k = args.moe_topk
         if args.moe_router_z is not None:
             engine.moe_router_z = args.moe_router_z
+        if args.blacklist_cooldown is not None:
+            root.common.server.blacklist_cooldown = args.blacklist_cooldown
+        pop_cfg = root.common.population
+        if args.pbt_interval is not None:
+            pop_cfg.pbt_interval = args.pbt_interval
+        if args.pbt_quantile is not None:
+            pop_cfg.pbt_quantile = args.pbt_quantile
+        if args.pbt_perturb is not None:
+            pop_cfg.pbt_perturb = args.pbt_perturb
         if args.population_vmap is not None:
-            root.common.population.vmap = args.population_vmap == "on"
+            pop_cfg.vmap = args.population_vmap == "on"
         # The data plane's knobs, read back by the handshake's
         # negotiation and the channels.
         net = root.common.net
@@ -359,15 +377,72 @@ class Main(Logger):
         if args.net_require:
             net.require = True
 
+    def _filtered_worker_argv(self):
+        """The command line a spawned worker runs, rebuilt from the
+        parsed arguments (so no abbreviation of a coordinator flag
+        reaches it): the workflow, its config sources, the seed, the
+        device, and the flags a worker shares with its master; ``-m
+        {master}`` last."""
+        a = self.args
+        out = [a.workflow] + list(a.config)
+        for path in a.config_list:
+            out += ["-c", path]
+        if a.random_seed:
+            out += ["--random-seed", a.random_seed]
+        out += ["--device", a.device]
+        if a.verbosity != "info":
+            out += ["-v", a.verbosity]
+        if a.max_epochs:
+            out += ["--max-epochs", str(a.max_epochs)]
+        if a.async_slave:
+            out.append("--async-slave")
+        if a.slave_death_probability:
+            out += ["--slave-death-probability",
+                    str(a.slave_death_probability)]
+        if a.measure_power:
+            out.append("--measure-power")
+        for key in ("reconnect_attempts", "reconnect_delay",
+                    "preempt_grace"):
+            if getattr(a, key) is not None:
+                out += ["--" + key.replace("_", "-"),
+                        str(getattr(a, key))]
+        if a.chaos:
+            # Each process's rules fire off its own counters, so the
+            # combined failure schedule stays reproducible.
+            out += ["--chaos", a.chaos]
+        if a.train_ratio is not None:
+            out += ["--train-ratio", str(a.train_ratio)]
+        if a.shuffle_limit is not None:
+            out += ["--shuffle-limit", str(a.shuffle_limit)]
+        # The handshake negotiates over matching preferences.
+        if a.net_codec is not None:
+            out += ["--net-codec", a.net_codec]
+        if a.net_dtype is not None:
+            out += ["--net-dtype", a.net_dtype]
+        if a.net_legacy:
+            out.append("--net-legacy")
+        if a.net_zero is not None:
+            out += ["--net-zero", str(a.net_zero)]
+        if a.optimizer is not None:
+            # The same GD units (slot shapes) as the master's.
+            out += ["--optimizer", a.optimizer]
+        return out + ["-m", "{master}"]
+
     def _data_plane_kwargs(self):
-        """The launcher's master (``-l``) or worker (``-m``) mode, the
-        worker's client options and the chaos plan."""
+        """The launcher's master (``-l``, with the workers it spawns on
+        ``--nodes``) or worker (``-m``) mode, the worker's client
+        options and the chaos plan."""
         args = self.args
         kw = {}
         if args.chaos:
             kw["chaos"] = args.chaos
         if args.listen_address:
             kw["listen_address"] = args.listen_address
+            nodes = [n.strip() for n in args.nodes.split(",")
+                     if n.strip()]
+            if nodes:
+                kw["nodes"] = nodes
+                kw["worker_argv"] = self._filtered_worker_argv()
         if args.master_address:
             kw["master_address"] = args.master_address
             slave = {}
@@ -477,9 +552,9 @@ class Main(Logger):
 
     def run_population(self):
         from .population import PopulationEngine
-        size, generations = self._size_spec(self.args.population)
-        PopulationEngine(main=self, size=size,
-                         generations=generations).run()
+        size, generations = self._size_spec(self.args.population or "2")
+        PopulationEngine(main=self, size=size, generations=generations,
+                         mode="pbt" if self.args.pbt else None).run()
 
     def run_ensemble_test(self):
         from .ensemble import EnsembleTester
@@ -526,7 +601,7 @@ class Main(Logger):
                 self.module.__file__)))
             prng.poison_numpy_random()
         try:
-            if self.args.population:
+            if self.args.population or self.args.pbt:
                 self.run_population()
             elif self.args.optimize:
                 self.run_genetics()

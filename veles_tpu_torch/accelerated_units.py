@@ -240,6 +240,7 @@ class StepCompiler(object):
         self._view = None         # this rank's view of the mesh
         self._held = {}           # placed shards between ticks
         self._scattered = set()   # ZeRO-2 gradients kept partitioned
+        self._pin_ = None         # a population job's step stream
 
     # -- graph analysis ----------------------------------------------------
 
@@ -689,8 +690,42 @@ class StepCompiler(object):
         return torch.device("cpu")
 
     def _generator(self):
+        """The step's ``torch.Generator``: generator 0's stream on the
+        step's device, or the stream a population job pinned."""
+        pin = getattr(self, "_pin_", None)
+        if pin is not None:
+            if pin["gen"] is None:
+                gen = torch.Generator(device=self._device())
+                state = pin["key"].get("state")
+                if state is None:
+                    gen.manual_seed(int(pin["key"]["seed"]))
+                else:
+                    gen.set_state(torch.from_numpy(
+                        numpy.array(state, dtype=numpy.uint8)))
+                pin["gen"] = gen
+            return pin["gen"]
         from . import prng
         return prng.get().torch_generator(self._device())
+
+    def pin_stream(self, key):
+        """Until :meth:`unpin_stream`, the step draws from the stream
+        ``key`` names — ``{"seed": s}`` (a fresh stream seeded with
+        ``s``, as generator 0's is) or ``{"seed": s, "state": bytes}``
+        (the stream at that state) — instead of generator 0's: a
+        population member's step keys, drawn by the master and kept
+        across requeues (the JAX package's job ``rng`` key)."""
+        self._pin_ = {"key": dict(key), "gen": None}
+
+    def unpin_stream(self):
+        """Ends the pin; returns the key of the stream where it
+        stopped (the member's next job starts there)."""
+        pin, self._pin_ = getattr(self, "_pin_", None), None
+        if pin is None:
+            return None
+        if pin["gen"] is None:
+            return pin["key"]
+        return {"seed": pin["key"]["seed"],
+                "state": pin["gen"].get_state().numpy().copy()}
 
     def _tick(self, batch, training, block=False, hypers=None):
         consts = {str(id(v)): v.devmem for v in self.const_vectors}
@@ -1047,11 +1082,26 @@ class AcceleratedWorkflow(Workflow):
         if update is not None:
             self.apply_update_from_master(update)
         meta = self._job_meta_ or {}
-        if meta.get("rng") is not None:
-            raise NotImplementedError(
-                "a job that pins the step's random key (a population "
-                "member's) needs the population fleet, which is not "
-                "yet ported (ROADMAP A7b)")
+        # A population job pins the step's stream to the member's key,
+        # drawn by the master, so a member's trajectory does not depend
+        # on how members interleave on this worker; the key where the
+        # stream stopped rides back with the update.  Other jobs draw
+        # from this worker's own stream.
+        key = meta.get("rng")
+        if key is not None:
+            self.compiler.pin_stream(key)
+            try:
+                result = self._run_job(meta)
+            finally:
+                next_key = self.compiler.unpin_stream()
+            result["__job__"]["rng"] = next_key
+        else:
+            result = self._run_job(meta)
+        callback(result)
+
+    def _run_job(self, meta):
+        """Runs the job's ticks; returns the update with its metrics
+        and the echoed job meta."""
         from .loader.base import TRAIN
         cls = meta.get("minibatch_class", TRAIN)
         training = cls == TRAIN
@@ -1071,11 +1121,11 @@ class AcceleratedWorkflow(Workflow):
                             v.numel() == 1}
         result = self.generate_data_for_master()
         result["__metrics__"] = host_metrics
-        # The echoed meta keys the master's bucket; the hyper overrides
-        # were inputs, not accounting.
+        # The echoed meta keys the master's bucket; the step key and
+        # the hyper overrides were inputs, not accounting.
         result["__job__"] = {k: v for k, v in meta.items()
                              if k not in ("rng", "hypers")}
-        callback(result)
+        return result
 
     def _run_job_block(self, block, cls, training, hypers=None):
         """Runs a multi-tick job's block; returns its metrics summed

@@ -7,9 +7,10 @@ writes a description JSON with their results and fitnesses;
 ``--ensemble-test FILE`` restores every instance from its snapshot,
 runs one frozen evaluation epoch on it while the softmax evaluator
 captures every sample's probabilities on the device, and averages the
-probabilities across instances into one ensemble error.  Training
-instances as population members (``--ensemble-population``) needs the
-fleet and waits for ROADMAP A7a.
+probabilities across instances into one ensemble error.  With
+``--ensemble-population`` the instances train as population lineages
+(``train`` mode) — on the fleet under ``-l``, in an in-process loopback
+otherwise — with the same seeds, snapshots and description.
 """
 
 import gzip
@@ -111,12 +112,29 @@ class EnsembleTrainer(Logger):
         return self._payload(instances)
 
     def run_on_population(self):
-        """``--ensemble-population``: instances as population members
-        trained by the fleet, which the port does not have yet."""
-        raise NotImplementedError(
-            "--ensemble-population trains instances as fleet-scheduled "
-            "population lineages, which are not yet ported (ROADMAP "
-            "A7a)")
+        """``--ensemble-train`` through the population scheduler
+        (``--ensemble-population``): the instances become ``train``
+        lineages — trained by the workers attached to a coordinator
+        (``-l``), self-driven in this process otherwise — and give the
+        sequential path's per-instance snapshots and description, bit
+        for bit."""
+        from ..population import PopulationEngine
+        engine = PopulationEngine(
+            main=self.main, size=self.instances, mode="train",
+            seed_stride=self.SEED_STRIDE,
+            base_overrides=self._variation_overrides())
+        # The engine schedules; the description JSON is this class's.
+        engine.result_file = None
+        engine.run()
+        master = engine.master
+        if master is None:
+            return None  # a worker: the coordinator reports
+        instances = []
+        for i, member in enumerate(master.members):
+            if member.wf is None:
+                continue
+            instances.append(self._describe(i, member.seed, member.wf))
+        return self._payload(instances)
 
 
 class EnsembleTester(Logger):

@@ -6,9 +6,12 @@
   one in-process run (or one ``python -m veles_tpu_torch`` child
   process, ``root.common.genetics.subprocess``) per chromosome; evolves
   and repeats.
-* **coordinator** (``-l``) and **worker** (``-m``) ride the master/worker
-  job protocol (jobs are chromosomes, updates are fitnesses), which the
-  port does not have yet: they raise, naming ROADMAP A7a.
+* **coordinator** (``-l``) — an :class:`OptimizationWorkflow` served
+  by a :class:`~veles_tpu_torch.server.Server`: jobs are chromosomes,
+  updates are fitnesses, a dropped worker's chromosomes requeue;
+* **worker** (``-m``) — the same workflow evaluates chromosomes in
+  this process in a :class:`~veles_tpu_torch.client.Client`'s loop and
+  reports their fitness.
 
 Every evaluation run is seeded the same (``--random-seed`` or 1234), so
 chromosomes differ only in their genes.  Runs go to the device the
@@ -25,7 +28,9 @@ from ..config import root
 from ..error import Bug
 from ..harness import FITNESS_KEY, run_workflow_module, seed_to_int
 from ..json_encoders import dump_json
+from ..launcher import Launcher
 from ..logger import Logger
+from ..workflow import Workflow
 from .core import Population, applied_genes, collect_tunes, _concrete
 
 
@@ -77,6 +82,69 @@ def evaluate_chromosome_subprocess(module_path, tunes, genes, seed,
             pass
 
 
+class OptimizationWorkflow(Workflow):
+    """The GA as a workflow the data plane drives: jobs are
+    chromosomes, updates are fitnesses.  The same class serves both
+    sides: the coordinator holds the live population, a worker only
+    evaluates (in this process, on ``device``)."""
+
+    def __init__(self, launcher, module, population=None, seed=1234,
+                 device="cuda", **kwargs):
+        super(OptimizationWorkflow, self).__init__(launcher, **kwargs)
+        self.module = module
+        self.population = population
+        self.eval_seed = seed
+        self.device = device
+        self.negotiates_on_connect = False
+
+    # -- the Server's hooks ------------------------------------------------
+
+    def should_stop_serving(self):
+        return self.population is not None and \
+            self.population.complete
+
+    def generate_data_for_slave(self, slave=None):
+        got = self.population.acquire(owner=slave)
+        if got is None:
+            return None
+        index, genes = got
+        return {"index": index, "genes": genes}
+
+    def generate_initial_data_for_slave(self, slave=None):
+        return None
+
+    def apply_data_from_slave(self, data, slave=None):
+        self.population.record(data["index"], data["fitness"])
+
+    def drop_slave(self, slave=None):
+        self.population.release(slave)
+
+    def do_job(self, data, update, callback):
+        """Worker side: evaluates one chromosome in this process."""
+        fitness = evaluate_chromosome(
+            self.module, self._tunes_cached, data["genes"],
+            self.eval_seed, device=self.device)
+        callback({"index": data["index"], "fitness": fitness})
+
+    @property
+    def _tunes_cached(self):
+        # Captured once: the layout of the config's Tune leaves.
+        if not hasattr(self, "_tunes_"):
+            self._tunes_ = collect_tunes(root)
+        return self._tunes_
+
+    @property
+    def checksum(self):
+        """Coordinator and workers must optimize the same model module,
+        not merely share this file."""
+        base = super(OptimizationWorkflow, self).checksum
+        mod = self.module
+        name = "none" if mod is None else os.path.basename(
+            getattr(mod, "__file__", None) or
+            getattr(mod, "__name__", "module"))
+        return base + "_" + name
+
+
 class GeneticsOptimizer(Logger):
     """Drives an optimization run in the mode the command line chose."""
 
@@ -94,6 +162,8 @@ class GeneticsOptimizer(Logger):
             root.common.genetics.get("subprocess", False)))
         self.tunes = collect_tunes(root)
         self.population = None
+        #: The coordinator's server, once it listens (its ``port``).
+        self.server = None
         if not self.master_address:
             self.population = Population(
                 self.tunes, size, generations,
@@ -172,14 +242,23 @@ class GeneticsOptimizer(Logger):
             return None
 
     def _run_coordinator(self):
-        raise NotImplementedError(
-            "the genetics coordinator (-l) needs the master/worker data "
-            "plane, which is not yet ported (ROADMAP A7a)")
+        from ..server import Server
+        wf = OptimizationWorkflow(Launcher(), self.module,
+                                  population=self.population,
+                                  seed=self.seed, device=self.device)
+        server = self.server = Server(self.listen_address, wf)
+        try:
+            server.wait()
+        finally:
+            server.stop()
+            server.join(timeout=10.0)
+        self._finish()
 
     def _run_worker(self):
-        raise NotImplementedError(
-            "the genetics worker (-m) needs the master/worker data "
-            "plane, which is not yet ported (ROADMAP A7a)")
+        from ..client import Client
+        wf = OptimizationWorkflow(Launcher(), self.module,
+                                  seed=self.seed, device=self.device)
+        Client(self.master_address, wf).run()
 
     def _finish(self):
         best = self.population.best

@@ -23,11 +23,23 @@ coordinator (master) — ``initialize`` starts a
 waits for it to finish — and ``master_address`` a worker, whose ``run``
 is a :class:`~veles_tpu_torch.client.Client`'s job loop (SIGTERM drains
 it: the in-flight job finishes, its update ships, ``bye`` goes out).
-``chaos`` installs a fault-injection plan process-wide.  Remote worker
-spawn (``nodes``) is ROADMAP A7a-ii and web-status heartbeats
-(``status_address``) A8: asking for them raises.
+``chaos`` installs a fault-injection plan process-wide.
+
+The fleet mode: a master given ``nodes`` spawns one worker per node
+when it initializes — ``"local"`` (or ``"localhost"``) a
+``python -m veles_tpu_torch`` subprocess of this machine, any other
+host the same command through ``ssh -o BatchMode=yes`` — running
+``worker_argv`` with ``{master}`` replaced by the master's address; a
+dropped worker respawns through the same spawner on the node with the
+fewest live workers (``Server.respawn``).  The master's ``run`` reaps
+its workers when the server stops, and ``stop`` ends them: no worker
+process outlives its launcher.  Web-status heartbeats
+(``status_address``) are ROADMAP A8: asking for them raises.
 """
 
+import os
+import subprocess
+import sys
 import threading
 import time
 
@@ -42,11 +54,10 @@ class Launcher(Logger):
 
     def __init__(self, **kwargs):
         super(Launcher, self).__init__()
-        for key, queue in (("nodes", "A7a-ii"), ("status_address", "A8")):
-            if kwargs.get(key):
-                raise NotImplementedError(
-                    "Launcher(%s=...) is not yet ported (ROADMAP %s)" %
-                    (key, queue))
+        if kwargs.get("status_address"):
+            raise NotImplementedError(
+                "Launcher(status_address=...) is not yet ported "
+                "(ROADMAP A8)")
         self._mode = kwargs.get("mode", "standalone")
         self.listen_address = kwargs.get("listen_address")
         self.master_address = kwargs.get("master_address")
@@ -73,6 +84,13 @@ class Launcher(Logger):
         self._running = threading.Event()
         self._finished = threading.Event()
         self._start_time = None
+        # The fleet mode: worker hosts and the command line they run.
+        self.nodes = list(kwargs.get("nodes") or [])
+        self.worker_argv = list(kwargs.get("worker_argv") or [])
+        # The server's respawn hook fires from its drop threads while
+        # the main thread may be spawning or stopping.
+        self._procs_lock = threading.Lock()
+        self._worker_procs = []  # guarded-by: _procs_lock
 
     @property
     def mode(self):
@@ -165,7 +183,108 @@ class Launcher(Logger):
             slave_kwargs.setdefault("injector", self.injector)
             self.client = Client(self.master_address, self.workflow,
                                  **slave_kwargs)
+        if self.nodes and self.server is not None:
+            self.launch_remote_workers()
+            self.server.respawn = lambda desc: \
+                self._spawn_worker(self._node_of(desc))
         return self
+
+    # -- the fleet mode: worker spawn ----------------------------------------
+
+    def _master_endpoint(self):
+        """The address a remote worker dials: the listen host (this
+        machine's name for a wildcard) and the server's port."""
+        import socket
+        host = self.listen_address.rsplit(":", 1)[0] \
+            if ":" in self.listen_address else self.listen_address
+        if host in ("", "0.0.0.0", "::"):
+            host = socket.getfqdn()
+        return "%s:%d" % (host, self.server.port)
+
+    def _worker_command(self, master):
+        """``python -m veles_tpu_torch`` with ``worker_argv``,
+        ``{master}`` replaced by ``master`` (and ``-m master`` added
+        when the argv names no master)."""
+        argv = [arg.replace("{master}", master)
+                for arg in self.worker_argv]
+        if "-m" not in argv and "--master-address" not in argv:
+            argv += ["-m", master]
+        return [sys.executable, "-m", "veles_tpu_torch"] + argv
+
+    def _spawn_worker(self, node):
+        """Starts one worker on ``node``; returns its process."""
+        import shlex
+        local = node in ("local", "localhost")
+        cmd = self._worker_command(
+            "127.0.0.1:%d" % self.server.port if local
+            else self._master_endpoint())
+        env = None
+        if local:
+            # The child imports this package from where the master
+            # did, whatever its working directory.
+            parent = os.path.dirname(os.path.dirname(
+                os.path.abspath(__file__)))
+            env = dict(os.environ)
+            env["PYTHONPATH"] = os.pathsep.join(
+                p for p in (parent, env.get("PYTHONPATH")) if p)
+        else:
+            remote = "cd %s && exec %s" % (
+                shlex.quote(os.getcwd()),
+                " ".join(shlex.quote(a) for a in cmd))
+            cmd = ["ssh", "-o", "BatchMode=yes", node, remote]
+        self.info("spawning worker on %s: %s", node, " ".join(cmd))
+        with self._procs_lock:
+            proc = subprocess.Popen(cmd, env=env)
+            self._worker_procs.append((node, proc))
+        return proc
+
+    def launch_remote_workers(self):
+        for node in self.nodes:
+            self._spawn_worker(node)
+
+    def _node_of(self, desc):
+        """The node of a dropped worker's respawn: the one with the
+        fewest live worker processes (a dead worker's process has
+        exited, so its node shows the gap), by
+        :meth:`FleetScheduler.least_loaded`."""
+        if not self.nodes:
+            return "local"
+        alive = {node: 0 for node in self.nodes}
+        with self._procs_lock:
+            procs = list(self._worker_procs)
+        for node, proc in procs:
+            if proc.poll() is None and node in alive:
+                alive[node] += 1
+        from .fleet import FleetScheduler
+        return FleetScheduler.least_loaded(self.nodes,
+                                           lambda n: alive[n])
+
+    @property
+    def worker_processes(self):
+        """(node, ``subprocess.Popen``) of every worker spawned."""
+        with self._procs_lock:
+            return list(self._worker_procs)
+
+    def reap_workers(self, timeout=30.0):
+        """Waits up to ``timeout`` seconds for the spawned workers to
+        exit (they end after the master's last ``bye``), then
+        terminates, and at last kills, any that did not; returns their
+        exit codes in spawn order."""
+        with self._procs_lock:
+            procs = list(self._worker_procs)
+        end = time.monotonic() + timeout
+        for _node, proc in procs:
+            try:
+                proc.wait(max(0.0, end - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                proc.terminate()
+        for _node, proc in procs:
+            try:
+                proc.wait(5.0)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+        return [proc.returncode for _node, proc in procs]
 
     def _join_world(self):
         """``init_process_group`` for this rank, unless the process is
@@ -244,6 +363,8 @@ class Launcher(Logger):
             if self.server is not None:
                 self.server.stop()
                 self.server.join(timeout=10.0)
+                if self.nodes:
+                    self.reap_workers()
                 slaves = self.server.all_slaves
                 if slaves:
                     self.info("Worker throughput: %s", "; ".join(
@@ -256,6 +377,11 @@ class Launcher(Logger):
         self._finished.set()
 
     def stop(self):
+        with self._procs_lock:
+            procs = list(self._worker_procs)
+        for _node, proc in procs:
+            if proc.poll() is None:
+                proc.terminate()
         if self.server is not None:
             self.server.stop()
         if self.client is not None:
@@ -264,6 +390,8 @@ class Launcher(Logger):
             self.workflow.stop()
         self._finished.set()
         self._running.clear()
+        if procs:
+            self.reap_workers(timeout=10.0)
 
     @property
     def runtime(self):

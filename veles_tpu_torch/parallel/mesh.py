@@ -562,6 +562,24 @@ def gather_state(workflow):
         compiler.gather_state()
 
 
+def _abandon_groups(mesh):
+    """Drops ``mesh``'s process groups with no collective on them: a
+    NCCL communicator is aborted (a wait on a dead member never ends),
+    a gloo group is left unused."""
+    groups, mesh._groups_ = list(mesh._groups_.values()), {}
+    import torch.distributed as dist
+    if not dist.is_initialized():
+        return
+    from torch.distributed import distributed_c10d
+    for group in groups:
+        if group is None or dist.get_backend(group) != "nccl":
+            continue
+        try:
+            distributed_c10d._abort_process_group(group)
+        except Exception:  # the communicator may be gone already
+            pass
+
+
 def rebuild_mesh(workflow, surviving_ranks=None, axis="data",
                  requeue_in_flight=True, epoch=None):
     """Membership change at mesh granularity, shrink and growth alike:
@@ -569,9 +587,20 @@ def rebuild_mesh(workflow, surviving_ranks=None, axis="data",
     with the same style where it divides, else data parallelism,
     re-applies ZeRO, requeues what the loader had in flight (at least
     once), and stamps the membership epoch (``epoch``, else one more
-    than the last).  The slots a style partitioned are gathered over
-    the OLD mesh first, so its ranks must still answer (the JAX
-    package's precondition that the runtime serves reads)."""
+    than the last).
+
+    A rank of the old mesh missing from ``surviving_ranks`` is lost: it
+    is never waited on.  Its old groups are dropped (a NCCL one
+    aborted) and the survivors meet in new ones at the next tick.
+    Parameters placed only by data parallelism are replicated, so under
+    dp (and dp×sp without ZeRO) the survivors train on with nothing
+    missing.  A step holding shards between ticks (tp, ep, pp, ZeRO)
+    lost the dead rank's with it: that raises
+    :class:`~veles_tpu_torch.resilience.LostRankError`, whose recovery
+    is a restart from the newest snapshot (``Launcher.resume_latest``)
+    — where the single-process JAX package still reads a lost device's
+    shard, a dead process cannot answer.  Without a lost rank the held
+    shards are gathered over the old mesh first."""
     from .. import resilience
     from ..observability import metrics
     if surviving_ranks is None:
@@ -583,7 +612,21 @@ def rebuild_mesh(workflow, surviving_ranks=None, axis="data",
     prior = getattr(workflow, "mesh", None)
     old_n = prior.size if prior is not None else None
     style = getattr(workflow, "_parallel_style_", None) or ("dp", axis)
-    gather_state(workflow)
+    alive = set(ranks)
+    lost = [] if prior is None else sorted(
+        int(r) for r in prior.ranks.ravel() if int(r) not in alive)
+    if lost:
+        compiler = getattr(workflow, "_compiler_", None)
+        held = sorted(getattr(compiler, "_held", None) or ())
+        if held:
+            raise resilience.LostRankError(
+                "rank(s) %s of %r are gone with their shards of %s — the "
+                "survivors cannot re-form in process; restart from the "
+                "newest snapshot (Launcher.resume_latest)" %
+                (lost, prior, ", ".join(held)))
+        _abandon_groups(prior)
+    else:
+        gather_state(workflow)
     mesh = _rebuild_styled_mesh(workflow, ranks, n, style)
     if mesh is None:
         if style[0] != "dp":

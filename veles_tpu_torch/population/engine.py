@@ -1,24 +1,37 @@
 """Population run modes (the JAX package's ``population.engine``).
 
-The port runs the GA mode over the on-device vmap sub-population
-backend (:mod:`.vmap_backend`): when the config carries ``Tune`` leaves
-that are all GD hyperparameters, each generation is one vmapped device
-job, and the best member's genes go to the ``--result-file``.  The
-other modes schedule members as lineages on the master/worker data
-plane — plain member training, PBT, the self-driven loopback standalone
-mode, the coordinator (``-l``) and the worker (``-m``) — and raise,
-naming ROADMAP A7a, until the fleet is ported.
+* **standalone** — the master and an in-process worker in a
+  self-driven loopback (no sockets): the member-job and fold cycle the
+  fleet runs;
+* **coordinator** (``-l``) — a :class:`PopulationMaster` served by a
+  :class:`~veles_tpu_torch.server.Server` (``root.common.net.zero`` is
+  raised to at least 1, so optimizer slots ride each member's delta
+  plane);
+* **worker** (``-m``) — a :class:`PopulationWorker` runs member jobs in
+  a :class:`~veles_tpu_torch.client.Client`'s loop.
+
+The GA mode takes the on-device vmap sub-population backend
+(:mod:`.vmap_backend`) when every tune is a GD hyperparameter and
+``root.common.population.vmap`` is not off (``--population-vmap off``
+forces lineages) — one vmapped device job per generation — except on a
+coordinator, which always runs fleet lineages.  Runs go to the device
+the command line names (``--device``; the CUDA card by default).
 """
 
-from ..config import root
+from ..config import root, get as config_get
 from ..error import Bug
 from ..harness import seed_to_int
 from ..json_encoders import dump_json
 from ..logger import Logger
 
-#: Why the modes other than GA-over-vmap are refused.
-FLEET = ("needs population lineages on the master/worker data plane, "
-         "which are not yet ported (ROADMAP A7a)")
+
+def loopback_proto(ticks=1):
+    """The protocol the standalone loopback uses: the delta dialect
+    with slot sync (zero=1), what a population handshake negotiates
+    with the default config."""
+    return {"tensor": True, "delta": True, "codec": "none",
+            "dtype": "fp32", "ticks": max(1, int(ticks)),
+            "zero": 1, "zero_rank": 0}
 
 
 class PopulationEngine(Logger):
@@ -39,6 +52,8 @@ class PopulationEngine(Logger):
         self.kwargs = kwargs
         self.mode = mode or self._auto_mode()
         self.master = None
+        #: The coordinator's server, once it listens (its ``port``).
+        self.server = None
 
     def _auto_mode(self):
         """pbt when --pbt asked for it, ga when the config carries Tune
@@ -52,22 +67,81 @@ class PopulationEngine(Logger):
 
     def run(self):
         if self.master_address:
-            raise NotImplementedError("the population worker (-m) " +
-                                      FLEET)
-        if self.listen_address:
-            raise NotImplementedError("the population coordinator (-l) "
-                                      + FLEET)
-        if self.mode != "ga":
-            raise NotImplementedError("population %s mode %s" % (
-                self.mode, FLEET))
-        if not self._vmap_backend_applicable():
-            raise NotImplementedError(
-                "a GA population whose tunes are not all GD "
-                "hyperparameters, or with root.common.population.vmap "
-                "off, " + FLEET)
-        best = self._run_ga_vmap()
+            self._run_worker()
+            return None
+        # A coordinator always runs fleet lineages: the vmap shortcut
+        # would never bind the server its workers dial.
+        if self.mode == "ga" and not self.listen_address and \
+                self._vmap_backend_applicable():
+            best = self._run_ga_vmap()
+        else:
+            if self.listen_address:
+                self._run_coordinator()
+            else:
+                self._run_standalone()
+            best = self.master.best
         self._finish(best)
         return best
+
+    def _build_master(self):
+        from ..launcher import Launcher
+        from .master import PopulationMaster
+        self.master = PopulationMaster(
+            Launcher(), self.module, mode=self.mode, size=self.size,
+            seed=self.seed, generations=self.generations,
+            device=self.device, **self.kwargs)
+        return self.master
+
+    def _run_coordinator(self):
+        from ..server import Server
+        # Optimizer slots ride the per-member delta plane: slots kept
+        # on a worker would leak one member's momentum into another's.
+        if not int(config_get(root.common.net.zero, 0) or 0):
+            root.common.net.zero = 1
+        master = self._build_master()
+        server = self.server = Server(self.listen_address, master)
+        try:
+            server.wait()
+        finally:
+            server.stop()
+            server.join(timeout=10.0)
+        if server.failure is not None:
+            raise server.failure
+
+    def _run_worker(self):
+        from ..client import Client
+        from ..launcher import Launcher
+        from .worker import PopulationWorker
+        worker = PopulationWorker(Launcher(), self.module,
+                                  seed=self.seed, device=self.device)
+        Client(self.master_address, worker).run()
+
+    def _run_standalone(self, max_cycles=1000000):
+        """The self-driven loopback: the master serves an in-process
+        worker over the member-job contract the fleet uses."""
+        from ..launcher import Launcher
+        from .worker import PopulationWorker
+        master = self._build_master()
+        worker = PopulationWorker(Launcher(), self.module,
+                                  seed=self.seed, device=self.device)
+        ticks = int(config_get(root.common.net.job_ticks, 1) or 1)
+        proto = loopback_proto(ticks)
+        master.note_slave_protocol("local", proto)
+        worker.note_net_proto(proto)
+        for _ in range(max_cycles):
+            if master.should_stop_serving():
+                return
+            job = master.generate_data_for_slave("local")
+            if job is None:
+                if master.should_stop_serving():
+                    return
+                raise Bug("population stalled: no member has work "
+                          "yet the run is incomplete")
+            replies = []
+            worker.do_job(job, None, replies.append)
+            master.apply_data_from_slave(replies[0], "local")
+        raise Bug("population standalone run did not converge in "
+                  "%d cycles" % max_cycles)
 
     # -- GA through the on-device vmap sub-population backend --------------
 
@@ -111,6 +185,8 @@ class PopulationEngine(Logger):
         self.info("population run done (%s mode): best %s fitness "
                   "%.6f%s", self.mode, member_id, fitness,
                   " with %s" % hypers if hypers else "")
+        summary = self.master.population_summary() \
+            if self.master is not None else {"mode": self.mode}
         if self.result_file:
             dump_json({
                 "mode": "population",
@@ -119,6 +195,6 @@ class PopulationEngine(Logger):
                 "best_member": member_id,
                 "best_fitness": fitness,
                 "best_overrides": hypers,
-                "summary": {"mode": self.mode},
+                "summary": summary,
             }, self.result_file)
             self.info("population results -> %s", self.result_file)

@@ -54,6 +54,11 @@ class RandomGenerator(Logger):
     def seed_value(self):
         return self._seed
 
+    @property
+    def device_seed(self):
+        """The 32-bit seed of this generator's device streams."""
+        return self._device_seed
+
     def seed(self, seed, count=None, dtype=None):
         """Seeds from an int, array, bytes, or ``file:count:dtype``
         spec."""
@@ -174,6 +179,23 @@ def get(key=0):
 
 def reset():
     _generators.clear()
+
+
+@contextlib.contextmanager
+def scoped(store):
+    """Installs ``store`` (a plain dict) as the generator registry for
+    the block, so the block draws from its own generators: a population
+    lineage's builds, loader walks and step keys never advance another
+    member's streams.  Generators created inside land in ``store``; the
+    previous registry comes back on exit.  Not thread-safe by itself:
+    the population master serializes lineage operations."""
+    global _generators
+    saved = _generators
+    _generators = store
+    try:
+        yield store
+    finally:
+        _generators = saved
 
 
 # -- numpy.random poisoning (reproducibility guard) ---------------------

@@ -87,6 +87,13 @@ class ProtocolError(ResilienceError):
     id and the master rebases it with a full weights ship."""
 
 
+class LostRankError(ResilienceError):
+    """A rank of the mesh is gone and took state no survivor holds (a
+    tensor-, expert- or pipeline-parallel shard, a ZeRO slot shard):
+    the run cannot re-form in process.  Recover by restarting from the
+    newest snapshot (``Launcher.resume_latest``)."""
+
+
 class InjectedNetworkFault(InjectedFault, ConnectionError):
     """A dropped frame or connection.  A ConnectionError, so the
     dead-peer handling catches it unchanged: injected faults exercise
