@@ -14,14 +14,18 @@ peak memory: ``phase_ranks``.)
 It drives the port's paths once each, at full width — training
 the TinyLM workflow through the fused tick and serving an exported LM,
 both at the LM bench geometry (embed 2048, 16 heads of dim 128, MLP
-8192, 12 blocks, vocab 16384, positional table / sequence 1024),
+8192, vocab 16384, positional table / sequence 1024; BLOCKS of the
+bench's 12 blocks),
 training the full-width ungrouped AlexNet through ``StandardWorkflow``
 (227 px, 1000 classes, batch 512) from device memory and streamed from
 disk, checkpointing and resuming it, training a TinyLM and serving it
 from inside its workflow, pretraining a Kohonen map and an RBM, and
 serving the same LM from int8 KV planes with int8 weights, speculative
 decoding and a hot reload — with random weights from a seed, in phases;
-any failure exits non-zero:
+any failure exits non-zero.  Each phase prints its seconds as it ends
+(``timed``), and a process of its own (``chip_smoke.py --prewrite
+WORKDIR``, no CUDA) writes the files only the host makes — the streamed
+dataset and both LM artifacts — while the card runs the first phases:
 
 1. device — the card's name, count, and ``nvidia-smi`` name and power
    limit; no CUDA fails, nor a CUDA device on which the port left
@@ -49,7 +53,7 @@ any failure exits non-zero:
    graph of launches rotating among input copies of more than twice the
    L2; B4/B5 also the host's time per call; a reading above its bound
    fails);
-5. training — builds the 12-block TinyLM (bench.py's --lm geometry,
+5. training — builds the BLOCKS-block TinyLM (bench.py's --lm geometry,
    batch 8, per-block remat, bf16 activation stream, f32 attention
    operands, momentum SGD) on the card, runs one epoch of one
    validation and three train ticks through ``Launcher.run`` with the
@@ -111,6 +115,22 @@ any failure exits non-zero:
    and the kernel's launch count equal to what the run implies; the
    same wave with ``--spec`` (verify chunks through B4) answers the
    same tokens;
+10a. the serving fabric (``phase_fabric``) over phase 7's model — two
+   decode replicas and a prefill worker (``fabric_replicas=2,
+   fabric_disagg=True``), tenants ``a`` (a burst of 2) and ``b``:
+   phase 7's prompts over loopback HTTP as ``b`` answer token-identical
+   to phase 7's gated answers, with KV blocks shipped as f32 over the
+   wire, adopted and hit by a decode replica, and B4 launched as the
+   calls of the three engines imply; ``a`` draws 2 200s then 429 with
+   ``Retry-After`` while ``b`` draws 200, an unknown tenant 403; every
+   adopted block bit-equal to the prefill worker's export of the same
+   prompt, and planted wire faults (one value of one adopted block
+   flipped in sign; one block's k/v scaled by 1000) that must fail that
+   gate and the token gate; ``stop(drain=True)`` drops nothing; then an
+   int8 wave
+   with disaggregated prefill, B5 on the re-quantized adopted blocks,
+   every device call of each engine replayed with the plain quant
+   attention on the same planes;
 7r. in-workflow serving — ``--serve-max-batch 8 --serve-warmup
    --serve-kv-block-size 16 --serve-deadline 60`` through the port's
    command-line parser into ``root.common.serving``; the TinyLM at the
@@ -172,6 +192,13 @@ any failure exits non-zero:
    parameters after them equal to the in-process run of the same ticks
    bit for bit, the worker's B6/B7 launches 2 + 2 a train tick; one
    train job with bf16 deltas within the codec's rounding bound; the
+   fp32 session traced — the master traces, the worker is granted
+   ``trace`` and opens a ``torch.profiler`` capture window of 2
+   dispatches: both process tracks in the Chrome trace, every
+   ``worker.step`` strictly inside its ``server.dispatch`` (a planted
+   shift must fail), the worker's ``perf`` summary with step_ms > 0 and
+   MFU in (0, 1], ``lrn_fwd_reg``/``lrn_bwd_reg`` in the capture; the
+   train tick's p50 with attribution on and off; the
    wire bytes per minibatch; the AlexNet train tick with and without
    ``torch.use_deterministic_algorithms``;
    9f (``phase_fleet``). the fleet — (a) a master
@@ -224,8 +251,10 @@ import urllib.request
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
-#: The LM bench geometry (bench.py's LM_* constants).
-VOCAB, EMBED, HEADS, BLOCKS, HIDDEN, POSITIONS = (16384, 2048, 16, 12,
+#: The LM bench geometry (bench.py's LM_* constants), its depth cut
+#: from the bench's 12 blocks to BLOCKS: the trained and the served LM
+#: keep every width, and the run keeps to its time limit.
+VOCAB, EMBED, HEADS, BLOCKS, HIDDEN, POSITIONS = (16384, 2048, 16, 4,
                                                   8192, 1024)
 SEED = 20261017
 MAX_BATCH, KV_BLOCK = 8, 16
@@ -258,6 +287,95 @@ def smi_line():
     if out.returncode:
         fail("nvidia-smi failed: %s" % out.stderr.strip())
     return out.stdout.strip().splitlines()[0]
+
+
+#: What the host alone writes for later phases, in the order they read
+#: it: the streamed AlexNet's dataset (phase 6c), the served LM's
+#: artifact (phase 7) and the artifact its hot reload loads (phase 8).
+PREWRITES = ("dataset", "lm", "reload")
+
+
+def prewrite_paths(workdir):
+    return {"dataset": os.path.join(workdir, "datasets", "imagenet"),
+            "lm": os.path.join(workdir, "lm.veles.tgz"),
+            "reload": os.path.join(workdir, "lm-reload.veles.tgz")}
+
+
+def prewrite(workdir):
+    """``chip_smoke.py --prewrite WORKDIR``: writes PREWRITES on the
+    host (no CUDA), each under its final name once whole, and after
+    each a line "NAME SECONDS" in WORKDIR/prewrite.log."""
+    sys.path.insert(0, HERE)
+    from veles_tpu_torch import export as X
+    from veles_tpu_torch.znicz.samples.imagenet import StreamedImagenetLoader
+    paths = prewrite_paths(workdir)
+    for name in PREWRITES:
+        t0 = time.monotonic()
+        if name == "dataset":
+            # RandomState(0) through fill_synthetic; each file is
+            # written under a temporary name and renamed.
+            StreamedImagenetLoader(
+                None, cache_dir=paths[name], sim_train=STREAM_TRAIN,
+                sim_valid=STREAM_VALID, sim_image_size=STREAM_IMAGE,
+                sim_classes=1000)._write_synthetic()
+        else:
+            part = paths[name] + ".part"
+            X.random_lm_artifact(part, VOCAB, EMBED, HEADS, BLOCKS, HIDDEN,
+                                 POSITIONS, seed=SEED + (name == "reload"),
+                                 compresslevel=0)
+            os.replace(part, paths[name])
+        with open(os.path.join(workdir, "prewrite.log"), "a") as fout:
+            fout.write("%s %.3f\n" % (name, time.monotonic() - t0))
+    return 0
+
+
+class Prewriter(object):
+    """Runs :func:`prewrite` in a process of its own while the card
+    runs the first phases; :meth:`wait` blocks until one of its files
+    is whole and returns (its path, the seconds its writing took, the
+    seconds this process waited for it)."""
+
+    def __init__(self, workdir):
+        self.workdir = workdir
+        env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+        self.proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--prewrite",
+             workdir], stdout=sys.stderr.fileno(), env=env)
+
+    def done(self):
+        try:
+            with open(os.path.join(self.workdir, "prewrite.log")) as fin:
+                rows = [line.split() for line in fin if line.strip()]
+        except FileNotFoundError:
+            return {}
+        return {name: float(sec) for name, sec in rows}
+
+    def wait(self, name, deadline=900.0):
+        t0 = time.monotonic()
+        while name not in self.done():
+            if self.proc.poll() is not None and name not in self.done():
+                fail("the prewrite process exited %s before writing %s"
+                     % (self.proc.returncode, name))
+            if time.monotonic() - t0 > deadline:
+                fail("the prewrite process did not write %s within %.0f s"
+                     % (name, deadline))
+            time.sleep(0.2)
+        return (prewrite_paths(self.workdir)[name], self.done()[name],
+                time.monotonic() - t0)
+
+    def stop(self):
+        if self.proc.poll() is None and len(self.done()) == len(PREWRITES):
+            try:
+                self.proc.wait(30)   # its interpreter's exit
+            except subprocess.TimeoutExpired:
+                pass
+        if self.proc.poll() is None:
+            self.proc.kill()
+        self.proc.wait()
+
+
+#: Set by main: the process writing PREWRITES.
+PREWRITER = [None]
 
 
 def cuda_ms(fn, iters=50, warmup=5):
@@ -2677,14 +2795,14 @@ def phase_streamed(workdir, smi):
     imagenet_dir = os.path.join(datasets, "imagenet")
     root.common.dirs.datasets = datasets
 
-    # The dataset, written from RandomState(0) through fill_synthetic.
-    t0 = time.monotonic()
+    # The dataset, written from RandomState(0) through fill_synthetic
+    # by the prewrite process (the writer below finds its files whole).
+    _, write_s, waited_s = PREWRITER[0].wait("dataset")
     writer = StreamedImagenetLoader(
         None, cache_dir=imagenet_dir, sim_train=STREAM_TRAIN,
         sim_valid=STREAM_VALID, sim_image_size=STREAM_IMAGE,
         sim_classes=1000)
     paths = writer._write_synthetic()
-    write_s = time.monotonic() - t0
     disk_bytes = sum(os.path.getsize(p) for p in paths)
     t0 = time.monotonic()
     writer._cached_mean_disp(paths[2], numpy.load(paths[2], mmap_mode="r"))
@@ -2692,11 +2810,13 @@ def phase_streamed(workdir, smi):
     t0 = time.monotonic()
     writer._cached_mean_disp(paths[2], numpy.load(paths[2], mmap_mode="r"))
     analysis_cached_s = time.monotonic() - t0
-    print("streamed: dataset %s: %.1f MB on disk written in %.1f s; "
-          "mean/disp analysis %.2f s cold, %.3f s cached" % (
-              imagenet_dir, disk_bytes / 1e6, write_s, analysis_cold_s,
-              analysis_cached_s))
+    print("streamed: dataset %s: %.1f MB on disk written in %.1f s by "
+          "the prewrite process (waited %.1f s); mean/disp analysis %.2f "
+          "s cold, %.3f s cached" % (
+              imagenet_dir, disk_bytes / 1e6, write_s, waited_s,
+              analysis_cold_s, analysis_cached_s))
     numbers["dataset"] = {"bytes": disk_bytes, "write_s": write_s,
+                          "waited_s": waited_s,
                           "analysis_cold_s": analysis_cold_s,
                           "analysis_cached_s": analysis_cached_s}
     del writer
@@ -3316,12 +3436,10 @@ def phase_serving(workdir, smi):
     from veles_tpu_torch import export as X
     from veles_tpu_torch.ops import decode_attention as DA
     from veles_tpu_torch.restful import ModelServer
-    path = os.path.join(workdir, "lm.veles.tgz")
-    t0 = time.monotonic()
-    X.random_lm_artifact(path, VOCAB, EMBED, HEADS, BLOCKS, HIDDEN,
-                         POSITIONS, seed=SEED, compresslevel=0)
-    print("artifact write: %.1f s (%.2f GB, gzip level 0)" %
-          (time.monotonic() - t0, os.path.getsize(path) / 1e9))
+    path, write_s, waited_s = PREWRITER[0].wait("lm")
+    print("artifact write: %.1f s by the prewrite process (waited %.1f "
+          "s; %.2f GB, gzip level 0, seed %d)" % (
+              write_s, waited_s, os.path.getsize(path) / 1e9, SEED))
     t0 = time.monotonic()
     model = X.ExportedModel(path, device="cuda")
     model._lm_params()
@@ -4302,8 +4420,13 @@ def phase_population(workdir, smi):
         fail("--population 4:2 wrote %s after %s vmapped generations" %
              (pop, vmap_jobs))
     snaps = os.path.join(workdir, "ensemble")
+    # Uncompressed snapshots: gzip's level 9 on the synthetic MNIST
+    # workflow took seconds a snapshot on the card's host, enough that
+    # every epoch outlasted the snapshotter's one-second throttle and
+    # snapshotted again (16 s to 391 s for the run).
     ens = run_json(["root.mnist.max_epochs=4", "root.mnist.learning_rate="
-                    "0.03", "--snapshot-dir", snaps, "--ensemble-train",
+                    "0.03", "--snapshot-dir", snaps,
+                    "--snapshot-compression", "", "--ensemble-train",
                     "2:0.8"], "ensemble.json")
     if not (ens["mode"] == "ensemble-train" and ens["size"] == 2 and
             len(ens["instances"]) == 2 and
@@ -4738,16 +4861,18 @@ def phase_parallel(workdir, smi):
         plain, _ = rec.replay()
         engine.attention_kernel = "auto"
         rec.close()
-        loads = [blk.read_moe_acc(c) for c in (1, 2)]
+        # The decision folds (and clears) the router rows at each
+        # class's epoch end.
+        loads = wf.decision.epoch_moe[1:]
         print("8p (a) MoE TinyLM %d blocks, top-%d of %d experts, dp×ep "
               "%s on %s: init %.1f s; ticks %s %s s; losses %s, plain "
               "attention from the same state %s; B1-B3 launches %s "
-              "(expected %s); router rows %s" % (
+              "(expected %s); router health per class %s" % (
                   PAR_BLOCKS, PAR_TOPK, PAR_EXPERTS, wf.mesh.shape, smi,
                   init_s, classes, ["%.3f" % t[2] for t in rec.ticks],
                   ["%.5f" % x for x in losses],
                   ["%.5f" % x for x in plain], moe_launches, expected,
-                  [r.tolist() for r in loads]))
+                  loads))
         if classes != [False] + [True] * PAR_TICKS or \
                 moe_launches != expected:
             fail("8p (a): ticks %s launched %s; the epoch implies %s" % (
@@ -4938,9 +5063,12 @@ def phase_parallel(workdir, smi):
 #: minibatch, one validation minibatch, then NET_JOBS train jobs of
 #: NET_TICKS ticks each (fp32 deltas), then one train job with bf16
 #: deltas.
-NET_BATCH, NET_JOBS, NET_TICKS = 128, 4, 2
+NET_BATCH, NET_JOBS, NET_TICKS = 128, 2, 2
 #: Ticks timed for the deterministic-algorithms reading, each way.
 NET_DET_TICKS = 6
+#: The traced fp32 session: the worker's capture window (dispatches),
+#: and the in-process ticks of each attribution on/off p50 reading.
+NET_XPROF_STEPS, NET_ATTR_TICKS = 2, 7
 
 
 def net_alexnet(launcher, n_train):
@@ -4978,13 +5106,17 @@ def net_worker(sessions, out):
     from veles_tpu_torch.launcher import Launcher
     from veles_tpu_torch.ops import lrn as L
     torch.set_num_threads(4)
+    from veles_tpu_torch.observability import attribution
     report = []
     while True:
         item = sessions.get(timeout=300)
         if item is None:
             break
-        n_train, dtype = item
+        n_train, dtype, xprof = item
         net_config(dtype)
+        attribution.reset()
+        if xprof:
+            attribution.configure_xprof(xprof, NET_XPROF_STEPS)
         launcher = Launcher(master_address="127.0.0.1:0",
                             slave_kwargs={"reconnect_attempts": 3})
         wf = net_alexnet(launcher, n_train)
@@ -4998,7 +5130,11 @@ def net_worker(sessions, out):
         report.append({"lrn_forward": L.lrn_forward.launches,
                        "lrn_backward": L.lrn_backward.launches,
                        "jobs": launcher.client.jobs_done,
-                       "seconds": time.monotonic() - t0})
+                       "seconds": time.monotonic() - t0,
+                       "perf": attribution.perf_summary(wait=True),
+                       "peak_flops": attribution.peak_flops(
+                           torch.device("cuda")),
+                       "xprof": attribution.xprof_trace()})
         del wf, launcher
     with open(out, "w") as fout:
         json.dump(report, fout)
@@ -5014,18 +5150,25 @@ def net_params(wf):
     return out
 
 
-def net_session(sessions, n_train, dtype, train_jobs=None):
+def net_session(sessions, n_train, dtype, train_jobs=None, xprof=None):
     """One master session of phase 9n in this process: the master's
     AlexNet on the card behind ``Launcher(listen_address=...)``, the
     worker process told its address; with ``train_jobs`` the master's
-    decision completes once that many train jobs are folded.  Returns
-    (master parameters after the run, wire bytes both ways,
-    seconds)."""
+    decision completes once that many train jobs are folded.  With
+    ``xprof`` (a directory) the session is traced: the master traces
+    (the worker's hello asks for ``trace`` and is granted it) and the
+    worker opens a capture window of NET_XPROF_STEPS dispatches into
+    the directory.  Returns (master parameters after the run, wire
+    bytes both ways, seconds, the spans the master collected)."""
     from veles_tpu_torch import resilience
     from veles_tpu_torch.launcher import Launcher
     from veles_tpu_torch.loader.base import TRAIN
-    sessions.put((n_train, dtype))
+    from veles_tpu_torch.observability import tracing
+    sessions.put((n_train, dtype, xprof))
     net_config(dtype)
+    tracing.reset()
+    if xprof:
+        tracing.enable()
     launcher = Launcher(listen_address="127.0.0.1:0")
     wf = net_alexnet(launcher, n_train)
     launcher.initialize(device="cuda")
@@ -5047,6 +5190,8 @@ def net_session(sessions, n_train, dtype, train_jobs=None):
     sessions.put("127.0.0.1:%d" % launcher.server.port)
     launcher.run()
     seconds = time.monotonic() - t0
+    spans = tracing.spans()
+    tracing.reset()
     snap = resilience.stats.snapshot()
     wire = snap.get("net.bytes_sent", 0) + snap.get("net.bytes_recv", 0)
     if not wf.decision.complete:
@@ -5054,7 +5199,7 @@ def net_session(sessions, n_train, dtype, train_jobs=None):
              % dtype)
     params = net_params(wf)
     del wf, launcher
-    return params, wire, seconds
+    return params, wire, seconds, spans
 
 
 def net_reference(n_train):
@@ -5102,8 +5247,103 @@ def net_reference(n_train):
             torch.use_deterministic_algorithms(False)
     det["warnings"] = sorted({str(w.message).split(".")[0][:160]
                               for w in caught})
+    det["attribution_p50_ms"] = attribution_p50(execute)
     del wf, launcher
     return after, det
+
+
+def attribution_p50(execute):
+    """The train tick's p50 (host clock around a synchronized tick,
+    NET_ATTR_TICKS ticks a reading) with attribution off, on, on, off,
+    in turns."""
+    import torch
+    from veles_tpu_torch.config import root
+    out = {"off": [], "on": []}
+    try:
+        for flag in (False, True, True, False):
+            root.common.observability.attribution = flag
+            times = []
+            for _ in range(NET_ATTR_TICKS):
+                torch.cuda.synchronize()
+                t0 = time.monotonic()
+                execute(training=True)
+                torch.cuda.synchronize()
+                times.append((time.monotonic() - t0) * 1e3)
+            out["on" if flag else "off"].append(
+                sorted(times)[len(times) // 2])
+    finally:
+        del root.common.observability.__dict__["attribution"]
+    return out
+
+
+def trace_nesting(spans):
+    """The worker.step spans (ingested on a worker track) that do not
+    lie strictly inside the master's server.dispatch span they name as
+    parent, with the same trace id: a list of their ids."""
+    own = {s["id"]: s for s in spans if not s.get("proc")}
+    bad = []
+    for step in spans:
+        if step["name"] != "worker.step" or not step.get("proc"):
+            continue
+        d = own.get(step["parent"])
+        if d is None or d["name"] != "server.dispatch" or \
+                d["trace_id"] != step["trace_id"] or \
+                not d["ts"] < step["ts"] or \
+                not step["ts"] + step["dur"] < d["ts"] + d["dur"]:
+            bad.append(step["id"])
+    return bad
+
+
+def net_traced(spans, report, workdir, smi):
+    """Phase 9n's traced-session gates: the Chrome trace holds the
+    master's and the worker's tracks; every worker.step (after the
+    worker's clock sync) lies strictly inside its server.dispatch with
+    the same trace id — a planted shift of one step past its window
+    must fail that gate; the worker's perf summary has step_ms > 0 and
+    mfu in (0, 1]; its capture window's profiler trace names
+    lrn_fwd_reg and lrn_bwd_reg."""
+    from veles_tpu_torch.observability import tracing
+    path = os.path.join(workdir, "trace.json")
+    events = tracing.export_chrome_trace(path, spans)["traceEvents"]
+    tracks = sorted(e["args"]["name"] for e in events if e["ph"] == "M")
+    steps = [s for s in spans if s["name"] == "worker.step"]
+    bad = trace_nesting(spans)
+    planted = [dict(s) for s in spans]
+    victim = next(s for s in planted if s["name"] == "worker.step")
+    victim["ts"] += max(s["dur"] for s in spans
+                        if s["name"] == "server.dispatch")
+    caught = trace_nesting(planted)
+    perf = report.get("perf") or {}
+    with open(report["xprof"]) as fin:
+        profile = fin.read()
+    kernels = {k: profile.count(k) for k in ("lrn_fwd_reg", "lrn_bwd_reg")}
+    peak = report.get("peak_flops")
+    print("9n traced: tracks %s; %d worker.step spans, %d outside their "
+          "server.dispatch (a planted shift: %d caught); worker perf %s "
+          "(step_ms: the dispatch's stream span, host waits included; "
+          "mfu over that span, a lower bound) against %s TFLOP/s dense "
+          "bf16 (%s); the capture window's "
+          "trace names %s" % (
+              tracks, len(steps), len(bad), len(caught), perf,
+              peak / 1e12 if peak else None, smi, kernels))
+    if not any(t.startswith("master/") for t in tracks) or \
+            not any(t.startswith("worker:") for t in tracks):
+        fail("9n: the trace lacks the master's or the worker's track: %s"
+             % tracks)
+    if not steps or bad:
+        fail("9n: worker.step spans outside their dispatch: %s of %d" %
+             (bad, len(steps)))
+    if not caught:
+        fail("9n: the planted span shift passed the nesting gate")
+    if not perf.get("step_ms", 0) > 0 or \
+            not 0 < perf.get("mfu", 0) <= 1:
+        fail("9n: the worker's perf summary %s" % perf)
+    if not all(kernels.values()):
+        fail("9n: the capture window's trace names %s" % kernels)
+    return {"tracks": tracks, "worker_steps": len(steps),
+            "planted_caught": len(caught), "perf": perf,
+            "peak_tflops": peak / 1e12 if peak else None,
+            "xprof_kernel_events": kernels}
 
 
 def phase_net(workdir, smi):
@@ -5131,9 +5371,11 @@ def phase_net(workdir, smi):
     worker = ctx.Process(target=net_worker, args=(sessions, out))
     worker.start()
     try:
-        got, wire32, s32 = net_session(sessions, n_train, "fp32")
-        got16, wire16, s16 = net_session(sessions, n_train, "bf16",
-                                         train_jobs=1)
+        got, wire32, s32, spans = net_session(
+            sessions, n_train, "fp32",
+            xprof=os.path.join(workdir, "xprof"))
+        got16, wire16, s16, _ = net_session(sessions, n_train, "bf16",
+                                            train_jobs=1)
         sessions.put(None)
         worker.join(300)
     finally:
@@ -5144,6 +5386,7 @@ def phase_net(workdir, smi):
         fail("9n: the worker process exited %s" % worker.exitcode)
     with open(out) as fin:
         report = json.load(fin)
+    traced = net_traced(spans, report[0], workdir, smi)
     after, det = net_reference(n_train)
     torch.cuda.empty_cache()
     want = after[-1][1]
@@ -5189,9 +5432,13 @@ def phase_net(workdir, smi):
     per16 = wire16 / float(NET_TICKS + 1)
     print("9n on %s: wire bytes per minibatch fp32 %.0f (%d B, %.1f s), "
           "bf16 %.0f (%d B, %.1f s); deterministic algorithms off %.2f ms "
-          "/ on %.2f ms a train tick (%d warnings: %s); phase %.1f s" % (
+          "/ on %.2f ms a train tick (%d warnings: %s); the train tick's "
+          "p50 with attribution off %s ms, on %s ms (in turns off, on, "
+          "on, off); phase %.1f s" % (
               smi, per32, wire32, s32, per16, wire16, s16, det["off_ms"],
               det["on_ms"], len(det["warnings"]), det["warnings"],
+              det["attribution_p50_ms"]["off"],
+              det["attribution_p50_ms"]["on"],
               time.monotonic() - started))
     numbers = {"jobs": report[0]["jobs"], "job_ticks": NET_TICKS,
                "batch": NET_BATCH, "fp32_equal_tensors": len(equal),
@@ -5200,7 +5447,7 @@ def phase_net(workdir, smi):
                "wire_bytes": {"fp32": wire32, "bf16": wire16},
                "session_s": {"fp32": s32, "bf16": s16},
                "worker": report, "deterministic_algorithms": det,
-               "phase_s": time.monotonic() - started}
+               "traced": traced, "phase_s": time.monotonic() - started}
     total = {k: report[0][k] + report[1][k] for k in expect}
     return total, numbers
 
@@ -5894,37 +6141,59 @@ TOKEN = "chip-smoke"
 
 
 class CallLog(object):
-    """Wraps a model's paged entry points and a pool's block copy: counts
-    the times a call's attention went through a decode kernel (see
-    :meth:`programs`; one launch per block each) and, while recording,
-    keeps every call's inputs and output in order, with the pool's
-    contents at the start, so the run can be replayed call for call."""
+    """Wraps a model's paged entry points, its adoption's write
+    (``import_kv_blocks``) and a pool's block copy: counts the times a
+    call's attention went through a decode kernel (see :meth:`programs`;
+    one launch per block each) and, while recording, keeps every call's
+    inputs and output in order, tagged by the pool it ran on, with each
+    pool's contents at the start, so a pool's run can be replayed call
+    for call.  Counts and records are taken under a lock: in phase 10a
+    two replicas and a prefill worker share the model, so three device
+    threads call at once."""
 
     KINDS = ("paged_extend", "paged_step", "paged_verify")
 
     def __init__(self, model):
         self.model = model
         self.originals = {k: getattr(model, k) for k in self.KINDS}
-        self.records, self.snapshot, self.recording = [], None, False
+        self.originals["import_kv_blocks"] = model.import_kv_blocks
+        self.lock = threading.Lock()
+        self.records, self.snapshots, self.recording = [], {}, False
         self.calls = {}
         for kind in self.KINDS:
             setattr(model, kind, self._wrap(kind))
+        model.import_kv_blocks = self._imported
+
+    def _record(self, pool, kind, args, out):
+        if self.recording:
+            with self.lock:
+                self.records.append((id(pool), kind, args, out))
 
     def _wrap(self, kind):
         import numpy
-        from veles_tpu_torch.ops import decode_attention as DA
         fn = self.originals[kind]
 
         def call(pool, *args, **kw):
             out = fn(pool, *args, **kw)
             n = self.programs(kind, pool, args, out)
             if n:
-                self.calls[kind] = self.calls.get(kind, 0) + n
+                with self.lock:
+                    self.calls[kind] = self.calls.get(kind, 0) + n
             if self.recording:
-                self.records.append((kind, [numpy.array(a) for a in args],
-                                     numpy.array(out)))
+                self._record(pool, kind, [numpy.array(a) for a in args],
+                             numpy.array(out))
             return out
         return call
+
+    def _imported(self, pool, ids, blocks):
+        """An adoption's write, recorded: the replay of a decode pool
+        rebuilds the adopted blocks exactly as the wire delivered them."""
+        import numpy
+        out = self.originals["import_kv_blocks"](pool, ids, blocks)
+        if self.recording:
+            self._record(pool, "import", (
+                list(ids), numpy.array(blocks, numpy.float32)), None)
+        return out
 
     @staticmethod
     def programs(kind, pool, args, out):
@@ -5952,28 +6221,29 @@ class CallLog(object):
         fn, reset_fn = pool._copy_fn, pool._reset_fn
 
         def copy(storage, src, dst):
-            if self.recording:
-                self.records.append(("copy", (src, dst), None))
+            self._record(pool, "copy", (src, dst), None)
             return fn(storage, src, dst)
 
         def reset(storage, ids):
-            if self.recording:
-                self.records.append(("reset", list(ids), None))
+            self._record(pool, "reset", list(ids), None)
             return reset_fn(storage, ids)
         pool._copy_fn = copy
         if reset_fn is not None:
             pool._reset_fn = reset
 
-    def start(self, pool):
+    def start(self, *pools):
         import torch
         torch.cuda.synchronize()
-        self.snapshot = [[t.clone() for t in group]
-                         for group in pool.storage]
+        self.snapshots = {id(p): [[t.clone() for t in group]
+                                  for group in p.storage] for p in pools}
         self.records, self.calls, self.recording = [], {}, True
 
-    def stop(self):
+    def stop(self, pool):
+        """Ends the recording; returns ``pool``'s records and its
+        contents at the start."""
         self.recording = False
-        return self.records, self.snapshot
+        return ([rec[1:] for rec in self.records if rec[0] == id(pool)],
+                self.snapshots[id(pool)])
 
     def kernel_calls(self):
         return sum(self.calls.values())
@@ -5981,6 +6251,13 @@ class CallLog(object):
     def restore(self):
         for kind, fn in self.originals.items():
             setattr(self.model, kind, fn)
+
+    def replay_pool(self, pool):
+        """:meth:`replay` of the calls, block copies, resets and
+        adoptions that ran on ``pool``."""
+        records, snapshot = self.stop(pool)
+        return self.replay(records, snapshot, (
+            pool.n_blocks, pool.block_size, pool.kv_dtype))
 
     def replay(self, records, snapshot, pool_args):
         """Every recorded call again, in order, on a pool that starts
@@ -6011,6 +6288,10 @@ class CallLog(object):
             if kind == "copy":
                 for pool in pools:
                     self.model._kv_copy_block(pool.storage, *args)
+                continue
+            if kind == "import":  # an adoption's write (phase 10a)
+                for pool in pools:
+                    self.model.import_kv_blocks(pool, *args)
                 continue
             if kind == "reset":
                 for pool in pools:
@@ -6178,7 +6459,8 @@ def serve_wave(model, prompts, repeat, log=None, **server_kw):
         peak=torch.cuda.max_memory_allocated(), stats=get(base + "/stats"))
     if log is not None:
         numbers["calls"] = dict(log.calls)
-        numbers["records"], numbers["snapshot"] = log.stop()
+        numbers["records"], numbers["snapshot"] = log.stop(
+            server.engine.kv_pool)
     return answers, numbers
 
 
@@ -6232,6 +6514,410 @@ def phase_f32_spec(served, log):
             "drafted": c.get("spec.drafted", 0)}
 
 
+#: Phase 10a: the serving fabric over phase 7's full-width LM — two
+#: decode replicas and a prefill worker (``fabric_replicas=2,
+#: fabric_disagg=True``) sharing the loaded model, each with its own
+#: queue, device thread and KV pool, behind the tenants FABRIC_TENANTS
+#: (``a``: a burst of FABRIC_BURST, then 0.001 requests/s; ``b``
+#: unbounded).  The int8 wave serves FABRIC_INT8 (indices of phase 7's
+#: prompts, each at least two 16-token blocks long, so its prefill is
+#: disaggregated).
+FABRIC_BURST = 2
+FABRIC_TENANTS = ["a=0.001:%d" % FABRIC_BURST, "b=1000000"]
+FABRIC_INT8 = (2, 3, 5, 6)
+
+
+def post_status(url, body, headers=None):
+    """POST returning (status, reply, headers) for any status."""
+    req = urllib.request.Request(
+        url, data=json.dumps(body).encode(),
+        headers=dict({"Content-Type": "application/json"},
+                     **(headers or {})))
+    try:
+        with urllib.request.urlopen(req, timeout=600) as resp:
+            return resp.status, json.loads(resp.read()), resp.headers
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read() or b"{}"), e.headers
+
+
+def fabric_pools(server):
+    """Each engine of the server's fabric (the replicas, then the
+    prefill worker) with its pool made now, before any request."""
+    engines = list(server._fabric_engines)
+    if server.fabric.prefill is not None:
+        engines.append(server.fabric.prefill.engine)
+    return [e._ensure_pool() for e in engines]
+
+
+def fabric_server(model, **kw):
+    """The phase's fabric server on ``model``, started, and its pools."""
+    from veles_tpu_torch.restful import ModelServer
+    server = ModelServer(model, host="127.0.0.1", port=0,
+                         max_batch=MAX_BATCH, kv_block_size=KV_BLOCK,
+                         deadline=600.0, fabric_replicas=2,
+                         fabric_disagg=True, **kw)
+    server.start()
+    return server, fabric_pools(server)
+
+
+def fabric_wave(base, prompts, tenant="b"):
+    """``prompts`` as one concurrent wave of /api/generate requests of
+    ``tenant``; returns the generated tokens."""
+    headers = {"X-Tenant": tenant}
+    with concurrent.futures.ThreadPoolExecutor(len(prompts)) as ex:
+        futs = [ex.submit(post_status, base + "/api/generate",
+                          {"tokens": [p], "max_new_tokens": MAX_NEW},
+                          headers) for p in prompts]
+        replies = [f.result() for f in futs]
+    for i, (status, reply, _) in enumerate(replies):
+        if status != 200:
+            fail("10a: request %d of tenant %s answered %d: %s" % (
+                i, tenant, status, reply))
+    return [reply["generated"][0] for _, reply, _ in replies]
+
+
+def fabric_tenants(base, prompt):
+    """Tenant ``a`` gets FABRIC_BURST 200s, then 429 with Retry-After,
+    while ``b`` keeps getting 200; an unknown and an anonymous tenant get
+    403.  Returns the statuses."""
+    body = {"tokens": [prompt], "max_new_tokens": 2}
+    got = {"a": [], "b": [], "unknown": None, "anonymous": None}
+    for _ in range(FABRIC_BURST + 2):
+        status, _, headers = post_status(base + "/api/generate", body,
+                                         {"X-Tenant": "a"})
+        got["a"].append(status)
+        if status == 429 and int(headers.get("Retry-After") or 0) < 1:
+            fail("10a: a 429 without Retry-After")
+        got["b"].append(post_status(base + "/api/generate", body,
+                                    {"X-Tenant": "b"})[0])
+    got["unknown"] = post_status(base + "/api/generate", body,
+                                 {"X-Tenant": "mallory"})[0]
+    got["anonymous"] = post_status(base + "/api/generate", body)[0]
+    want = {"a": [200] * FABRIC_BURST + [429, 429],
+            "b": [200] * (FABRIC_BURST + 2), "unknown": 403,
+            "anonymous": 403}
+    print("10a tenants: %s" % got)
+    if got != want:
+        fail("10a: tenant admission %s, expected %s" % (got, want))
+    return got
+
+
+class AdoptionLog(object):
+    """The wire's direct gate.  Every block that a decode replica's
+    adoption writes is read back from its pool as f32
+    (``export_kv_blocks``), on the device thread that wrote it; every
+    export of the prefill worker is kept as it left that pool, before
+    the wire.  On the f32 plane the wire and the pool carry the values
+    unchanged, so :meth:`mismatches` holds each adoption's blocks bit
+    for bit against the prefill export of the same prompt."""
+
+    def __init__(self, server):
+        import numpy
+        self.model = model = server.engine.model
+        self.local, self.lock = threading.local(), threading.Lock()
+        self.adopted, self.exported = [], []
+        self.importer = model.import_kv_blocks
+        self.engines = list(server._fabric_engines)
+        self.prefill = server.fabric.prefill.engine
+
+        def imported(pool, ids, blocks):
+            out = self.importer(pool, ids, blocks)
+            self.local.written = model.export_kv_blocks(pool, ids)
+            return out
+        model.import_kv_blocks = imported
+        for i, engine in enumerate(self.engines):
+            def adopted(tokens, payload, _adopt=engine._apply_kv_adopt,
+                        _name="r%d" % i):
+                # An adoption of a chain the pool holds already writes
+                # nothing and records nothing.
+                self.local.written = None
+                n = _adopt(tokens, payload)
+                if self.local.written is not None:
+                    with self.lock:
+                        self.adopted.append((_name, numpy.array(
+                            tokens, numpy.int32), self.local.written))
+                return n
+            engine._apply_kv_adopt = adopted
+        export = self.prefill._apply_kv_export
+
+        def exported(tokens):
+            out = export(tokens)
+            if out is not None:
+                with self.lock:
+                    self.exported.append(
+                        (numpy.array(tokens, numpy.int32), out[1]))
+            return out
+        self.prefill._apply_kv_export = exported
+
+    def blocks(self, since=0):
+        return sum(w.shape[2] for _, _, w in self.adopted[since:])
+
+    def mismatches(self, since=0):
+        """The adoptions from the ``since``-th on whose blocks differ
+        from a prefill export of their prompt, as (replica, adoption,
+        count of values whose bits differ, or why none was compared)."""
+        import numpy
+        bad = []
+        for i, (name, tokens, written) in enumerate(self.adopted[since:],
+                                                    since):
+            n = written.shape[2]
+            peers = [b for t, b in self.exported
+                     if numpy.array_equal(t[:len(tokens)], tokens) and
+                     b.shape[2] >= n]
+            if not peers:
+                bad.append((name, i, "no prefill export"))
+            for b in peers:
+                diff = int(numpy.count_nonzero(
+                    written.view(numpy.uint32) != numpy.ascontiguousarray(
+                        b[:, :, :n]).view(numpy.uint32)))
+                if diff:
+                    bad.append((name, i, diff))
+                    break
+        return bad
+
+    def restore(self):
+        self.model.import_kv_blocks = self.importer
+        for engine in self.engines + [self.prefill]:
+            engine.__dict__.pop("_apply_kv_adopt", None)
+            engine.__dict__.pop("_apply_kv_export", None)
+
+
+def fabric_plant(base, router_mod, prompt, corrupt):
+    """``prompt`` (one no engine has seen) through the fabric with
+    ``corrupt`` applied to the unpacked wire payload's blocks."""
+    import numpy
+    unpack = router_mod.unpack_kv_payload
+
+    def planted(payload, **kw):
+        obj = unpack(payload, **kw)
+        if obj is not None:
+            obj["blocks"] = numpy.array(obj["blocks"])
+            corrupt(obj["blocks"])
+        return obj
+
+    router_mod.unpack_kv_payload = planted
+    try:
+        return fabric_wave(base, [prompt])
+    finally:
+        router_mod.unpack_kv_payload = unpack
+
+
+def fabric_planted(model, base, router_mod, adoptions):
+    """The planted wire faults, each on a prompt no engine has seen,
+    through a wrapped ``unpack_kv_payload``.  One value of one adopted
+    block flipped in sign must fail the wire's gate (:class:`AdoptionLog`)
+    on exactly that value; the token gate's verdict on it is printed.
+    One adopted block's k and v scaled by 1000 in every layer must fail
+    the token gate."""
+    import numpy
+    rng = numpy.random.RandomState(SEED % (1 << 31) + 10)
+    flip_prompt, scale_prompt = (rng.randint(0, VOCAB, 200).tolist()
+                                 for _ in range(2))
+
+    def flip(blocks):
+        blocks.view(numpy.uint32)[0, 0, 0, 0, 0, 0] ^= 0x80000000
+
+    def scale(blocks):
+        blocks[:, :, 0] *= 1e3
+
+    since = len(adoptions.adopted)
+    answer = fabric_plant(base, router_mod, flip_prompt, flip)
+    wire = adoptions.mismatches(since)
+    seen = token_mismatches(model, [flip_prompt], answer)
+    print("10a planted wire fault (one value of one adopted block flipped "
+          "in sign): the wire's gate %s %s; the token gate (a reading) "
+          "%s %s" % ("fails, as it must:" if wire else "PASSES", wire,
+                     "fails:" if seen else "passes", seen))
+    if len(wire) != 1 or wire[0][2] != 1:
+        fail("10a: the wire's gate did not catch the one flipped value "
+             "alone: %s" % wire)
+    answer = fabric_plant(base, router_mod, scale_prompt, scale)
+    caught = token_mismatches(model, [scale_prompt], answer)
+    print("10a planted wire fault (one adopted block's k/v scaled by "
+          "1000): the token gate %s %s" % (
+              "fails, as it must:" if caught else "PASSES", caught))
+    if not caught:
+        fail("10a: the planted wire fault passed the token gate")
+    return {"flip_wire": wire, "flip_tokens": len(seen),
+            "scale_tokens": len(caught)}
+
+
+def fabric_drain(server, prompts, want):
+    """Concurrent requests, then ``stop(drain=True)`` once a replica
+    holds a decode row: every request ends 200 with its gated answer or
+    503 (still queued), never anything else."""
+    base = "http://127.0.0.1:%d" % server.port
+    engines = list(server._fabric_engines)
+    with concurrent.futures.ThreadPoolExecutor(len(prompts)) as ex:
+        futs = [ex.submit(post_status, base + "/api/generate",
+                          {"tokens": [p], "max_new_tokens": MAX_NEW},
+                          {"X-Tenant": "b"}) for p in prompts]
+        deadline = time.monotonic() + 300
+        while not any(e._rows for e in engines) and \
+                time.monotonic() < deadline:
+            time.sleep(0.002)
+        server.stop(drain=True)
+        replies = [f.result() for f in futs]
+    codes = [status for status, _, _ in replies]
+    for (status, reply, _), answer in zip(replies, want):
+        if status == 200 and reply["generated"][0] != answer:
+            fail("10a: an answer finished during the drain differs")
+        if status not in (200, 503):
+            fail("10a: a request answered %d during the drain" % status)
+    print("10a drain: statuses %s (200 = finished, 503 = still queued; "
+          "nothing dropped)" % codes)
+    if 200 not in codes:
+        fail("10a: the drain finished no request")
+    return codes
+
+
+def phase_fabric(served, smi):
+    """Phase 10a, the serving fabric on the card over phase 7's model
+    (no second artifact).  The f32 wave: phase 7's prompts, the repeated
+    one last, tenant ``b``, through two replicas and disaggregated
+    prefill — answers token-identical to phase 7's gated f32 answers,
+    blocks adopted, a decode replica's prefix hit on a prompt it never
+    prefilled, B4 launched once a block for every call through it
+    (across the three engines), every adopted block bit-equal to the
+    prefill worker's export (:class:`AdoptionLog`); the tenants'
+    200/429/403; the planted wire faults; a drain.  The int8 wave: FABRIC_INT8's prompts on the
+    int8 plane, disaggregated, every device call of every pool replayed
+    with the plain quant attention on the same planes (adopted blocks
+    re-quantized from the f32 wire), B5's launches; how many answers
+    equal a single int8 engine's is printed, not gated."""
+    import numpy
+    import torch
+    from veles_tpu_torch.ops import decode_attention as DA
+    from veles_tpu_torch.serving import ServingEngine
+    from veles_tpu_torch.serving.fabric import router as router_mod
+    started = time.monotonic()
+    model = served["model"]
+    prompts, answers = served["prompts"], served["answers"]
+    log = CallLog(model)
+    out = {}
+    try:
+        server, pools = fabric_server(model, tenant=FABRIC_TENANTS)
+        base = "http://127.0.0.1:%d" % server.port
+        adoptions = AdoptionLog(server)
+        try:
+            torch.cuda.synchronize()
+            DA.decode_attention.launches = 0
+            DA.decode_attention.quant_launches = 0
+            log.calls = {}
+            t0 = time.monotonic()
+            got = fabric_wave(base, prompts[:-1])
+            got += fabric_wave(base, prompts[-1:])
+            wave_s = time.monotonic() - t0
+            torch.cuda.synchronize()
+            numbers = {"b4": DA.decode_attention.launches,
+                       "b5": DA.decode_attention.quant_launches}
+            calls = dict(log.calls)
+            stats = get(base + "/stats")
+            check_launches("10a f32 fabric", numbers, log, True, False)
+            bad = [(i, divergence(g, w)[0]) for i, (g, w) in
+                   enumerate(zip(got, answers)) if g != w]
+            fabric = stats["fabric"]
+            hits = {n: r.get("prefix_hits", 0)
+                    for n, r in fabric["per_replica"].items()}
+            adopts = [e.stats.get("kv.adopt")
+                      for e in server._fabric_engines]
+            print("10a f32 fabric on %s: %d answers, %d differ from phase "
+                  "7's gated f32 answers %s; routed %d, adopted blocks %d "
+                  "(kv.adopt per replica %s), prefix hits per replica %s, "
+                  "prefill exports %d; the wave %.2f s" % (
+                      smi, len(got), len(bad), bad, fabric["routed"],
+                      fabric["adopted_blocks"], adopts, hits,
+                      server.fabric.prefill.engine.stats.get(
+                          "kv.prefill_exported"), wave_s))
+            if bad:
+                fail("10a: fabric answers differ from the gated f32 "
+                     "answers at (request, position) %s" % bad)
+            if fabric["adopted_blocks"] < 1 or not any(adopts) or \
+                    not any(hits.values()):
+                fail("10a: no adopted block served a prefix hit: %s" %
+                     fabric)
+            wire, wire_blocks = adoptions.mismatches(), adoptions.blocks()
+            print("10a wire: %d adoptions wrote %d blocks into the decode "
+                  "pools; %d differ, bit for bit, from the prefill "
+                  "worker's export of the same prompt (f32 wire, f32 "
+                  "pools) %s" % (len(adoptions.adopted), wire_blocks,
+                                 len(wire), wire))
+            if wire or not adoptions.adopted:
+                fail("10a: adopted blocks differ from the prefill "
+                     "export: %s" % wire)
+            tenants = fabric_tenants(base, prompts[0])
+            planted = fabric_planted(model, base, router_mod, adoptions)
+        except BaseException:
+            server.stop(drain=False)
+            raise
+        finally:
+            adoptions.restore()
+        drain = fabric_drain(server, prompts[:4], answers[:4])
+        out["f32"] = {"answers": len(got), "wave_s": wave_s,
+                      "routed": fabric["routed"],
+                      "adopted_blocks": fabric["adopted_blocks"],
+                      "prefix_hits": hits, "b4": numbers["b4"],
+                      "calls": calls, "tenants": tenants,
+                      "wire_blocks": wire_blocks,
+                      "planted": planted, "drain": drain}
+        b4 = numbers["b4"]
+        # The int8 wave.
+        int8_prompts = [prompts[i] for i in FABRIC_INT8]
+        server, pools = fabric_server(model, kv_dtype="int8")
+        base = "http://127.0.0.1:%d" % server.port
+        try:
+            for pool in pools:
+                log.watch(pool)
+            log.start(*pools)
+            DA.decode_attention.launches = 0
+            DA.decode_attention.quant_launches = 0
+            t0 = time.monotonic()
+            got8 = fabric_wave(base, int8_prompts)
+            wave8_s = time.monotonic() - t0
+            torch.cuda.synchronize()
+            numbers = {"b4": DA.decode_attention.launches,
+                       "b5": DA.decode_attention.quant_launches}
+            log.recording = False
+            adopted8 = server.fabric.occupancy()["adopted_blocks"]
+            check_launches("10a int8 fabric", numbers, log, False, True)
+        finally:
+            server.stop(drain=True)
+        replayed = [log.replay_pool(pool) for pool in pools]
+        compared = sum(r[0] for r in replayed)
+        merged = (compared, sum((r[1] for r in replayed), []),
+                  sum((r[2] for r in replayed), []),
+                  sum((r[3] for r in replayed), []))
+        gate_replay("10a int8 fabric", merged)
+        if adopted8 < 1:
+            fail("10a: the int8 wave adopted no block")
+        single = ServingEngine(model, max_batch=MAX_BATCH,
+                               kv_block_size=KV_BLOCK,
+                               kv_dtype="int8").start()
+        try:
+            alone = [single.submit_generate(
+                numpy.asarray([p], numpy.int32), MAX_NEW)[0, len(p):]
+                .tolist() for p in int8_prompts]
+        finally:
+            single.stop()
+        same = sum(a == b for a, b in zip(got8, alone))
+        print("10a int8 fabric: %d answers, B5 launches %d, adopted "
+              "blocks %d (re-quantized from the f32 wire); %d of %d "
+              "answers equal a single int8 engine's (a reading: the "
+              "adopted blocks' codes are the wire's re-quantization, not "
+              "the prefill's own); the wave %.2f s; the phase %.1f s" % (
+                  len(got8), numbers["b5"], adopted8, same, len(got8),
+                  wave8_s, time.monotonic() - started))
+        out["int8"] = {"answers": len(got8), "b5": numbers["b5"],
+                       "adopted_blocks": adopted8,
+                       "equal_single_int8_engine": same,
+                       "replay": replay_readings(merged),
+                       "wave_s": wave8_s}
+    finally:
+        log.restore()
+    out["phase_s"] = time.monotonic() - started
+    return b4, numbers["b5"], out
+
+
 def phase_quant_serving(served, reload_path, smi):
     """The quantized serving path at full width: the f32-weight artifact
     served with --kv-dtype int8 --weight-dtype int8 --spec; every
@@ -6283,7 +6969,7 @@ def phase_quant_serving(served, reload_path, smi):
             torch.cuda.synchronize()
             after_numbers = dict(b4=DA.decode_attention.launches,
                                  b5=DA.decode_attention.quant_launches)
-            records, snapshot = log.stop()
+            records, snapshot = log.stop(pool)
             stats_after = get(base + "/stats")
             check_launches("int8 --spec serving after the reload",
                            after_numbers, log, False, True)
@@ -6495,9 +7181,7 @@ def phase_fp8(served):
         torch.cuda.synchronize()
         numbers = dict(b4=DA.decode_attention.launches,
                        b5=DA.decode_attention.quant_launches)
-        records, snapshot = log.stop()
-        replayed = log.replay(records, snapshot,
-                              (pool.n_blocks, KV_BLOCK, "fp8"))
+        replayed = log.replay_pool(pool)
         check_launches("fp8 pass (model API, %d prompts of %s tokens, %d "
                        "tokens each)" % (B, lengths.tolist(), MAX_NEW),
                        numbers, log, False, True)
@@ -6617,8 +7301,42 @@ def phase_verify_exact(served):
     return out
 
 
+#: Seconds each phase of this run took, in order (printed as they end).
+PHASE_S = {}
+
+
+#: A phase still running after this many seconds dumps every thread's
+#: stack to the standard error, and again each time as long again.
+PHASE_STACKS_AFTER = 240
+
+
+def timed(name, fn, *args):
+    """Runs one phase and prints its seconds and the command's so far
+    to both streams at once (the end of either may be all a reader of a
+    stopped run sees)."""
+    import faulthandler
+    t0 = time.monotonic()
+    faulthandler.dump_traceback_later(PHASE_STACKS_AFTER, repeat=True)
+    try:
+        out = fn(*args)
+    finally:
+        faulthandler.cancel_dump_traceback_later()
+    PHASE_S[name] = round(time.monotonic() - t0, 1)
+    line = "phase %s: %.1f s (command at %.1f s)" % (
+        name, PHASE_S[name], time.monotonic() - STARTED[0])
+    print(line, flush=True)
+    print(line, file=sys.stderr, flush=True)
+    return out
+
+
+#: The command's start on the monotonic clock (set by main).
+STARTED = [time.monotonic()]
+
+
 def main():
-    started = time.monotonic()
+    if sys.argv[1:2] == ["--prewrite"]:
+        return prewrite(sys.argv[2])
+    started = STARTED[0] = time.monotonic()
     if not os.path.isdir(os.path.join(HERE, "veles_tpu_torch")):
         fail("veles_tpu_torch/ not found beside chip_smoke.py — run it "
              "from the root of a checkout")
@@ -6637,81 +7355,98 @@ def main():
     resolve_device("cuda")
     if not torch.backends.cudnn.deterministic:
         fail("backends.CUDADevice left cudnn.deterministic off")
-    phase_build()
     if "--ranks" in sys.argv[1:]:
         # The parallel styles on several cards, and nothing else.
+        timed("build", phase_build)
         n = int(sys.argv[sys.argv.index("--ranks") + 1])
         workdir = os.path.join(HERE, ".chip_smoke")
         os.makedirs(workdir, exist_ok=True)
         try:
-            phase_ranks(n, workdir, smi)
+            timed("ranks", phase_ranks, n, workdir, smi)
         finally:
             shutil.rmtree(workdir, ignore_errors=True)
         print(smi)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": kind, "count": count}}))
         return 0
-    max_err, timings = phase_kernels()
-    quant_worst, quant_faults, quant_b4_equal, inv_rows, quant_times = \
-        phase_quant_kernels()
-    flash_err, split_shares, flash_times = phase_flash_kernels()
-    lrn_err, lrn_worst, lrn_faults_read, lrn_equal, lrn_times = \
-        phase_lrn_kernels()
-    gc.collect()
-    torch.cuda.empty_cache()
-    flash_launches, training = phase_training(smi)
-    gc.collect()
-    torch.cuda.empty_cache()
-    lrn_launches, lrn_routes, alexnet, alexnet_wf = phase_alexnet(smi)
-    gc.collect()
-    torch.cuda.empty_cache()
     workdir = os.path.join(HERE, ".chip_smoke")
-    os.makedirs(workdir, exist_ok=True)
+    shutil.rmtree(workdir, ignore_errors=True)
+    os.makedirs(workdir)
+    PREWRITER[0] = Prewriter(workdir)
     try:
-        snapshot_launches, snapshots = phase_snapshots(workdir, smi,
-                                                       alexnet_wf)
-        del alexnet_wf
-        gc.collect()
-        torch.cuda.empty_cache()
-        stream_launches, streamed = phase_streamed(workdir, smi)
-        gc.collect()
-        torch.cuda.empty_cache()
-        launches, numbers, served = phase_serving(workdir, smi)
-        gc.collect()
-        torch.cuda.empty_cache()
-        inwf_flash, inwf_b4, inworkflow = phase_inworkflow(workdir, smi)
-        gc.collect()
-        torch.cuda.empty_cache()
-        pretraining = phase_pretraining(workdir, smi)
-        gc.collect()
-        torch.cuda.empty_cache()
-        pop_launches, population = phase_population(workdir, smi)
-        gc.collect()
-        torch.cuda.empty_cache()
-        par_flash, par_b4, parallel = phase_parallel(workdir, smi)
-        gc.collect()
-        torch.cuda.empty_cache()
-        net_launches, net = phase_net(workdir, smi)
-        gc.collect()
-        torch.cuda.empty_cache()
-        fleet_launches, fleet = phase_fleet(workdir, smi)
-        gc.collect()
-        torch.cuda.empty_cache()
-        reload_path = os.path.join(workdir, "lm-reload.veles.tgz")
-        t0 = time.monotonic()
-        from veles_tpu_torch import export as X
-        X.random_lm_artifact(reload_path, VOCAB, EMBED, HEADS, BLOCKS,
-                             HIDDEN, POSITIONS, seed=SEED + 1,
-                             compresslevel=0)
-        print("reload artifact write: %.1f s (seed %d)" % (
-            time.monotonic() - t0, SEED + 1))
-        quant_launches, quant = phase_quant_serving(served, reload_path,
-                                                    smi)
-        quant["fp8"] = phase_fp8(served)
-        quant["verify_exact_accepted"] = phase_verify_exact(served)
-        quant["row_count_reading"] = row_count_reading(served["model"])
+        return all_phases(kind, count, smi, workdir, started)
     finally:
+        PREWRITER[0].stop()
         shutil.rmtree(workdir, ignore_errors=True)
+
+
+def all_phases(kind, count, smi, workdir, started):
+    """Every phase on one card, in order; prints the readings and the
+    kernels' line, then the last two lines."""
+    import torch
+    from veles_tpu_torch.ops import flash_attention as FA
+    timed("build", phase_build)
+    max_err, timings = timed("kernels", phase_kernels)
+    quant_worst, quant_faults, quant_b4_equal, inv_rows, quant_times = \
+        timed("quant_kernels", phase_quant_kernels)
+    flash_err, split_shares, flash_times = \
+        timed("flash_kernels", phase_flash_kernels)
+    lrn_err, lrn_worst, lrn_faults_read, lrn_equal, lrn_times = \
+        timed("lrn_kernels", phase_lrn_kernels)
+    gc.collect()
+    torch.cuda.empty_cache()
+    flash_launches, training = timed("training", phase_training, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    lrn_launches, lrn_routes, alexnet, alexnet_wf = \
+        timed("alexnet", phase_alexnet, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    snapshot_launches, snapshots = \
+        timed("snapshots", phase_snapshots, workdir, smi, alexnet_wf)
+    del alexnet_wf
+    gc.collect()
+    torch.cuda.empty_cache()
+    stream_launches, streamed = timed("streamed", phase_streamed, workdir, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches, numbers, served = timed("serving", phase_serving, workdir, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    fabric_b4, fabric_b5, fabric = timed("fabric", phase_fabric, served, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    inwf_flash, inwf_b4, inworkflow = \
+        timed("inworkflow", phase_inworkflow, workdir, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    pretraining = timed("pretraining", phase_pretraining, workdir, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    pop_launches, population = \
+        timed("population", phase_population, workdir, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    par_flash, par_b4, parallel = \
+        timed("parallel", phase_parallel, workdir, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    net_launches, net = timed("net", phase_net, workdir, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    fleet_launches, fleet = timed("fleet", phase_fleet, workdir, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    reload_path, write_s, waited_s = PREWRITER[0].wait("reload")
+    print("reload artifact write: %.1f s by the prewrite process "
+          "(waited %.1f s; seed %d)" % (write_s, waited_s, SEED + 1))
+    quant_launches, quant = \
+        timed("quant_serving", phase_quant_serving, served,
+              reload_path, smi)
+    quant["fp8"] = timed("fp8", phase_fp8, served)
+    quant["verify_exact_accepted"] = \
+        timed("verify_exact", phase_verify_exact, served)
+    quant["row_count_reading"] = row_count_reading(served["model"])
     step, step16 = timings[(1, POSITIONS)], timings[(16, POSITIONS)]
     kernels = {"kernels": [{
         "name": "decode_attention",
@@ -6720,8 +7455,9 @@ def main():
         "replaces": "veles_tpu/ops/pallas_attention.py:616",
         "shape": "B=%d Sq=1 H=%d D=%d L=%d f32" % (
             MAX_BATCH, HEADS, EMBED // HEADS, POSITIONS),
-        "launches": launches + inwf_b4 + par_b4,
+        "launches": launches + fabric_b4 + inwf_b4 + par_b4,
         "launches_by_path": {"serving": launches,
+                             "fabric_f32_wave": fabric_b4,
                              "in_workflow_serving": inwf_b4,
                              "pipelined_export_serving": par_b4},
         "max_abs_err": max_err,
@@ -6751,7 +7487,9 @@ def main():
         "replaces": "veles_tpu/ops/pallas_attention.py:639",
         "shape": "B=%d Sq=1 H=%d D=%d L=%d int8 codes, (B, L, H) f32 "
                  "scales" % (MAX_BATCH, HEADS, EMBED // HEADS, POSITIONS),
-        "launches": quant_launches,
+        "launches": quant_launches + fabric_b5,
+        "launches_by_path": {"quant_serving": quant_launches,
+                             "fabric_int8_wave": fabric_b5},
         "max_abs_err": max(v[0] for v in quant_worst.values()),
         "max_err_by_code": {k: v[0] for k, v in quant_worst.items()},
         "tol": {"rtol": RTOL, "atol": ATOL},
@@ -6875,11 +7613,13 @@ def main():
             "library_fwd_bwd_ms": None if name == "lrn_forward" else
             sum(r["library_ms"] for r in rows),
         })
+    print(json.dumps({"phase_s": PHASE_S}))
     print(json.dumps({"training": training}))
     print(json.dumps({"alexnet": alexnet}))
     print(json.dumps({"snapshots": snapshots}))
     print(json.dumps({"streamed": streamed}))
     print(json.dumps({"serving": numbers}))
+    print(json.dumps({"fabric": fabric}))
     print(json.dumps({"in_workflow_serving": inworkflow}))
     print(json.dumps({"pretraining": pretraining}))
     print(json.dumps({"population": population}))

@@ -19,7 +19,7 @@ from veles_tpu_torch import restful as trestful
 from veles_tpu_torch.config import root as troot
 
 SUBTREES = ("serving", "guardian", "loader", "engine", "population",
-            "genetics", "server")
+            "genetics", "server", "observability")
 
 
 def _jax_options():
@@ -44,7 +44,7 @@ def test_every_jax_option_is_parsed_or_refused_by_name():
     assert missing == []
     # A flag is one or the other, never both.
     assert sorted(port & refused) == []
-    assert set(tmain.NOT_PORTED.values()) <= {"A8", "A8a"}
+    assert set(tmain.NOT_PORTED.values()) <= {"A8b"}
 
 
 @pytest.mark.parametrize("flag", REFUSED)
@@ -137,6 +137,10 @@ SERVE_CASES = [
     (["--serve-reload-watch", "m_current.lnk"],
      {"serving.reload_watch": "m_current.lnk"}),
     (["--serve-reload-poll", "0.5"], {"serving.reload_poll": 0.5}),
+    (["--serve-fabric-replicas", "2"], {"serving.fabric_replicas": 2}),
+    (["--serve-fabric-disagg"], {"serving.fabric_disagg": True}),
+    (["--serve-tenant", "a=1:2", "--serve-tenant", "b=5@m.tgz"],
+     {"serving.tenant": ["a=1:2", "b=5@m.tgz"]}),
 ]
 
 
@@ -155,7 +159,7 @@ def test_flag_sets_the_same_keys_in_both_trees(argv, want):
 def test_every_port_serve_flag_is_covered():
     covered = {a[0].split("=")[0] for a, _ in SERVE_CASES}
     port = {o for o in _port_options() if o.startswith("--serve-")}
-    assert covered == port and len(port) == 18
+    assert covered == port and len(port) == 21
 
 
 def test_all_flags_at_once_and_the_serving_defaults():
@@ -311,3 +315,46 @@ def test_jax_flags_choose_the_distributed_launcher_together():
         with pytest.raises(Bug, match="must be given together"):
             main._launcher_kwargs()
     assert tmain.Main(["wf.py"]).parse() is not None
+
+
+#: The observability flags (A8a): ``--trace-out`` sets the trace keys
+#: and turns tracing on (with ``--trace-ring``'s ring), ``--xprof`` its
+#: key and arms the capture window; alone, ``--trace-ring`` and
+#: ``--xprof-steps`` set nothing, as in the JAX command line.
+OBS_CASES = [
+    (["--trace-out", "t.json"],
+     {"observability.trace_out": "t.json", "observability.trace": True}),
+    (["--trace-out", "t.json", "--trace-ring", "64"],
+     {"observability.trace_out": "t.json", "observability.trace": True}),
+    (["--trace-ring", "64"], {}),
+    (["--xprof", "xp"], {"observability.xprof": "xp"}),
+    (["--xprof", "xp", "--xprof-steps", "3"], {"observability.xprof": "xp"}),
+    (["--xprof-steps", "3"], {}),
+]
+
+
+@pytest.mark.parametrize("argv,want", OBS_CASES,
+                         ids=lambda v: " ".join(v)
+                         if isinstance(v, list) else "")
+def test_observability_flag_sets_the_same_keys_in_both_trees(argv, want):
+    """The same keys in both trees, and the same live state: tracing on
+    with the same ring size, the same capture window armed."""
+    from veles_tpu.observability import attribution as jattr
+    from veles_tpu.observability import tracing as jtrace
+    from veles_tpu_torch.observability import attribution as tattr
+    from veles_tpu_torch.observability import tracing as ttrace
+    try:
+        with _kept_trees():
+            got_jax = _apply(jmain, jroot, argv)
+        with _kept_trees():
+            got_port = _apply(tmain, troot, argv)
+        assert got_jax == want
+        assert got_port == want
+        assert ttrace.enabled() == jtrace.enabled() == \
+            ("--trace-out" in argv)
+        assert ttrace._collector.maxlen == jtrace._collector.maxlen
+        for key in ("dir", "steps"):
+            assert tattr._xprof[key] == jattr._xprof[key]
+    finally:
+        for mod in (ttrace, jtrace, tattr, jattr):
+            mod.reset()

@@ -461,10 +461,10 @@ def test_job_serialization_does_not_block_updates():
     release = threading.Event()
     orig = Server._serialize_job
 
-    def slow_serialize(self, chan, job):
+    def slow_serialize(self, chan, job, extra=None):
         serializing.set()
         assert release.wait(10), "test deadlock"
-        return orig(self, chan, job)
+        return orig(self, chan, job, extra)
 
     try:
         chan_a, _ = handshook_channel(server, master)

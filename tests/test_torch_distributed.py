@@ -294,8 +294,40 @@ def _session_lost_rank(rank, world, out):
             pickle.dump(report, fout)
 
 
+#: One case of each parallel family (tp, sp's ring, ep, pp, each over
+#: dp) whose ticks run under each attribution mode: on with a peak
+#: configured (the first tick of each geometry then runs under the FLOP
+#: counter), off, and on without a peak.
+ATTRIBUTION_CASES = ("dp_tp_split", "dp_tp_sp_ring", "dp_ep_top2",
+                     "dp_pp_1f1b")
+ATTRIBUTION_MODES = ((True, 1.0), (False, None), (True, None))
+
+
+def _session_attribution(rank, world, out):
+    """Each of :data:`ATTRIBUTION_CASES` trained from the same seed once
+    per mode of :data:`ATTRIBUTION_MODES`; rank 0 writes the losses and
+    parameters after each tick, and the mode's ``perf_summary``."""
+    from veles_tpu_torch.config import root
+    from veles_tpu_torch.observability import attribution
+    root.common.engine.precision_level = 1
+    results = {}
+    for case in ATTRIBUTION_CASES:
+        style, lm, _ = CASES[case]
+        for on, peak in ATTRIBUTION_MODES:
+            attribution.reset()
+            root.common.observability.attribution = on
+            root.common.observability.peak_tflops = peak
+            run = _train(_styled(style, **lm))
+            run["perf"] = attribution.perf_summary(wait=True)
+            results[(case, on, peak)] = run
+    if rank == 0:
+        with open(out, "wb") as fout:
+            pickle.dump(results, fout)
+
+
 SESSIONS = {"styles": _session_styles, "topology": _session_topology,
-            "lost_rank": _session_lost_rank}
+            "lost_rank": _session_lost_rank,
+            "attribution": _session_attribution}
 
 
 def _rank_main(session, rank, world, store, out, err):
@@ -371,6 +403,15 @@ def styles_run(tmp_path_factory):
         _SESSION_CACHE["styles"] = _run_session(
             tmp_path_factory.mktemp("styles"), "styles")
     return _SESSION_CACHE["styles"]
+
+
+@pytest.fixture
+def attribution_run(tmp_path_factory):
+    """The "attribution" session, run once for the tests that read it."""
+    if "attribution" not in _SESSION_CACHE:
+        _SESSION_CACHE["attribution"] = _run_session(
+            tmp_path_factory.mktemp("attribution"), "attribution")
+    return _SESSION_CACHE["attribution"]
 
 
 #: TinyLM kwargs that do not change the one-device function (the axes
@@ -451,6 +492,30 @@ def test_style_ticks_match_jax(case, styles_run, kept_roots):
         assert got["shards"], case
     for name, (held, shard, dropped) in got["shards"].items():
         assert held == shard and dropped, (case, name, held, shard)
+
+
+@pytest.mark.parametrize("case", ATTRIBUTION_CASES)
+def test_style_ticks_same_bits_with_attribution_on_off(case,
+                                                        attribution_run):
+    """A style's ticks on a gloo world give the same losses and the same
+    parameters after every tick, bit for bit, with attribution on and a
+    peak configured (the first tick of each geometry under the FLOP
+    counter), off, and on without a peak; only the first published a
+    dispatch span and an MFU, and the second published nothing."""
+    runs = [attribution_run[(case,) + mode] for mode in ATTRIBUTION_MODES]
+    first = runs[0]
+    for run in runs[1:]:
+        assert run["losses"] == first["losses"], case
+        for tick, params in enumerate(run["params"]):
+            for name, arr in params.items():
+                assert numpy.array_equal(
+                    arr, first["params"][tick][name]), (case, tick, name)
+    # The MFU is published (rounded to 4 places, a loaded host's long
+    # span may read 0.0 against the 1 TFLOP/s peak).
+    assert first["perf"]["step_ms"] > 0 and "mfu" in first["perf"]
+    assert first["perf"]["flops_per_dispatch"] > 0
+    assert runs[1]["perf"] is None
+    assert "mfu" not in runs[2]["perf"]
 
 
 def test_cross_topology_restore(tmp_path, kept_roots):

@@ -271,11 +271,15 @@ def test_port_artifact_loads_in_jax(tmp_path, port_model):
 
 
 def test_refusals(tmp_path, port_model):
+    # KV export and adoption are ported (A8a): an import of another
+    # geometry is refused, an export has the wire's shape.
     pool = port_model.make_kv_pool(8, kv_dtype="int8")
-    with pytest.raises(Bug, match="not yet ported"):
-        port_model.export_kv_blocks(pool, [1])
-    with pytest.raises(Bug, match="not yet ported"):
-        port_model.import_kv_blocks(pool, [1], None)
+    L, H, D = port_model._paged_geometry()
+    assert port_model.export_kv_blocks(pool, [1]).shape == \
+        (L, 2, 1, pool.block_size, H, D)
+    with pytest.raises(Bug, match="does not match pool geometry"):
+        port_model.import_kv_blocks(
+            pool, [1], numpy.zeros((L, 2, 2, pool.block_size, H, D)))
     with pytest.raises(Bug, match="unknown KV storage dtype"):
         port_model.make_kv_pool(8, kv_dtype="f16")
     manifest, weights = _lm_weights(BLOCKS=1)

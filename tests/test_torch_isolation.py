@@ -66,7 +66,14 @@ def test_import_leaves_jax_and_veles_tpu_out():
             "veles_tpu_torch.fleet.scheduler, "
             "veles_tpu_torch.population.lineage, "
             "veles_tpu_torch.population.master, "
-            "veles_tpu_torch.population.worker\n"
+            "veles_tpu_torch.population.worker, "
+            "veles_tpu_torch.observability, "
+            "veles_tpu_torch.observability.tracing, "
+            "veles_tpu_torch.observability.attribution, "
+            "veles_tpu_torch.serving.fabric, "
+            "veles_tpu_torch.serving.fabric.router, "
+            "veles_tpu_torch.serving.fabric.disagg, "
+            "veles_tpu_torch.serving.fabric.registry\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib', 'veles_tpu.')) or "
             "m == 'veles_tpu')\n"

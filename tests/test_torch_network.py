@@ -491,25 +491,43 @@ def test_launcher_refuses_what_is_not_ported():
 
 def test_tracing_hello_is_refused_naming_a8a():
     """A worker whose hello asks for span tracing (as the JAX package's
-    workers do) is refused with an error frame naming ROADMAP A8a."""
+    and the port's workers do) is granted ``trace`` as JAX's
+    ``negotiate_protocol`` grants it — when the master traces, by the
+    live switch or the config — and over a socket the handshake's
+    reply carries it."""
+    from veles_tpu.server import negotiate_protocol as jnegotiate
     from veles_tpu_torch.network_common import Channel, connect
+    from veles_tpu_torch.observability import tracing
     from veles_tpu_torch.server import negotiate_protocol
-    proto, err = negotiate_protocol(
-        {"proto": {"tensor": True, "delta": True, "trace": True}},
-        {"mode": "delta"})
-    assert proto is None and "ROADMAP A8a" in err
-    master = InstrumentedWorkflow(Launcher())
-    server = Server("127.0.0.1:0", master)
-    chan = Channel(connect("127.0.0.1:%d" % server.port),
-                   master.checksum)
-    chan.send({"cmd": "handshake", "checksum": master.checksum,
-               "mid": machine_id(), "pid": 1, "power": 1.0,
-               "proto": {"tensor": True, "delta": True, "trace": True}})
-    reply = chan.recv()
-    chan.close()
-    stopped(server)
-    assert reply["cmd"] == "error" and "ROADMAP A8a" in reply["error"]
-    assert not master.generated
+    from veles_tpu.observability import tracing as jtracing
+    hellos = [{"proto": {"tensor": True, "delta": True, "trace": t}}
+              for t in (True, False)]
+    try:
+        for live in (False, True):
+            for mod in (tracing, jtracing):
+                (mod.enable if live else mod.disable)()
+            for hello in hellos:
+                for want in (None, True, False):
+                    cfg = {"mode": "delta", "trace": want}
+                    assert negotiate_protocol(hello, cfg) == \
+                        jnegotiate(hello, dict(cfg)), (live, hello, want)
+        tracing.enable()
+        master = InstrumentedWorkflow(Launcher())
+        server = Server("127.0.0.1:0", master)
+        chan = Channel(connect("127.0.0.1:%d" % server.port),
+                       master.checksum)
+        chan.send({"cmd": "handshake", "checksum": master.checksum,
+                   "mid": machine_id(), "pid": 1, "power": 1.0,
+                   "proto": {"tensor": True, "delta": True,
+                             "trace": True}})
+        reply = chan.recv()
+        chan.close()
+        stopped(server)
+    finally:
+        tracing.reset()
+        jtracing.reset()
+    assert reply["cmd"] == "handshake_ack"
+    assert reply["proto"]["trace"] is True
 
 
 # -- training over loopback ------------------------------------------------

@@ -12,8 +12,10 @@ the same process.
   artifact's weights;
 * ``--serve-kv-dtype int8`` (through the command line's flags) reaches
   the engine's KV plane;
-* the unit serves on the workflow's device, and a serving-fabric kwarg
-  raises, naming ROADMAP A8.
+* the unit serves on the workflow's device;
+* the serving fabric's kwargs (or the config tree's ``fabric_*``
+  keys) build a fabric — replicas, disaggregated prefill, tenants —
+  whose answers are token-identical to the plain ``generate``.
 """
 
 import concurrent.futures
@@ -31,7 +33,6 @@ from veles_tpu_torch import prng as tprng
 from veles_tpu_torch.__main__ import Main
 from veles_tpu_torch.backends import resolve_device
 from veles_tpu_torch.config import root
-from veles_tpu_torch.error import Bug
 from veles_tpu_torch.export import ExportedModel
 from veles_tpu_torch.launcher import Launcher
 from veles_tpu_torch.ops.decode_attention import decode_attention_reference
@@ -50,11 +51,12 @@ PROMPTS = ([3, 1, 4], [1, 5, 9, 2, 6, 5, 3, 5, 8, 9, 7, 9, 3, 2, 3, 8, 4],
 MAX_NEW = 6
 
 
-def _post(port, path, payload):
+def _post(port, path, payload, headers=None):
     req = urllib.request.Request(
         "http://127.0.0.1:%d%s" % (port, path),
         data=json.dumps(payload).encode(),
-        headers={"Content-Type": "application/json"})
+        headers=dict({"Content-Type": "application/json"},
+                     **(headers or {})))
     try:
         with urllib.request.urlopen(req, timeout=120) as resp:
             return resp.status, json.loads(resp.read())
@@ -121,25 +123,6 @@ def test_unit_serves_on_the_workflow_device(mnist):
         assert cuda_api.server is None
 
 
-@pytest.mark.parametrize("kwargs", [{"fabric_replicas": 2},
-                                    {"fabric_disagg": True},
-                                    {"tenant": ["a=1"]}],
-                         ids=["replicas", "disagg", "tenant"])
-def test_fabric_kwargs_raise_naming_a8(kwargs):
-    with pytest.raises(Bug, match="A8"):
-        RESTfulAPI(None, **kwargs)
-
-
-def test_fabric_from_the_config_tree_raises_too():
-    root.common.serving.fabric_replicas = 3
-    try:
-        with pytest.raises(Bug, match="A8"):
-            RESTfulAPI(None)
-    finally:
-        del root.common.serving.__dict__["fabric_replicas"]
-    RESTfulAPI(None, fabric_replicas=1)
-
-
 @pytest.fixture(scope="module")
 def lm(tmp_path_factory):
     tprng.reset()
@@ -201,3 +184,72 @@ def test_serve_kv_dtype_flag_reaches_the_engine_plane(lm, tmp_path):
     finally:
         root.common.serving.__dict__.clear()
         root.common.serving.__dict__.update(saved)
+
+
+def _fabric_answers(wf, path, headers=None, **kwargs):
+    """The unit with ``kwargs`` exporting ``wf`` to ``path`` and serving
+    it on the CPU: its fabric and its answers to PROMPTS, one by one."""
+    api = RESTfulAPI(wf, host="127.0.0.1", port=0, artifact_path=path,
+                     max_batch=4, kv_block_size=4, **kwargs)
+    api.initialize(device=resolve_device("cpu"))
+    api.run()
+    try:
+        fabric = api.server.fabric
+        replies = [_post(api.port, "/api/generate",
+                         {"tokens": [p], "max_new_tokens": MAX_NEW},
+                         headers) for p in PROMPTS]
+        occupancy = fabric.occupancy()
+    finally:
+        api.stop()
+    assert [status for status, _ in replies] == [200] * len(PROMPTS)
+    return fabric, occupancy, [r["generated"][0] for _, r in replies]
+
+
+def _plain_answers(path):
+    plain = ExportedModel(path, device="cpu")
+    return [plain.generate(numpy.asarray([p]), MAX_NEW,
+                           attend=decode_attention_reference)[
+                               0, len(p):].tolist() for p in PROMPTS]
+
+
+@pytest.mark.parametrize("kwargs", [{"fabric_replicas": 2},
+                                    {"fabric_disagg": True},
+                                    {"tenant": ["a=1000"]}],
+                         ids=["replicas", "disagg", "tenant"])
+def test_fabric_kwargs_raise_naming_a8(kwargs, lm, tmp_path):
+    """Each fabric kwarg, refused until the fabric was ported, now
+    builds it: two replicas, a prefill worker whose blocks the replica
+    adopts (the 16- and 17-token prompts span full 4-token blocks), or
+    a tenant (``X-Tenant: a``); the answers are token-identical to the
+    plain ``generate`` over the artifact the unit wrote."""
+    wf, _, _ = lm
+    path = str(tmp_path / "fabric.veles.tgz")
+    headers = {"X-Tenant": "a"} if "tenant" in kwargs else None
+    fabric, occupancy, answers = _fabric_answers(wf, path, headers,
+                                                 **kwargs)
+    assert answers == _plain_answers(path)
+    assert occupancy["routed"] == len(PROMPTS)
+    if "fabric_replicas" in kwargs:
+        assert occupancy["replicas"] == 2
+    if "fabric_disagg" in kwargs:
+        assert fabric.prefill is not None
+        assert occupancy["adopted_blocks"] >= 1
+    if "tenant" in kwargs:
+        assert occupancy["registry"]["tenants"]["a"]["admitted"] == \
+            len(PROMPTS)
+
+
+def test_fabric_from_the_config_tree_raises_too(lm, tmp_path):
+    """``root.common.serving.fabric_replicas`` (set by
+    ``--serve-fabric-replicas``) builds the fabric too — three replicas
+    answering token-identical; an explicit kwarg wins."""
+    wf, _, _ = lm
+    root.common.serving.fabric_replicas = 3
+    try:
+        assert RESTfulAPI(None, fabric_replicas=1).fabric_replicas == 1
+        path = str(tmp_path / "tree.veles.tgz")
+        _, occupancy, answers = _fabric_answers(wf, path)
+    finally:
+        del root.common.serving.__dict__["fabric_replicas"]
+    assert occupancy["replicas"] == 3
+    assert answers == _plain_answers(path)

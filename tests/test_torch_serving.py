@@ -19,7 +19,6 @@ import torch
 
 from veles_tpu.export import ExportedModel as JaxModel
 from veles_tpu_torch import export as X
-from veles_tpu_torch.error import Bug
 from veles_tpu_torch.restful import ModelServer
 from veles_tpu_torch.serving import ServingEngine
 
@@ -198,18 +197,42 @@ def test_device_fault_recovery_is_token_identical(artifact, prompts,
 
 
 def test_not_ported_options_refuse(artifact, capsys):
-    """What the port leaves out refuses with "not yet ported": KV
-    export/adopt between engines, and the serving fabric's flags
-    (replicas, disaggregated prefill, tenants)."""
-    model = X.ExportedModel(artifact, device="cpu")
-    engine = ServingEngine(model)
-    with pytest.raises(Bug, match="not yet ported"):
-        engine.adopt_kv_prefix([1, 2, 3], {"weight_version": 1})
-    with pytest.raises(Bug, match="not yet ported"):
-        engine.export_kv_prefix([1, 2, 3])
+    """What the port once refused now works: KV export/adopt between
+    engines (an unprefilled prompt exports nothing, a payload of another
+    weight version is refused as stale) and the serving fabric's flags
+    (replicas, disaggregated prefill, tenants), which build the server's
+    fabric."""
+    import signal
     from veles_tpu_torch import serve
-    for flags in (["--fabric-replicas", "2"], ["--fabric-disagg"],
-                  ["--tenant", "a=1"]):
-        with pytest.raises(SystemExit):
-            serve.main([artifact, "--device", "cpu"] + flags)
-        assert "not yet ported" in capsys.readouterr().err
+    from veles_tpu_torch.serving.fabric import (pack_kv_payload,
+                                                unpack_kv_payload)
+    model = X.ExportedModel(artifact, device="cpu")
+    engine = ServingEngine(model, kv_block_size=8)
+    assert engine.export_kv_prefix(list(range(1, 20))) is None
+    tokens = numpy.arange(1, 17, dtype=numpy.int32)
+    L, H, D = model._paged_geometry()
+    payload = unpack_kv_payload(pack_kv_payload(
+        tokens, 2, numpy.zeros((L, 2, 2, 8, H, D), numpy.float32), 8,
+        engine.weight_version + 1))
+    assert engine.adopt_kv_prefix(tokens, payload) == 0
+    assert engine.stats.get("kv.adopt_stale") == 1
+    built = []
+    sigterm = signal.getsignal(signal.SIGTERM)
+    serve_ = ModelServer.serve
+    ModelServer.serve = lambda self: built.append(
+        (self, len(self.fabric), self.fabric.prefill is not None,
+         self.fabric.registry and self.fabric.registry.tenants()))
+    try:
+        for flags in (["--fabric-replicas", "2"], ["--fabric-disagg"],
+                      ["--tenant", "a=1"]):
+            assert serve.main([artifact, "--device", "cpu", "--port",
+                               "0"] + flags) == 0
+    finally:
+        ModelServer.serve = serve_
+        signal.signal(signal.SIGTERM, sigterm)
+        for server, _, _, _ in built:
+            server._httpd.server_close()
+            server.fabric.stop(drain=False)
+    assert [b[1:] for b in built] == [(2, False, None), (1, True, None),
+                                      (1, False, ["a"])]
+    assert "not yet ported" not in capsys.readouterr().err

@@ -373,8 +373,9 @@ def test_cli_refuses_what_is_not_ported():
     """Modes of the JAX CLI that the port lacks raise "not yet
     ported"; a missing card raises instead of running on the CPU."""
     from veles_tpu_torch.__main__ import Main
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        Main(["wf.py", "--trace-out", "t.json"]).parse()
+    # --trace-out is ported (A8a): it parses.
+    assert Main(["wf.py", "--trace-out", "t.json"]).parse().trace_out \
+        == "t.json"
     with pytest.raises(NotImplementedError, match="A8"):
         Main(["wf.py", "--dry-run"]).parse()
     if not torch.cuda.is_available():

@@ -15,6 +15,7 @@ Usage::
         [--train-ratio R] [--shuffle-limit N] [--optimizer NAME] \
         [--attn-fused-qkv on|off] [--attn-dtype f32|bf16] \
         [--attn-kernel xla|pallas|auto] [--serve-* ...] \
+        [--trace-out FILE [--trace-ring N]] [--xprof DIR [--xprof-steps N]] \
         [-l HOST:PORT [--nodes HOST,...] | -m HOST:PORT] \
         [--optimize SIZE[:GENERATIONS] | --population N[:GENERATIONS]
          [--pbt ...] [--population-vmap on|off] |
@@ -36,7 +37,11 @@ generation in the snapshot directory) — and ``main`` initializes it
 on the device (the CUDA card unless ``--device cpu``), runs it and
 writes the results JSON.  The ``--serve-*`` flags configure an in-workflow
 :class:`~veles_tpu_torch.restful.RESTfulAPI` unit through
-``root.common.serving``.  The meta-workflow modes run in this process
+``root.common.serving``, the serving fabric's replicas, disaggregated
+prefill and tenants included.  ``--trace-out`` turns span tracing on
+(the master or standalone launcher writes the Chrome trace at the end
+of the run) and ``--xprof`` arms a ``torch.profiler`` capture window
+around the next ``--xprof-steps`` dispatches.  The meta-workflow modes run in this process
 instead of the plain run: ``--optimize`` (the genetic search over
 ``Tune()`` leaves, :mod:`.genetics`), ``--population`` (a GA
 population, one vmapped device job per generation, :mod:`.population`),
@@ -53,9 +58,9 @@ population members as lineages over the fleet (``-l``/``-m``, or an
 in-process loopback), ``--ensemble-population`` routes
 ``--ensemble-train`` through them.  The three ``--jax-*`` flags make
 the process one rank of a ``torch.distributed`` world.  The JAX CLI's
-other modes — web status, profiling, tracing, the serving fabric —
-are not yet ported: their flags raise, naming their ROADMAP queue
-(:data:`NOT_PORTED`).
+other modes — web status, the frontend, profiling the whole run,
+dry runs and graph dumps — are not yet ported: their flags raise,
+naming their ROADMAP queue (:data:`NOT_PORTED`).
 """
 
 import argparse
@@ -65,8 +70,8 @@ import logging
 import os
 import sys
 
-from . import (client, guardian, network_common, population, prng,
-               restful, snapshotter)
+from . import (client, guardian, network_common, observability,
+               population, prng, restful, snapshotter)
 from .loader import base as loader_base
 from .ops import attention, moe, pipeline
 from .znicz import optimizers
@@ -79,15 +84,9 @@ from .logger import Logger
 #: Flags of the JAX CLI that the port refuses, with the ROADMAP queue
 #: that brings each.
 NOT_PORTED = {
-    "-a": "A8", "--backend": "A8", "--dry-run": "A8",
-    "--workflow-graph": "A8", "--dump-config": "A8",
-    "--profile": "A8", "--frontend": "A8",
-    # The serving fabric.
-    "--serve-fabric-replicas": "A8", "--serve-fabric-disagg": "A8",
-    "--serve-tenant": "A8",
-    # Observability.
-    "--trace-out": "A8a", "--trace-ring": "A8a", "--xprof": "A8a",
-    "--xprof-steps": "A8a",
+    "-a": "A8b", "--backend": "A8b", "--dry-run": "A8b",
+    "--workflow-graph": "A8b", "--dump-config": "A8b",
+    "--profile": "A8b", "--frontend": "A8b",
 }
 
 #: Flags of the JAX CLI that have no counterpart in the port, with the
@@ -188,6 +187,7 @@ def make_parser():
     moe.init_parser(parser)
     pipeline.init_parser(parser)
     restful.init_parser(parser)
+    observability.init_parser(parser)
     return parser
 
 
@@ -317,6 +317,23 @@ class Main(Logger):
             serving.paged = False
         if args.serve_spec:
             serving.spec = True
+        if args.serve_fabric_replicas is not None:
+            serving.fabric_replicas = args.serve_fabric_replicas
+        if args.serve_fabric_disagg:
+            serving.fabric_disagg = True
+        if args.serve_tenant:
+            serving.tenant = list(args.serve_tenant)
+        # --trace-out arms span tracing (the launcher exports at the end
+        # of the run; workers turn theirs on through the handshake),
+        # --xprof the capture window around the next N dispatches.
+        if args.trace_out:
+            root.common.observability.trace_out = args.trace_out
+            root.common.observability.trace = True
+            observability.tracing.enable(ring=args.trace_ring)
+        if args.xprof:
+            root.common.observability.xprof = args.xprof
+            observability.attribution.configure_xprof(args.xprof,
+                                                      args.xprof_steps)
         engine = root.common.engine
         if args.attn_fused_qkv is not None:
             engine.fused_qkv = args.attn_fused_qkv == "on"

@@ -241,6 +241,9 @@ class StepCompiler(object):
         self._held = {}           # placed shards between ticks
         self._scattered = set()   # ZeRO-2 gradients kept partitioned
         self._pin_ = None         # a population job's step stream
+        # Per-geometry FLOP count for the live MFU gauge
+        # (observability.attribution); 0 = tried, unavailable.
+        self._step_flops_ = {}
 
     # -- graph analysis ----------------------------------------------------
 
@@ -315,7 +318,26 @@ class StepCompiler(object):
                                          "health_device_skip", True))
         self._fingerprint = self.fingerprint()
         self._compile_placements()
+        self._step_flops_ = {}
+        self._note_optimizer_stats()
         self._compiled = True
+
+    def _note_optimizer_stats(self):
+        """Publishes the optimizer observability gauges
+        (``optimizer.state_bytes`` / ``optimizer.shard_frac`` with an
+        ``optimizer.kind`` label): one walk per compile, not per
+        dispatch."""
+        gds = list(dict.fromkeys(self.gd_map.values()))
+        if not gds:
+            return
+        kinds = sorted({getattr(gd, "optimizer", "sgd") for gd in gds})
+        state_bytes = sum(vec.nbytes for gd in gds
+                          for vec in gd.tstate.values())
+        zero = getattr(self.workflow, "_zero_", None)
+        shard_frac = 1.0 / zero[1] if zero and zero[1] else 1.0
+        from .observability import attribution
+        attribution.note_optimizer("+".join(kinds), state_bytes,
+                                   shard_frac)
 
     def _compile_placements(self):
         """This rank's view of the workflow's mesh, the placements of
@@ -764,6 +786,30 @@ class StepCompiler(object):
         self._outputs = {}
         return metrics
 
+    def _dispatch(self, key, ticks, mode, run):
+        """Runs one dispatch (``run()``, ``ticks`` ticks) inside its
+        ``step.dispatch`` span and attribution's event pair.
+        The first dispatch of each geometry ``key`` runs under the FLOP
+        counter when a peak is known (the MFU denominator), and is
+        left untimed (the counter slows the host)."""
+        from .observability import attribution, tracing
+        device = self._device()
+        flops = count = None
+        if attribution.enabled() and \
+                attribution.peak_flops(device) is not None:
+            flops = self._step_flops_.get(key)
+            count = flops is None
+        timer = attribution.begin_step(ticks=ticks, flops=flops,
+                                       device=device, timed=not count)
+        with tracing.span("step.dispatch", mode=mode, ticks=ticks):
+            if count:
+                out, self._step_flops_[key] = \
+                    attribution.count_flops(run)
+            else:
+                out = run()
+        attribution.end_step(timer, device=device)
+        return out
+
     def execute(self, training=True, hypers=None):
         """Runs one tick on the loader's current minibatch; returns its
         metrics (device tensors).  ``hypers`` (``{name: float}``, train
@@ -771,7 +817,10 @@ class StepCompiler(object):
         :meth:`_hyper_program`."""
         self._ensure_compiled()
         batch = {str(id(v)): v.devmem for v in self.batch_vectors}
-        return self._tick(batch, training, hypers=hypers)
+        mode = "train" if training else "infer"
+        return self._dispatch(
+            (mode,), 1, mode,
+            lambda: self._tick(batch, training, hypers=hypers))
 
     def execute_block(self, blocks, training, hypers=None):
         """Runs K stacked ticks; ``blocks`` maps batch vector id →
@@ -784,10 +833,15 @@ class StepCompiler(object):
         :meth:`execute`."""
         self._ensure_compiled()
         blocks = self._block_tensors(blocks)
-        for t in range(self._block_ticks(blocks)):
-            self._tick({k: v[t] for k, v in blocks.items()}, training,
-                       block=True, hypers=hypers)
-        return {}
+        ticks = self._block_ticks(blocks)
+
+        def run():
+            for t in range(ticks):
+                self._tick({k: v[t] for k, v in blocks.items()},
+                           training, block=True, hypers=hypers)
+            return {}
+        return self._dispatch(("block", ticks, bool(training)), ticks,
+                              "block", run)
 
     def _block_tensors(self, blocks):
         device = self._device()

@@ -7,11 +7,16 @@ job_request → ``do_job`` → update, plain or pipelined
 departure on SIGTERM (``--preempt-grace``); and periodic re-measurement
 of its computing power.
 
-The worker's span tracing and its clock sync with the master
-(``ClockSync``) are ROADMAP A8a: this worker does not advertise the
-``trace`` capability.
+On a trace session (the master traces and grants the ``trace``
+capability the worker advertises) the worker turns its span collector
+on, estimates the master's clock offset from the timestamps of the
+master's replies (:class:`~veles_tpu_torch.observability.tracing
+.ClockSync`), runs each job inside a ``worker.step`` span under the
+master's ``server.dispatch`` context, and ships the job's spans back
+with its update, shifted onto the master's clock.
 """
 
+import collections
 import os
 import random
 import threading
@@ -22,6 +27,7 @@ from .config import root, get as config_get
 from .logger import Logger
 from .network_common import (Channel, connect, machine_id,
                              normalize_secret)
+from .observability import tracing
 from .resilience import (HandshakeRejected, ProtocolError,
                          RetryPolicy, WorkerHang, WorkerKilled,
                          WorkerPreempted)
@@ -32,6 +38,7 @@ WORKER_CAPS = {
     "tensor": True,        # tensor-framed messages
     "delta": True,         # delta weight sync (both directions)
     "block": True,         # multi-tick jobs (one block of ticks)
+    "trace": True,         # span shipping + clock-sync timestamps
     "slots": True,         # ZeRO slot-shard sync (--net-zero)
     "codecs": ("none", "gzip"),
     "dtypes": ("fp32", "bf16", "int8"),
@@ -186,6 +193,11 @@ class Client(Logger):
         self.id = None
         self.jobs_done = 0
         self._stop = False
+        #: Master-clock offset estimator: fed by the timestamps trace
+        #: sessions carry on job-cycle replies; shipped spans are
+        #: re-timestamped onto the master timeline with its best
+        #: (minimum-RTT) estimate.
+        self.clock = tracing.ClockSync()
         #: Pipelined mode (``--async-slave``): job N+1 is requested
         #: BEFORE job N's update is sent, so the network round trip
         #: overlaps local compute.
@@ -387,6 +399,30 @@ class Client(Logger):
         self.jobs_done += 1
         return result.get("update")
 
+    def _traced_job(self, msg, trace_on):
+        """Runs one job; on a trace session, wraps it in a
+        ``worker.step`` span parented to the master's dispatch span and
+        returns ``(update, spans)`` with the spans captured on this
+        thread re-timestamped onto the master clock.  ``spans=None``
+        outside trace sessions."""
+        tctx = msg.get("trace") if trace_on else None
+        if not tctx or not tracing.enabled():
+            return self._run_job(msg["data"]), None
+        with tracing.capture() as captured:
+            with tracing.attach(tctx.get("trace_id"),
+                                tctx.get("parent")):
+                with tracing.span("worker.step", worker=self.id,
+                                  pid=os.getpid()):
+                    update = self._run_job(msg["data"])
+        return update, tracing.shift(captured, self.clock.offset)
+
+    def _update_msg(self, update, spans):
+        out = {"cmd": "update", "data": update}
+        if spans is not None:
+            out["spans"] = spans
+            out["clock"] = self.clock.state()
+        return out
+
     def _measure_power(self):
         launcher = getattr(self.workflow, "workflow", None)
         return measure_computing_power(
@@ -396,17 +432,22 @@ class Client(Logger):
         """Pipelined cycle: the next job request is on the wire while
         the current job computes, so the worker never idles on master
         latency.  Replies arrive in request order (one TCP stream, a
-        serial server handler), so a count of the requests in flight
-        suffices — no reply-id matching."""
+        serial server handler), so each reply pairs with the oldest
+        request in flight — its send time is the clock sample's."""
+        trace_on = bool(chan.proto.get("trace"))
+        sent_at = collections.deque()
         chan.send({"cmd": "job_request"})
-        pending = 1
+        sent_at.append(time.time())
         while not self._stop:
             msg = chan.recv()
             if msg is None:
                 return False
+            recv_ts = time.time()
             cmd = msg.get("cmd")
-            if cmd in ("job", "no_job", "bye") and pending:
-                pending -= 1
+            if cmd in ("job", "no_job", "bye") and sent_at:
+                send_ts = sent_at.popleft()
+                if trace_on and "ts" in msg:
+                    self.clock.sample(send_ts, msg["ts"], recv_ts)
             if cmd == "bye":
                 return True
             if cmd == "update_ack":
@@ -416,7 +457,7 @@ class Client(Logger):
                     break  # the pipeline is empty: leave now
                 self._nojob_backoff()
                 chan.send({"cmd": "job_request"})
-                pending += 1
+                sent_at.append(time.time())
                 continue
             if cmd != "job":
                 continue
@@ -434,11 +475,11 @@ class Client(Logger):
             # are draining, in which case the pipeline empties out.
             if not self._draining:
                 chan.send({"cmd": "job_request"})
-                pending += 1
-            update = self._run_job(msg["data"])
-            chan.send({"cmd": "update", "data": update})
+                sent_at.append(time.time())
+            update, spans = self._traced_job(msg, trace_on)
+            chan.send(self._update_msg(update, spans))
             self._maybe_remeasure_power(chan)
-            if self._draining and not pending:
+            if self._draining and not sent_at:
                 break  # last pipelined update shipped: leave
         self._say_goodbye(chan)
         return True
@@ -489,6 +530,10 @@ class Client(Logger):
         # key — the session stays pickle-compat end to end.
         proto = reply.get("proto") or {}
         chan.set_proto(proto)
+        if proto.get("trace") and not tracing.enabled():
+            # The master is tracing and asked for our spans: the
+            # negotiated trace dialect is the worker's opt-in.
+            tracing.enable()
         note = getattr(self.workflow, "note_net_proto", None)
         if note is not None:
             note(proto)
@@ -504,13 +549,19 @@ class Client(Logger):
 
     def _job_cycle(self, chan):
         """Returns True on orderly completion."""
+        trace_on = bool(chan.proto.get("trace"))
         while not self._stop:
             if self._draining:
                 break  # planned departure: bye instead of a request
+            send_ts = time.time()
             chan.send({"cmd": "job_request"})
             msg = chan.recv()
             if msg is None:
                 return False
+            if trace_on and "ts" in msg:
+                # Request/reply timestamp pair → one clock-offset
+                # sample (the minimum-RTT sample wins; see ClockSync).
+                self.clock.sample(send_ts, msg["ts"], time.time())
             cmd = msg.get("cmd")
             if cmd == "bye":
                 return True
@@ -532,8 +583,8 @@ class Client(Logger):
                              "in-flight job")
                 resilience.stats.incr("client.preempt")
                 self.drain(self.preempt_grace)
-            update = self._run_job(msg["data"])
-            chan.send({"cmd": "update", "data": update})
+            update, spans = self._traced_job(msg, trace_on)
+            chan.send(self._update_msg(update, spans))
             ack = chan.recv()
             if ack is None:
                 return False

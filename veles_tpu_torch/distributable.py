@@ -4,7 +4,7 @@
 * :class:`SniffedLock` — a lock that logs a suspected deadlock.  The
   JAX package's version also reports every acquisition to a
   lock-order recorder (its ``analysis.runtime`` module); that recorder
-  is not ported yet (ROADMAP A8), so this lock only sniffs.
+  is not ported yet (ROADMAP A8b), so this lock only sniffs.
 * :class:`Pickleable` — attributes ending with ``_`` are transient:
   left out of pickles and recreated by ``init_unpickled``.
 * :class:`Distributable` — the unit data lock (a deadlock-sniffing

@@ -2007,13 +2007,66 @@ class ExportedModel(object):
         return storage
 
     def export_kv_blocks(self, pool, ids):
-        """KV export to another pool (prefill/decode disaggregation) —
-        not yet ported."""
-        raise Bug("KV export/adopt (export_kv_blocks) is not yet ported")
+        """The addressed pool blocks as ONE host array ``(L, 2, n,
+        block_size, H, D)`` float32 (k then v per layer) — the tensor
+        the disaggregation wire ships (``serving.fabric.disagg`` frames
+        it with ``encode_tensor_parts``).  A bf16 pool widens, an
+        int8/fp8 pool dequantizes (code · per-(block, head) scale), so
+        the wire is storage-dtype-agnostic.  The caller holds refs on
+        ``ids`` (``export_prefix_blocks``) so the blocks cannot be
+        reused mid-read, and runs on the engine's device thread."""
+        ks, vs, sks, svs = _kv_unpack(pool.storage)
+        idx = torch.as_tensor(list(ids), dtype=torch.int64,
+                              device=ks[0].device)
+        out = []
+        with torch.inference_mode():
+            for i, (k, v) in enumerate(zip(ks, vs)):
+                kb = k[idx].to(torch.float32)
+                vb = v[idx].to(torch.float32)
+                if sks is not None:
+                    kb = kb * sks[i][idx][:, None, :, None]
+                    vb = vb * svs[i][idx][:, None, :, None]
+                out.append(torch.stack([kb, vb]))
+            return torch.stack(out).cpu().numpy()
 
     def import_kv_blocks(self, pool, ids, blocks):
-        """KV adoption from another pool — not yet ported."""
-        raise Bug("KV export/adopt (import_kv_blocks) is not yet ported")
+        """Scatters a shipped ``(L, 2, n, block_size, H, D)`` host array
+        (:meth:`export_kv_blocks` on the peer) into THIS pool's storage
+        at ``ids``: a float32 or bf16 pool takes the values cast to its
+        dtype; an int8/fp8 pool re-quantizes them with fresh
+        per-(block, head) scales, ``amax / qmax`` over each block's
+        rows and dims, through the plane's quantizer (the JAX package's,
+        bit for bit).  The write is the copy-on-write copy's: in place,
+        block rows only, on the engine's device thread (the serving
+        path routes it through the op queue, so it never races a decode
+        step)."""
+        ks, vs, sks, svs = _kv_unpack(pool.storage)
+        # A copy: the wire's arrays are read-only views of its buffer.
+        blocks = numpy.array(blocks, dtype=numpy.float32)
+        L = len(ks)
+        if blocks.shape[:2] != (L, 2) or blocks.shape[2] != len(ids) or \
+                blocks.shape[3:] != tuple(ks[0].shape[1:]):
+            raise Bug("imported KV block shape %s does not match pool "
+                      "geometry (L=%d, block=%s, n=%d)" % (
+                          blocks.shape, L, tuple(ks[0].shape[1:]),
+                          len(ids)))
+        dev = ks[0].device
+        idx = torch.as_tensor(list(ids), dtype=torch.int64, device=dev)
+        vals = torch.from_numpy(blocks).to(dev)
+        with torch.inference_mode():
+            for i in range(L):
+                kb, vb = vals[i, 0], vals[i, 1]  # (n, bs, H, D)
+                if sks is None:
+                    ks[i][idx] = kb.to(ks[i].dtype)
+                    vs[i][idx] = vb.to(vs[i].dtype)
+                    continue
+                qmax = _KV_QMAX[pool.kv_dtype]
+                for codes, scales, x in ((ks[i], sks[i], kb),
+                                         (vs[i], svs[i], vb)):
+                    scale = torch.amax(torch.abs(x), dim=(1, 3)) / qmax
+                    codes[idx] = _kv_quantize(
+                        x, scale[:, None, :, None], pool.kv_dtype)
+                    scales[idx] = scale
 
     def _write_index(self, tables, start, n_cols, n_real, bs):
         """Where a chunk's k/v go, computed on the host from host

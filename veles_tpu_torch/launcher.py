@@ -33,8 +33,11 @@ host the same command through ``ssh -o BatchMode=yes`` — running
 dropped worker respawns through the same spawner on the node with the
 fewest live workers (``Server.respawn``).  The master's ``run`` reaps
 its workers when the server stops, and ``stop`` ends them: no worker
-process outlives its launcher.  Web-status heartbeats
-(``status_address``) are ROADMAP A8: asking for them raises.
+process outlives its launcher.  With ``--trace-out`` the master or a
+standalone run writes the collected spans as a Chrome trace at the end
+of ``run`` (a worker's spans ride the job protocol to its master).
+Web-status heartbeats (``status_address``, with their ``perf`` and
+``fabric`` rows) are ROADMAP A8b: asking for them raises.
 """
 
 import os
@@ -57,7 +60,7 @@ class Launcher(Logger):
         if kwargs.get("status_address"):
             raise NotImplementedError(
                 "Launcher(status_address=...) is not yet ported "
-                "(ROADMAP A8)")
+                "(ROADMAP A8b)")
         self._mode = kwargs.get("mode", "standalone")
         self.listen_address = kwargs.get("listen_address")
         self.master_address = kwargs.get("master_address")
@@ -372,6 +375,23 @@ class Launcher(Logger):
                             sid, desc.jobs_done, desc.jobs_per_second)
                         for sid, desc in sorted(slaves.items())))
             self.workflow.print_stats()
+            self._export_trace()
+
+    def _export_trace(self):
+        """Writes the collected spans as Chrome trace-event JSON when
+        ``--trace-out`` armed tracing (master or standalone only — a
+        worker's spans already rode the job protocol home)."""
+        from .observability import tracing
+        path = config_get(root.common.observability.trace_out, None)
+        if not path or self.is_slave or not tracing.enabled():
+            return
+        try:
+            obj = tracing.export_chrome_trace(path)
+        except OSError as e:
+            self.warning("cannot write trace %s: %s", path, e)
+            return
+        self.info("trace -> %s (%d events)", path,
+                  len(obj["traceEvents"]))
 
     def on_workflow_finished(self):
         self._finished.set()

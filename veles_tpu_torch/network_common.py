@@ -10,6 +10,8 @@ per-tensor payload codec (``none``/``gzip``, level and size threshold
 from ``--net-codec``) and the lossy delta encodings of ``--net-dtype``
 (bf16, int8).  Frames are HMAC-authenticated under a per-connection
 nonce and a monotonic sequence number before anything is unpickled.
+A channel's serialization and send are the ``net.serialize`` and
+``net.send`` spans of the trace (:mod:`.observability.tracing`).
 
 The codecs act on numpy arrays on the host: they are host code, and a
 payload is byte-equal to the JAX package's for the same input.
@@ -26,6 +28,8 @@ import threading
 import time
 import uuid
 import zlib
+
+from .observability import tracing as _tracing
 
 _HEADER = struct.Struct(">QB")  # payload length, flags
 _FLAG_GZIP = 1
@@ -638,20 +642,22 @@ class Channel(object):
     def encode(self, obj):
         """The expensive half of :meth:`send` (serialize + compress),
         safe to run outside any lock; pair with :meth:`send_parts`."""
-        return encode_message(obj, codec=self.codec,
-                              tensor=self.tensor_mode)
+        with _tracing.span("net.serialize"):
+            return encode_message(obj, codec=self.codec,
+                                  tensor=self.tensor_mode)
 
     def send_parts(self, flags, parts):
         """The socket half of :meth:`send`: MAC + sequence + sendall.
         Serialized per channel — two threads interleaving parts of
         different frames would corrupt the stream."""
         self._injector().check("net.send")
-        with self._send_lock:
-            send_parts(self.sock, flags, parts, self.secret,
-                       nonce=self.nonce,
-                       seq=self.send_seq if self.secret else None)
-            if self.secret is not None:
-                self.send_seq += 1
+        with _tracing.span("net.send"):
+            with self._send_lock:
+                send_parts(self.sock, flags, parts, self.secret,
+                           nonce=self.nonce,
+                           seq=self.send_seq if self.secret else None)
+                if self.secret is not None:
+                    self.send_seq += 1
 
     def send(self, obj):
         self.send_parts(*self.encode(obj))

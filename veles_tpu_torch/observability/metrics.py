@@ -195,6 +195,14 @@ class MetricsRegistry(object):
                         if kind is None or m.kind == kind]:
                 del self._metrics[key]
 
+    def remove_prefix(self, prefix):
+        """Drops every series whose name starts with ``prefix`` (a
+        subsystem clearing exactly its own state)."""
+        with self._lock:
+            for key in [k for k, m in self._metrics.items()
+                        if m.name.startswith(prefix)]:
+                del self._metrics[key]
+
     def counters_snapshot(self):
         """name → value over the counter series only (the flat-dict
         shape the ``stats.snapshot()`` contract promises)."""

@@ -245,6 +245,26 @@ def _count(wrapper, way):
     wrapper.route_launches[way] += 1
 
 
+def _on_card(t):
+    """Whether ``t`` takes the kernels (a CUDA tensor) or the plain
+    versions (a CPU tensor)."""
+    return t.device.type != "cpu"
+
+
+def _report_flops(q, k, factor):
+    """A launch's FLOPs for the MFU gauge of ``observability
+    .attribution``, whose counter cannot see a kernel: the products of
+    the plain formulation it replaces, which the counter sees on the
+    CPU — ``factor · B·H·Sq·Sk·D`` with factor 4 for the forward (QKᵀ
+    and PV, 2·Sq·Sk·D each), 4 for dq and 4 for dk/dv (the plain
+    backward's four products), the whole score matrix whatever the
+    causal mask, as the plain version computes it."""
+    from ..observability import attribution
+    if attribution.counting():
+        B, Sq, H, D = q.shape
+        attribution.report_flops(factor * B * H * Sq * k.shape[1] * D)
+
+
 def _launch(fn, name, *args):
     lib = _library(fn.endswith("_tc"))
     device = args[2].device
@@ -265,7 +285,7 @@ def flash_forward(q, k, v, causal=False, q_offset=0, k_offset=0,
     their :func:`route` (adding one to ``flash_forward.launches`` and to
     its ``route_launches``) on the current stream, or raise."""
     _check(q, k, v, kv_len, operand_dtype)
-    if q.device.type == "cpu":
+    if not _on_card(q):
         return flash_attention_reference(q, k, v, causal, q_offset,
                                          k_offset, kv_len, operand_dtype)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
@@ -277,6 +297,7 @@ def flash_forward(q, k, v, causal=False, q_offset=0, k_offset=0,
             _CODES[q.dtype], _CODES[operand_dtype], q, k, v, out, lse,
             *_geometry(q, k, causal, q_offset, k_offset, kv_len))
     _count(flash_forward, way)
+    _report_flops(q, k, 4)
     return out, lse
 
 
@@ -298,7 +319,7 @@ def flash_dq(q, k, v, do, lse, delta, causal=False, q_offset=0,
     tensors take :func:`flash_attention_dq_reference`; CUDA tensors
     launch the kernel (``flash_dq.launches``) or raise."""
     _check(q, k, v, kv_len, operand_dtype, do, lse, delta)
-    if q.device.type == "cpu":
+    if not _on_card(q):
         return flash_attention_dq_reference(
             q, k, v, do, lse, delta, causal, q_offset, k_offset, kv_len,
             operand_dtype)
@@ -309,6 +330,7 @@ def flash_dq(q, k, v, do, lse, delta, causal=False, q_offset=0,
             _CODES[operand_dtype], q, k, v, do, lse, delta, dq,
             *_geometry(q, k, causal, q_offset, k_offset, kv_len))
     _count(flash_dq, way)
+    _report_flops(q, k, 4)
     return dq
 
 
@@ -318,7 +340,7 @@ def flash_dkv(q, k, v, do, lse, delta, causal=False, q_offset=0,
     :func:`flash_attention_dkv_reference`; CUDA tensors launch the
     kernel (``flash_dkv.launches``) or raise."""
     _check(q, k, v, kv_len, operand_dtype, do, lse, delta)
-    if q.device.type == "cpu":
+    if not _on_card(q):
         return flash_attention_dkv_reference(
             q, k, v, do, lse, delta, causal, q_offset, k_offset, kv_len,
             operand_dtype)
@@ -330,6 +352,7 @@ def flash_dkv(q, k, v, do, lse, delta, causal=False, q_offset=0,
             _CODES[operand_dtype], q, k, v, do, lse, delta, dk, dv,
             *_geometry(q, k, causal, q_offset, k_offset, kv_len))
     _count(flash_dkv, way)
+    _report_flops(q, k, 4)
     return dk, dv
 
 

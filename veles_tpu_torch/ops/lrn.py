@@ -210,6 +210,20 @@ def _count(wrapper, way):
     wrapper.launches_by_route[way] += 1
 
 
+def _report_flops(x):
+    """A launch's FLOPs for the MFU gauge of ``observability
+    .attribution``, whose counter cannot see a kernel: the window sum
+    as the plain version computes it, a (P, C) × (C, C) band product,
+    ``2·P·C²`` for the forward and as much for the backward (the
+    product's gradient through the square) — what the counter sees of
+    the plain version on the CPU.  It overstates the n-wide window's
+    arithmetic by C / n."""
+    from ..observability import attribution
+    if attribution.counting():
+        c = x.shape[-1]
+        attribution.report_flops(2 * (x.numel() // c) * c * c)
+
+
 def lrn_forward(x, n, alpha, beta, k, route=None):
     """y.  CPU tensors take :func:`lrn_reference`; CUDA tensors launch
     the forward kernel on the route :func:`lrn_route` picks (``route``
@@ -225,6 +239,7 @@ def lrn_forward(x, n, alpha, beta, k, route=None):
     _launch("veles_lrn_fwd", "lrn forward", _ROUTE_CODES[way],
             _CODES[x.dtype], x, y, *_geometry(x, n, alpha, beta, k))
     _count(lrn_forward, way)
+    _report_flops(x)
     return y
 
 
@@ -242,6 +257,7 @@ def lrn_backward(x, dy, n, alpha, beta, k, route=None):
     _launch("veles_lrn_bwd", "lrn backward", _ROUTE_CODES[way],
             _CODES[x.dtype], x, dy, dx, *_geometry(x, n, alpha, beta, k))
     _count(lrn_backward, way)
+    _report_flops(x)
     return dx
 
 

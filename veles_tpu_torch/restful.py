@@ -29,9 +29,17 @@ Two forms, as in the JAX package:
   Its knobs arrive as kwargs, with defaults from the ``--serve-*`` flags
   of the command line (:func:`init_parser`, ``root.common.serving``).
 
-Not yet ported: the serving fabric (replicas, disaggregated prefill,
-tenants; ROADMAP A8) — its flags are refused by the command line and
-its kwargs by :class:`RESTfulAPI`.
+The serving fabric (``fabric_replicas``, ``fabric_disagg``,
+``tenant``): N engine replicas behind a prefix-affinity
+:class:`~veles_tpu_torch.serving.fabric.ReplicaRouter`, each with its
+own queue, device thread and KV pool over one shared model, an optional
+prefill worker whose KV the decode replicas adopt, and per-tenant
+quotas keyed by the ``X-Tenant`` header (403 for an unknown tenant, 429
++ ``Retry-After`` over quota); ``/stats`` gains a ``fabric`` section
+and ``/metrics`` the ``fabric.*`` and ``tenant.*`` series.  A fabric
+of more than one engine refuses a hot reload (``reload_watch``,
+``/admin/reload``: 501) until a reload reaches every engine (ROADMAP
+A8b).
 """
 
 import base64
@@ -52,10 +60,7 @@ from .units import Unit
 
 def init_parser(parser):
     """The serving flags of the in-workflow :class:`RESTfulAPI` unit,
-    handed to ``root.common.serving`` by ``__main__``.  The fabric's
-    ``--serve-fabric-replicas``, ``--serve-fabric-disagg`` and
-    ``--serve-tenant`` wait for ROADMAP A8: the command line refuses
-    them by name."""
+    handed to ``root.common.serving`` by ``__main__``."""
     parser.add_argument(
         "--serve-max-batch", type=int, default=None, metavar="N",
         help="serving: max rows coalesced into one device batch "
@@ -132,11 +137,27 @@ def init_parser(parser):
     parser.add_argument(
         "--serve-reload-poll", type=float, default=None, metavar="SEC",
         help="serving: reload-watch poll interval (default 5)")
+    parser.add_argument(
+        "--serve-fabric-replicas", type=int, default=None, metavar="N",
+        help="serving fabric: run N engine replicas behind the "
+             "prefix-affinity router (default 1: no fabric)")
+    parser.add_argument(
+        "--serve-fabric-disagg", action="store_true",
+        help="serving fabric: disaggregate prefill from decode — a "
+             "dedicated prefill worker fills KV blocks and ships "
+             "them to the decode replicas over the tensor wire")
+    parser.add_argument(
+        "--serve-tenant", action="append", default=None,
+        metavar="NAME=RATE[:BURST][@ARTIFACT]",
+        help="serving fabric: register a tenant with a token-bucket "
+             "quota (repeatable); once any tenant is registered, "
+             "requests without a known X-Tenant get 403 and "
+             "over-quota tenants get 429 + Retry-After without "
+             "shedding siblings")
 
 
 #: The ``root.common.serving`` keys :class:`RESTfulAPI` takes its
-#: defaults from (the JAX package's list; the unit refuses the fabric's
-#: three).
+#: defaults from (the JAX package's list).
 SERVING_KEYS = ("max_batch", "queue_depth", "rate_limit", "deadline",
                 "token", "warmup", "kv_blocks", "kv_block_size",
                 "kv_dtype", "paged", "drain_timeout", "reload_watch",
@@ -189,19 +210,56 @@ class ModelServer(JsonHttpServer):
                  paged=None, kv_blocks=None, kv_block_size=16,
                  kv_dtype=None, drain_timeout=30.0, reload_watch=None,
                  reload_poll=5.0, spec=False, spec_draft=None,
-                 spec_max_k=4, spec_draft_blocks=None, device="cuda"):
+                 spec_max_k=4, spec_draft_blocks=None, fabric_replicas=1,
+                 fabric_disagg=False, tenant=None, device="cuda"):
         if isinstance(model, str):
             model = ExportedModel(model, device=device)
         self.token = token
         self.deadline = deadline
         self.warmup = warmup
-        self.engine = ServingEngine(
-            model, max_batch=max_batch, queue_depth=queue_depth,
-            policy=policy, default_deadline=deadline, paged=paged,
-            kv_blocks=kv_blocks, kv_block_size=kv_block_size,
-            kv_dtype=kv_dtype, spec=spec, spec_draft=spec_draft,
-            spec_max_k=spec_max_k, spec_draft_blocks=spec_draft_blocks,
-            drain_timeout=drain_timeout)
+
+        def build_engine():
+            # Replicas share the model (its weights and caches) but own
+            # their queue, device thread and KV pool.
+            return ServingEngine(
+                model, max_batch=max_batch, queue_depth=queue_depth,
+                policy=policy, default_deadline=deadline, paged=paged,
+                kv_blocks=kv_blocks, kv_block_size=kv_block_size,
+                kv_dtype=kv_dtype, spec=spec, spec_draft=spec_draft,
+                spec_max_k=spec_max_k,
+                spec_draft_blocks=spec_draft_blocks,
+                drain_timeout=drain_timeout)
+
+        self.engine = build_engine()
+        self.fabric = None
+        self._fabric_engines = [self.engine]
+        fabric_replicas = int(fabric_replicas or 1)
+        if fabric_replicas > 1 or fabric_disagg or tenant:
+            from .serving.fabric import (ModelRegistry, PrefillWorker,
+                                         ReplicaRouter,
+                                         parse_tenant_spec)
+            registry = None
+            if tenant:
+                registry = ModelRegistry()
+                specs = [tenant] if isinstance(tenant, str) \
+                    else list(tenant)
+                for entry in specs:
+                    name, rate, burst, artifact = \
+                        parse_tenant_spec(entry) \
+                        if isinstance(entry, str) else entry
+                    registry.register(name, rate=rate, burst=burst,
+                                      artifact=artifact)
+            prefill = PrefillWorker(build_engine()) \
+                if fabric_disagg else None
+            self.fabric = ReplicaRouter(registry=registry,
+                                        prefill=prefill)
+            self.fabric.add_replica("r0", self.engine)
+            for i in range(1, fabric_replicas):
+                engine = build_engine()
+                self._fabric_engines.append(engine)
+                self.fabric.add_replica("r%d" % i, engine)
+        if reload_watch is not None:
+            self._refuse_fabric_reload()
         self.limiter = RateLimiter(rate_limit) if rate_limit else None
         self.reload_watch = reload_watch
         self.reload_poll = reload_poll
@@ -256,6 +314,15 @@ class ModelServer(JsonHttpServer):
                     return Deadline(want) if want else None
                 return Deadline(max(0.0, min(want, budget)))
 
+            def _tenant(self, payload):
+                """Tenant identity: the ``X-Tenant`` header wins, else
+                ``payload["tenant"]``, else anonymous (the ``default``
+                tenant when tenancy is configured)."""
+                tenant = self.headers.get("X-Tenant")
+                if tenant is None and isinstance(payload, dict):
+                    tenant = payload.get("tenant")
+                return tenant
+
             def do_POST(self):
                 outer = self.outer
                 if self.path == "/api/generate":
@@ -287,8 +354,9 @@ class ModelServer(JsonHttpServer):
                     self.reply(400, {"error": str(e)})
                     return
                 try:
-                    probs = outer.engine.submit_classify(
-                        x, deadline=self._deadline(payload))
+                    probs = outer.submit_classify(
+                        x, deadline=self._deadline(payload),
+                        tenant=self._tenant(payload))
                     flat = probs.reshape(probs.shape[0], -1)
                     self.reply(200, {
                         "output": flat,
@@ -348,9 +416,10 @@ class ModelServer(JsonHttpServer):
                     self.reply(400, {"error": str(e)})
                     return
                 try:
-                    full = outer.engine.submit_generate(
+                    full = outer.submit_generate(
                         tokens, max_new, temperature=temperature,
-                        seed=seed, deadline=self._deadline(payload))
+                        seed=seed, deadline=self._deadline(payload),
+                        tenant=self._tenant(payload))
                 except AdmissionError as e:
                     self.reply(e.status, {"error": str(e)},
                                headers=_retry_headers(e))
@@ -402,6 +471,9 @@ class ModelServer(JsonHttpServer):
                 except ArtifactRejected as e:
                     self.reply(409, {"error": str(e)})
                     return
+                except Bug as e:
+                    self.reply(501, {"error": str(e)})
+                    return
                 except AdmissionError as e:
                     self.reply(e.status, {"error": str(e)},
                                headers=_retry_headers(e))
@@ -424,6 +496,25 @@ class ModelServer(JsonHttpServer):
         moment it lands."""
         return self.engine.model
 
+    def submit_generate(self, tokens, max_new, temperature=0.0, seed=0,
+                        deadline=None, tenant=None):
+        """Generate through the fabric when one is configured (tenant
+        admission and prefix-affine replica routing), else straight
+        into the single engine."""
+        if self.fabric is not None:
+            return self.fabric.submit_generate(
+                tokens, max_new, temperature=temperature, seed=seed,
+                deadline=deadline, tenant=tenant)
+        return self.engine.submit_generate(
+            tokens, max_new, temperature=temperature, seed=seed,
+            deadline=deadline)
+
+    def submit_classify(self, x, deadline=None, tenant=None):
+        if self.fabric is not None:
+            return self.fabric.submit_classify(x, deadline=deadline,
+                                               tenant=tenant)
+        return self.engine.submit_classify(x, deadline=deadline)
+
     def reload_artifact(self, path=None, require_manifest=None):
         """Verify-and-reload: ``path`` (default: whatever the watch
         target currently names) is read once, gated through its sha256
@@ -433,6 +524,7 @@ class ModelServer(JsonHttpServer):
         operator paths.  Returns the new weight version; raises
         :class:`~veles_tpu_torch.serving.reload.ArtifactRejected` and
         keeps the old weights on any verification failure."""
+        self._refuse_fabric_reload()
         explicit = path is not None
         if path is None:
             if self.reload_watch is None:
@@ -458,6 +550,7 @@ class ModelServer(JsonHttpServer):
         """Verify-and-reload for the speculative DRAFT model: read once
         through the same sha256-sidecar gate, vocabulary-checked
         against the served model, and hot-swapped into the drafter."""
+        self._refuse_fabric_reload()
         if path is None:
             raise ArtifactRejected(
                 "a draft reload needs an explicit artifact path")
@@ -468,6 +561,24 @@ class ModelServer(JsonHttpServer):
         self.info("hot-reloaded draft %s -> draft version %d", path,
                   version)
         return version
+
+    def _refuse_fabric_reload(self):
+        """A reload swaps the weights of ``self.engine`` (replica r0)
+        alone.  With more replicas or a prefill worker, which share the
+        model, the others would go on serving prefix caches and shipping
+        KV computed under the old weights at an unchanged weight
+        version, and the swap would race their device threads.  Until a
+        reload reaches every engine at one step boundary (ROADMAP A8b),
+        such a fabric refuses it."""
+        if len(self._fabric_engines) > 1 or (
+                self.fabric is not None and self.fabric.prefill is not None):
+            raise Bug("a hot reload under the serving fabric (%d "
+                      "replicas%s) would reach replica r0 alone: "
+                      "reloading every engine is not yet ported "
+                      "(ROADMAP A8b)" % (
+                          len(self._fabric_engines),
+                          ", disaggregated prefill"
+                          if self.fabric.prefill is not None else ""))
 
     def _on_watch_change(self, path):
         self.reload_artifact(path, require_manifest=True)
@@ -487,6 +598,8 @@ class ModelServer(JsonHttpServer):
         if self.limiter is not None:
             payload["rate_limit"] = {"rate": self.limiter.rate,
                                      "clients": len(self.limiter)}
+        if self.fabric is not None:
+            payload["fabric"] = self.fabric.occupancy()
         return payload
 
     def metrics_text(self):
@@ -508,8 +621,13 @@ class ModelServer(JsonHttpServer):
             [obs_metrics.registry, stats.registry])
 
     def _spin_up(self):
-        self.engine.start()
+        for engine in self._fabric_engines:
+            engine.start()
+        if self.fabric is not None and self.fabric.prefill is not None:
+            self.fabric.prefill.engine.start()
         if self.warmup:
+            # The replicas share the model: warming the first warms the
+            # programs for the whole fabric.
             self.engine.warmup()
         if self.reload_watch is not None and self.watcher is None:
             self.watcher = ArtifactWatcher(
@@ -535,11 +653,17 @@ class ModelServer(JsonHttpServer):
             self.watcher.stop()
             self.watcher = None
         if drain:
-            self.engine.stop(drain=True, timeout=timeout)
+            if self.fabric is not None:
+                self.fabric.stop(drain=True, timeout=timeout)
+            else:
+                self.engine.stop(drain=True, timeout=timeout)
             super(ModelServer, self).stop()
         else:
             super(ModelServer, self).stop()
-            self.engine.stop()
+            if self.fabric is not None:
+                self.fabric.stop(drain=False, timeout=timeout)
+            else:
+                self.engine.stop()
 
 
 def _retry_headers(e):
@@ -557,9 +681,9 @@ class RESTfulAPI(Unit):
     device — the CUDA card unless the workflow was initialized on the
     CPU — in a background thread (``blocking=True`` serves on the
     caller's thread instead).  The knobs are the
-    ``--serve-*`` flags' (:func:`serving_config_defaults`) or kwargs;
-    a serving-fabric kwarg (``fabric_replicas`` > 1, ``fabric_disagg``,
-    ``tenant``) raises :class:`~veles_tpu_torch.error.Bug`.
+    ``--serve-*`` flags' (:func:`serving_config_defaults`) or kwargs,
+    the serving fabric's (``fabric_replicas``, ``fabric_disagg``,
+    ``tenant``) included.
     ``export_seconds`` and ``start_seconds`` (the server's load and
     warmup) are read after ``run``."""
 
@@ -567,12 +691,6 @@ class RESTfulAPI(Unit):
         super(RESTfulAPI, self).__init__(workflow, **kwargs)
         self.view_group = "SERVICE"
         kwargs = dict(serving_config_defaults(), **kwargs)
-        if int(kwargs.get("fabric_replicas") or 1) != 1 or \
-                kwargs.get("fabric_disagg") or kwargs.get("tenant"):
-            raise Bug("RESTfulAPI(fabric_replicas=%r, fabric_disagg=%r, "
-                      "tenant=%r): the serving fabric is not yet ported "
-                      "(ROADMAP A8)" % tuple(kwargs.get(k) for k in (
-                          "fabric_replicas", "fabric_disagg", "tenant")))
         self.host = kwargs.get("host", "0.0.0.0")
         self.port = kwargs.get("port", 8180)
         self.artifact_path = kwargs.get("artifact_path",
@@ -595,6 +713,9 @@ class RESTfulAPI(Unit):
         self.spec_draft = kwargs.get("spec_draft", None)
         self.spec_max_k = kwargs.get("spec_max_k", 4)
         self.spec_draft_blocks = kwargs.get("spec_draft_blocks", None)
+        self.fabric_replicas = kwargs.get("fabric_replicas", 1)
+        self.fabric_disagg = kwargs.get("fabric_disagg", False)
+        self.tenant = kwargs.get("tenant", None)
         self.device = "cuda"
         self.server = None
         self.export_seconds = None
@@ -634,6 +755,8 @@ class RESTfulAPI(Unit):
             reload_poll=self.reload_poll, spec=self.spec,
             spec_draft=self.spec_draft, spec_max_k=self.spec_max_k,
             spec_draft_blocks=self.spec_draft_blocks,
+            fabric_replicas=self.fabric_replicas,
+            fabric_disagg=self.fabric_disagg, tenant=self.tenant,
             device=self.device)
         self.port = self.server.port
         self.info("serving %s on port %d (%s)", self.artifact_path,

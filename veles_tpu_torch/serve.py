@@ -12,12 +12,14 @@ decode matmuls (``--weight-dtype int8``), speculative decoding
 ``--spec-max-k`` verify width), ``--warmup`` bucket-grid warmup,
 per-client rate limiting, queue-depth backpressure, hot weight reload
 (``--reload-watch`` / authenticated ``POST /admin/reload``) and
-graceful SIGTERM drain (``--drain-timeout``).
+graceful SIGTERM drain (``--drain-timeout``), and the serving fabric:
+``--fabric-replicas N`` engine replicas behind the prefix-affinity
+router, ``--fabric-disagg`` prefill on a worker whose KV blocks the
+replicas adopt, and ``--tenant NAME=RATE[:BURST][@ARTIFACT]`` quotas
+keyed by the ``X-Tenant`` header.
 
 ``--device`` is ``cuda`` unless ``cpu`` is asked for; without a card
-``cuda`` raises.  The JAX server's fabric flags (``--fabric-replicas``,
-``--fabric-disagg``, ``--tenant``) are accepted only to fail with a
-clear "not yet ported" error."""
+``cuda`` raises."""
 
 import argparse
 import signal
@@ -26,10 +28,6 @@ import threading
 
 from .export import KV_DTYPES
 from .restful import ModelServer
-
-#: Flags of the JAX package's server whose machinery the port has not
-#: ported yet; giving any of them fails.
-NOT_PORTED = ("fabric_replicas", "fabric_disagg", "tenant")
 
 
 def main(argv=None):
@@ -120,16 +118,27 @@ def main(argv=None):
     parser.add_argument(
         "--reload-poll", type=float, default=5.0, metavar="SEC",
         help="reload-watch poll interval (default 5)")
-    not_ported = parser.add_argument_group("not yet ported")
-    not_ported.add_argument("--fabric-replicas", default=None)
-    not_ported.add_argument("--fabric-disagg", action="store_true")
-    not_ported.add_argument("--tenant", action="append", default=None)
+    parser.add_argument(
+        "--fabric-replicas", type=int, default=1, metavar="N",
+        help="serving fabric: run N engine replicas behind the "
+             "prefix-affinity consistent-hash router — requests "
+             "sharing a prompt prefix land on the same replica and "
+             "hit its KV prefix cache (default 1: no fabric)")
+    parser.add_argument(
+        "--fabric-disagg", action="store_true",
+        help="serving fabric: disaggregate prefill from decode — a "
+             "dedicated prefill worker fills KV blocks and ships "
+             "them to the decode replicas as versioned tensors over "
+             "the zero-copy wire")
+    parser.add_argument(
+        "--tenant", action="append", default=None,
+        metavar="NAME=RATE[:BURST][@ARTIFACT]",
+        help="serving fabric: register a tenant with a token-bucket "
+             "quota (repeatable); once any tenant is registered, "
+             "requests without a known X-Tenant get 403 and "
+             "over-quota tenants get 429 + Retry-After — without "
+             "shedding sibling tenants")
     args = parser.parse_args(argv)
-    given = [name for name in NOT_PORTED if getattr(args, name)]
-    if given:
-        parser.error("not yet ported in veles_tpu_torch: %s" %
-                     ", ".join("--" + g.replace("_", "-")
-                               for g in given))
     if args.weight_dtype is not None:
         # The decode programs read the weight mode from the config and
         # quantize at their next parameter look-up.
@@ -147,6 +156,8 @@ def main(argv=None):
         spec_draft_blocks=args.spec_draft_blocks,
         drain_timeout=args.drain_timeout,
         reload_watch=args.reload_watch, reload_poll=args.reload_poll,
+        fabric_replicas=args.fabric_replicas,
+        fabric_disagg=args.fabric_disagg, tenant=args.tenant,
         device=args.device)
     install_sigterm_drain(server)
     try:

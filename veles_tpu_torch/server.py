@@ -14,9 +14,12 @@ Aggregation: each job ships the trainables (or the change since that
 worker's last sync); the worker runs its ticks and returns its change;
 the master folds it into its current values (delayed/async SGD).
 
-Span tracing of the job protocol (the ``trace`` capability of a
-worker's hello, clock sync and the dispatch spans) is ROADMAP A8a: a
-worker that asks for it is refused by name.
+Span tracing of the job protocol: when this master traces
+(``--trace-out``) and a worker's hello advertises ``trace``, the session
+negotiates it; each job then opens a detached ``server.dispatch`` span,
+carries its trace context and a clock-sync timestamp, and the worker's
+update brings back its ``worker.step`` spans, which the master ingests
+on one timeline beside its ``net.fold`` spans.
 """
 
 import os
@@ -58,13 +61,11 @@ def negotiate_protocol(hello, cfg=None):
             "job_ticks": config_get(root.common.net.job_ticks, 1),
             "zero": config_get(root.common.net.zero, 0),
             "require": config_get(root.common.net.require, False),
+            # None = derive from the live tracing state (--trace-out
+            # flips it on); an explicit config value wins.
+            "trace": config_get(root.common.observability.trace, None),
         }
     theirs = hello.get("proto") or {}
-    if theirs.get("trace"):
-        return None, (
-            "the worker asks for span tracing of the job protocol, "
-            "which this coordinator does not have yet (ROADMAP A8a) — "
-            "run the worker without tracing")
     if not theirs.get("tensor") or cfg.get("mode") == "legacy":
         if cfg.get("require") and cfg.get("mode") != "legacy":
             return None, (
@@ -102,6 +103,16 @@ def negotiate_protocol(hello, cfg=None):
     zero = int(cfg.get("zero") or 0)
     if zero > 0 and proto["delta"] and theirs.get("slots"):
         proto["zero"] = zero
+    # Span tracing: when the master traces and the worker advertises
+    # the capability, job frames carry clock-sync timestamps and trace
+    # context, and updates carry the worker's spans.  Old peers never
+    # see the fields.
+    want_trace = cfg.get("trace")
+    if want_trace is None:
+        from .observability import tracing
+        want_trace = tracing.enabled()
+    if want_trace and theirs.get("trace"):
+        proto["trace"] = True
     return proto, None
 
 
@@ -600,11 +611,23 @@ class Server(Logger):
         completed) — the caller then retires the worker without the
         drop+requeue error path; False means the peer vanished (crash,
         timeout, blacklist disconnect), and ``server.drop`` stays a
-        pure error signal."""
+        pure error signal.
+
+        On a trace session replies carry clock-sync timestamps, jobs
+        carry trace context, and updates bring the worker's spans home.
+        Open dispatch spans are FIFO: a pipelined worker can hold more
+        than one job in flight."""
+        from .observability import tracing
+        trace_on = bool(chan.proto.get("trace"))
+        open_dispatches = []
         while not self._stop.is_set():
             msg = self._recv_or_none(chan)
             if msg is None:
+                for sp in open_dispatches:
+                    sp.set(dropped=True)
+                    sp.finish()
                 return False
+            recv_wall = time.time()
             cmd = msg.get("cmd")
             if cmd == "job_request":
                 if desc.blacklisted:
@@ -614,21 +637,65 @@ class Server(Logger):
                     # watchdog, and it reconnects with a fresh id.
                     return False
                 if desc.paused or self._probation_hold(desc):
-                    chan.send({"cmd": "no_job", "retry": True})
+                    chan.send(self._stamp({"cmd": "no_job",
+                                           "retry": True}, trace_on,
+                                          recv_wall))
                     continue
+                # The dispatch window opens before job generation and
+                # closes when the worker's update has been folded, so on
+                # one aligned timeline it encloses the worker.step span.
+                # Detached: pipelined workers hold overlapping windows on
+                # this thread, which stack nesting would chain into
+                # parent and child.
+                sp = tracing.begin("server.dispatch", detached=True,
+                                   worker=desc.id) \
+                    if trace_on and tracing.enabled() else None
                 job = self._generate_job(desc)
                 if job is None:
+                    if sp is not None:
+                        sp.cancel()
                     if self._maybe_finished():
                         chan.send({"cmd": "bye"})
                         return True
-                    chan.send({"cmd": "no_job", "retry": True})
+                    chan.send(self._stamp({"cmd": "no_job",
+                                           "retry": True}, trace_on,
+                                          recv_wall))
                 else:
                     desc.state = "WORK"
                     desc.job_started = time.time()
-                    self._send_job(chan, job)
+                    if sp is None:
+                        self._send_job(chan, job)
+                    else:
+                        open_dispatches.append(sp)
+                        extra = self._stamp(
+                            {"trace": {"trace_id": sp.trace_id,
+                                       "parent": sp.id}},
+                            True, recv_wall)
+                        # net.serialize/net.send of this job nest under
+                        # this dispatch window.
+                        with tracing.attach(sp.trace_id, sp.id):
+                            self._send_job(chan, job, extra)
             elif cmd == "update":
-                self._apply_update(desc, msg["data"])
-                chan.send({"cmd": "update_ack"})
+                if trace_on:
+                    spans = msg.get("spans")
+                    if spans:
+                        tracing.ingest(spans,
+                                       proc="worker:%s" % desc.id)
+                # Replies arrive in dispatch order (one TCP stream, a
+                # serial handler): this update answers the oldest open
+                # window — fold under it, then close it.
+                owner = open_dispatches.pop(0) if open_dispatches \
+                    else None
+                if owner is not None:
+                    with tracing.attach(owner.trace_id, owner.id):
+                        with tracing.span("net.fold", worker=desc.id):
+                            self._apply_update(desc, msg["data"])
+                    owner.finish()
+                else:
+                    with tracing.span("net.fold", worker=desc.id):
+                        self._apply_update(desc, msg["data"])
+                chan.send(self._stamp({"cmd": "update_ack"}, trace_on,
+                                      recv_wall))
                 if self._maybe_finished():
                     chan.send({"cmd": "bye"})
                     return True
@@ -657,18 +724,32 @@ class Server(Logger):
 
     # -- workflow bridging -------------------------------------------------
 
-    def _send_job(self, chan, job):
+    @staticmethod
+    def _stamp(msg, trace_on, recv_wall):
+        """Adds the clock-sync timestamp to a reply (trace sessions
+        only): the worker pairs it with its local send and receive
+        times for the NTP-style offset estimate.  The stamp is the
+        midpoint of request receipt and reply build — NTP's
+        (t2+t3)/2 — so job generation does not bias the estimate."""
+        if trace_on:
+            msg["ts"] = (recv_wall + time.time()) / 2.0
+        return msg
+
+    def _send_job(self, chan, job, extra=None):
         """Serializes and sends one job — called with the workflow lock
         NOT held: serializing a params-sized job for a slow worker must
         never stall ``_apply_update`` from the others
         (``_generate_job`` holds the lock only for the bookkeeping and
-        the host-side array snapshot)."""
-        chan.send_parts(*self._serialize_job(chan, job))
+        the host-side array snapshot).  ``extra`` carries the
+        negotiated trace fields (context and timestamp) at the message
+        level."""
+        chan.send_parts(*self._serialize_job(chan, job, extra))
 
-    def _serialize_job(self, chan, job):
+    def _serialize_job(self, chan, job, extra=None):
         """The expensive half (pickle/framing/compression), exposed
         as a seam so tests can pin that it runs outside the lock."""
-        return chan.encode({"cmd": "job", "data": job})
+        return chan.encode(dict({"cmd": "job", "data": job},
+                                **(extra or {})))
 
     def _generate_job(self, desc):
         """Generates one job under the workflow lock

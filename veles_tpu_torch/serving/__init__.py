@@ -19,8 +19,10 @@ handlers (:mod:`veles_tpu_torch.restful`) and the device.
 * :mod:`~veles_tpu_torch.serving.reload` — artifact verification
   against its sha256 manifest and the watcher behind hot reload.
 
-The serving fabric of the JAX package (replicas, disaggregated prefill,
-tenants) is not ported yet.
+* :mod:`~veles_tpu_torch.serving.fabric` — the tier above one engine: a
+  replica router with prefix-affinity consistent hashing,
+  prefill/decode disaggregation over the zero-copy tensor wire, and a
+  multi-tenant model registry with per-tenant quota admission.
 """
 
 from .admission import (AdmissionError, DeadlineExceeded,  # noqa: F401,E501
@@ -29,6 +31,9 @@ from .admission import (AdmissionError, DeadlineExceeded,  # noqa: F401,E501
                         TokenBucket)
 from .buckets import BucketPolicy, CompileCache, next_pow2  # noqa: F401
 from .engine import ServingEngine  # noqa: F401
+from .fabric import (ModelRegistry, PrefillWorker,  # noqa: F401
+                     ReplicaRouter, TenantUnknown,
+                     live_fabric_summary, parse_tenant_spec)
 from .metrics import ServingStats, live_serving_summary  # noqa: F401
 from .reload import (ArtifactRejected, ArtifactWatcher,  # noqa: F401
                      read_verified, resolve_artifact)

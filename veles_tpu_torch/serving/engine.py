@@ -52,8 +52,11 @@ The KV storage plane (``kv_dtype``: f32, bf16, int8, fp8) and the weight
 mode live behind the model's paged surface; the engine only passes the
 plane through and reports it (``quant.kv.<dtype>``, ``kv_bytes_*``).
 
-Not yet ported, and refused with :class:`~veles_tpu_torch.error.Bug`:
-KV export/adopt between replicas (the fabric's disaggregated prefill).
+* **KV export and adoption** (:meth:`ServingEngine.export_kv_prefix`,
+  :meth:`ServingEngine.adopt_kv_prefix`) — the halves of the fabric's
+  disaggregated prefill: a prompt's cached full blocks leave one pool
+  as a float32 host array and enter another, both on the device
+  thread's op queue, refused across weight versions.
 """
 
 import collections
@@ -532,26 +535,13 @@ class ServingEngine(Logger):
         check_draft_compat(self.model, new)
         if self._thread is None:
             return self._apply_draft_reload(new)
-        op = {"new": new, "same": True, "draft": True,
-              "event": threading.Event(), "result": None,
-              "error": None}
-        with self._cond:
-            if self._stopped:
-                raise EngineStopped("serving engine is not running")
-            self._ops.append(op)
-            self._cond.notify_all()
-        if not op["event"].wait(timeout):
-            with self._cond:
-                try:
-                    self._ops.remove(op)
-                except ValueError:
-                    pass
+        done, result = self._device_op({"new": new, "draft": True},
+                                       timeout)
+        if not done:
             raise ServiceUnavailable(
                 "draft reload did not apply within %gs" % timeout,
                 retry_after=timeout)
-        if op["error"] is not None:
-            raise op["error"]
-        return op["result"]
+        return result
 
     def _apply_draft_reload(self, new):
         """Device-thread body of :meth:`reload_draft`: live mirrors
@@ -614,15 +604,138 @@ class ServingEngine(Logger):
                   else "replaced + pool rebuilt", len(live))
         return getattr(self.draft_model, "weight_version", 1)
 
+    def _device_op(self, op, timeout):
+        """Runs ``op`` on the device thread at a decode-step boundary
+        (the op queue of a reload) and returns ``(done, result)``;
+        ``done`` is False when the timeout expired first (the op is
+        withdrawn).  Without a device thread the caller applies it."""
+        op.update(same=True, event=threading.Event(), result=None,
+                  error=None)
+        with self._cond:
+            if self._stopped:
+                raise EngineStopped("serving engine is not running")
+            self._ops.append(op)
+            self._cond.notify_all()
+        if not op["event"].wait(timeout):
+            with self._cond:
+                try:
+                    self._ops.remove(op)
+                except ValueError:
+                    pass
+            return False, None
+        if op["error"] is not None:
+            raise op["error"]
+        return True, op["result"]
+
     def adopt_kv_prefix(self, tokens, payload, timeout=30.0):
-        """KV adoption from a prefill worker — not yet ported."""
-        raise Bug("KV export/adopt is not yet ported")
+        """Adopts remotely-prefilled KV blocks into this engine's pool —
+        the decode-side half of prefill/decode disaggregation
+        (:mod:`veles_tpu_torch.serving.fabric.disagg`).  ``payload`` is
+        an unpacked disagg dict (``unpack_kv_payload``): full-block k/v
+        tensors plus the ``weight_version`` they were computed under.
+        The write rides the device-thread op queue, as an in-place
+        reload does, because writing ``pool.storage`` from another
+        thread would race the decode step.  Returns the number of
+        blocks adopted (0 = refused: version skew, a dense engine, pool
+        exhaustion or the timeout — adoption is an optimization; the
+        prompt simply prefills locally)."""
+        if not self.paged:
+            return 0
+        if int(payload.get("weight_version", -1)) != \
+                int(self.weight_version):
+            # KV computed under other weights must never serve this
+            # model — exactly why reload() flushes the prefix cache.
+            self.stats.incr("kv.adopt_stale")
+            return 0
+        if self._thread is None:
+            return self._apply_kv_adopt(tokens, payload)
+        done, result = self._device_op({"kv": (tokens, payload)},
+                                       timeout)
+        return result if done else 0
 
     def export_kv_prefix(self, tokens, timeout=30.0):
-        """KV export to a decode replica — not yet ported."""
-        raise Bug("KV export/adopt is not yet ported")
+        """Exports the prompt's cached full KV blocks for the wire — the
+        prefill-side half of disaggregation.  Returns ``(n_blocks,
+        blocks, block_size, weight_version)`` with ``blocks`` the
+        ``(L, 2, n, bs, H, D)`` host array from ``export_kv_blocks``,
+        or None when the engine is dense, the pool holds no COMPLETE
+        chain for the prompt (the caller prefills once and retries), or
+        the timeout expires.  Rides the device-thread op queue for the
+        same reason adoption does."""
+        if not self.paged:
+            return None
+        if self._thread is None:
+            return self._apply_kv_export(tokens)
+        return self._device_op({"kv_export": tokens}, timeout)[1]
+
+    def _apply_kv_export(self, tokens):
+        """Device-thread body of :meth:`export_kv_prefix`."""
+        self._ensure_pool()
+        pool = self.kv_pool
+        if pool is None or len(tokens) < pool.block_size:
+            return None
+        chain = pool.prefix_chain(tokens)
+        if not chain:
+            return None
+        n, ids = pool.export_prefix_blocks(tokens, chain=chain)
+        if n < len(chain):
+            # Partial coverage would ship a prefix the decode side must
+            # finish anyway — the caller prefills locally once and
+            # re-exports the full chain.
+            if n:
+                pool.release(ids)
+            return None
+        try:
+            blocks = self.model.export_kv_blocks(pool, ids)
+        finally:
+            pool.release(ids)
+        return (n, blocks, pool.block_size, self.weight_version)
+
+    def _apply_kv_adopt(self, tokens, payload):
+        """Device-thread body of :meth:`adopt_kv_prefix`."""
+        self._ensure_pool()
+        pool = self.kv_pool
+        if pool is None or \
+                pool.block_size != int(payload["block_size"]):
+            return 0
+        chain = pool.prefix_chain(tokens)
+        n = min(int(payload["n_blocks"]), len(chain))
+        if n <= 0:
+            return 0
+        blocks = payload["blocks"]
+
+        def write(ids):
+            self.model.import_kv_blocks(pool, ids,
+                                        blocks[:, :, :len(ids)])
+
+        ids = pool.adopt_prefix_blocks(tokens, n, write_fn=write,
+                                       chain=chain)
+        if ids is None:
+            self.stats.incr("kv.adopt_shed")
+            return 0
+        self.stats.incr("kv.adopt")
+        return len(ids)
+
+    def _apply_kv_op(self, op):
+        """Runs a KV export or adoption op on the device thread; a
+        failure reaches the caller, and the prompt prefills locally."""
+        try:
+            if op.get("kv_export") is not None:
+                op["result"] = self._apply_kv_export(op["kv_export"])
+            else:
+                op["result"] = self._apply_kv_adopt(*op["kv"])
+        except Exception as e:
+            self.exception("KV %s failed — the prompt prefills locally "
+                           "instead", "export" if op.get("kv_export")
+                           is not None else "adoption")
+            op["error"] = e
+        finally:
+            op["event"].set()
 
     def _apply_reload_op(self, op):
+        if op.get("kv_export") is not None or op.get("kv"):
+            self._apply_kv_op(op)
+            return
         if op.get("draft"):
             try:
                 op["result"] = self._apply_draft_reload(op["new"])

@@ -82,6 +82,8 @@ class DecisionGD(DecisionBase, IResultProvider):
         self.epoch_nonfinite = [0.0, 0.0, 0.0]
         self.epoch_grad_norm = [0.0, 0.0, 0.0]
         self.epoch_grad_norm_max = [0.0, 0.0, 0.0]
+        # MoE router health per class-epoch (None without MoE blocks).
+        self.epoch_moe = [None, None, None]
         self.min_validation_err = 1.0e30
         self.min_validation_epoch = 0
         self.min_train_err = 1.0e30
@@ -112,12 +114,48 @@ class DecisionGD(DecisionBase, IResultProvider):
         self.epoch_grad_norm[cls] = float(health[1]) / finite_ticks
         self.epoch_grad_norm_max[cls] = float(health[2])
         self.evaluator.reset_health_acc(cls)
+        self._fetch_moe_metrics(cls)
+
+    def _fetch_moe_metrics(self, cls):
+        """Folds every MoE block's router accumulator into the epoch
+        bucket and, for the training class, the live ``moe.aux_loss`` /
+        ``moe.expert_load`` gauges (``attribution.note_moe``)."""
+        blocks = [u for u in getattr(self.workflow, "forwards", ())
+                  if hasattr(u, "read_moe_acc")]
+        if not blocks:
+            return
+        aux_sum = ticks = 0.0
+        shares = {}
+        max_share = 0.0
+        for blk in blocks:
+            row = blk.read_moe_acc(cls)
+            blk.reset_moe_acc(cls)
+            aux_sum += float(row[0])
+            ticks += float(row[1])
+            load = row[2:]
+            total = max(float(load.sum()), 1.0)
+            for i, v in enumerate(load):
+                share = float(v) / total
+                shares[(blk.name, i)] = share
+                max_share = max(max_share, share)
+        if not ticks:
+            return
+        moe = {"aux_loss": aux_sum / ticks,
+               "max_load_frac": max_share,
+               "n_experts": sum(b.n_experts for b in blocks)}
+        self.epoch_moe[cls] = moe
+        if cls == TRAIN:  # the training router is the live signal
+            from ..observability import attribution
+            attribution.note_moe(moe["aux_loss"], max_share,
+                                 moe["n_experts"], shares)
 
     # -- master-side accumulation: the metrics arrive in worker updates ------
 
     def init_unpickled(self):
         super(DecisionGD, self).init_unpickled()
         self._remote_acc_ = {}
+        if not hasattr(self, "epoch_moe"):  # an older snapshot
+            self.epoch_moe = [None, None, None]
 
     def accumulate_remote(self, cls, metrics, epoch=None):
         """Adds one worker job's metrics to the (epoch, class) bucket:
