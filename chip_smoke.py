@@ -82,7 +82,13 @@ dataset and both LM artifacts — while the card runs the first phases:
    tick must pass phase 6's gate against the live one's, and exported:
    the artifact's forward on the card (its two ``norm`` units launch
    B6 on the register route) must match ``forward_numpy`` at rtol 1e-3,
-   and a planted B6 fault must fail that gate;
+   and a planted B6 fault must fail that gate; the port's
+   ``NativeModel`` (``native/veles_infer.cc``, built with g++ into the
+   port's build directory) runs the same artifact on the host and must
+   match the card's forward at ``tests/test_native.py``'s conv
+   tolerances (rtol 1e-3, atol 1e-5) and in the centered logits at
+   rtol 1e-2, and the same artifact with its norm units' k planted
+   must fail that gate;
 6c. streamed — writes the AlexNet dataset to disk (``.npy``: 227 px
    uint8, 1000 classes, 512 validation + 4096 train images, seeded
    ``fill_synthetic``), then trains one epoch at batch 512 (one
@@ -213,6 +219,25 @@ dataset and both LM artifacts — while the card runs the first phases:
    command line (``--population 2 --pbt -m``): the members equal the
    in-process loopback bit for bit, every exploit job is 50x smaller
    than a full ship, the worker's B6/B7 launches 2 + 2 a train tick;
+   10s (``phase_services``). the operator services — the full-width
+   AlexNet (batch 128, a confusion matrix kept on the card by its
+   evaluator, an ``AccumulatingPlotter``, a ``MatrixPlotter`` and a
+   ``Histogram`` linked after the decision, one firing an epoch) trains
+   SERVICES_EPOCHS epochs of one validation and two train ticks through
+   ``python -m veles_tpu_torch <workflow.py> -a cuda --status-address
+   ... --workflow-graph ... --dump-config`` with
+   ``root.common.graphics.enabled``, beside a ``WebStatusServer`` and a
+   subscriber socket on the graphics stream: two heartbeats during the
+   run and the last as it ends,
+   the dashboard's ``/api/status`` with the epoch, the metrics and a
+   perf row with the tick's device ms and MFU, the DOT graph naming
+   every unit, the config dump, one payload per plotter per epoch
+   decoded by the port's restricted unpickler (each confusion matrix
+   summing to the samples the evaluator counted in its epoch), B6/B7
+   launched as the ticks imply on the register route; then a master
+   (MNIST FC) and a loopback worker on the card, whose worker a
+   ``pause`` queued through ``/service`` pauses by a heartbeat, and a
+   ``resume`` resumes;
 9. quantized serving — a second artifact (another seed) is written;
    the first is served with ``--kv-dtype int8 --weight-dtype int8
    --spec --warmup`` (and once without ``--spec``) to the mixed wave
@@ -231,11 +256,11 @@ dataset and both LM artifacts — while the card runs the first phases:
    prompt's first serving did, bit for bit;
 10. exit — drains the servers, prints the training, AlexNet, snapshot,
    streamed, serving, in-workflow serving, pretraining, population,
-   parallel, data-plane and fleet numbers and the kernels (B1-B4's launches
-   from phase 7r too, B1-B3's and B6/B7's from phase 7g, B6/B7's from
-   the workers of phases 9n and 9f) as JSON lines, the command's time, the
-   card's name and power limit, and ``{"ok": true, "device": {...}}``
-   last.
+   parallel, data-plane, fleet and services numbers and the kernels
+   (B1-B4's launches from phase 7r too, B1-B3's and B6/B7's from phase
+   7g, B6/B7's from the workers of phases 9n and 9f and the command line
+   of 10s) as JSON lines, the command's time, the card's name and power
+   limit, and ``{"ok": true, "device": {...}}`` last.
 """
 
 import concurrent.futures
@@ -2295,9 +2320,96 @@ def artifact_shares(got, want):
     return prob, float(numpy.max(numpy.abs(zg - zw) / scale))
 
 
-def write_mnist_idx(directory, seed=SEED):
-    """Seeded class-structured 28x28 uint8 images and labels as the four
-    MNIST IDX files (raw, uncompressed) under ``directory/mnist``: a
+#: The native runtime against the card's artifact forward: the first
+#: NATIVE_BATCH images (one host thread runs the whole AlexNet per
+#: image), at tests/test_native.py's conv tolerances in the
+#: probabilities and at ARTIFACT_LOGIT_RTOL in the centered logits
+#: (phase 6b's second gate: the probabilities alone cannot see a fault
+#: in a barely trained AlexNet).  The planted native fault: both norm
+#: units' k raised so that their output is about ALEXNET_PLANTED_SCALE
+#: of the right one (k * scale ** (-1 / beta)), as the planted B6 fault
+#: scales the card's.
+NATIVE_BATCH, NATIVE_RTOL, NATIVE_ATOL = 2, 1e-3, 1e-5
+
+
+def native_shares(out, want):
+    """(largest share of the native probability tolerance, largest
+    share of the centered-logit tolerance) of ``out`` against
+    ``want``."""
+    import numpy
+    prob = float(numpy.max(numpy.abs(out - want) / (
+        NATIVE_ATOL + NATIVE_RTOL * numpy.abs(want))))
+    return prob, artifact_shares(out, want)[1]
+
+
+def native_check(path, x, got, model, workdir):
+    """The port's ``NativeModel`` (``native/veles_infer.cc``, built with
+    g++ into the port's build directory) on the artifact at ``path``
+    (loaded on the card as ``model``) over ``x[:NATIVE_BATCH]``, held to
+    ``got`` (the card's forward of ``x``) by :func:`native_shares`; then
+    the same artifact with its norm units' k planted (written into
+    ``workdir``) must fail that gate.  Returns the numbers; a failed
+    build, a disagreement or an unseen plant fails."""
+    import copy
+    import numpy
+    from veles_tpu_torch.export import write_artifact
+    from veles_tpu_torch.native import NativeModel, build_native
+    t0 = time.monotonic()
+    lib = build_native()
+    build_s = time.monotonic() - t0
+
+    def run(artifact):
+        nat = NativeModel(artifact)
+        try:
+            t0 = time.monotonic()
+            out = nat.forward(x[:NATIVE_BATCH])
+            return out, time.monotonic() - t0, nat.unit_types
+        finally:
+            nat.close()
+
+    out, forward_s, types = run(path)
+    want = numpy.asarray(got[:NATIVE_BATCH]).reshape(out.shape)
+    share, logit_share = native_shares(out, want)
+    units = [u["type"] for u in model.units]
+    manifest = copy.deepcopy(model.manifest)
+    norms = [u for u in manifest["units"] if u["type"] == "norm"]
+    for unit in norms:
+        conf = unit["config"]
+        conf["k"] = float(conf["k"]) * ALEXNET_PLANTED_SCALE ** (
+            -1.0 / float(conf["beta"]))
+    planted_path = os.path.join(workdir, "alexnet_planted_norm.veles.tgz")
+    write_artifact(planted_path, manifest, model.weights, compresslevel=0)
+    try:
+        planted = run(planted_path)[0]
+    finally:
+        os.remove(planted_path)
+    planted_share, planted_logit_share = native_shares(
+        planted, want.reshape(planted.shape))
+    numbers = {"build_s": build_s, "forward_s": forward_s,
+               "batch": NATIVE_BATCH,
+               "max_abs_err": float(numpy.abs(out - want).max()),
+               "largest_share_of_tol": share,
+               "largest_share_of_logit_tol": logit_share,
+               "planted_norms": len(norms),
+               "planted_share_of_tol": planted_share,
+               "planted_share_of_logit_tol": planted_logit_share,
+               "library": os.path.relpath(lib, HERE)}
+    if types != units or max(share, logit_share) > 1.0:
+        fail("the native runtime disagrees with the card's artifact "
+             "forward: %s (units %s vs %s)" % (numbers, types, units))
+    if len(norms) != 2 or not max(planted_share,
+                                  planted_logit_share) > 1.0:
+        fail("the native gate does not see %d planted norm units (k "
+             "raised for an output x %g): %s" % (
+                 len(norms), ALEXNET_PLANTED_SCALE, numbers))
+    return numbers
+
+
+def write_mnist_idx(directory, seed=SEED, n_train=MNIST_TRAIN,
+                    n_valid=MNIST_VALID):
+    """Seeded class-structured 28x28 uint8 images and labels (``n_train``
+    + ``n_valid``) as the four MNIST IDX files (raw, uncompressed) under
+    ``directory/mnist``: a
     smooth 4x4 prototype a class under heavy noise (about 5 % validation
     error after a few epochs, so the metrics compared are not all
     zero)."""
@@ -2308,7 +2420,7 @@ def write_mnist_idx(directory, seed=SEED):
     protos = rng.rand(10, 4, 4)[:, up][:, :, up]
     d = os.path.join(directory, "mnist")
     os.makedirs(d, exist_ok=True)
-    for prefix, n in (("train", MNIST_TRAIN), ("t10k", MNIST_VALID)):
+    for prefix, n in (("train", n_train), ("t10k", n_valid)):
         labels = rng.randint(0, 10, n).astype(numpy.uint8)
         images = numpy.clip(128.0 + (protos[labels] - 0.5) * 200.0 +
                             rng.normal(0.0, 300.0, (n, 28, 28)), 0, 255)
@@ -2665,6 +2777,19 @@ def phase_snapshots(workdir, smi, alexnet_wf):
         fail("the alexnet artifact forward differs from forward_numpy: "
              "%.3g of rtol %g in the probabilities, %.3g in the centered "
              "logits" % (share, ARTIFACT_RTOL, logit_share))
+    native = native_check(path, x, got, model, workdir)
+    print("snapshots: the native runtime on the host (%s, built in %.1f "
+          "s) == the card's artifact forward on %d images within rtol %g, "
+          "atol %g: max abs err %.3g, largest share of the tolerance "
+          "%.3g, of the centered logits' rtol %g %.3g; %.1f s; its %d norm "
+          "units planted (output x %g) %.3g / %.3g of them, caught" % (
+              native["library"], native["build_s"], NATIVE_BATCH,
+              NATIVE_RTOL, NATIVE_ATOL, native["max_abs_err"],
+              native["largest_share_of_tol"], ARTIFACT_LOGIT_RTOL,
+              native["largest_share_of_logit_tol"], native["forward_s"],
+              native["planted_norms"], ALEXNET_PLANTED_SCALE,
+              native["planted_share_of_tol"],
+              native["planted_share_of_logit_tol"]))
     launch = L._launch
 
     def planted_launch(fn, name, *args):
@@ -2709,7 +2834,8 @@ def phase_snapshots(workdir, smi, alexnet_wf):
         "largest_share_of_logit_tol": logit_share,
         "planted_share_of_tol": planted_share,
         "planted_share_of_logit_tol": planted_logit_share,
-        "b6_launches_per_forward": per_forward, "smi": smi}
+        "b6_launches_per_forward": per_forward, "smi": smi,
+        "native": native}
     numbers["launches"] = launches
     numbers["phase_s"] = time.monotonic() - started
     print("snapshots: the phase took %.1f s" % numbers["phase_s"])
@@ -5453,9 +5579,12 @@ def phase_net(workdir, smi):
 
 
 #: Phase 9f (a): the MNIST fleet — two worker processes spawned by the
-#: launcher, FLEET_MNIST_EPOCHS epochs, one worker SIGKILLed with a job
-#: in hand once the server generated FLEET_KILL_AFTER jobs.
+#: launcher, FLEET_MNIST_EPOCHS epochs over FLEET_MNIST_TRAIN +
+#: FLEET_MNIST_VALID images (half of phase 6b's set since PR 20: 18 jobs
+#: an epoch), one worker SIGKILLed with a job in hand once the server
+#: generated FLEET_KILL_AFTER jobs.
 FLEET_MNIST_EPOCHS, FLEET_KILL_AFTER = 2, 5
+FLEET_MNIST_TRAIN, FLEET_MNIST_VALID = 1500, 300
 #: Phase 9f (b): PBT over the full-width AlexNet, FLEET_P members at
 #: NET_BATCH a minibatch, FLEET_EPOCHS epochs of one validation job and
 #: one train job of FLEET_TICKS ticks each, the learning rate tuned;
@@ -5506,7 +5635,8 @@ def fleet_mnist(workdir, smi, device="cuda"):
     from veles_tpu_torch.launcher import Launcher
     from veles_tpu_torch.znicz.samples.mnist import MnistWorkflow
     datasets = os.path.join(workdir, "fleet")
-    write_mnist_idx(datasets)
+    write_mnist_idx(datasets, n_train=FLEET_MNIST_TRAIN,
+                    n_valid=FLEET_MNIST_VALID)
     argv = [os.path.join(HERE, "veles_tpu_torch", "znicz", "samples",
                          "mnist.py"),
             "root.common.dirs.datasets=%r" % datasets,
@@ -5827,6 +5957,407 @@ def phase_fleet(workdir, smi):
     numbers = {"fleet": mnist, "pbt": pbt,
                "phase_s": time.monotonic() - started}
     print("9f on %s: the phase %.1f s" % (smi, numbers["phase_s"]))
+    return launches, numbers
+
+
+#: Phase 10s: the AlexNet at NET_BATCH, SERVICES_EPOCHS epochs of one
+#: validation tick and SERVICES_TRAIN_TICKS train ticks (10 synthetic
+#: classes of 1000), heartbeats every SERVICES_INTERVAL seconds.  The
+#: ticks take 19-43 ms on the card: warm runs of 2 and 4 epochs left
+#: room for one and two beats before the last, so 16 epochs (about 1-2
+#: s of ticks) keep the gate's two beats during the run clear of the
+#: host's speed.
+SERVICES_EPOCHS, SERVICES_TRAIN_TICKS, SERVICES_INTERVAL = 16, 2, 0.2
+#: The plotters of the phase's workflow file, by name.
+SERVICES_PLOTS = {"validation error": "AccumulatingPlotter",
+                  "confusion": "MatrixPlotter",
+                  "conv1 weights": "Histogram"}
+
+SERVICES_WORKFLOW = '''"""The full-width AlexNet with the operator services' plotters: a
+confusion matrix kept on the card by the evaluator, and an
+AccumulatingPlotter, a MatrixPlotter and a Histogram after the decision,
+each firing at an epoch's end."""
+import numpy
+import torch
+
+from veles_tpu_torch.config import root, get as config_get
+from veles_tpu_torch.memory import Vector
+from veles_tpu_torch.mutable import Bool
+from veles_tpu_torch.plotting_units import (AccumulatingPlotter, Histogram,
+                                            MatrixPlotter)
+from veles_tpu_torch.units import Unit
+from veles_tpu_torch.znicz.evaluator import EvaluatorSoftmax
+from veles_tpu_torch.znicz.samples.imagenet import (AlexNetWorkflow,
+                                                     LOADER_KEYS)
+
+
+class ConfusionEvaluator(EvaluatorSoftmax):
+    """The softmax evaluator that also adds each valid sample into a
+    (label, prediction) matrix on the device."""
+
+    def __init__(self, workflow, **kwargs):
+        super(ConfusionEvaluator, self).__init__(workflow, **kwargs)
+        self.confusion = Vector()
+
+    @property
+    def tstate(self):
+        state = dict(super(ConfusionEvaluator, self).tstate)
+        state["confusion"] = self.confusion
+        return state
+
+    def tforward(self, read, write, params, ctx, state=None):
+        updates = super(ConfusionEvaluator, self).tforward(
+            read, write, params, ctx, state)
+        if state is not None:
+            labels = read(self.labels).long()
+            pred = torch.argmax(read(self.input), dim=-1)
+            updates = dict(updates or {})
+            updates["confusion"] = state["confusion"].index_put(
+                (labels, pred), read(self.mask).float(), accumulate=True)
+        return updates
+
+
+class EpochEnd(Unit):
+    """Opens ``gate`` (a gate_skip) at an epoch's last minibatch only."""
+
+    def __init__(self, workflow, gate, **kwargs):
+        super(EpochEnd, self).__init__(workflow, **kwargs)
+        self.gate = gate
+
+    def run(self):
+        self.gate <<= not self.workflow.loader.epoch_ended
+
+
+class ConfusionReset(Unit):
+    """After the matrix plotter: books the samples the evaluator counted
+    in the epoch, and zeroes the matrix for the next."""
+
+    def run(self):
+        wf = self.workflow
+        wf.counted.append(float(sum(wf.decision.epoch_n_valid[1:])))
+        wf.evaluator.confusion.map_write()
+        wf.evaluator.confusion.mem[...] = 0.0
+
+
+class ServicesWorkflow(AlexNetWorkflow):
+    def __init__(self, workflow, n_classes=1000, **kwargs):
+        super(ServicesWorkflow, self).__init__(
+            workflow, n_classes=n_classes, **kwargs)
+        self.evaluator.confusion.mem = numpy.zeros(
+            (n_classes, n_classes), numpy.float32)
+        self.counted = []
+        gate = Bool(True)
+        end = EpochEnd(self, gate, name="epoch_end")
+        end.link_from(self.decision)
+        curve = AccumulatingPlotter(self, name="validation error",
+                                    input=self.decision,
+                                    input_field="min_validation_err")
+        matrix = MatrixPlotter(self, name="confusion",
+                               input=self.evaluator.confusion)
+        hist = Histogram(self, name="conv1 weights",
+                         input=self.forwards[0].weights)
+        reset = ConfusionReset(self, name="confusion_reset")
+        for unit in (curve, matrix, hist):
+            unit.link_from(end)
+            unit.gate_skip = gate
+        reset.link_from(matrix)
+        reset.gate_skip = gate
+
+    def link_evaluator(self):
+        last = self.forwards[-1]
+        ev = ConfusionEvaluator(self)
+        ev.input = last.logits if hasattr(last, "logits") else last.output
+        ev.labels = self.loader.minibatch_labels
+        ev.link_from(last)
+        ev.mask = self.loader.minibatch_mask
+        ev.minibatch_class_vec = self.loader.minibatch_class_vec
+        return ev
+
+
+def run(load, main):
+    cfg = root.imagenet
+    load(ServicesWorkflow,
+         minibatch_size=config_get(cfg.minibatch_size, 128),
+         max_epochs=config_get(cfg.max_epochs, 2),
+         n_classes=config_get(cfg.n_classes, 1000),
+         fail_iterations=config_get(cfg.fail_iterations, 10),
+         loader_config={key: cfg.get(key) for key in LOADER_KEYS
+                        if cfg.get(key) is not None})
+    main()
+'''
+
+
+def services_argv(wf_py, status, graph, batch=NET_BATCH, size=227):
+    """The command line of phase 10s."""
+    return [wf_py,
+            "root.imagenet.minibatch_size=%d" % batch,
+            "root.imagenet.max_epochs=%d" % SERVICES_EPOCHS,
+            # No early stop: every epoch runs, whatever the error does.
+            "root.imagenet.fail_iterations=%d" % SERVICES_EPOCHS,
+            "root.imagenet.n_classes=1000",
+            "root.imagenet.sim_image_size=%d" % size,
+            "root.imagenet.sim_classes=10",
+            "root.imagenet.sim_train=%d" % (batch * SERVICES_TRAIN_TICKS),
+            "root.imagenet.sim_valid=%d" % batch,
+            "root.imagenet.validate_labels=False",
+            "root.common.engine.precision_level=0",
+            "root.common.engine.pallas_lrn=True",
+            "root.common.graphics.enabled=True",
+            "root.common.web.interval=%g" % SERVICES_INTERVAL,
+            "-a", "cuda", "--status-address", status,
+            "--workflow-graph", graph, "--dump-config",
+            "--random-seed", str(SEED), "-v", "warning"]
+
+
+def subscribe(port):
+    """A subscriber socket on the graphics stream and its thread, which
+    decodes every payload with the port's restricted unpickler into the
+    returned list until the server closes."""
+    from veles_tpu_torch.graphics_client import safe_loads
+    from veles_tpu_torch.network_common import connect, recv_message
+    sock = connect("127.0.0.1:%d" % port, timeout=30.0)
+    got = []
+
+    def loop():
+        while True:
+            try:
+                payload = recv_message(sock, loads=safe_loads)
+            except OSError:
+                return
+            if payload is None:
+                return
+            got.append(payload)
+
+    thread = threading.Thread(target=loop, name="smoke-subscriber",
+                              daemon=True)
+    thread.start()
+    return sock, thread, got
+
+
+def poll(predicate, timeout, what):
+    end = time.monotonic() + timeout
+    while time.monotonic() < end:
+        value = predicate()
+        if value:
+            return value
+        time.sleep(0.02)
+    fail("10s: timed out after %.0f s waiting for %s" % (timeout, what))
+
+
+def services_pause(status, workdir, smi, device="cuda"):
+    """Phase 10s's second part: a master ``Launcher(listen_address=...,
+    status_address=...)`` holding MNIST FC on ``device`` and a worker of
+    the same build on a loopback thread; the master folds no job until
+    the pause and the resume went through.  A ``pause`` of the worker
+    queued through the dashboard's ``/service`` must come back on a
+    heartbeat and pause it (``Server.pause_slave``), a ``resume`` resume
+    it; the run then completes.  Returns the numbers."""
+    from veles_tpu_torch import prng
+    from veles_tpu_torch.client import Client
+    from veles_tpu_torch.config import root
+    from veles_tpu_torch.launcher import Launcher
+    from veles_tpu_torch.znicz.samples.mnist import MnistWorkflow
+    datasets = os.path.join(workdir, "services_mnist")
+    write_mnist_idx(datasets)
+    root.common.dirs.datasets = datasets
+    net = root.common.net
+    saved_net = dict(net.__dict__)
+    for key in ("job_ticks", "dtype", "codec", "zero"):
+        net.__dict__.pop(key, None)
+    launcher = Launcher(listen_address="127.0.0.1:0",
+                        status_address="127.0.0.1:%d" % status.port,
+                        heartbeat_interval=SERVICES_INTERVAL)
+    prng.reset()
+    prng.get(0).seed(SEED)
+    MnistWorkflow(launcher, max_epochs=1)
+    launcher.initialize(device=device)
+    worker_launcher = Launcher()
+    prng.reset()
+    prng.get(0).seed(SEED)
+    worker = MnistWorkflow(worker_launcher, max_epochs=1)
+    worker_launcher.initialize(device=device)
+    server = launcher.server
+    hold = threading.Event()
+    apply = launcher.workflow.apply_data_from_slave
+
+    def held_apply(data, slave=None):
+        hold.wait(FLEET_DEADLINE)
+        apply(data, slave)
+
+    launcher.workflow.apply_data_from_slave = held_apply
+    client = Client("127.0.0.1:%d" % server.port, worker,
+                    reconnect_attempts=3)
+    threads = [threading.Thread(target=launcher.run, name="smoke-master"),
+               threading.Thread(target=client.run, name="smoke-worker")]
+    for t in threads:
+        t.start()
+    t0 = time.monotonic()
+    try:
+        def listed():
+            for mid, info in status.status().items():
+                if info.get("mode") == "master" and info.get("slaves"):
+                    return mid, next(iter(info["slaves"]))
+        mid, sid = poll(listed, 60.0, "the worker in a heartbeat")
+        post("http://127.0.0.1:%d/service" % status.port,
+             {"master": mid, "command": "pause", "slave": sid})
+        poll(lambda: server.slaves[sid].paused, 60.0, "the pause")
+        paused_s = time.monotonic() - t0
+        post("http://127.0.0.1:%d/service" % status.port,
+             {"master": mid, "command": "resume", "slave": sid})
+        poll(lambda: not server.slaves[sid].paused, 60.0, "the resume")
+    finally:
+        hold.set()
+        for t in threads:
+            t.join(FLEET_DEADLINE)
+    numbers = {"commands": list(launcher.commands),
+               "epochs": int(launcher.workflow.decision.epoch_number),
+               "jobs": client.jobs_done, "pause_s": paused_s,
+               "seconds": time.monotonic() - t0,
+               "heartbeats": launcher.heartbeats}
+    net.__dict__.clear()
+    net.__dict__.update(saved_net)
+    if any(t.is_alive() for t in threads) or numbers["epochs"] != 1 or \
+            [(c["command"], c["slave"], c["done"])
+             for c in numbers["commands"]] != [
+                ("pause", sid, "paused"), ("resume", sid, "resumed")]:
+        fail("10s: the dashboard's pause and resume of worker %s: %s"
+             % (sid, numbers))
+    print("10s on %s: a pause of worker %s queued through /service came "
+          "back on a heartbeat and paused it (%.1f s after the start), "
+          "a resume resumed it; the master's run then trained its epoch "
+          "(%d jobs, %d heartbeats, %.1f s)" % (
+              smi, sid, paused_s, numbers["jobs"], numbers["heartbeats"],
+              numbers["seconds"]))
+    return numbers
+
+
+def phase_services(workdir, smi, device="cuda"):
+    """Phase 10s (see the module's docstring); ``device`` "cpu" is a
+    rehearsal on the host (its perf and LRN gates are the card's).
+    Returns (B6/B7 launches of the command line's run, numbers)."""
+    import contextlib
+    import io
+    import numpy
+    import torch
+    from veles_tpu_torch.config import root
+    from veles_tpu_torch.graphics_server import GraphicsServer
+    from veles_tpu_torch.ops import lrn as L
+    from veles_tpu_torch.web_status import WebStatusServer
+    started = time.monotonic()
+    wf_py = os.path.join(workdir, "alexnet_services.py")
+    graph = os.path.join(workdir, "services.dot")
+    with open(wf_py, "w") as fout:
+        fout.write(SERVICES_WORKFLOW)
+    status = WebStatusServer(host="127.0.0.1", port=0).start()
+    root.common.graphics.host = "127.0.0.1"
+    graphics = GraphicsServer.launch()
+    sock, subscriber, payloads = subscribe(graphics.port)
+    try:
+        poll(lambda: graphics.subscriber_count == 1, 30.0,
+             "the subscriber")
+        argv = services_argv(wf_py, "127.0.0.1:%d" % status.port, graph)
+        if device != "cuda":
+            argv += ["-a", device]
+        dumped = io.StringIO()
+        L.reset_launches()
+        t0 = time.monotonic()
+        with contextlib.redirect_stdout(dumped):
+            main = run_cli(argv)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        cli_s = time.monotonic() - t0
+        launches = {"lrn_forward": L.lrn_forward.launches,
+                    "lrn_backward": L.lrn_backward.launches}
+        routes = {name: dict(getattr(L, name).launches_by_route)
+                  for name in launches}
+    finally:
+        graphics.stop()
+        subscriber.join(30.0)
+        sock.close()
+    wf, launcher = main.workflow, main.launcher
+    board = status.status()
+    infos = [i for i in board.values()
+             if i.get("workflow") == type(wf).__name__]
+    info = infos[0] if len(infos) == 1 else {}
+    perf = info.get("perf") or {}
+    dot = info.get("graph") or ""
+    with open(graph) as fin:
+        graph_file = fin.read()
+    missing = [u.name for u in wf.units
+               if 'label="%s"' % u.name not in dot]
+    by_name = {}
+    for p in payloads:
+        by_name.setdefault(p["name"], []).append(p)
+    sums = [float(numpy.asarray(p["data"]["matrix"]).sum())
+            for p in by_name.get("confusion", [])]
+    ticks = SERVICES_EPOCHS * (1 + SERVICES_TRAIN_TICKS)
+    want = {"lrn_forward": 2 * ticks,
+            "lrn_backward": 2 * SERVICES_EPOCHS * SERVICES_TRAIN_TICKS}
+    numbers = {
+        "cli_s": cli_s, "heartbeats": launcher.heartbeats,
+        "status": {k: info.get(k) for k in ("workflow", "mode", "epoch",
+                                            "running", "metrics")},
+        "perf": perf, "graph_units": len(wf.units),
+        "graph_missing": missing, "graph_file_equal": graph_file == dot,
+        "config_dump_chars": len(dumped.getvalue()),
+        "payloads": {name: len(v) for name, v in by_name.items()},
+        "confusion_sums": sums, "counted": list(wf.counted),
+        "launches": launches, "routes": routes}
+    print("10s on %s: the command line (-a cuda, --status-address, "
+          "--workflow-graph, --dump-config, graphics on) %.1f s: %d "
+          "heartbeats; the dashboard's %s at epoch %s, metrics %s, perf "
+          "step_ms %s, MFU %s; the DOT graph names %d of %d units (the "
+          "file equal: %s); payloads %s; confusion sums %s against the "
+          "evaluator's counts %s; B6 %d, B7 %d launches (routes %s)" % (
+              smi, cli_s, launcher.heartbeats, info.get("workflow"),
+              info.get("epoch"), info.get("metrics"), perf.get("step_ms"),
+              perf.get("mfu"), len(wf.units) - len(missing), len(wf.units),
+              graph_file == dot, numbers["payloads"], sums, wf.counted,
+              launches["lrn_forward"], launches["lrn_backward"], routes))
+    # Two beats during the run, and the last as it ends.
+    if launcher.heartbeats < 3 or len(infos) != 1 or \
+            info.get("epoch") != SERVICES_EPOCHS or \
+            not {"validation_err", "train_err"} <= set(
+                info.get("metrics") or {}):
+        fail("10s: the dashboard did not show the run's epoch and metrics "
+             "over two heartbeats and the last: %s" % numbers)
+    if device == "cuda" and not (
+            (perf.get("step_ms") or 0) > 0 and 0 < (perf.get("mfu") or 0)
+            <= 1):
+        fail("10s: the perf row lacks the tick's device ms or MFU: %s"
+             % perf)
+    if missing or graph_file != dot or not dot.startswith("digraph"):
+        fail("10s: the DOT graph misses units %s (the file equal to the "
+             "heartbeat's: %s)" % (missing, graph_file == dot))
+    if "'imagenet'" not in dumped.getvalue() or \
+            "'graphics'" not in dumped.getvalue():
+        fail("10s: --dump-config printed no config tree")
+    if numbers["payloads"] != {n: SERVICES_EPOCHS for n in SERVICES_PLOTS} \
+            or any(p["cls_name"] != SERVICES_PLOTS[p["name"]]
+                   for p in payloads):
+        fail("10s: expected one payload per plotter per epoch: %s"
+             % numbers["payloads"])
+    if sums != wf.counted or len(sums) != SERVICES_EPOCHS or \
+            sums[-1] != sum(wf.decision.epoch_n_valid[1:]):
+        fail("10s: the confusion matrices' sums %s are not the samples "
+             "the evaluator counted %s" % (sums, wf.counted))
+    if device == "cuda" and (launches != want or any(
+            r.get("wide") for r in routes.values())):
+        fail("10s: B6/B7 launches %s (routes %s); the ticks imply %s on "
+             "the register route" % (launches, routes, want))
+    del main, wf, launcher
+    gc.collect()
+    # The command line's dashboard address and graphics switch go: the
+    # second part's worker launcher, in this process, must not beat too.
+    root.common.__dict__.pop("graphics", None)
+    root.common.__dict__.pop("web", None)
+    root.__dict__.pop("imagenet", None)
+    clean_cli_config()
+    numbers["pause"] = services_pause(status, workdir, smi, device)
+    status.stop()
+    root.common.__dict__.pop("dirs", None)
+    numbers["phase_s"] = time.monotonic() - started
+    print("10s on %s: the phase %.1f s" % (smi, numbers["phase_s"]))
     return launches, numbers
 
 
@@ -7437,6 +7968,10 @@ def all_phases(kind, count, smi, workdir, started):
     fleet_launches, fleet = timed("fleet", phase_fleet, workdir, smi)
     gc.collect()
     torch.cuda.empty_cache()
+    services_launches, services = \
+        timed("services", phase_services, workdir, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
     reload_path, write_s, waited_s = PREWRITER[0].wait("reload")
     print("reload artifact write: %.1f s by the prewrite process "
           "(waited %.1f s; seed %d)" % (write_s, waited_s, SEED + 1))
@@ -7572,7 +8107,8 @@ def all_phases(kind, count, smi, workdir, started):
                                   LRN_SHAPES),
             "launches": lrn_launches[name] + snapshot_launches[name] +
             stream_launches[name] + pop_launches[name] +
-            net_launches[name] + fleet_launches[name],
+            net_launches[name] + fleet_launches[name] +
+            services_launches[name],
             "launches_by_path": {
                 "alexnet_run": lrn_launches[name],
                 "alexnet_snapshot_ticks_and_artifact_forward":
@@ -7580,7 +8116,8 @@ def all_phases(kind, count, smi, workdir, started):
                 "alexnet_streamed": stream_launches[name],
                 "alexnet_population": pop_launches[name],
                 "alexnet_data_plane_worker": net_launches[name],
-                "alexnet_pbt_fleet_worker": fleet_launches[name]},
+                "alexnet_pbt_fleet_worker": fleet_launches[name],
+                "alexnet_services_cli": services_launches[name]},
             "launches_by_route": lrn_routes[name],
             "max_abs_err": lrn_err[name],
             "tol": "f32 fwd rtol %g, bwd %g x the terms' magnitude; bf16 "
@@ -7626,6 +8163,7 @@ def all_phases(kind, count, smi, workdir, started):
     print(json.dumps({"parallel": parallel}))
     print(json.dumps({"data_plane": net}))
     print(json.dumps({"fleet": fleet}))
+    print(json.dumps({"services": services}))
     print(json.dumps({"quant_serving": quant}))
     print(json.dumps(kernels))
     print("chip_smoke: command time %.1f s" % (time.monotonic() - started))

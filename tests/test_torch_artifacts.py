@@ -22,7 +22,8 @@ at an even n = 4 with a window that dominates.
 * The long-tail types ``rbm``, ``all2all_deconv*`` and ``kohonen``, from
   hand-written unit tables, the same way; a ``moe_transformer_block``
   artifact loads and ``generate`` refuses it, pointing at ``forward``.
-* The port's MNIST and conv artifacts match ``native/veles_infer`` at
+* The port's MNIST and conv artifacts match ``native/veles_infer``
+  (through the port's binding, ``veles_tpu_torch.native``) at
   ``tests/test_native.py``'s tolerances (FC rtol 1e-4, atol 1e-5; conv
   rtol 1e-3, atol 1e-5).
 * Serving a classifier: ``/api`` labels are the local ``forward``'s
@@ -44,7 +45,7 @@ import veles_tpu.prng as jprng
 from veles_tpu.export import ExportedModel as JModel
 from veles_tpu.export import export_workflow as jexport
 from veles_tpu.launcher import Launcher as JLauncher
-from veles_tpu.native import NativeModel
+from veles_tpu_torch.native import NativeModel
 from veles_tpu.znicz.samples.imagenet import AlexNetWorkflow as JAlexNet
 from veles_tpu.znicz.samples.mnist import MnistWorkflow as JMnist
 from veles_tpu.znicz.samples.tinylm import TinyLMWorkflow as JTinyLM

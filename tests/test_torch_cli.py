@@ -33,6 +33,10 @@ def _port_options():
 
 
 JAX_OPTIONS = _jax_options()
+#: The flags refused until A8b-i ported them, with a value each parses.
+PORTED_A8B_I = {"-a": "cpu", "--backend": "auto", "--dry-run": "init",
+                "--dump-config": None, "--profile": "prof",
+                "--workflow-graph": "graph.dot"}
 REFUSED = sorted(set(JAX_OPTIONS) - _port_options())
 
 
@@ -44,11 +48,23 @@ def test_every_jax_option_is_parsed_or_refused_by_name():
     assert missing == []
     # A flag is one or the other, never both.
     assert sorted(port & refused) == []
-    assert set(tmain.NOT_PORTED.values()) <= {"A8b"}
+    assert tmain.NOT_PORTED == {"--frontend": "A8b-ii"}
 
 
-@pytest.mark.parametrize("flag", REFUSED)
+@pytest.mark.parametrize("flag", REFUSED + sorted(PORTED_A8B_I))
 def test_refused_flag_names_its_queue(flag):
+    """A refused flag raises naming its queue or its reason; the flags
+    refused until A8b-i (``-a``, ``--backend``, ``--dry-run``,
+    ``--workflow-graph``, ``--dump-config``, ``--profile``) now parse."""
+    if flag in PORTED_A8B_I:
+        value = PORTED_A8B_I[flag]
+        args = tmain.Main(["wf.py", flag] + (
+            [] if value is None else [value])).parse()
+        dest = {"-a": "device", "--backend": "device"}.get(
+            flag, flag.lstrip("-").replace("-", "_"))
+        assert getattr(args, dest) == (True if value is None else value)
+        assert flag not in tmain.NOT_PORTED
+        return
     with pytest.raises(NotImplementedError) as err:
         tmain.Main(["wf.py", flag, "1"]).parse()
     if flag in tmain.NOT_PORTED:

@@ -73,7 +73,16 @@ def test_import_leaves_jax_and_veles_tpu_out():
             "veles_tpu_torch.serving.fabric, "
             "veles_tpu_torch.serving.fabric.router, "
             "veles_tpu_torch.serving.fabric.disagg, "
-            "veles_tpu_torch.serving.fabric.registry\n"
+            "veles_tpu_torch.serving.fabric.registry, "
+            "veles_tpu_torch.cmdline, veles_tpu_torch.logger, "
+            "veles_tpu_torch.backends, veles_tpu_torch.web_status, "
+            "veles_tpu_torch.plotter, veles_tpu_torch.plotting_units, "
+            "veles_tpu_torch.graphics_server, "
+            "veles_tpu_torch.graphics_client, veles_tpu_torch.publishing, "
+            "veles_tpu_torch.publishing_confluence, "
+            "veles_tpu_torch.interaction, veles_tpu_torch.native, "
+            "veles_tpu_torch.forge, veles_tpu_torch.forge.client, "
+            "veles_tpu_torch.forge.server\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib', 'veles_tpu.')) or "
             "m == 'veles_tpu')\n"
@@ -98,6 +107,23 @@ def test_hdf5_loader_imports_h5py_only_when_it_reads():
                          timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "False"
+
+
+def test_service_modules_import_without_matplotlib():
+    """The card's machine has no matplotlib: the plotters, the graphics
+    stream, the publisher and the dashboard import without it (only a
+    viewer or a publisher's image backend renders)."""
+    code = ("import sys, veles_tpu_torch.plotting_units, "
+            "veles_tpu_torch.graphics_server, "
+            "veles_tpu_torch.graphics_client, veles_tpu_torch.publishing, "
+            "veles_tpu_torch.web_status, veles_tpu_torch.interaction\n"
+            "print('matplotlib' in sys.modules, 'IPython' in sys.modules)\n")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "False False"
 
 
 @pytest.mark.parametrize("path", _port_sources(),

@@ -476,11 +476,15 @@ def test_launcher_master_slave_modes():
 
 
 def test_launcher_refuses_what_is_not_ported():
-    """Heartbeats (``status_address``) are ROADMAP A8 and raise; the
-    fleet mode (``nodes``), ported, takes its nodes and worker argv and
-    spawns nothing before ``initialize``."""
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        Launcher(status_address="127.0.0.1:1")
+    """Heartbeats (``status_address``), ported in A8b-i, no longer raise:
+    the launcher keeps the address and starts nothing before
+    ``initialize``; the fleet mode (``nodes``), ported, takes its nodes
+    and worker argv and spawns nothing before ``initialize``."""
+    beating = Launcher(status_address="127.0.0.1:1",
+                       heartbeat_interval=0.5)
+    assert beating.status_address == "127.0.0.1:1"
+    assert beating.heartbeat_interval == 0.5
+    assert beating._heartbeat_thread is None and beating.heartbeats == 0
     launcher = Launcher(listen_address="127.0.0.1:0", nodes=["local"],
                         worker_argv=["wf.py", "-m", "{master}"])
     assert launcher.nodes == ["local"] and launcher.is_master

@@ -371,13 +371,15 @@ def test_cli_trains_tinylm_on_cpu(tmp_path):
 
 def test_cli_refuses_what_is_not_ported():
     """Modes of the JAX CLI that the port lacks raise "not yet
-    ported"; a missing card raises instead of running on the CPU."""
+    ported" (``--frontend``, ROADMAP A8b-ii); a missing card raises
+    instead of running on the CPU."""
     from veles_tpu_torch.__main__ import Main
-    # --trace-out is ported (A8a): it parses.
+    # --trace-out (A8a) and --dry-run (A8b-i) are ported: they parse.
     assert Main(["wf.py", "--trace-out", "t.json"]).parse().trace_out \
         == "t.json"
-    with pytest.raises(NotImplementedError, match="A8"):
-        Main(["wf.py", "--dry-run"]).parse()
+    assert Main(["wf.py", "--dry-run", "init"]).parse().dry_run == "init"
+    with pytest.raises(NotImplementedError, match="A8b-ii"):
+        Main(["wf.py", "--frontend"]).parse()
     if not torch.cuda.is_available():
         from veles_tpu_torch.error import DeviceNotFoundError
         with pytest.raises(DeviceNotFoundError):

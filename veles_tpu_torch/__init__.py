@@ -15,6 +15,9 @@ and the AlexNet sample, whose LRN layers run hand-written forward and
 backward kernels (``ops/lrn.py``); and the meta-workflows that run in
 one process — the genetic search (``genetics``), whose generations train
 as one population step vmapped over the members, the population
-engine's GA mode (``population``) and ensembles (``ensemble``).  Every
+engine's GA mode (``population``) and ensembles (``ensemble``); and the
+operator services — the web-status dashboard (``web_status``), plotters
+and the graphics stream, report publishing, the shell unit, the model
+registry (``forge``) and the native runtime binding (``native``).  Every
 kernel is CUDA C++ for Hopper under ``ops/csrc/``.
 """

@@ -6,7 +6,9 @@ Usage::
     python -m veles_tpu_torch path/to/workflow.py [config.py ...] \
         [root.x.y=v ...] [-c FILE ...] \
         [--random-seed N] [--result-file F] [--max-epochs N] \
-        [--device cuda|cpu] [-v debug|info|warning|error] \
+        [--device cuda|cpu | -a cuda|cpu|auto] [-v debug|info|warning|error] \
+        [--dry-run load|init|exec] [--workflow-graph FILE] [--dump-config] \
+        [--profile DIR] [--status-address HOST:PORT] \
         [-s SNAPSHOT | --auto-resume] [--snapshot-dir DIR] \
         [--snapshot-compression ""|gz|bz2|xz] [--snapshot-keep K] \
         [--no-snapshots] [--snapshot-artifact] \
@@ -57,138 +59,42 @@ respawns a dropped one.  ``--population`` and ``--pbt`` schedule
 population members as lineages over the fleet (``-l``/``-m``, or an
 in-process loopback), ``--ensemble-population`` routes
 ``--ensemble-train`` through them.  The three ``--jax-*`` flags make
-the process one rank of a ``torch.distributed`` world.  The JAX CLI's
-other modes — web status, the frontend, profiling the whole run,
-dry runs and graph dumps — are not yet ported: their flags raise,
-naming their ROADMAP queue (:data:`NOT_PORTED`).
+the process one rank of a ``torch.distributed`` world.
+
+The parser is :func:`cmdline.init_argparser`'s: the base options and
+every subsystem's own.  ``-a``/``--backend``/``--device`` picks the
+device by backend name (``backends.resolve_device``: ``cuda``, the
+default, and ``auto`` are the card and raise without one; ``cpu`` is
+the host); ``--dry-run load`` stops after the workflow is built,
+``init`` after it is initialized, ``exec`` after the run (no results
+file); ``--workflow-graph`` writes the control graph as DOT after
+initialize; ``--dump-config`` prints the config tree before the run;
+``--profile DIR`` writes a ``torch.profiler`` trace of the whole
+``launcher.run`` into DIR; ``--status-address`` points the launcher's
+web-status heartbeats at a dashboard (``root.common.web.url``).  The
+JAX flags the port does not parse raise by name: ``--frontend`` names
+its ROADMAP queue (:data:`NOT_PORTED`), ``--attn-decode-kernel`` the
+reason it has no counterpart (:data:`NO_COUNTERPART`).
 """
 
-import argparse
 import importlib
 import importlib.util
 import logging
 import os
 import sys
 
-from . import (client, guardian, network_common, observability,
-               population, prng, restful, snapshotter)
-from .loader import base as loader_base
-from .ops import attention, moe, pipeline
-from .znicz import optimizers
+from . import network_common, observability, prng, snapshotter
+from .cmdline import NOT_PORTED, NO_COUNTERPART, init_argparser
 from .config import Tune, root
 from .error import Bug
 from .json_encoders import dump_json
 from .launcher import Launcher
 from .logger import Logger
 
-#: Flags of the JAX CLI that the port refuses, with the ROADMAP queue
-#: that brings each.
-NOT_PORTED = {
-    "-a": "A8b", "--backend": "A8b", "--dry-run": "A8b",
-    "--workflow-graph": "A8b", "--dump-config": "A8b",
-    "--profile": "A8b", "--frontend": "A8b",
-}
-
-#: Flags of the JAX CLI that have no counterpart in the port, with the
-#: reason.
-NO_COUNTERPART = {
-    "--attn-decode-kernel":
-        "a CUDA tensor takes the decode kernels B4/B5 or raises, and "
-        "there is no XLA decode to select",
-}
-
 
 def make_parser():
-    parser = argparse.ArgumentParser(
-        prog="veles_tpu_torch",
-        description="Runs a workflow module of the PyTorch port.")
-    parser.add_argument(
-        "workflow", help="path to the workflow module (a .py file "
-        "defining run(load, main)) or a dotted module name")
-    parser.add_argument(
-        "config", nargs="*", default=[],
-        help="config file(s) executed with `root` in scope, and/or "
-             "root.path=value override assignments")
-    parser.add_argument(
-        "-c", "--config-list", nargs="*", default=[], metavar="FILE",
-        help="additional config files (explicit form)")
-    parser.add_argument(
-        "-r", "--random-seed", default="", metavar="SPEC",
-        help="seed of generator 0: an integer, or file:count:dtype")
-    parser.add_argument(
-        "--result-file", default="", metavar="FILE",
-        help="write the run's metrics JSON here")
-    parser.add_argument(
-        "--max-epochs", type=int, default=None,
-        help="override the decision's max_epochs")
-    parser.add_argument(
-        "--device", default="cuda", choices=("cuda", "cpu"),
-        help="device of the run (default: the CUDA card)")
-    parser.add_argument(
-        "--jax-coordinator", default="", metavar="HOST:PORT",
-        help="distributed run: the address every process meets at "
-             "(torch.distributed init_method tcp://HOST:PORT); each "
-             "process is one rank and the step is data-parallel over "
-             "the world (NCCL on the card, gloo with --device cpu)")
-    parser.add_argument(
-        "--jax-num-processes", type=int, default=0, metavar="N",
-        help="distributed run: the number of processes (the world "
-             "size)")
-    parser.add_argument(
-        "--jax-process-id", type=int, default=0, metavar="I",
-        help="distributed run: this process's rank")
-    parser.add_argument(
-        "-v", "--verbosity", default="info",
-        choices=("debug", "info", "warning", "error"), help="log level")
-    parser.add_argument(
-        "--optimize", default="", metavar="SIZE[:GENERATIONS]",
-        help="genetic hyperparameter search over Tune() config "
-             "leaves with the given population size")
-    parser.add_argument(
-        "--ensemble-train", default="", metavar="N[:RATIO]",
-        help="train an ensemble of N instances, each on RATIO of "
-             "the train set (default 1.0)")
-    parser.add_argument(
-        "--ensemble-test", default="", metavar="FILE",
-        help="evaluate the ensemble described by FILE (written by "
-             "--ensemble-train)")
-    parser.add_argument(
-        "--chaos", default="", metavar="PLAN",
-        help="deterministic fault-injection plan, e.g. "
-             "'net.drop@job:7,worker.kill@job:12,seed:42' "
-             "(resilience.FaultInjector)")
-    parser.add_argument(
-        "-l", "--listen-address", default="", metavar="HOST:PORT",
-        help="run as the data plane's coordinator (master), "
-             "listening on HOST:PORT")
-    parser.add_argument(
-        "-m", "--master-address", default="", metavar="HOST:PORT",
-        help="run as a worker (slave) of the coordinator at "
-             "HOST:PORT")
-    parser.add_argument(
-        "--blacklist-cooldown", type=float, default=None, metavar="SEC",
-        help="blacklist parole: a worker machine blacklisted by the "
-             "job-timeout watchdog is re-admitted on probation (one "
-             "in-flight job until it completes clean) after this many "
-             "seconds (default 60; 0 = immediate probation)")
-    parser.add_argument(
-        "--nodes", default="", metavar="HOST[,HOST...]",
-        help="with -l: spawn workers on these hosts over ssh ('local' "
-             "spawns subprocesses on this machine); dropped workers "
-             "respawn the same way")
-    network_common.init_parser(parser)
-    client.init_parser(parser)
-    population.init_parser(parser)
-    snapshotter.init_parser(parser)
-    guardian.init_parser(parser)
-    loader_base.init_parser(parser)
-    optimizers.init_parser(parser)
-    attention.init_parser(parser)
-    moe.init_parser(parser)
-    pipeline.init_parser(parser)
-    restful.init_parser(parser)
-    observability.init_parser(parser)
-    return parser
+    """The command line's parser (:func:`cmdline.init_argparser`)."""
+    return init_argparser(prog="veles_tpu_torch")
 
 
 def import_workflow_module(spec):
@@ -250,6 +156,7 @@ class Main(Logger):
         self.workflow = None
         self.module = None
         self._snapshot_loaded = False
+        self.profile_trace = None
 
     def parse(self):
         for arg in self.argv:
@@ -357,6 +264,8 @@ class Main(Logger):
             engine.moe_router_z = args.moe_router_z
         if args.blacklist_cooldown is not None:
             root.common.server.blacklist_cooldown = args.blacklist_cooldown
+        if args.status_address:
+            root.common.web.url = args.status_address
         pop_cfg = root.common.population
         if args.pbt_interval is not None:
             pop_cfg.pbt_interval = args.pbt_interval
@@ -537,14 +446,51 @@ class Main(Logger):
         return self.workflow, self._snapshot_loaded
 
     def main(self, **kwargs):
-        """The ``main`` closure: initialize → run → results."""
+        """The ``main`` closure: initialize → run → results, each stage
+        but the first skipped by ``--dry-run``."""
         if self.workflow is None:
             raise Bug("main() called before load()")
+        if self.args.dry_run == "load":
+            return
         kwargs.setdefault("device", self.args.device)
         self.launcher.initialize(snapshot=self._snapshot_loaded,
                                  **kwargs)
-        self.launcher.run()
+        if self.args.workflow_graph:
+            self.workflow.generate_graph(self.args.workflow_graph)
+            self.info("workflow graph -> %s", self.args.workflow_graph)
+        if self.args.dry_run == "init":
+            self.launcher.stop_heartbeats()
+            return
+        if self.args.profile:
+            self.profile_run(self.args.profile)
+        else:
+            self.launcher.run()
+        if self.args.dry_run == "exec":
+            return
         self.write_results()
+
+    def profile_run(self, directory):
+        """``launcher.run`` under ``torch.profiler`` (the host and, on
+        the card, CUDA activity); the Chrome trace goes to
+        ``directory/trace_<pid>_<ms>.json``, its path to
+        :attr:`profile_trace`."""
+        import time
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+        activities = [ProfilerActivity.CPU]
+        if self.launcher.device.torch_device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        os.makedirs(directory, exist_ok=True)
+        with profile(activities=activities) as prof:
+            try:
+                self.launcher.run()
+            finally:
+                if torch.cuda.is_initialized():
+                    torch.cuda.synchronize()
+        self.profile_trace = os.path.join(directory, "trace_%d_%d.json" % (
+            os.getpid(), int(time.time() * 1000)))
+        prof.export_chrome_trace(self.profile_trace)
+        self.info("profiler trace -> %s", self.profile_trace)
 
     # -- the meta-workflow modes -------------------------------------------
 
@@ -587,7 +533,7 @@ class Main(Logger):
             "class": type(self.workflow).__name__,
             "checksum": self.workflow.checksum,
             "mode": self.launcher.mode,
-            "device": self.args.device,
+            "device": self.launcher.device.backend_name,
             "seed": repr(prng.get(0).seed_value),
             "runtime": self.launcher.runtime,
             "units": len(self.workflow.units),
@@ -601,6 +547,9 @@ class Main(Logger):
                 format="%(asctime)s %(levelname).1s %(name)s: "
                        "%(message)s", datefmt="%H:%M:%S")
         self.parse()
+        if not self.args.workflow:
+            make_parser().print_help()
+            return self.EXIT_FAILURE
         self.seed_random()
         apply_config_sources(
             list(self.args.config) + list(self.args.config_list),
@@ -608,6 +557,8 @@ class Main(Logger):
         # Explicit flags win over config-file assignments.
         self.apply_subsystem_flags()
         self.module = import_workflow_module(self.args.workflow)
+        if self.args.dump_config:
+            root.print_()
         run_hook = getattr(self.module, "run", None)
         if run_hook is None:
             raise Bug("workflow module %s has no run(load, main) hook"

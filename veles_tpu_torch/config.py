@@ -11,16 +11,18 @@ the same names and defaults as the JAX package.  Unlike the JAX
 package it executes no site or user configuration file; the command
 line applies config files and ``root.x=y`` overrides in argv order
 (``__main__.apply_config_sources``), with ``root`` and :class:`Tune` in
-scope.  :func:`override_scope` applies dotted-path leaf overrides for the
+scope; ``print_`` pretty-prints a node's tree (``--dump-config``).
+:func:`override_scope` applies dotted-path leaf overrides for the
 length of a ``with`` block and puts the prior leaves back after it (the
 genetics, ensemble and population runs vary the tree per member with
 it).
 """
 
 import contextlib
+import pprint
 
-PROTECTED_KEYS = {"update", "keys", "items", "path_str", "as_dict",
-                  "reset"}
+PROTECTED_KEYS = {"update", "print_", "keys", "items", "path_str",
+                  "as_dict", "reset"}
 
 
 class Tune(object):
@@ -116,6 +118,10 @@ class Config(object):
 
     def __repr__(self):
         return "<Config %s: %s>" % (self._path, sorted(self.keys()))
+
+    def print_(self, file=None):
+        """Pretty-prints the tree under this node (``--dump-config``)."""
+        pprint.pprint(self.as_dict(), stream=file)
 
 
 def get(value, default=None):

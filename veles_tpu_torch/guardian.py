@@ -192,6 +192,15 @@ class HealthGuardian(Unit, IResultProvider):
     def last_event(self):
         return self.events[-1] if self.events else None
 
+    def health_status(self):
+        """The heartbeat's ``health`` row."""
+        return {"policy": self.policy,
+                "events": len(self.events),
+                "last_event": self.last_event,
+                "rollbacks": self.rollbacks,
+                "lr_backoffs": self.lr_backoffs,
+                "loss_median": self.loss_median()}
+
     def loss_median(self):
         if not self._loss_history:
             return None

@@ -36,10 +36,29 @@ its workers when the server stops, and ``stop`` ends them: no worker
 process outlives its launcher.  With ``--trace-out`` the master or a
 standalone run writes the collected spans as a Chrome trace at the end
 of ``run`` (a worker's spans ride the job protocol to its master).
-Web-status heartbeats (``status_address``, with their ``perf`` and
-``fabric`` rows) are ROADMAP A8b: asking for them raises.
+
+Web-status heartbeats: with ``status_address`` (default
+``root.common.web.url``) a master or standalone launcher posts
+:meth:`status_payload` to the dashboard's ``/update`` every
+``heartbeat_interval`` seconds (``root.common.web.interval``, 5) from
+``initialize`` until ``run`` ends, and once more then (the dashboard
+shows how the run ended), with ``X-Status-Token`` when
+``status_token`` (``root.common.web.token``) is set.  The payload holds
+the workflow, mode, runtime and epoch, the decision's error rates and
+the rows ``health``, ``slaves``, ``comms``, ``resilience``, ``perf``
+(``attribution.perf_summary``), ``serving``, ``fabric``, ``population``
+and ``fleet``, the DOT graph on the first beat and every twelfth, and
+the newest plot PNGs of ``root.common.dirs.plots`` within
+:attr:`Launcher.PLOT_BYTES_MAX` each and :attr:`Launcher.PLOTS_PER_BEAT`
+a beat.  The dashboard's reply carries its queued commands:
+``pause`` and ``resume`` of one worker (``Server.pause_slave``,
+``resume_slave``) and ``stop``; :attr:`Launcher.commands` keeps each
+command taken with what it did.  ``root.common.graphics.enabled``
+starts the process-wide graphics server at ``initialize``.
 """
 
+import importlib
+import json
 import os
 import subprocess
 import sys
@@ -57,10 +76,6 @@ class Launcher(Logger):
 
     def __init__(self, **kwargs):
         super(Launcher, self).__init__()
-        if kwargs.get("status_address"):
-            raise NotImplementedError(
-                "Launcher(status_address=...) is not yet ported "
-                "(ROADMAP A8b)")
         self._mode = kwargs.get("mode", "standalone")
         self.listen_address = kwargs.get("listen_address")
         self.master_address = kwargs.get("master_address")
@@ -94,6 +109,24 @@ class Launcher(Logger):
         # the main thread may be spawning or stopping.
         self._procs_lock = threading.Lock()
         self._worker_procs = []  # guarded-by: _procs_lock
+        # Web-status heartbeats; the dashboard's queued commands ride
+        # each beat's reply.
+        self.status_address = kwargs.get(
+            "status_address", config_get(root.common.web.url, None))
+        self.heartbeat_interval = float(kwargs.get(
+            "heartbeat_interval", config_get(root.common.web.interval,
+                                             5.0)))
+        self.status_token = kwargs.get(
+            "status_token", config_get(root.common.web.token, None))
+        self.heartbeats = 0
+        self.commands = []
+        self._heartbeat_thread = None
+        self._heartbeat_stop = threading.Event()
+        self._graph_dot_ = None
+        self._beat_count_ = 0
+        self._plots_sent_ = None
+        self._plots_cache_ = {}
+        self.graphics_server = None
 
     @property
     def mode(self):
@@ -186,6 +219,11 @@ class Launcher(Logger):
             slave_kwargs.setdefault("injector", self.injector)
             self.client = Client(self.master_address, self.workflow,
                                  **slave_kwargs)
+        if config_get(root.common.graphics.enabled, False):
+            from .graphics_server import GraphicsServer
+            self.graphics_server = GraphicsServer.launch()
+        if self.status_address and not self.is_slave:
+            self._start_heartbeats()
         if self.nodes and self.server is not None:
             self.launch_remote_workers()
             self.server.respawn = lambda desc: \
@@ -363,6 +401,7 @@ class Launcher(Logger):
                 self._finished.wait()
         finally:
             self._running.clear()
+            self.stop_heartbeats()
             if self.server is not None:
                 self.server.stop()
                 self.server.join(timeout=10.0)
@@ -396,7 +435,213 @@ class Launcher(Logger):
     def on_workflow_finished(self):
         self._finished.set()
 
+    # -- web-status heartbeats ------------------------------------------------
+
+    def _start_heartbeats(self):
+        self._heartbeat_stop.clear()
+        self._heartbeat_thread = threading.Thread(
+            target=self._heartbeat_loop, daemon=True,
+            name="veles-heartbeat")
+        self._heartbeat_thread.start()
+
+    def stop_heartbeats(self):
+        """Ends the heartbeats and joins their thread (``run`` does at
+        its end; a dry run that stops after ``initialize`` calls it)."""
+        self._heartbeat_stop.set()
+        thread = self._heartbeat_thread
+        if thread is not None and thread is not threading.current_thread():
+            thread.join(15.0)
+        self._heartbeat_thread = None
+
+    def _heartbeat_loop(self):
+        """One beat every ``heartbeat_interval`` seconds and a last one
+        when the heartbeats stop (the end of ``run``, or ``stop``), so
+        the dashboard shows how the run ended."""
+        from .network_common import machine_id
+        url = self.status_address
+        if not url.startswith("http"):
+            url = "http://" + url
+        url = url.rstrip("/") + "/update"
+        mid = "%s/%d" % (machine_id(), os.getpid())
+        while True:
+            last = self._heartbeat_stop.wait(self.heartbeat_interval)
+            self._beat(url, mid)
+            if last:
+                return
+
+    def _beat(self, url, mid):
+        import urllib.request
+        from .json_encoders import dumps_json
+        try:
+            headers = {"Content-Type": "application/json"}
+            if self.status_token:
+                headers["X-Status-Token"] = self.status_token
+            req = urllib.request.Request(
+                url, data=dumps_json(self.status_payload(mid)).encode(),
+                headers=headers)
+            with urllib.request.urlopen(req, timeout=10) as resp:
+                reply = json.loads(resp.read())
+            self.heartbeats += 1
+            for cmd in reply.get("commands", []):
+                self._apply_command(cmd)
+        except Exception as e:
+            self.debug("heartbeat failed: %s", e)
+
+    def status_payload(self, mid):
+        """One heartbeat's JSON (see the module's docstring)."""
+        wf = self.workflow
+        loader = getattr(wf, "loader", None)
+        decision = getattr(wf, "decision", None)
+        payload = {
+            "id": mid,
+            "workflow": type(wf).__name__ if wf else None,
+            "mode": self.mode,
+            "runtime": self.runtime,
+            "epoch": getattr(loader, "epoch_number", None),
+            "running": self.is_running,
+        }
+        if decision is not None:
+            metrics = {}
+            if getattr(decision, "epoch_metrics", None):
+                for cls, name in enumerate(("test", "validation",
+                                            "train")):
+                    v = decision.epoch_metrics[cls]
+                    if v is not None:
+                        metrics["%s_err" % name] = float(v)
+            payload["metrics"] = metrics
+        guardian = getattr(wf, "guardian", None)
+        if guardian is not None and hasattr(guardian, "health_status"):
+            payload["health"] = guardian.health_status()
+        if self.server is not None:
+            payload["slaves"] = {
+                sid: {"state": desc.state,
+                      "jobs_done": desc.jobs_done,
+                      "jobs_per_s": round(desc.jobs_per_second, 2),
+                      "power": desc.power,
+                      "blacklisted": desc.blacklisted}
+                for sid, desc in self.server.slaves.items()}
+        # One snapshot feeds both rows (two would disagree within a
+        # beat): net.* is the comms row, device.* rides the perf row.
+        events = resilience.stats.snapshot()
+        net = {k: v for k, v in events.items() if k.startswith("net.")}
+        if net:
+            payload["comms"] = net
+        events = {k: v for k, v in events.items()
+                  if not k.startswith(("net.", "device."))}
+        if events:
+            payload["resilience"] = events
+        for section, provider in self._SUMMARIES:
+            try:
+                module, name = provider.rsplit(".", 1)
+                summary = getattr(importlib.import_module(
+                    module, __package__), name)()
+            except Exception as e:
+                self.debug("%s heartbeat section unavailable: %s",
+                           section, e)
+                summary = None
+            if summary:
+                payload[section] = summary
+        # The DOT text rides the first beat and every twelfth (the
+        # dashboard carries the last one over); plots ride when a PNG
+        # changed.
+        if wf is not None and self._graph_dot_ is None:
+            try:
+                self._graph_dot_ = wf.generate_graph(write_on_disk=False)
+            except Exception as e:
+                self.debug("workflow graph render failed: %s", e)
+                self._graph_dot_ = ""
+        self._beat_count_ += 1
+        if self._graph_dot_ and (self._beat_count_ == 1 or
+                                 self._beat_count_ % 12 == 0):
+            payload["graph"] = self._graph_dot_
+        plots = self._collect_plots()
+        if plots is not None:
+            payload["plots"] = plots
+        return payload
+
+    #: (heartbeat section, provider of its summary) — each provider
+    #: returns None when nothing of its kind is live in this process.
+    _SUMMARIES = (
+        ("perf", ".observability.attribution.perf_summary"),
+        ("serving", ".serving.metrics.live_serving_summary"),
+        ("fabric", ".serving.fabric.live_fabric_summary"),
+        ("population", ".population.master.live_population_summary"),
+        ("fleet", ".fleet.live_fleet_summary"),
+    )
+
+    #: Per-plot and per-beat byte budgets of the heartbeat's plots.
+    PLOT_BYTES_MAX = 256 * 1024
+    PLOTS_PER_BEAT = 4
+
+    def _collect_plots(self):
+        """Base64 of the newest plot PNGs, or None when nothing changed
+        since the last beat (the encodings are cached by path, mtime and
+        size)."""
+        import base64
+        import glob
+        plot_dir = config_get(root.common.dirs.plots, None)
+        if not plot_dir or not os.path.isdir(plot_dir):
+            return None
+        entries = []
+        for path in glob.glob(os.path.join(plot_dir, "*.png")):
+            try:
+                st = os.stat(path)
+            except OSError:
+                continue  # deleted between glob and stat
+            # An oversized file never ships, nor counts as sent.
+            if st.st_size > self.PLOT_BYTES_MAX:
+                continue
+            entries.append((st.st_mtime, path, st.st_size))
+        entries.sort(reverse=True)
+        keys = tuple((p, m, s) for m, p, s in
+                     entries[:self.PLOTS_PER_BEAT])
+        if keys == self._plots_sent_ or not keys:
+            # Unchanged, or nothing eligible: no section, so the
+            # dashboard keeps the plots it shows.
+            return None
+        out = {}
+        cache = self._plots_cache_
+        for mtime, path, size in entries[:self.PLOTS_PER_BEAT]:
+            name = os.path.splitext(os.path.basename(path))[0]
+            cached = cache.get(path)
+            if cached is not None and cached[0] == (mtime, size):
+                out[name] = cached[1]
+                continue
+            try:
+                with open(path, "rb") as fin:
+                    blob = base64.b64encode(fin.read()).decode()
+            except OSError:
+                continue
+            cache[path] = ((mtime, size), blob)
+            out[name] = blob
+        live = {p for _, p, _ in entries}
+        for path in [p for p in cache if p not in live]:
+            del cache[path]
+        self._plots_sent_ = keys
+        return out
+
+    def _apply_command(self, cmd):
+        """A dashboard command from a heartbeat's reply: ``stop``, or
+        ``pause``/``resume`` of the worker ``slave`` of this master.
+        Recorded in :attr:`commands` with what it did."""
+        name = cmd.get("command")
+        sid = cmd.get("slave")
+        self.info("dashboard command: %s %s", name, sid or "")
+        done = "ignored"
+        if name == "stop":
+            self.stop()
+            done = "stopped"
+        elif self.server is not None and sid:
+            if name == "pause":
+                self.server.pause_slave(sid)
+                done = "paused"
+            elif name == "resume":
+                self.server.resume_slave(sid)
+                done = "resumed"
+        self.commands.append(dict(cmd, done=done))
+
     def stop(self):
+        self.stop_heartbeats()
         with self._procs_lock:
             procs = list(self._worker_procs)
         for _node, proc in procs:

@@ -329,6 +329,29 @@ class Workflow(Container):
 
     # -- introspection -----------------------------------------------------
 
+    def generate_graph(self, filename=None, write_on_disk=True):
+        """The control graph as Graphviz DOT text (the start and end
+        points as circles); written to ``filename`` when given and
+        ``write_on_disk``."""
+        lines = ["digraph %s {" % type(self).__name__.replace(" ", "_")]
+        ids = {u: "u%d" % i for i, u in enumerate(self._units)}
+        for u in self._units:
+            shape = "rect"
+            if u is self.start_point or u is self.end_point:
+                shape = "circle"
+            lines.append('  %s [label="%s" shape=%s];' %
+                         (ids[u], u.name, shape))
+        for u in self._units:
+            for dst in u.links_to:
+                if dst in ids:
+                    lines.append("  %s -> %s;" % (ids[u], ids[dst]))
+        lines.append("}")
+        text = "\n".join(lines)
+        if write_on_disk and filename is not None:
+            with open(filename, "w") as fout:
+                fout.write(text)
+        return text
+
     def print_stats(self, top_number=5):
         """Logs the top-N units by accumulated run time."""
         stats = sorted(((u.run_time, u) for u in self._units
